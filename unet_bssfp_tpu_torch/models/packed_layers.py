@@ -1,0 +1,104 @@
+"""Packed variants of the full-resolution U-Net blocks.
+
+Counterpart of ``unet_bssfp_tpu/models/packed_layers.py`` (and of
+``folded_layers.PooledConvs``). The stage's activations live as
+``(B, D, C, H·W)``; its convs run through the packed conv kernel
+(``ops.kernels.conv3d``) and the relayouts through ``ops.kernels.layout``.
+Each class subclasses its plain twin, so parameter names and shapes are the
+plain ones (checkpoints are interchangeable), and the plain ``forward``
+stays available for shapes the packed path does not take; the packed path
+is the ``forward_packed`` method. The ``wguard`` layout of the JAX package
+(opt-in there) is not ported: guard columns are always 0 here.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from unet_bssfp_tpu_torch.models.layers import (
+    Conv,
+    ConvNormAct,
+    Down,
+    TwoConv,
+    UpCat,
+    instance_norm_f32,
+)
+from unet_bssfp_tpu_torch.ops.kernels import conv3x3_packed, pack_hw
+
+
+class PackedConvNormAct(ConvNormAct):
+    """ConvNormAct on a packed (B, D, C, H·W) tensor; ``wdim`` = W. The norm
+    takes f32 moments over (d, lanes), as the plain path does."""
+
+    def forward_packed(self, xk: torch.Tensor, wdim: int) -> torch.Tensor:
+        dtype = self.compute_dtype or xk.dtype
+        kernel = self.conv.weight.permute(2, 3, 4, 1, 0)  # (kd, kh, kw, I, O)
+        yk = conv3x3_packed(xk.to(dtype).contiguous(), kernel,
+                            self.conv.bias.float(), wdim)
+        y = instance_norm_f32(yk, self.norm.weight, self.norm.bias,
+                              self.norm.epsilon, dims=(1, 3), channel_dim=2)
+        y = F.leaky_relu(self.drop(y), self.negative_slope)
+        return y.to(dtype)
+
+
+class PackedTwoConv(TwoConv):
+    """TwoConv taking NDHWC and returning the packed (B, D, features, H·W)."""
+
+    block = PackedConvNormAct
+
+    def forward_packed(self, x: torch.Tensor) -> torch.Tensor:
+        wdim = x.shape[3]
+        dtype = self.conv_0.compute_dtype or x.dtype
+        xk = pack_hw(x.to(dtype).contiguous())
+        xk = self.conv_0.forward_packed(xk, wdim)
+        return self.conv_1.forward_packed(xk, wdim)
+
+
+def packed_max_pool2(xk: torch.Tensor, wdim: int) -> torch.Tensor:
+    """2×2×2 max-pool of the packed layout → NDHWC (B, D/2, H/2, W/2, C)
+    (forward only)."""
+    b, d, c, hw = xk.shape
+    h = hw // wdim
+    x = xk.reshape(b, d // 2, 2, c, h // 2, 2, wdim // 2, 2).amax(dim=(2, 5, 7))
+    return x.permute(0, 1, 3, 4, 2).contiguous()
+
+
+class PooledConvs(Down):
+    """``Down`` on an input the packed pool already pooled (same parameter
+    path: one child ``convs``)."""
+
+    def forward_pooled(self, x: torch.Tensor) -> torch.Tensor:
+        return self.convs(x)
+
+
+class _PackedPair(TwoConv):
+    """Two PackedConvNormActs, packed in and out (the ``convs`` of
+    PackedUpCat)."""
+
+    block = PackedConvNormAct
+
+    def forward_packed(self, xk: torch.Tensor, wdim: int) -> torch.Tensor:
+        return self.conv_1.forward_packed(self.conv_0.forward_packed(xk, wdim), wdim)
+
+
+class PackedUpCat(UpCat):
+    """UpCat whose TwoConv runs packed: transpose-conv upsample (NDHWC) →
+    pack → channel concat with the packed skip → two packed convs."""
+
+    convs_cls = _PackedPair
+
+    def forward_packed(self, x: torch.Tensor, skip_k: torch.Tensor,
+                       wdim: int) -> torch.Tensor:
+        upk = pack_hw(self.upsample(x))
+        return self.convs.forward_packed(torch.cat([skip_k, upk], dim=2), wdim)
+
+
+class PackedFinalConv(Conv):
+    """1³ conv; on the packed layout a channel GEMM in the compute dtype."""
+
+    def forward_packed(self, xk: torch.Tensor) -> torch.Tensor:
+        dtype = self.compute_dtype or xk.dtype
+        k = self.weight.reshape(self.out_channels, self.in_channels).to(dtype)
+        y = torch.einsum("fc,bdcl->bdfl", k, xk.to(dtype))
+        return (y + self.bias.to(dtype).reshape(1, 1, -1, 1)).contiguous()

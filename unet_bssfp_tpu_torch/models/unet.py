@@ -1,0 +1,92 @@
+"""BasicUNet-3D backbone on NDHWC (counterpart of
+``unet_bssfp_tpu/models/unet.py``).
+
+Channel plumbing for features (f0..f4, f5):
+  conv_0: in → f0
+  down_k: f_{k-1} → f_k              (k = 1..4)
+  upcat_4: (f4 ↑ f4/2) ⊕ f3 → f3
+  upcat_3: (f3 ↑ f3/2) ⊕ f2 → f2
+  upcat_2: (f2 ↑ f2/2) ⊕ f1 → f1
+  upcat_1: (f1 ↑ f1)   ⊕ f0 → f5    (no halving on the last stage)
+  final:  f5 → out_channels (1³ conv)
+
+``packed`` runs the two full-resolution stages (conv_0, upcat_1) on the
+packed layout through the hand-written kernels, where the input shape
+allows it (the JAX package's gate). The JAX package's ``folded`` and
+``wpack_mid`` branches are TPU reformulations of the same convs with the
+same parameters and are not ported.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+from torch import nn
+
+from unet_bssfp_tpu_torch.models.layers import Conv, Down, TwoConv, UpCat
+from unet_bssfp_tpu_torch.models.packed_layers import (
+    PackedFinalConv,
+    PackedTwoConv,
+    PackedUpCat,
+    PooledConvs,
+    packed_max_pool2,
+)
+from unet_bssfp_tpu_torch.ops.kernels import packed_supported, unpack_hw
+
+
+def _can_pack(x: torch.Tensor, f0: int) -> bool:
+    """H·W % 128 == 0, even D/H/W (for the pool), channels ≤ 128."""
+    return (packed_supported(tuple(x.shape))
+            and all(s % 2 == 0 for s in x.shape[1:4])
+            and x.shape[-1] <= 128 and f0 <= 128)
+
+
+class BasicUNet3D(nn.Module):
+    def __init__(self, in_channels: int = 24, out_channels: int = 6,
+                 features: Sequence[int] = (32, 64, 128, 256, 512, 32),
+                 dropout: float = 0.05, negative_slope: float = 0.1,
+                 compute_dtype: Optional[torch.dtype] = None,
+                 use_fused: bool = False, packed: bool = False):
+        super().__init__()
+        f = tuple(features)
+        if len(f) != 6:
+            raise ValueError("BasicUNet3D needs 6 feature sizes")
+        self.features = f
+        self.packed = packed
+        kw = dict(dropout=dropout, negative_slope=negative_slope,
+                  compute_dtype=compute_dtype, use_fused=use_fused)
+        two_conv, down_1, upcat_1, final = (
+            (PackedTwoConv, PooledConvs, PackedUpCat, PackedFinalConv)
+            if packed else (TwoConv, Down, UpCat, Conv))
+        self.conv_0 = two_conv(in_channels, f[0], **kw)
+        self.down_1 = down_1(f[0], f[1], **kw)
+        self.down_2 = Down(f[1], f[2], **kw)
+        self.down_3 = Down(f[2], f[3], **kw)
+        self.down_4 = Down(f[3], f[4], **kw)
+        self.upcat_4 = UpCat(f[4], f[3], f[3], f[4] // 2, **kw)
+        self.upcat_3 = UpCat(f[3], f[2], f[2], f[3] // 2, **kw)
+        self.upcat_2 = UpCat(f[2], f[1], f[1], f[2] // 2, **kw)
+        self.upcat_1 = upcat_1(f[1], f[0], f[5], f[1], **kw)
+        self.final_conv = final(f[5], out_channels, 1,
+                                compute_dtype=compute_dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        packed = self.packed and _can_pack(x, self.features[0])
+        if packed:
+            wdim = x.shape[3]
+            xk0 = self.conv_0.forward_packed(x)
+            x1 = self.down_1.forward_pooled(packed_max_pool2(xk0, wdim))
+        else:
+            x0 = self.conv_0(x)
+            x1 = self.down_1(x0)
+        x2 = self.down_2(x1)
+        x3 = self.down_3(x2)
+        x4 = self.down_4(x3)
+        u4 = self.upcat_4(x4, x3)
+        u3 = self.upcat_3(u4, x2)
+        u2 = self.upcat_2(u3, x1)
+        if packed:
+            u1k = self.upcat_1.forward_packed(u2, xk0, wdim)
+            return unpack_hw(self.final_conv.forward_packed(u1k), wdim)
+        return self.final_conv(self.upcat_1(u2, x0))

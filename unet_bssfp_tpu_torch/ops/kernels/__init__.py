@@ -1,0 +1,29 @@
+"""Hand-written CUDA/Triton kernels of the port, each beside its plain
+PyTorch version and with a launch count on its wrapper."""
+
+from unet_bssfp_tpu_torch.ops.kernels.conv3d import (
+    conv3x3_packed,
+    conv3x3_packed_plain,
+    packed_supported,
+)
+from unet_bssfp_tpu_torch.ops.kernels.layout import (
+    pack_hw,
+    pack_hw_plain,
+    unpack_hw,
+    unpack_hw_plain,
+)
+from unet_bssfp_tpu_torch.ops.kernels.norm_act import (
+    fused_instance_norm_leaky_relu,
+    instance_norm_leaky_relu_plain,
+)
+
+WRAPPERS = (conv3x3_packed, pack_hw, unpack_hw, fused_instance_norm_leaky_relu)
+
+
+def reset_launches() -> None:
+    for fn in WRAPPERS:
+        fn.launches = 0
+
+
+def launches() -> dict:
+    return {fn.__name__: fn.launches for fn in WRAPPERS}

@@ -1,0 +1,87 @@
+"""K3: the NDHWC ↔ packed ``(B, D, C, H·W)`` relayout.
+
+Replaces ``unet_bssfp_tpu/ops/pallas/conv3d.py::pack_hw`` / ``unpack_hw``
+(``_pack_kernel`` / ``_unpack_kernel``). Both directions are one CUDA
+transpose of the last two dims of ``(B·D, ·, ·)``, ``csrc/layout.cu``; its
+header says what bounds it and how it is laid out. The plain versions are
+``permute().contiguous()``: the CPU path and the kernel's reference.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from unet_bssfp_tpu_torch.ops.kernels import _build
+
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def pack_hw_plain(x: torch.Tensor) -> torch.Tensor:
+    b, d, h, w, c = x.shape
+    return x.permute(0, 1, 4, 2, 3).reshape(b, d, c, h * w).contiguous()
+
+
+def unpack_hw_plain(xk: torch.Tensor, wdim: int) -> torch.Tensor:
+    b, d, c, hw = xk.shape
+    return xk.reshape(b, d, c, hw // wdim, wdim).permute(0, 1, 3, 4, 2).contiguous()
+
+
+def _transpose(x: torch.Tensor, s: int, r: int, c: int, out_shape,
+               what: str) -> torch.Tensor:
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"{what}: dtype {x.dtype} not supported")
+    if not x.is_contiguous():
+        raise ValueError(f"{what}: input must be contiguous")
+    if s > 65535 or -(-r // 32) > 65535:
+        raise ValueError(f"{what}: shape {tuple(x.shape)} exceeds the grid limits")
+    out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.transpose_last2(x.data_ptr(), out.data_ptr(), s, r, c,
+                                 x.element_size(), stream)
+    _build.check(lib, rc, what)
+    return out
+
+
+def pack_hw(x: torch.Tensor) -> torch.Tensor:
+    """NDHWC (B, D, H, W, C) → packed (B, D, C, H·W). A CPU tensor takes
+    :func:`pack_hw_plain`; a CUDA tensor launches the kernel or raises."""
+    if x.device.type == "cpu":
+        return pack_hw_plain(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"pack_hw: unsupported device {x.device}")
+    b, d, h, w, c = x.shape
+    out = _transpose(x, b * d, h * w, c, (b, d, c, h * w), "pack_hw")
+    pack_hw.launches += 1
+    return out
+
+
+def unpack_hw(xk: torch.Tensor, wdim: int) -> torch.Tensor:
+    """Inverse of :func:`pack_hw`: (B, D, C, H·W) → (B, D, H, W, C)."""
+    if xk.device.type == "cpu":
+        return unpack_hw_plain(xk, wdim)
+    if xk.device.type != "cuda":
+        raise ValueError(f"unpack_hw: unsupported device {xk.device}")
+    b, d, c, hw = xk.shape
+    if hw % wdim:
+        raise ValueError(f"unpack_hw: H·W={hw} is not a multiple of W={wdim}")
+    out = _transpose(xk, b * d, c, hw, (b, d, hw // wdim, wdim, c), "unpack_hw")
+    unpack_hw.launches += 1
+    return out
+
+
+pack_hw.launches = 0
+unpack_hw.launches = 0
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("layout")
+    if not getattr(lib, "_typed", False):
+        lib.transpose_last2.argtypes = ([ctypes.c_void_p] * 2
+                                        + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        lib.transpose_last2.restype = ctypes.c_int
+        lib._typed = True
+    return lib

@@ -1,0 +1,99 @@
+"""Single-volume prediction CLI: one NIfTI in → DT prediction out (the
+counterpart of ``src/predict.py``).
+
+Usage:
+  python -m unet_bssfp_tpu_torch.predict INPUT.nii.gz --weights W.pt \
+      [--modality pc-bssfp] [--out-dir preds] [--config cfg.json] \
+      [--patch | --whole-volume] [--device cuda]
+
+``--weights`` takes the port's ``.pt`` or an ``.npz`` of ``/``-joined Flax
+paths (``weights.py``). Runs on CUDA unless ``--device cpu``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import time
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from unet_bssfp_tpu_torch import weights
+from unet_bssfp_tpu_torch.config import Config
+from unet_bssfp_tpu_torch.data.nifti import load_volume, save_volume
+from unet_bssfp_tpu_torch.data.transforms import crop_or_pad
+from unet_bssfp_tpu_torch.eval.inference import predict_volume
+from unet_bssfp_tpu_torch.train.state import build_models, resolve_device
+from unet_bssfp_tpu_torch.train.steps import make_predict_fn
+
+
+def _crop_offset(cur: int, tgt: int) -> int:
+    """Voxel shift of :func:`crop_or_pad` along one axis (crop start
+    (cur-tgt)//2; pad -((tgt-cur)//2): the floors differ for odd sizes)."""
+    return (cur - tgt) // 2 if cur >= tgt else -((tgt - cur) // 2)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> str:
+    parser = argparse.ArgumentParser(description="bSSFP/T1w → DT inference")
+    parser.add_argument("input", help="preprocessed input NIfTI")
+    parser.add_argument("--weights", required=True,
+                        help="port .pt weights or a Flax-path .npz")
+    parser.add_argument("--modality", default="pc-bssfp")
+    parser.add_argument("--out-dir", default=".")
+    parser.add_argument("--config", default=None, help="JSON config path")
+    parser.add_argument("--device", default="cuda")
+    mode = parser.add_mutually_exclusive_group()
+    mode.add_argument("--patch", action="store_true",
+                      help="force grid-stitched patch inference")
+    mode.add_argument("--whole-volume", action="store_true",
+                      help="force whole-volume inference")
+    args = parser.parse_args(argv)
+
+    if args.config:
+        with open(args.config) as f:
+            config = Config.from_json(f.read())
+    else:
+        config = Config()
+    device = resolve_device(args.device)
+    target_shape = tuple(config.data.volume_shape)
+
+    data, affine = load_volume(args.input)
+    vol = crop_or_pad(torch.from_numpy(data), target_shape).to(device)
+    # crop_or_pad shifts the voxel grid: carry the shift into the affine so
+    # the prediction stays registered to the source.
+    offset = [_crop_offset(data.shape[i], target_shape[i]) for i in range(3)]
+    affine = np.asarray(affine, np.float64).copy()
+    affine[:3, 3] += affine[:3, :3] @ np.asarray(offset, np.float64)
+
+    # Default to the mode the model was trained with, so InstanceNorm
+    # moments match training.
+    if args.patch:
+        whole_volume = False
+    elif args.whole_volume:
+        whole_volume = True
+    else:
+        whole_volume = config.data.whole_volume
+
+    gen = build_models(args.modality, config.model, device,
+                       state_dict=weights.load(args.weights))
+    predict_fn = make_predict_fn(gen)
+    t0 = time.perf_counter()
+    pred = predict_volume(predict_fn, vol, patch_size=config.data.patch_size,
+                          out_channels=config.model.out_channels,
+                          whole_volume=whole_volume)
+    pred_np = pred.float().cpu().numpy()
+    print(f"inference: {time.perf_counter() - t0:.3f}s "
+          f"({'whole-volume' if whole_volume else 'patch-stitched'}, {device})")
+
+    os.makedirs(args.out_dir, exist_ok=True)
+    base = os.path.basename(args.input).split(".nii")[0]
+    pred_path = os.path.join(args.out_dir, f"{base}_pred-dt.nii.gz")
+    save_volume(pred_path, pred_np, affine)
+    print(f"wrote {pred_path}")
+    return pred_path
+
+
+if __name__ == "__main__":
+    main()

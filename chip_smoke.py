@@ -10,22 +10,38 @@ Phases (any failure → nonzero exit, no ``ok`` line):
    serving path's shapes, f32 and bf16, with its time, its bound (bytes over
    3.35 TB/s or operations over the peak of their type), the plain version's
    time and one PyTorch library call's time.
-3. Main path: the full-width pc-bSSFP generator with seeded random weights
-   serves one (96, 128, 128, 24) volume through ``predict_volume``,
+3. Serving path: the full-width pc-bSSFP generator with seeded random
+   weights serves one (96, 128, 128, 24) volume through ``predict_volume``,
    patch-stitched (8 × 64³) and whole-volume, with ``use_pallas`` off and
-   on; launch counts of every kernel in that run; ms per volume; the f32
-   output of the packed kernel path against the same model on plain
+   on; launch counts of every serving kernel in that run; ms per volume; the
+   f32 output of the packed kernel path against the same model on plain
    PyTorch/cuDNN, and the bf16 output's error against f32.
+4. Training kernels: K2 (wgrad) and K1's dgrad against their plain versions
+   at the training step's shapes (8 × 64³; forward convs 24/32/96 → 32),
+   f32 and bf16, with time, bound, plain and library
+   (``aten.convolution_backward``) times.
+5. Training path: full-width GAN training steps (``create_gan_state`` +
+   ``make_train_step``, default config: bf16, packed, batch 8 × 64³);
+   launch counts of one step against the expected ones; ms/step, patches/s
+   and peak memory over 10 steps after 3 warm-ups, and the same with
+   ``packed`` off (cuDNN); every loss finite. Before the timing, one bf16
+   step through the kernels and one on cuDNN, each held against the f32
+   cuDNN step (losses, BatchNorm running stats, every gradient). Then an f32
+   gradient check (batch 2 × 64³, TF32 off): one generator-phase backward
+   through the kernels (``packed``, ``use_pallas``) against plain
+   PyTorch/cuDNN from the same weights and batch, every parameter's gradient.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
-line before it is the ``kernels`` JSON; details go to
-``perf_out/chip_smoke.json``.
+line before it is the ``kernels`` JSON (``launches_by_path``: the serving
+run's and one training step's counts; ``launches``: their sum); details go
+to ``perf_out/chip_smoke.json``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import shutil
 import statistics
@@ -39,6 +55,15 @@ PEAK_OPS = {"bfloat16": 989e12,           # dense tensor-core bf16
 VOLUME = (96, 128, 128)
 MODALITY = "pc-bssfp"
 SEED = 0
+TRAIN_BATCH, TRAIN_PATCH = 8, 64
+SERVING_KERNELS = ("conv3x3_packed", "pack_hw", "unpack_hw",
+                   "fused_instance_norm_leaky_relu")
+# Launches of one training step with the default config (use_pallas off,
+# reuse_fake off): the generator runs twice (4 packed convs, 2 packs and 1
+# unpack each) and back once (4 dgrad, 4 wgrad, 1 pack, 2 unpacks).
+TRAIN_STEP_LAUNCHES = {"conv3x3_packed": 8, "conv3x3_packed_dgrad": 4,
+                       "conv3x3_wgrad": 4, "pack_hw": 5, "unpack_hw": 4,
+                       "fused_instance_norm_leaky_relu": 0}
 
 
 def bound(bytes_moved: float, ops: float, dtype: str):
@@ -177,6 +202,89 @@ def check_norm(torch, F, K, checks, shape, dtype):
             F.instance_norm(xn, weight=sl, bias=bl, eps=1e-5), 0.1), iters)))
 
 
+def check_wgrad(torch, K, checks, b, d, h, w, cin, cout, dtype):
+    """K2 at the training step's shape of the forward conv cin → cout."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(cin * 7 + d)
+    xk = torch.randn(b, d, cin, h * w, device="cuda", generator=g).to(dt)
+    dy = torch.randn(b, d, cout, h * w, device="cuda", generator=g).to(dt)
+    got = K.conv3x3_wgrad(xk, dy, w)
+    ref = K.conv3x3_wgrad_plain(xk, dy, w)
+    err = (got - ref).abs()
+    scale = float(ref.abs().max())
+    # Both sum exact products of the same values in f32, in other orders
+    # (the plain version: cuDNN, TF32 off). A round-to-nearest chain of L
+    # adds whose partial sums stay below max|ref| strays about
+    # sqrt(L)·2^-24·max|ref|; L is K2's longest chain (an item's products,
+    # the split's items, the splits), and the factor 16 covers the plain
+    # side's own order, which is not known.
+    chain = K.conv3x3_wgrad_chain(xk, dy, w)
+    rtol, atol = 0.0, 16 * math.sqrt(chain) * 2 ** -24 * scale
+    ok = bool((err <= atol).all())
+    repeats = bool(torch.equal(got, K.conv3x3_wgrad(xk, dy, w)))
+    xn = xk.reshape(b, d, cin, h, w).permute(0, 2, 1, 3, 4).contiguous()
+    dyn = dy.reshape(b, d, cout, h, w).permute(0, 2, 1, 3, 4).contiguous()
+    wn = torch.zeros(cout, cin, 3, 3, 3, device="cuda", dtype=dt)
+    iters = 5
+    lib = lambda: torch.ops.aten.convolution_backward(  # noqa: E731
+        dyn, xn, wn, None, [1, 1, 1], [1, 1, 1], [1, 1, 1], False, [0, 0, 0], 1,
+        [False, True, False])
+    nbytes = (xk.numel() + dy.numel()) * xk.element_size() + 27 * cin * cout * 4
+    bms, by = bound(nbytes, 2 * 27 * cin * cout * b * d * h * w, dtype)
+    checks.record(ok and repeats, dict(
+        kernel="conv3x3_wgrad", shape=[b, d, cin, h * w], cout=cout, dtype=dtype,
+        max_abs_err=float(err.max()), ref_max_abs=scale, rtol=rtol, atol=atol,
+        chain=chain, bit_identical_rerun=repeats,
+        ms=time_ms(torch, lambda: K.conv3x3_wgrad(xk, dy, w), iters),
+        plain_ms=time_ms(torch, lambda: K.conv3x3_wgrad_plain(xk, dy, w), iters),
+        bound_ms=bms, bound_by=by, library_ms=time_ms(torch, lib, iters)))
+
+
+def check_dgrad(torch, K, checks, b, d, h, w, cin, cout, dtype):
+    """K1's dgrad launch for the forward conv cin → cout: dy (cout) → dx
+    (cin)."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(cin * 11 + d)
+    dy = torch.randn(b, d, cout, h * w, device="cuda", generator=g).to(dt)
+    wt = torch.randn(3, 3, 3, cin, cout, device="cuda", generator=g) / (27 * cout) ** 0.5
+    got = K.conv3x3_packed_dgrad(dy, wt, w).float()
+    wflip = wt.flip(0, 1, 2).transpose(3, 4)
+    zero = torch.zeros(cin, device="cuda")
+    plain = lambda: K.conv3x3_packed_plain(dy, wflip, zero, w)  # noqa: E731
+    ref = plain().float()
+    err = (got - ref).abs()
+    scale = float(ref.abs().max())
+    # K1's forward tolerance: f32 sums in another order; bf16 one output
+    # rounding on either side.
+    rtol = 1e-5 if dtype == "float32" else 2 ** -7
+    atol = 1e-4 * scale
+    ok = bool((err <= atol + rtol * ref.abs()).all())
+    dyn = dy.reshape(b, d, cout, h, w).permute(0, 2, 1, 3, 4).contiguous()
+    xn = torch.empty(b, cin, d, h, w, device="cuda", dtype=dt)
+    wn = wt.to(dt).permute(4, 3, 0, 1, 2).contiguous()
+    iters = 5
+    lib = lambda: torch.ops.aten.convolution_backward(  # noqa: E731
+        dyn, xn, wn, None, [1, 1, 1], [1, 1, 1], [1, 1, 1], False, [0, 0, 0], 1,
+        [True, False, False])
+    nbytes = ((dy.numel() + b * d * cin * h * w) * dy.element_size()
+              + 27 * cin * cout * dy.element_size())
+    bms, by = bound(nbytes, 2 * 27 * cin * cout * b * d * h * w, dtype)
+    checks.record(ok, dict(
+        kernel="conv3x3_packed_dgrad", shape=[b, d, cout, h * w], cout=cin,
+        dtype=dtype, max_abs_err=float(err.max()), ref_max_abs=scale, rtol=rtol,
+        atol=atol, ms=time_ms(torch, lambda: K.conv3x3_packed_dgrad(dy, wt, w), iters),
+        plain_ms=time_ms(torch, plain, iters), bound_ms=bms, bound_by=by,
+        library_ms=time_ms(torch, lib, iters)))
+
+
+def phase_train_kernels(torch, K, checks):
+    b, d, h, w = TRAIN_BATCH, TRAIN_PATCH, TRAIN_PATCH, TRAIN_PATCH
+    for dtype in ("bfloat16", "float32"):
+        for cin in (24, 32, 96):  # conv_0.conv_0, *.conv_1, upcat_1.conv_0
+            check_wgrad(torch, K, checks, b, d, h, w, cin, 32, dtype)
+            check_dgrad(torch, K, checks, b, d, h, w, cin, 32, dtype)
+
+
 def phase_kernels(torch, F, K, checks):
     patch = (8, 64, 64, 64)          # 8 patches of 64³ per batch
     whole = (1,) + VOLUME
@@ -209,13 +317,13 @@ def phase_main_path(torch, K, checks, pkg):
         raise RuntimeError(f"default config serves {cfg.data.volume_shape} / "
                            f"{cfg.data.patch_size}, not {VOLUME} / 64")
     device = torch.device("cuda")
-    probe = build_models(MODALITY, mcfg, device)
+    probe, _ = build_models(MODALITY, mcfg, device)
     sd = weights.random_state_dict(probe, SEED)
     del probe
 
     def model(**over):
-        gen = build_models(MODALITY, dataclasses.replace(mcfg, **over),
-                           device, state_dict=sd)
+        gen, _ = build_models(MODALITY, dataclasses.replace(mcfg, **over),
+                              device, state_dict=sd)
         return make_predict_fn(gen)
 
     g = torch.Generator().manual_seed(SEED)
@@ -232,8 +340,8 @@ def phase_main_path(torch, K, checks, pkg):
     outs = {key: run_volume(torch, predict_volume, fn, vol, key[0])
             for key, fn in runs.items()}
     counts = K.launches()
-    print("main-path launches: " + json.dumps(counts), flush=True)
-    checks.record(all(v > 0 for v in counts.values()),
+    print("serving-path launches: " + json.dumps(counts), flush=True)
+    checks.record(all(counts[k] > 0 for k in SERVING_KERNELS),
                   dict(phase="main_path_launches", launches=counts))
 
     timing = {}
@@ -279,6 +387,201 @@ def phase_main_path(torch, K, checks, pkg):
     return counts, timing
 
 
+def time_steps(torch, step, state, x, y, warmup=3, timed=10):
+    """ms per step (host clock, each step synchronised), peak MiB and the
+    metrics of every timed step."""
+    for _ in range(warmup):
+        step(state, x, y)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ts, metrics = [], []
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        m = step(state, x, y)
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+        metrics.append({k: float(v) for k, v in m.items()})
+    return ts, torch.cuda.max_memory_allocated() / 2 ** 20, metrics
+
+
+def rel_l2(a, b) -> float:
+    return float((a.double() - b.double()).norm() / b.double().norm().clamp_min(1e-300))
+
+
+def one_step(torch, pkg, x, y, **over):
+    """One default training step (dropout 0) from SEED with ``over`` on the
+    model config → (metrics, BN running-stat changes, every gradient)."""
+    Config, create_gan_state, make_train_step = pkg
+    cfg = Config()
+    mcfg = dataclasses.replace(cfg.model, dropout=0.0, **over)
+    state = create_gan_state(SEED, MODALITY, mcfg, cfg.train, "cuda")
+    models = (("gen", state.gen), ("disc", state.disc))
+    before = {f"{k}.{n}": b.detach().clone() for k, m in models
+              for n, b in m.named_buffers()}
+    metrics = make_train_step(state.gen, state.disc, cfg.train)(state, x, y)
+    stats = {f"{k}.{n}": b.detach().float() - before[f"{k}.{n}"]
+             for k, m in models for n, b in m.named_buffers()}
+    # after the step: gen holds its phase's gradients, disc its own
+    grads = {f"{k}.{n}": p.grad.detach().float() for k, m in models
+             for n, p in m.named_parameters()}
+    return {k: float(v) for k, v in metrics.items()}, stats, grads
+
+
+def phase_train_compare(torch, checks, pkg, x, y):
+    """The bf16 step at batch 8 × 64³ through the kernels (packed) and on
+    cuDNN (packed off), each held against the f32 cuDNN step, from one seed
+    and batch, dropout 0 (the two layouts draw different masks). Every loss,
+    every BatchNorm running-stat change and every gradient of the kernels'
+    bf16 step must be no further from f32 than 3× how far cuDNN's bf16 step
+    is, plus 2^-8 (one bf16 rounding): the kernels' bf16 training is to be
+    as good as the library's. A graph cut in bf16 only, or a wrong dy cast,
+    moves its leaves by ~1."""
+    runs = {key: one_step(torch, pkg, x, y, **over) for key, over in (
+        ("kernels", dict(packed=True)), ("cudnn", dict(packed=False)),
+        ("f32", dict(packed=False, compute_dtype="float32")))}
+    torch.cuda.empty_cache()
+    (mk, sk, gk), (mc, sc, gc), (mf, sf, gf) = (runs[k] for k in ("kernels", "cudnn", "f32"))
+    # conv biases feeding a norm (every ``.conv.bias`` of the generator, the
+    # discriminator's d2…d5) have true gradient 0: their distance is taken
+    # against the largest gradient of the net instead
+    gmax = max(float(v.abs().max()) for v in gf.values())
+
+    def dist(a, ref, name):
+        if name.endswith(".conv.bias") and not name.startswith("disc.d1_"):
+            return float((a - ref).abs().max()) / gmax
+        return rel_l2(a, ref)
+
+    rows = [(f"loss {n}", abs(mk[n] - mf[n]) / abs(mf[n]), abs(mc[n] - mf[n]) / abs(mf[n]))
+            for n in mf]
+    rows += [(f"stat {n}", rel_l2(sk[n], sf[n]), rel_l2(sc[n], sf[n])) for n in sf]
+    rows += [(f"grad {n}", dist(gk[n], gf[n], n), dist(gc[n], gf[n], n)) for n in gf]
+    bad = [r for r in rows if not r[1] <= 3 * r[2] + 2 ** -8]
+    worst = max(rows, key=lambda r: r[1] - 3 * r[2])
+    ratio = max(r[1] / r[2] for r in rows if r[2] > 0)
+    # leaves whose limit lies below 1, where a cut graph would fail the check
+    leaves = [r for r in rows if r[0].startswith("grad ")]
+    guarded = sum(3 * r[2] + 2 ** -8 < 1 for r in leaves)
+    print(f"bf16 step vs f32 ({len(rows)} quantities): worst kernels {worst[1]:.2e} "
+          f"vs cudnn {worst[2]:.2e} at {worst[0]}; largest kernels "
+          f"{max(r[1] for r in rows):.2e}, largest cudnn {max(r[2] for r in rows):.2e}; "
+          f"largest kernels/cudnn ratio {ratio:.2f}; a cut leaf would fail at "
+          f"{guarded} of {len(leaves)} leaves; failures {bad}", flush=True)
+    checks.record(not bad and sk.keys() == sc.keys() and gk.keys() == gc.keys(),
+                  dict(phase="train_bf16_step_vs_cudnn", quantities=len(rows),
+                       worst=worst, failures=bad, max_ratio=ratio,
+                       cut_leaf_fails_at=guarded, leaves=len(leaves),
+                       unguarded=[r for r in leaves if not 3 * r[2] + 2 ** -8 < 1],
+                       largest=sorted(rows, key=lambda r: -r[1])[:5],
+                       losses={"kernels": mk, "cudnn": mc, "f32": mf}))
+
+
+def phase_train(torch, K, checks, pkg):
+    Config, create_gan_state, make_train_step = pkg
+    cfg = Config()
+    mcfg, tcfg = cfg.model, cfg.train
+    if cfg.data.batch_size != TRAIN_BATCH or cfg.data.patch_size != TRAIN_PATCH:
+        raise RuntimeError("default config does not train on 8 × 64³")
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.rand((TRAIN_BATCH,) + (TRAIN_PATCH,) * 3 + (24,), device="cuda", generator=g)
+    y = torch.rand((TRAIN_BATCH,) + (TRAIN_PATCH,) * 3 + (6,), device="cuda", generator=g)
+    phase_train_compare(torch, checks, pkg, x, y)
+    out = {}
+    counts = None
+    for packed in (True, False):  # packed off: the same step on cuDNN
+        state = create_gan_state(SEED, MODALITY, dataclasses.replace(mcfg, packed=packed),
+                                 tcfg, "cuda")
+        step = make_train_step(state.gen, state.disc, tcfg)
+        step(state, x, y)  # warm-up (cuDNN plans, Triton JIT)
+        torch.cuda.synchronize()
+        if packed:
+            K.reset_launches()
+            step(state, x, y)
+            torch.cuda.synchronize()
+            counts = K.launches()
+            print("training-step launches: " + json.dumps(counts), flush=True)
+            checks.record(counts == TRAIN_STEP_LAUNCHES,
+                          dict(phase="train_step_launches", launches=counts,
+                               expected=TRAIN_STEP_LAUNCHES))
+        ts, peak, metrics = time_steps(torch, step, state, x, y)
+        finite = all(math.isfinite(v) for m in metrics for v in m.values())
+        med = statistics.median(ts)
+        key = "packed" if packed else "cudnn"
+        out[key] = {"ms_per_step_median": med, "ms_all": ts,
+                    "patches_per_s": TRAIN_BATCH * 1e3 / med, "peak_mib": peak,
+                    "last_metrics": metrics[-1]}
+        print(f"train step {key} (bf16, 8 × 64³): {med:.3f} ms/step median "
+              f"({TRAIN_BATCH * 1e3 / med:.1f} patches/s; runs "
+              f"{', '.join(f'{t:.2f}' for t in ts)}); peak {peak:.0f} MiB; "
+              f"last losses {json.dumps(metrics[-1])}", flush=True)
+        checks.record(finite, dict(phase="train_step_losses_finite", mode=key,
+                                   last_metrics=metrics[-1]))
+        del state, step
+        torch.cuda.empty_cache()
+    return counts, out
+
+
+def phase_train_grad_check(torch, checks, pkg):
+    """One generator-phase backward (BCE(D(x, G(x)), 1) + L1·rf), batch
+    2 × 64³, dropout 0, from the same weights and batch: the kernels (f32,
+    packed, use_pallas) against plain PyTorch/cuDNN in f32, both TF32 off."""
+    Config, build_models, weights, losses = pkg
+    cfg = Config()
+    rf = cfg.train.recon_factor
+    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    x = torch.randn((2,) + (TRAIN_PATCH,) * 3 + (24,), device="cuda", generator=g)
+    # L1 sign fixed: the target sits above every prediction
+    y = 10.0 + torch.rand((2,) + (TRAIN_PATCH,) * 3 + (6,), device="cuda", generator=g)
+    grads, loss_vals, sds = {}, {}, None
+    for key, over in (("plain", dict(packed=False, use_pallas=False)),
+                      ("kernels", dict(packed=True, use_pallas=True))):
+        mcfg = dataclasses.replace(cfg.model, compute_dtype="float32", dropout=0.0,
+                                   **over)
+        gen, disc = build_models(MODALITY, mcfg, "cuda")
+        if sds is None:
+            sds = (weights.random_state_dict(gen, SEED),
+                   weights.random_state_dict(disc, SEED + 1))
+        gen.load_state_dict(sds[0])
+        disc.load_state_dict(sds[1])
+        gen.train()
+        disc.train()
+        disc.requires_grad_(False)
+        y_hat = gen(x)
+        logits = disc(x, y_hat)
+        loss = (losses.bce_with_logits(logits, torch.ones_like(logits))
+                + losses.l1_loss(y_hat, y) * rf)
+        loss.backward()
+        loss_vals[key] = float(loss.detach())
+        grads[key] = {n: p.grad.detach().clone() for n, p in gen.named_parameters()}
+        del gen, disc
+    ref, got = grads["plain"], grads["kernels"]
+    scale = max(float(v.abs().max()) for v in ref.values())
+    bad, rows = [], []
+    for name, r in ref.items():
+        if name.endswith(".conv.bias"):
+            # true gradient 0 (the following norm removes the bias): f32
+            # cancellation noise, bounded against the net's largest gradient
+            err, tol = float((got[name] - r).abs().max()), 1e-4 * scale
+        else:
+            # Relative L2 per leaf. The f32 gradient of this net is itself
+            # ill-conditioned: max-pool routing and LeakyReLU kinks flip when
+            # a forward value moves by one rounding, so plain f32 strays from
+            # f64 by up to 1.0e-2 here (PERF.md), and two f32 paths differ by
+            # as much. 5e-2 is five times that, and a twentieth of the 1.0 of
+            # a leaf whose graph was cut.
+            err, tol = rel_l2(got[name], r), 5e-2
+            rows.append((name, err))
+        if not err <= tol:
+            bad.append((name, err, tol))
+    worst = max(rows, key=lambda t: t[1])
+    loss_rel = abs(loss_vals["kernels"] - loss_vals["plain"]) / abs(loss_vals["plain"])
+    print(f"f32 grad check: {len(ref)} leaves; worst kernels-vs-plain rel L2 "
+          f"{worst[1]:.2e} at {worst[0]}; loss rel err {loss_rel:.2e}; "
+          f"failures {bad}", flush=True)
+    checks.record(not bad and loss_rel <= 1e-5 and got.keys() == ref.keys(),
+                  dict(phase="train_f32_grad_check", leaves=len(ref),
+                       worst_leaf=worst, loss_rel_err=loss_rel, failures=bad))
+
+
 KERNEL_META = {
     "conv3x3_packed": ("cuda", "unet_bssfp_tpu_torch/csrc/conv3x3_packed.cu",
                        "unet_bssfp_tpu/ops/pallas/conv3d.py:388"),
@@ -289,24 +592,37 @@ KERNEL_META = {
     "fused_instance_norm_leaky_relu": (
         "triton", "unet_bssfp_tpu_torch/ops/kernels/norm_act.py",
         "unet_bssfp_tpu/ops/pallas/fused_norm_act.py:150"),
+    "conv3x3_packed_dgrad": ("cuda", "unet_bssfp_tpu_torch/csrc/conv3x3_packed.cu",
+                             "unet_bssfp_tpu/ops/pallas/conv3d.py:388"),
+    "conv3x3_wgrad": ("cuda", "unet_bssfp_tpu_torch/csrc/conv3x3_wgrad.cu",
+                      "unet_bssfp_tpu/ops/pallas/conv3d.py:507"),
 }
-# The row of each kernel in the summary line: its heaviest bf16 shape on
-# the patch-stitched main path.
+# The row of each kernel in the summary line: its heaviest bf16 shape (and
+# output channels) on the patch-stitched serving path or the training step.
 SUMMARY_SHAPE = {
-    "conv3x3_packed": [8, 64, 96, 4096],
-    "pack_hw": [8, 64, 64, 64, 64],
-    "unpack_hw": [8, 64, 6, 4096],
-    "fused_instance_norm_leaky_relu": [8, 32, 32, 32, 64],
+    "conv3x3_packed": ([8, 64, 96, 4096], 32),
+    "pack_hw": ([8, 64, 64, 64, 64], None),
+    "unpack_hw": ([8, 64, 6, 4096], None),
+    "fused_instance_norm_leaky_relu": ([8, 32, 32, 32, 64], None),
+    "conv3x3_packed_dgrad": ([8, 64, 32, 4096], 96),
+    "conv3x3_wgrad": ([8, 64, 96, 4096], 32),
 }
 
 
-def summary(rows, counts):
+def summary(rows, by_path):
+    """``by_path``: each main path's launch counts, read from its own run
+    with the counters reset just before it (the serving run, one training
+    step). ``launches`` is their sum; ``launches_by_path`` keeps them apart."""
     out = []
     for name, (route, source, replaces) in KERNEL_META.items():
+        shape, cout = SUMMARY_SHAPE[name]
         row = next(r for r in rows if r.get("kernel") == name
-                   and r["dtype"] == "bfloat16" and r["shape"] == SUMMARY_SHAPE[name])
+                   and r["dtype"] == "bfloat16" and r["shape"] == shape
+                   and r.get("cout") == cout)
         out.append({"name": name, "route": route, "source": source,
-                    "replaces": replaces, "launches": counts[name],
+                    "replaces": replaces,
+                    "launches": sum(c[name] for c in by_path.values()),
+                    "launches_by_path": {p: c[name] for p, c in by_path.items()},
                     "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                     "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                     "bound_by": row["bound_by"], "library_ms": row["library_ms"],
@@ -327,9 +643,10 @@ def main() -> int:
     from unet_bssfp_tpu_torch.config import Config
     from unet_bssfp_tpu_torch.eval.inference import predict_volume
     from unet_bssfp_tpu_torch.ops import kernels as K
+    from unet_bssfp_tpu_torch.ops import losses
     from unet_bssfp_tpu_torch.ops.kernels import _build
-    from unet_bssfp_tpu_torch.train.state import build_models
-    from unet_bssfp_tpu_torch.train.steps import make_predict_fn
+    from unet_bssfp_tpu_torch.train.state import build_models, create_gan_state
+    from unet_bssfp_tpu_torch.train.steps import make_predict_fn, make_train_step
 
     t_start = time.perf_counter()
     smi = subprocess.run(
@@ -349,14 +666,21 @@ def main() -> int:
     counts, timing = phase_main_path(
         torch, K, checks,
         (Config, build_models, make_predict_fn, weights, predict_volume))
+    print(f"serving path done at {time.perf_counter() - t_start:.1f}s", flush=True)
+    phase_train_kernels(torch, K, checks)
+    print(f"training kernel checks done at {time.perf_counter() - t_start:.1f}s", flush=True)
+    train_counts, train_timing = phase_train(
+        torch, K, checks, (Config, create_gan_state, make_train_step))
+    phase_train_grad_check(torch, checks, (Config, build_models, weights, losses))
     elapsed = time.perf_counter() - t_start
 
-    kernels = summary(checks.rows, counts)
+    kernels = summary(checks.rows, {"serving": counts, "train_step": train_counts})
     os.makedirs("perf_out", exist_ok=True)
     with open(os.path.join("perf_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__, "build": build,
                    "checks": checks.rows, "main_path_launches": counts,
-                   "timing": timing, "kernels": kernels,
+                   "train_step_launches": train_counts, "timing": timing,
+                   "train_timing": train_timing, "kernels": kernels,
                    "elapsed_s": elapsed}, f, indent=1)
     if checks.failures:
         print(f"chip_smoke: {len(checks.failures)} check(s) failed:", file=sys.stderr)

@@ -1,13 +1,19 @@
 #!/usr/bin/env python3
-"""Where the time of the port's serving path goes, on one CUDA device.
+"""Where the time of the port's serving path or training step goes, on one
+CUDA device.
 
   python scripts/torch_port_profile.py [--whole-volume] [--use-pallas]
+  python scripts/torch_port_profile.py --train [--use-pallas]
 
-Serves one (96, 128, 128, 24) pc-bSSFP volume with the full-width generator
-(bf16, packed, seeded random weights) under ``torch.profiler`` and prints
-the device time by kernel name, grouped into the port's kernels and the
-library's, plus the device's busy share of the profiled window. Writes the
-table to ``perf_out/torch_port_profile_<mode>.json``.
+Serving: one (96, 128, 128, 24) pc-bSSFP volume with the full-width
+generator (bf16, packed, seeded random weights). ``--train``: full-width GAN
+training steps of the default config (bf16, packed, batch 8 × 64³) from
+``create_gan_state``. Runs ``--reps`` of them under ``torch.profiler`` after
+three warm-ups and prints the device time per volume or step, by kernel name
+and grouped by layer (the port's kernels, cuDNN, ATen's elementwise,
+reduction and copy kernels, the optimizer), plus the device's busy share of
+the profiled window. Writes the tables to
+``perf_out/torch_port_profile_<mode>.json``.
 """
 
 from __future__ import annotations
@@ -22,11 +28,38 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
+# K4's Triton kernels, by their exact names.
+K4_NAMES = {"_partial_sum", "_partial_m2", "_apply", "_single"}
+# (group, substrings of the kernel name), first match wins.
+GROUPS = (
+    ("K1 conv3x3_packed (fwd + dgrad)", ("conv3x3_packed_",)),
+    ("K2 conv3x3_wgrad", ("conv3x3_wgrad_",)),
+    ("K3 transposes", ("transpose_kernel",)),
+    ("cuDNN/cuBLAS convs and GEMMs", ("xmma", "cudnn", "nvjet", "gemm", "cutlass",
+                                      "conv", "wgrad", "dgrad")),
+    ("optimizer (AdamW)", ("multi_tensor", "adam", "foreach")),
+    ("ATen reductions", ("reduce_kernel", "Reduce")),
+    ("pools and scatters", ("max_pool", "scatter", "argmax")),
+    ("ATen dtype/layout copies", ("copy", "Cat", "Memcpy", "Memset", "Fill")),
+    ("ATen elementwise", ("elementwise",)),
+)
+
+
+def group_of(name: str) -> str:
+    if name in K4_NAMES:
+        return "K4 (Triton)"
+    for group, keys in GROUPS:
+        if any(k in name for k in keys):
+            return group
+    return "other"
+
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--whole-volume", action="store_true")
     parser.add_argument("--use-pallas", action="store_true")
+    parser.add_argument("--train", action="store_true",
+                        help="profile training steps instead of serving")
     parser.add_argument("--reps", type=int, default=5)
     args = parser.parse_args()
 
@@ -39,29 +72,39 @@ def main() -> int:
     from unet_bssfp_tpu_torch import weights
     from unet_bssfp_tpu_torch.config import Config
     from unet_bssfp_tpu_torch.eval.inference import predict_volume
-    from unet_bssfp_tpu_torch.train.state import build_models
-    from unet_bssfp_tpu_torch.train.steps import make_predict_fn
+    from unet_bssfp_tpu_torch.train.state import build_models, create_gan_state
+    from unet_bssfp_tpu_torch.train.steps import make_predict_fn, make_train_step
 
     cfg = Config()
     mcfg = dataclasses.replace(cfg.model, use_pallas=args.use_pallas)
-    gen = build_models("pc-bssfp", mcfg, "cuda")
-    gen.load_state_dict(weights.random_state_dict(gen, 0))
-    fn = make_predict_fn(gen)
     g = torch.Generator().manual_seed(0)
-    vol = torch.randn(tuple(cfg.data.volume_shape) + (24,), generator=g).cuda()
+    if args.train:
+        state = create_gan_state(0, "pc-bssfp", mcfg, cfg.train, "cuda")
+        step = make_train_step(state.gen, state.disc, cfg.train)
+        n, p = cfg.data.batch_size, cfg.data.patch_size
+        x = torch.rand((n, p, p, p, 24), generator=g).cuda()
+        y = torch.rand((n, p, p, p, 6), generator=g).cuda()
 
-    def serve():
-        predict_volume(fn, vol, patch_size=cfg.data.patch_size,
-                       whole_volume=args.whole_volume)
+        def run():
+            step(state, x, y)
+    else:
+        gen, _ = build_models("pc-bssfp", mcfg, "cuda")
+        gen.load_state_dict(weights.random_state_dict(gen, 0))
+        fn = make_predict_fn(gen)
+        vol = torch.randn(tuple(cfg.data.volume_shape) + (24,), generator=g).cuda()
+
+        def run():
+            predict_volume(fn, vol, patch_size=cfg.data.patch_size,
+                           whole_volume=args.whole_volume)
 
     for _ in range(3):
-        serve()
+        run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  acc_events=True) as prof:
         t0 = time.perf_counter()
         for _ in range(args.reps):
-            serve()
+            run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / args.reps
 
@@ -71,21 +114,29 @@ def main() -> int:
             continue  # host-side op events repeat their kernels' time
         dev_us = ev.self_device_time_total
         if dev_us > 0:
-            rows.append({"name": ev.key, "calls_per_volume": ev.count / args.reps,
-                         "ms_per_volume": dev_us / 1e3 / args.reps})
-    rows.sort(key=lambda r: -r["ms_per_volume"])
-    busy = sum(r["ms_per_volume"] for r in rows)
-    mode = "whole" if args.whole_volume else "patch"
+            rows.append({"name": ev.key, "group": group_of(ev.key),
+                         "calls_per_rep": ev.count / args.reps,
+                         "ms_per_rep": dev_us / 1e3 / args.reps})
+    rows.sort(key=lambda r: -r["ms_per_rep"])
+    busy = sum(r["ms_per_rep"] for r in rows)
+    groups = {}
+    for r in rows:
+        groups[r["group"]] = groups.get(r["group"], 0.0) + r["ms_per_rep"]
+    mode = "train" if args.train else ("whole" if args.whole_volume else "patch")
+    unit = "step" if args.train else "volume"
     print(f"{torch.cuda.get_device_name(0)}; mode {mode}, use_pallas "
-          f"{args.use_pallas}: wall {wall_ms:.3f} ms/volume, device busy "
-          f"{busy:.3f} ms/volume ({100 * busy / wall_ms:.1f} %)")
+          f"{args.use_pallas}: wall {wall_ms:.3f} ms/{unit}, device busy "
+          f"{busy:.3f} ms/{unit} ({100 * busy / wall_ms:.1f} %)")
+    for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print(f"{ms:9.4f} ms  {group}")
     for r in rows[:25]:
-        print(f"{r['ms_per_volume']:9.4f} ms  {r['calls_per_volume']:6.1f}x  {r['name'][:110]}")
+        print(f"{r['ms_per_rep']:9.4f} ms  {r['calls_per_rep']:6.1f}x  {r['name'][:110]}")
     os.makedirs("perf_out", exist_ok=True)
     out = Path("perf_out") / f"torch_port_profile_{mode}{'_pallas' if args.use_pallas else ''}.json"
     out.write_text(json.dumps({"device": torch.cuda.get_device_name(0), "mode": mode,
-                               "use_pallas": args.use_pallas, "wall_ms": wall_ms,
-                               "busy_ms": busy, "kernels": rows}, indent=1))
+                               "use_pallas": args.use_pallas, "unit": unit,
+                               "wall_ms": wall_ms, "busy_ms": busy, "groups": groups,
+                               "kernels": rows}, indent=1))
     return 0
 
 

@@ -55,7 +55,7 @@ def _port_generator(packed, use_pallas, variables):
     mcfg = ModelConfig(features=FEATURES, compute_dtype="float32", dropout=0.0,
                        packed=packed, use_pallas=use_pallas)
     sd = weights.from_flax(variables["params"], variables["batch_stats"])
-    return build_models("pc-bssfp", mcfg, "cpu", state_dict=sd)
+    return build_models("pc-bssfp", mcfg, "cpu", state_dict=sd)[0]
 
 
 CASES = [((1, 16, 16, 16, 24), packed, use_pallas)

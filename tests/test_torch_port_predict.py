@@ -39,7 +39,7 @@ def models():
     gen, _ = jax_build_models("pc-bssfp", mcfg)
     variables = random_variables(
         gen.init(jax.random.PRNGKey(0), jnp.asarray(x), train=False), 9)
-    port = build_models(
+    port, _ = build_models(
         "pc-bssfp", ModelConfig(features=FEATURES, compute_dtype="float32",
                                 dropout=0.0, packed=True), "cpu",
         state_dict=weights.from_flax(variables["params"],
@@ -116,7 +116,7 @@ def test_predict_cli_on_cpu(tmp_path, capsys):
         ' "model": {"features": [8, 16, 16, 32, 32, 8],'
         ' "compute_dtype": "float32"}}')
     (tmp_path / "cfg.json").write_text(cfg.to_json())
-    gen = build_models("pc-bssfp", cfg.model, "cpu")
+    gen, _ = build_models("pc-bssfp", cfg.model, "cpu")
     sd = weights.random_state_dict(gen, 0)
     weights.save(sd, str(tmp_path / "w.pt"))
 

@@ -5,8 +5,11 @@ physically NDHWC: ``x.permute(0, 4, 1, 2, 3)`` is then a zero-copy
 ``channels_last_3d`` view that ``F.conv3d`` takes as is. Parameters are f32
 and carry the Flax names (``conv``, ``norm``, ``bn``, ``upsample``; kernels as
 torch's ``weight``); each module computes in ``compute_dtype`` as its Flax
-twin does with ``dtype``. Eval mode only for BatchNorm: training comes with
-the training slice.
+twin does with ``dtype``. ``module.train()`` / ``.eval()`` take the place of
+Flax's ``train`` argument: BatchNorm normalises with the batch's moments and
+updates its running statistics in train mode, and Dropout draws its masks in
+train mode only, from the ``torch.Generator`` bound to it
+(:func:`bind_dropout_generator`).
 """
 
 from __future__ import annotations
@@ -101,8 +104,14 @@ class InstanceNorm(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Flax ``nn.BatchNorm`` in eval mode: running statistics, f32 math,
-    result in ``compute_dtype``."""
+    """Flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)``: f32 math, result in
+    ``compute_dtype``. Train mode normalises with the batch's mean and biased
+    variance over every axis but the channel (last) one, and updates the
+    running statistics as ``0.9·running + 0.1·batch`` with that same biased
+    variance (``F.batch_norm`` would store the unbiased one). Eval mode uses
+    the running statistics."""
+
+    momentum = 0.9
 
     def __init__(self, features: int, epsilon: float = 1e-5,
                  compute_dtype: Optional[torch.dtype] = None):
@@ -115,14 +124,52 @@ class BatchNorm(nn.Module):
         self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "BatchNorm: train mode comes with the training slice; "
-                "call .eval() to use the running statistics")
         dtype = self.compute_dtype or x.dtype
-        mul = torch.rsqrt(self.running_var.float() + self.epsilon) * self.weight.float()
-        y = (x.float() - self.running_mean.float()) * mul + self.bias.float()
+        xf = x.float()
+        if self.training:
+            var, mean = torch.var_mean(xf, dim=tuple(range(x.ndim - 1)),
+                                       correction=0)
+            with torch.no_grad():
+                self.running_mean.mul_(self.momentum).add_(mean, alpha=1 - self.momentum)
+                self.running_var.mul_(self.momentum).add_(var, alpha=1 - self.momentum)
+        else:
+            mean, var = self.running_mean.float(), self.running_var.float()
+        mul = torch.rsqrt(var + self.epsilon) * self.weight.float()
+        y = (xf - mean) * mul + self.bias.float()
         return y.to(dtype)
+
+
+class Dropout(nn.Module):
+    """Flax ``nn.Dropout``: in train mode keep each element with probability
+    ``1 - rate`` and scale the kept ones by ``1 / (1 - rate)``. The mask is
+    drawn from ``self.generator`` (a ``torch.Generator`` on the input's
+    device, bound by :func:`bind_dropout_generator`), never from the global
+    RNG; an unbound module in train mode with ``rate > 0`` raises."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        if self.generator is None:
+            raise RuntimeError("Dropout in train mode needs a torch.Generator: "
+                               "call bind_dropout_generator(model, generator)")
+        keep = 1.0 - self.rate
+        mask = torch.empty(x.shape, device=x.device).bernoulli_(
+            keep, generator=self.generator).bool()
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                       device=x.device))
+
+
+def bind_dropout_generator(model: nn.Module,
+                           generator: Optional[torch.Generator]) -> None:
+    """Point every :class:`Dropout` of ``model`` at ``generator``."""
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.generator = generator
 
 
 class ConvBlock(nn.Module):
@@ -163,7 +210,7 @@ class ConvNormAct(nn.Module):
         self.norm = InstanceNorm(
             features, compute_dtype=compute_dtype,
             fused_slope=negative_slope if use_fused else None)
-        self.drop = nn.Dropout(dropout)
+        self.drop = Dropout(dropout)
         self.use_fused = use_fused
         self.negative_slope = negative_slope
         self.compute_dtype = compute_dtype

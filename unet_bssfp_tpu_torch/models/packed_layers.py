@@ -55,13 +55,45 @@ class PackedTwoConv(TwoConv):
         return self.conv_1.forward_packed(xk, wdim)
 
 
+class _PackedMaxPool2(torch.autograd.Function):
+    """``packed_max_pool2``'s custom VJP (``packed_layers.py:177-221``): the
+    whole gradient of a window goes to its first maximal position in
+    (d, h, w) row-major order, as XLA's select-and-scatter does. Plain
+    PyTorch (XLA in the JAX package)."""
+
+    @staticmethod
+    def forward(ctx, xk, wdim):
+        b, d, c, hw = xk.shape
+        h = hw // wdim
+        x = xk.reshape(b, d // 2, 2, c, h // 2, 2, wdim // 2, 2).amax(dim=(2, 5, 7))
+        y = x.permute(0, 1, 3, 4, 2).contiguous()  # (b, d/2, h/2, w/2, c)
+        ctx.save_for_backward(xk, y)
+        ctx.wdim = wdim
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        xk, y = ctx.saved_tensors
+        b, d, c, hw = xk.shape
+        w = ctx.wdim
+        h = hw // w
+        # windows last: (b, d/2, c, h/2, w/2, [dd, hh, ww])
+        win = xk.reshape(b, d // 2, 2, c, h // 2, 2, w // 2, 2).permute(
+            0, 1, 3, 4, 6, 2, 5, 7).reshape(b, d // 2, c, h // 2, w // 2, 8)
+        ymax = y.permute(0, 1, 4, 2, 3).unsqueeze(-1)
+        first = (win == ymax).to(torch.uint8).argmax(dim=-1, keepdim=True)
+        g = dy.permute(0, 1, 4, 2, 3).unsqueeze(-1).float()
+        dwin = torch.zeros(win.shape, dtype=torch.float32, device=xk.device)
+        dwin.scatter_(-1, first, g)
+        dx = dwin.reshape(b, d // 2, c, h // 2, w // 2, 2, 2, 2).permute(
+            0, 1, 5, 2, 3, 6, 4, 7).reshape(b, d, c, hw)
+        return dx.to(xk.dtype), None
+
+
 def packed_max_pool2(xk: torch.Tensor, wdim: int) -> torch.Tensor:
-    """2×2×2 max-pool of the packed layout → NDHWC (B, D/2, H/2, W/2, C)
-    (forward only)."""
-    b, d, c, hw = xk.shape
-    h = hw // wdim
-    x = xk.reshape(b, d // 2, 2, c, h // 2, 2, wdim // 2, 2).amax(dim=(2, 5, 7))
-    return x.permute(0, 1, 3, 4, 2).contiguous()
+    """2×2×2 max-pool of the packed layout → NDHWC (B, D/2, H/2, W/2, C),
+    with the first-match backward of the JAX package's custom VJP."""
+    return _PackedMaxPool2.apply(xk, wdim)
 
 
 class PooledConvs(Down):

@@ -3,7 +3,11 @@ PyTorch version and with a launch count on its wrapper."""
 
 from unet_bssfp_tpu_torch.ops.kernels.conv3d import (
     conv3x3_packed,
+    conv3x3_packed_dgrad,
     conv3x3_packed_plain,
+    conv3x3_wgrad,
+    conv3x3_wgrad_chain,
+    conv3x3_wgrad_plain,
     packed_supported,
 )
 from unet_bssfp_tpu_torch.ops.kernels.layout import (
@@ -17,7 +21,8 @@ from unet_bssfp_tpu_torch.ops.kernels.norm_act import (
     instance_norm_leaky_relu_plain,
 )
 
-WRAPPERS = (conv3x3_packed, pack_hw, unpack_hw, fused_instance_norm_leaky_relu)
+WRAPPERS = (conv3x3_packed, conv3x3_packed_dgrad, conv3x3_wgrad, pack_hw,
+            unpack_hw, fused_instance_norm_leaky_relu)
 
 
 def reset_launches() -> None:

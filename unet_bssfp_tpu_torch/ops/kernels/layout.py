@@ -4,7 +4,9 @@ Replaces ``unet_bssfp_tpu/ops/pallas/conv3d.py::pack_hw`` / ``unpack_hw``
 (``_pack_kernel`` / ``_unpack_kernel``). Both directions are one CUDA
 transpose of the last two dims of ``(B·D, ·, ·)``, ``csrc/layout.cu``; its
 header says what bounds it and how it is laid out. The plain versions are
-``permute().contiguous()``: the CPU path and the kernel's reference.
+``permute().contiguous()``: the CPU path and the kernel's reference. Each
+direction is the other's backward, as in the JAX package's custom VJPs, so
+the gradient runs through the kernels too.
 """
 
 from __future__ import annotations
@@ -46,9 +48,7 @@ def _transpose(x: torch.Tensor, s: int, r: int, c: int, out_shape,
     return out
 
 
-def pack_hw(x: torch.Tensor) -> torch.Tensor:
-    """NDHWC (B, D, H, W, C) → packed (B, D, C, H·W). A CPU tensor takes
-    :func:`pack_hw_plain`; a CUDA tensor launches the kernel or raises."""
+def _pack(x: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return pack_hw_plain(x)
     if x.device.type != "cuda":
@@ -59,8 +59,7 @@ def pack_hw(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def unpack_hw(xk: torch.Tensor, wdim: int) -> torch.Tensor:
-    """Inverse of :func:`pack_hw`: (B, D, C, H·W) → (B, D, H, W, C)."""
+def _unpack(xk: torch.Tensor, wdim: int) -> torch.Tensor:
     if xk.device.type == "cpu":
         return unpack_hw_plain(xk, wdim)
     if xk.device.type != "cuda":
@@ -71,6 +70,45 @@ def unpack_hw(xk: torch.Tensor, wdim: int) -> torch.Tensor:
     out = _transpose(xk, b * d, c, hw, (b, d, hw // wdim, wdim, c), "unpack_hw")
     unpack_hw.launches += 1
     return out
+
+
+class _PackHW(torch.autograd.Function):
+    """A permutation: its cotangent is the inverse permutation
+    (``conv3d.py:1309-1318``)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.wdim = x.shape[3]
+        return _pack(x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return unpack_hw(dy.contiguous(), ctx.wdim)
+
+
+class _UnpackHW(torch.autograd.Function):
+    """``conv3d.py:1321-1329``."""
+
+    @staticmethod
+    def forward(ctx, xk, wdim):
+        return _unpack(xk, wdim)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return pack_hw(dy.contiguous()), None
+
+
+def pack_hw(x: torch.Tensor) -> torch.Tensor:
+    """NDHWC (B, D, H, W, C) → packed (B, D, C, H·W), differentiable (the
+    backward is :func:`unpack_hw`). A CPU tensor takes :func:`pack_hw_plain`;
+    a CUDA tensor launches the kernel or raises."""
+    return _PackHW.apply(x)
+
+
+def unpack_hw(xk: torch.Tensor, wdim: int) -> torch.Tensor:
+    """Inverse of :func:`pack_hw`: (B, D, C, H·W) → (B, D, H, W, C); its
+    backward is :func:`pack_hw`."""
+    return _UnpackHW.apply(xk, wdim)
 
 
 pack_hw.launches = 0

@@ -27,7 +27,8 @@ Rows are the contiguous channel-minor NDHWC rows, so every load and store
 is coalesced along C.
 
 :func:`instance_norm_leaky_relu_plain` is the same function in plain
-PyTorch: the CPU path, and the kernel's reference.
+PyTorch: the CPU path, the kernel's reference, and (recomputed under
+autograd) the backward, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -188,13 +189,8 @@ def _split(n: int, s: int, c_blocks: int):
     return chunk, cdiv(s, chunk)
 
 
-def fused_instance_norm_leaky_relu(x: torch.Tensor, scale: torch.Tensor,
-                                   bias: torch.Tensor,
-                                   negative_slope: float = 0.1,
-                                   epsilon: float = 1e-5) -> torch.Tensor:
-    """Fused IN+LeakyReLU on NDHWC ``x`` → same shape and dtype. A CPU
-    tensor takes :func:`instance_norm_leaky_relu_plain`; a CUDA tensor
-    launches the Triton kernels (forward only) or raises."""
+def _norm_act_fwd(x, scale, bias, negative_slope, epsilon):
+    """The Triton kernels (CUDA) or the plain version (CPU); no autograd."""
     if x.device.type == "cpu":
         return instance_norm_leaky_relu_plain(x, scale, bias, negative_slope,
                                               epsilon)
@@ -207,10 +203,6 @@ def fused_instance_norm_leaky_relu(x: torch.Tensor, scale: torch.Tensor,
     n, c = x.shape[0], x.shape[-1]
     if scale.shape != (c,) or bias.shape != (c,):
         raise ValueError("fused_instance_norm_leaky_relu: scale/bias must be (C,)")
-    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad
-                                    or bias.requires_grad):
-        raise NotImplementedError(
-            "fused_instance_norm_leaky_relu: the kernel is forward-only")
     triton, k_sum, k_m2, k_apply, k_single = _kernels()
     s = x.numel() // (n * c)
     block_c = min(triton.next_power_of_2(c), 128)
@@ -241,6 +233,41 @@ def fused_instance_norm_leaky_relu(x: torch.Tensor, scale: torch.Tensor,
                       SPLIT_P2=split_p2)
     fused_instance_norm_leaky_relu.launches += 1
     return y
+
+
+class _FusedNormAct(torch.autograd.Function):
+    """``fused_instance_norm_leaky_relu_vjp`` (``fused_norm_act.py:86-117``):
+    the kernel forward; the backward recomputes the plain version under
+    autograd, as the JAX VJP runs its XLA reference (there is no backward
+    kernel to port)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, negative_slope, epsilon):
+        ctx.save_for_backward(x, scale, bias)
+        ctx.args = (negative_slope, epsilon)
+        return _norm_act_fwd(x, scale, bias, negative_slope, epsilon)
+
+    @staticmethod
+    def backward(ctx, dy):
+        inputs = [t.detach().requires_grad_(need) for t, need
+                  in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        wanted = [t for t in inputs if t.requires_grad]
+        with torch.enable_grad():
+            y = instance_norm_leaky_relu_plain(*inputs, *ctx.args)
+            grads = iter(torch.autograd.grad(y, wanted, dy))
+        return tuple(next(grads) if t.requires_grad else None
+                     for t in inputs) + (None, None)
+
+
+def fused_instance_norm_leaky_relu(x: torch.Tensor, scale: torch.Tensor,
+                                   bias: torch.Tensor,
+                                   negative_slope: float = 0.1,
+                                   epsilon: float = 1e-5) -> torch.Tensor:
+    """Fused IN+LeakyReLU on NDHWC ``x`` → same shape and dtype,
+    differentiable. A CPU tensor takes
+    :func:`instance_norm_leaky_relu_plain`; a CUDA tensor launches the
+    Triton kernels or raises. The backward is the plain version's."""
+    return _FusedNormAct.apply(x, scale, bias, negative_slope, epsilon)
 
 
 fused_instance_norm_leaky_relu.launches = 0

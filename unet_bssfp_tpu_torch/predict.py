@@ -76,8 +76,8 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
     else:
         whole_volume = config.data.whole_volume
 
-    gen = build_models(args.modality, config.model, device,
-                       state_dict=weights.load(args.weights))
+    gen, _ = build_models(args.modality, config.model, device,
+                          state_dict=weights.load(args.weights))
     predict_fn = make_predict_fn(gen)
     t0 = time.perf_counter()
     pred = predict_volume(predict_fn, vol, patch_size=config.data.patch_size,

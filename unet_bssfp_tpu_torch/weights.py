@@ -1,5 +1,7 @@
-"""Weights: Flax variables → the port's ``state_dict``, the port's own
-``.pt`` files, and seeded random weights.
+"""Weights: Flax variables → the port's ``state_dict`` (generator and
+discriminator alike: the module paths are the same in both packages), a JAX
+``GANTrainState`` → both modules, the port's own ``.pt`` files, Flax's
+initialisation, and seeded random weights.
 
 Flax trees are nested dicts of numpy arrays, as
 ``jax.tree.map(np.asarray, variables)`` gives them, or an ``.npz`` whose keys
@@ -90,6 +92,44 @@ def load(path: str) -> Dict[str, torch.Tensor]:
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
+def state_from_flax(gen: nn.Module, disc: nn.Module, state: Mapping) -> None:
+    """Load a JAX ``GANTrainState``'s ``gen_params``/``gen_batch_stats`` and
+    ``disc_params``/``disc_batch_stats`` (numpy trees, as
+    ``jax.tree.map(np.asarray, ...)`` gives them; a mapping of those four
+    names) into ``gen`` and ``disc``, strictly."""
+    for module, prefix in ((gen, "gen"), (disc, "disc")):
+        sd = from_flax(state[f"{prefix}_params"], state[f"{prefix}_batch_stats"])
+        module.load_state_dict(sd, strict=True)
+
+
+def _fan_in(key: str, t: torch.Tensor) -> int:
+    """A conv kernel's fan-in: torch's (O, I, k, k, k), or (I, O, k, k, k)
+    for a transposed conv (``upsample``)."""
+    if key.endswith("upsample.weight"):
+        return t.shape[0] * t[0, 0].numel()
+    return t[0].numel()
+
+
+def init_state_dict(model: nn.Module, seed: int) -> Dict[str, torch.Tensor]:
+    """Flax's initialisation of ``model``: conv kernels ``lecun_normal``
+    (normal of variance 1/fan_in, truncated at two standard deviations),
+    biases and norm shifts 0, norm scales 1, BatchNorm running mean 0 and
+    variance 1; from a CPU ``torch.Generator`` seeded with ``seed``."""
+    g = torch.Generator().manual_seed(seed)
+    out = {}
+    for key, t in model.state_dict().items():
+        leaf = key.rsplit(".", 1)[-1]
+        if t.ndim == 5:
+            std = (1.0 / _fan_in(key, t)) ** 0.5 / .87962566103423978
+            w = torch.empty(t.shape, dtype=torch.float32)
+            out[key] = nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=g)
+        elif leaf in ("weight", "running_var"):
+            out[key] = torch.ones(t.shape)
+        else:
+            out[key] = torch.zeros(t.shape)
+    return out
+
+
 def random_state_dict(model: nn.Module, seed: int) -> Dict[str, torch.Tensor]:
     """Seeded random weights for ``model``: conv kernels N(0, 1/fan_in),
     biases and norm shifts N(0, 0.1²), norm scales 1 + N(0, 0.1²), BatchNorm
@@ -100,8 +140,7 @@ def random_state_dict(model: nn.Module, seed: int) -> Dict[str, torch.Tensor]:
         z = torch.randn(t.shape, generator=g, dtype=torch.float32)
         leaf = key.rsplit(".", 1)[-1]
         if t.ndim == 5:
-            fan_in = t[0].numel() if not key.endswith("upsample.weight") else t.shape[0] * 8
-            out[key] = z / fan_in ** 0.5
+            out[key] = z / _fan_in(key, t) ** 0.5
         elif leaf == "running_var":
             out[key] = 1.0 + 0.1 * z.abs()
         elif leaf == "weight":

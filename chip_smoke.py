@@ -30,11 +30,25 @@ Phases (any failure → nonzero exit, no ``ok`` line):
    gradient check (batch 2 × 64³, TF32 off): one generator-phase backward
    through the kernels (``packed``, ``use_pallas``) against plain
    PyTorch/cuDNN from the same weights and batch, every parameter's gradient.
+6. K8 (scalar maps) against its plain version on brain-like tensors (30 %
+   zero background, isotropic and planar voxels) at the full (96, 128, 128)
+   volume and at (5, 7, 3), at the bound derived in
+   ``ops/kernels/scalar_maps.py``; a second launch bit for bit; time, bound,
+   plain time and ``torch.linalg.eigh``'s time.
+7. Evaluation path: ``make_synthetic_bids`` writes 2 subjects at (96, 128,
+   128); the full-width generator (seeded random weights, bf16,
+   patch-stitched) predicts each subject's DT; ``eval_dwi_tensors`` (with
+   ``constants/rescale_args_dwi.txt``) and ``calc_error_table`` run on the
+   card with the launch counts reset before them (K8: 2 subjects × pred and
+   target), then once more with one worker and the NIfTI I/O timed, and on
+   the CPU (plain versions); the card's table against the CPU's.
+8. ``predict --scalar-maps --rescale-args`` once on the card: 1 K8 launch,
+   7 map files, held against the plain maps of the written prediction.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the ``kernels`` JSON (``launches_by_path``: the serving
-run's and one training step's counts; ``launches``: their sum); details go
-to ``perf_out/chip_smoke.json``.
+run's, one training step's and the eval chain's counts; ``launches``: their
+sum); details go to ``perf_out/chip_smoke.json``.
 """
 
 from __future__ import annotations
@@ -48,6 +62,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12                 # H100 SXM HBM3
 PEAK_OPS = {"bfloat16": 989e12,           # dense tensor-core bf16
@@ -63,7 +78,16 @@ SERVING_KERNELS = ("conv3x3_packed", "pack_hw", "unpack_hw",
 # unpack each) and back once (4 dgrad, 4 wgrad, 1 pack, 2 unpacks).
 TRAIN_STEP_LAUNCHES = {"conv3x3_packed": 8, "conv3x3_packed_dgrad": 4,
                        "conv3x3_wgrad": 4, "pack_hw": 5, "unpack_hw": 4,
-                       "fused_instance_norm_leaky_relu": 0}
+                       "fused_instance_norm_leaky_relu": 0, "scalar_maps": 0}
+RESCALE_ARGS = str(Path(__file__).resolve().parent / "constants" / "rescale_args_dwi.txt")
+EVAL_SUBJECTS = ("01", "02")
+# K8's work per voxel, counted from csrc/scalar_maps.cu with each add,
+# multiply, divide, square root, abs, max, atan2 and acos as one operation:
+# the scaling 18; 15 Jacobi rotations of 42 (14 for c, s and t, 10 for the
+# matrix, 18 for the eigenvectors); the unscaling 3; the sign 8; FA, MD, AD
+# and RD 22; the angles and RGB 14. Bytes: 6 f32 in, 9 f32 out.
+SCALAR_MAPS_OPS_PER_VOXEL = 18 + 15 * 42 + 3 + 8 + 22 + 14
+SCALAR_MAPS_BYTES_PER_VOXEL = (6 + 9) * 4
 
 
 def bound(bytes_moved: float, ops: float, dtype: str):
@@ -582,6 +606,222 @@ def phase_train_grad_check(torch, checks, pkg):
                        worst_leaf=worst, loss_rel_err=loss_rel, failures=bad))
 
 
+def device_ms(torch, fn, kernel: str, iters: int = 20):
+    """Device time per call of the CUDA kernel named ``kernel`` under
+    ``torch.profiler`` (None if the trace shows no such kernel): the time
+    the card spends in it, without the wrapper's host work between launches,
+    which CUDA events around back-to-back calls include when it is longer."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(e, "device_time_total", 0) for e in prof.key_averages()
+                if kernel in e.key)
+    return total / 1e3 / iters if total else None
+
+
+def eigh_batch_limit(torch, mats) -> int:
+    """The largest batch (V halved until it is taken) that cuSOLVER's
+    batched eigh accepts: it refuses a whole (96, 128, 128) volume."""
+    chunk = mats.shape[0]
+    while True:
+        try:
+            torch.linalg.eigh(mats[:chunk])
+            torch.cuda.synchronize()
+            return chunk
+        except RuntimeError:
+            if chunk < 2048:
+                raise
+            chunk = -(-chunk // 2)
+
+
+def check_scalar_maps(torch, K, chk, checks, fields, shape, seed):
+    """K8 against its plain version (ATen on the card) at the per-voxel
+    bound of ``compare_scalar_maps`` (derived in ops/scalar_maps_check.py:
+    angles and RGB only where the principal eigenvector is defined, zero
+    voxels exactly)."""
+    d6 = torch.from_numpy(chk.sample_dt_volume(shape, seed)).to("cuda")
+    got = K.scalar_maps(d6)
+    ref = K.scalar_maps_plain(d6)
+    res = chk.compare_scalar_maps(got, ref, d6)
+    repeats = all(torch.equal(a, b) for a, b in zip(got, K.scalar_maps(d6)))
+    zero = (d6 == 0).all(-1)
+    zeros_exact = all(bool((f[zero] == 0).all()) for f in got)
+    bitwise = {k: bool(torch.equal(a, b)) for k, a, b in zip(fields, got, ref)}
+    nvox = d6.numel() // 6
+    mats = torch.empty(nvox, 3, 3, device="cuda")
+    flat = d6.reshape(nvox, 6)
+    for c, (i, j) in enumerate(((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))):
+        mats[:, i, j] = mats[:, j, i] = flat[:, c]
+    big = nvox >= 1 << 20
+    ms = time_ms(torch, lambda: K.scalar_maps(d6), 50 if big else 200)
+    plain_ms = time_ms(torch, lambda: K.scalar_maps_plain(d6), 5 if big else 20)
+    kern_ms = device_ms(torch, lambda: K.scalar_maps(d6), "scalar_maps_kernel")
+    chunk = eigh_batch_limit(torch, mats)
+    lib_ms = time_ms(torch, lambda: [torch.linalg.eigh(mats[i:i + chunk])
+                                     for i in range(0, nvox, chunk)], 3 if big else 20)
+    bms, by = bound(nvox * SCALAR_MAPS_BYTES_PER_VOXEL, nvox * SCALAR_MAPS_OPS_PER_VOXEL,
+                    "float32")
+    print(f"K8 scalar_maps {tuple(shape)}: {ms:.4f} ms per call, device {kern_ms} ms "
+          f"(bound {bms:.4f}, {by}; plain "
+          f"{plain_ms:.3f}; torch.linalg.eigh {lib_ms:.3f} in {-(-nvox // chunk)} "
+          f"call(s)); max err per field "
+          f"{ {k: res[k]['max_abs_err'] for k in fields} }; bit-equal to plain "
+          f"{bitwise}; angles/RGB left out at {res['gated_out']} of {nvox} voxels; "
+          f"rerun bit-identical {repeats}", flush=True)
+    checks.record(res["ok"] and repeats and zeros_exact, dict(
+        kernel="scalar_maps", shape=list(d6.shape), dtype="float32",
+        max_abs_err=max(res[k]["max_abs_err"] for k in fields),
+        fields={k: res[k] for k in fields}, gated_out=res["gated_out"],
+        voxels=nvox, bitwise_equal_to_plain=bitwise, zeros_exact=zeros_exact,
+        bit_identical_rerun=repeats, ms=ms, device_ms=kern_ms, plain_ms=plain_ms,
+        bound_ms=bms, bound_by=by, library_ms=lib_ms,
+        library="torch.linalg.eigh on (V, 3, 3): the eigendecomposition alone",
+        library_calls=-(-nvox // chunk)))
+
+
+def phase_scalar_maps(torch, K, chk, checks, fields):
+    check_scalar_maps(torch, K, chk, checks, fields, VOLUME, SEED)
+    check_scalar_maps(torch, K, chk, checks, fields, (5, 7, 3), SEED + 1)
+
+
+def phase_eval(torch, K, checks, pkg):
+    """The evaluation path at full size on the card, its launches, its wall
+    time (and, with one worker, its NIfTI I/O share), the CPU chain's table
+    against the card's, then ``predict --scalar-maps``."""
+    work = Path("perf_out") / "eval_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        return _phase_eval(torch, K, checks, pkg, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _phase_eval(torch, K, checks, pkg, work):
+    (Config, build_models, make_predict_fn, weights, predict_volume, nifti,
+     make_synthetic_bids, evaluate, predict_main, compute_scalar_maps,
+     invert_dwi_tensor_norm, load_rescale_args, chk) = pkg
+    cfg = Config()
+    t0 = time.perf_counter()
+    bids = make_synthetic_bids(str(work / "bids"), subjects=EVAL_SUBJECTS, sessions=("1",),
+                               volume_shape=VOLUME, seed=SEED)
+    synth_s = time.perf_counter() - t0
+    gen, _ = build_models(MODALITY, cfg.model, "cuda")
+    sd = weights.random_state_dict(gen, SEED)
+    gen.load_state_dict(sd)
+    fn = make_predict_fn(gen)
+    roots = {k: work / k for k in ("card", "card_1worker", "host")}
+    pred_dir = roots["card"] / MODALITY
+    pred_dir.mkdir(parents=True)
+    inputs = []
+    t0 = time.perf_counter()
+    for i, sub in enumerate(EVAL_SUBJECTS):
+        pre = Path(bids) / "derivatives" / "preproc-dove" / f"sub-{sub}" / "ses-1" / "dwi" / f"sub-{sub}_ses-1"
+        inputs.append(f"{pre}_desc-normflatbet_bssfp.nii.gz")
+        x, aff = nifti.load_volume(inputs[-1])
+        y, _ = nifti.load_volume(f"{pre}_desc-normtensor_dwi.nii.gz")
+        pred = predict_volume(fn, torch.from_numpy(x).to("cuda"), patch_size=cfg.data.patch_size)
+        name = f"mod-{MODALITY}_sub-{sub}_ses-1.nii.gz"
+        nifti.save_volume(str(pred_dir / f"pred-{i}_{name}"), pred.float().cpu().numpy(), aff)
+        nifti.save_volume(str(pred_dir / f"target-{i}_{name}"), y, aff)
+    predict_s = time.perf_counter() - t0
+    del gen, fn
+    torch.cuda.empty_cache()
+    for k in ("card_1worker", "host"):
+        shutil.copytree(roots["card"], roots[k])
+
+    def chain(key, device, workers):
+        root = roots[key]
+        t = time.perf_counter()
+        evaluate.eval_dwi_tensors(str(root / MODALITY), RESCALE_ARGS, workers, device)
+        rows = evaluate.calc_error_table(str(root), bids, str(root / "relative_errors.csv"),
+                                         num_workers=workers, device=device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        return rows, time.perf_counter() - t
+
+    K.reset_launches()
+    rows, wall = chain("card", "cuda", 8)
+    counts = K.launches()
+    print("eval-chain launches: " + json.dumps(counts), flush=True)
+    expected = dict.fromkeys(counts, 0)
+    expected["scalar_maps"] = 2 * len(EVAL_SUBJECTS)
+    checks.record(counts == expected, dict(phase="eval_launches", launches=counts,
+                                           expected=expected))
+
+    cols = evaluate.table_columns(rows)
+    want_cols = (["modality", "pred_id", "roi", "sub", "ses"] + list(evaluate.BASE_COLS)
+                 + [f"{c}_floored" for c in evaluate.BASE_COLS
+                    if c not in ("azimuth", "inclination")])
+    values = [v for r in rows for v in r.values() if not isinstance(v, str)]
+    checks.record(len(rows) == 3 * len(EVAL_SUBJECTS) and cols == want_cols
+                  and all(math.isfinite(v) for v in values),
+                  dict(phase="eval_table", rows=len(rows), columns=cols,
+                       first_row=rows[0] if rows else None))
+
+    io = [0.0]
+
+    def timed(f):
+        def call(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return f(*a, **kw)
+            finally:
+                io[0] += time.perf_counter() - t
+        return call
+
+    load, save = evaluate.load_volume, evaluate.save_volume
+    evaluate.load_volume, evaluate.save_volume = timed(load), timed(save)
+    try:
+        _, wall_1 = chain("card_1worker", "cuda", 1)
+    finally:
+        evaluate.load_volume, evaluate.save_volume = load, save
+    cpu_rows, cpu_wall = chain("host", "cpu", 8)
+    bad = chk.compare_error_tables(rows, cpu_rows)
+    worst = max(((k, abs(g[k] - c[k]) / max(abs(c[k]), 1e-300)) for g, c in zip(rows, cpu_rows)
+                 for k in c if not isinstance(c[k], str)), key=lambda kv: kv[1], default=None)
+    nvol = 2 * len(EVAL_SUBJECTS)
+    timing = {"synthetic_tree_s": synth_s, "predict_2_volumes_s": predict_s,
+              "chain_s_8_workers": wall, "chain_s_1_worker": wall_1,
+              "chain_1_worker_nifti_io_s": io[0], "chain_1_worker_rest_s": wall_1 - io[0],
+              "cpu_chain_s_8_workers": cpu_wall, "volumes": nvol,
+              "s_per_volume_8_workers": wall / nvol}
+    print(f"eval chain (2 subjects × pred+target at {VOLUME}): {wall:.2f} s with 8 "
+          f"workers ({wall / nvol:.2f} s per volume); 1 worker {wall_1:.2f} s, of which "
+          f"NIfTI I/O {io[0]:.2f} s; CPU chain {cpu_wall:.2f} s; synthetic tree "
+          f"{synth_s:.1f} s; card vs CPU table: largest relative difference {worst}, "
+          f"cells past their bound {bad}", flush=True)
+    checks.record(not bad, dict(phase="eval_table_cuda_vs_cpu", failures=bad[:20],
+                                largest_rel_diff=worst, timing=timing))
+
+    wpath = str(work / "w.pt")
+    weights.save(sd, wpath)
+    out_dir = work / "predict"
+    K.reset_launches()
+    predict_main([inputs[0], "--weights", wpath, "--out-dir", str(out_dir), "--device",
+                  "cuda", "--scalar-maps", "--rescale-args", RESCALE_ARGS])
+    torch.cuda.synchronize()
+    pcounts = K.launches()
+    base = Path(inputs[0]).name.split(".nii")[0]
+    pred, _ = nifti.load_volume(str(out_dir / f"{base}_pred-dt.nii.gz"))
+    d6 = invert_dwi_tensor_norm(torch.from_numpy(pred), load_rescale_args(RESCALE_ARGS))
+    plain = compute_scalar_maps(d6)  # the CPU's plain version
+    got = []
+    for name, ref in zip(plain._fields, plain):
+        arr, _ = nifti.load_volume(str(out_dir / f"{base}_{name}.nii.gz"))
+        got.append(torch.from_numpy(arr).reshape(ref.shape))
+    res = chk.compare_scalar_maps(got, plain, d6)
+    print(f"predict --scalar-maps: launches {json.dumps(pcounts)}; maps vs CPU plain "
+          f"ok={res['ok']} (angles/RGB left out at {res['gated_out']} voxels)", flush=True)
+    checks.record(pcounts["scalar_maps"] == 1 and pcounts["conv3x3_packed"] > 0 and res["ok"],
+                  dict(phase="predict_scalar_maps", launches=pcounts, maps=res))
+    return counts, timing
+
+
 KERNEL_META = {
     "conv3x3_packed": ("cuda", "unet_bssfp_tpu_torch/csrc/conv3x3_packed.cu",
                        "unet_bssfp_tpu/ops/pallas/conv3d.py:388"),
@@ -596,28 +836,33 @@ KERNEL_META = {
                              "unet_bssfp_tpu/ops/pallas/conv3d.py:388"),
     "conv3x3_wgrad": ("cuda", "unet_bssfp_tpu_torch/csrc/conv3x3_wgrad.cu",
                       "unet_bssfp_tpu/ops/pallas/conv3d.py:507"),
+    "scalar_maps": ("cuda", "unet_bssfp_tpu_torch/csrc/scalar_maps.cu",
+                    "unet_bssfp_tpu/ops/pallas/scalar_maps_kernel.py:112"),
 }
-# The row of each kernel in the summary line: its heaviest bf16 shape (and
-# output channels) on the patch-stitched serving path or the training step.
+# The row of each kernel in the summary line: its heaviest shape (output
+# channels, dtype) on the patch-stitched serving path, the training step or
+# the eval chain.
 SUMMARY_SHAPE = {
-    "conv3x3_packed": ([8, 64, 96, 4096], 32),
-    "pack_hw": ([8, 64, 64, 64, 64], None),
-    "unpack_hw": ([8, 64, 6, 4096], None),
-    "fused_instance_norm_leaky_relu": ([8, 32, 32, 32, 64], None),
-    "conv3x3_packed_dgrad": ([8, 64, 32, 4096], 96),
-    "conv3x3_wgrad": ([8, 64, 96, 4096], 32),
+    "conv3x3_packed": ([8, 64, 96, 4096], 32, "bfloat16"),
+    "pack_hw": ([8, 64, 64, 64, 64], None, "bfloat16"),
+    "unpack_hw": ([8, 64, 6, 4096], None, "bfloat16"),
+    "fused_instance_norm_leaky_relu": ([8, 32, 32, 32, 64], None, "bfloat16"),
+    "conv3x3_packed_dgrad": ([8, 64, 32, 4096], 96, "bfloat16"),
+    "conv3x3_wgrad": ([8, 64, 96, 4096], 32, "bfloat16"),
+    "scalar_maps": (list(VOLUME) + [6], None, "float32"),
 }
 
 
 def summary(rows, by_path):
     """``by_path``: each main path's launch counts, read from its own run
     with the counters reset just before it (the serving run, one training
-    step). ``launches`` is their sum; ``launches_by_path`` keeps them apart."""
+    step, the eval chain). ``launches`` is their sum; ``launches_by_path``
+    keeps them apart."""
     out = []
     for name, (route, source, replaces) in KERNEL_META.items():
-        shape, cout = SUMMARY_SHAPE[name]
+        shape, cout, dtype = SUMMARY_SHAPE[name]
         row = next(r for r in rows if r.get("kernel") == name
-                   and r["dtype"] == "bfloat16" and r["shape"] == shape
+                   and r["dtype"] == dtype and r["shape"] == shape
                    and r.get("cout") == cout)
         out.append({"name": name, "route": route, "source": source,
                     "replaces": replaces,
@@ -641,10 +886,21 @@ def main() -> int:
 
     from unet_bssfp_tpu_torch import weights
     from unet_bssfp_tpu_torch.config import Config
+    from unet_bssfp_tpu_torch.data import nifti
+    from unet_bssfp_tpu_torch.data.synthetic import make_synthetic_bids
+    from unet_bssfp_tpu_torch.eval import evaluate
     from unet_bssfp_tpu_torch.eval.inference import predict_volume
     from unet_bssfp_tpu_torch.ops import kernels as K
     from unet_bssfp_tpu_torch.ops import losses
+    from unet_bssfp_tpu_torch.ops import scalar_maps_check as chk
     from unet_bssfp_tpu_torch.ops.kernels import _build
+    from unet_bssfp_tpu_torch.ops.scalar_maps import (
+        ScalarMaps,
+        compute_scalar_maps,
+        invert_dwi_tensor_norm,
+        load_rescale_args,
+    )
+    from unet_bssfp_tpu_torch.predict import main as predict_main
     from unet_bssfp_tpu_torch.train.state import build_models, create_gan_state
     from unet_bssfp_tpu_torch.train.steps import make_predict_fn, make_train_step
 
@@ -672,15 +928,24 @@ def main() -> int:
     train_counts, train_timing = phase_train(
         torch, K, checks, (Config, create_gan_state, make_train_step))
     phase_train_grad_check(torch, checks, (Config, build_models, weights, losses))
+    print(f"training path done at {time.perf_counter() - t_start:.1f}s", flush=True)
+    phase_scalar_maps(torch, K, chk, checks, ScalarMaps._fields)
+    eval_counts, eval_timing = phase_eval(
+        torch, K, checks,
+        (Config, build_models, make_predict_fn, weights, predict_volume, nifti,
+         make_synthetic_bids, evaluate, predict_main, compute_scalar_maps,
+         invert_dwi_tensor_norm, load_rescale_args, chk))
     elapsed = time.perf_counter() - t_start
 
-    kernels = summary(checks.rows, {"serving": counts, "train_step": train_counts})
+    kernels = summary(checks.rows, {"serving": counts, "train_step": train_counts,
+                                    "eval": eval_counts})
     os.makedirs("perf_out", exist_ok=True)
     with open(os.path.join("perf_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__, "build": build,
                    "checks": checks.rows, "main_path_launches": counts,
-                   "train_step_launches": train_counts, "timing": timing,
-                   "train_timing": train_timing, "kernels": kernels,
+                   "train_step_launches": train_counts, "eval_launches": eval_counts,
+                   "timing": timing, "train_timing": train_timing,
+                   "eval_timing": eval_timing, "kernels": kernels,
                    "elapsed_s": elapsed}, f, indent=1)
     if checks.failures:
         print(f"chip_smoke: {len(checks.failures)} check(s) failed:", file=sys.stderr)

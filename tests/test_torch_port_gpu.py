@@ -7,11 +7,13 @@ This file imports no JAX, so it runs where the port runs:
 """
 
 import math
+from pathlib import Path
 
 import pytest
 import torch
 
 from unet_bssfp_tpu_torch.ops import kernels as K
+from unet_bssfp_tpu_torch.ops import scalar_maps_check as chk
 
 
 @pytest.fixture
@@ -216,3 +218,114 @@ def test_gpu_generator_phase_grads_packed_match_plain(cuda):
             # that and a twentieth of a cut graph's 1.0.
             err = float((got - ref).norm() / ref.norm())
             assert err <= 5e-2, (name, err)
+
+
+# K8. The kernel repeats its plain version op for op (no a·b + c contraction,
+# IEEE division and square root), so on one card the two
+# differ at most by atan2f/acosf's last bits; they are held to the bound
+# two f32 implementations of the maps obey (compare_scalar_maps, derived
+# beside it), angles only where defined, zero voxels exactly.
+def _edge_tensors():
+    """Zero, diagonal, isotropic, repeated-eigenvalue and 1e-3/1e3-scaled
+    matrices, (n, 6)."""
+    g = torch.Generator().manual_seed(3)
+    rnd = torch.randn(64, 6, generator=g)
+    diag = torch.zeros(64, 6)
+    diag[:, [0, 3, 5]] = torch.randn(64, 3, generator=g)
+    q, _ = torch.linalg.qr(torch.randn(64, 3, 3, generator=g, dtype=torch.float64))
+    lam = torch.rand(64, 3, generator=g, dtype=torch.float64) + 0.1
+    lam[:32, 1] = lam[:32, 2]
+    lam[32:, 0] = lam[32:, 1]
+    lam[48:, 2] = lam[48:, 1]
+    mats = q @ torch.diag_embed(lam) @ q.transpose(-1, -2)
+    rep = mats[:, [0, 0, 0, 1, 1, 2], [0, 1, 2, 1, 2, 2]].float()
+    return torch.cat([torch.zeros(8, 6), rnd, 1e-3 * rnd, 1e3 * rnd, diag, rep])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(5, 7, 3), (96, 128, 128), "edge"])
+def test_gpu_scalar_maps_matches_plain_and_repeats(cuda, shape):
+    if shape == "edge":
+        d6 = _edge_tensors().to(cuda)
+    else:
+        d6 = torch.from_numpy(chk.sample_dt_volume(shape, 7)).to(cuda)
+    K.reset_launches()
+    got = K.scalar_maps(d6)
+    assert K.scalar_maps.launches == 1
+    assert [tuple(f.shape) for f in got] == [tuple(d6.shape[:-1])] * 6 + [tuple(d6.shape[:-1]) + (3,)]
+    res = chk.compare_scalar_maps(got, K.scalar_maps_plain(d6), d6)
+    assert res["ok"], res
+    zero = (d6 == 0).all(-1)
+    assert zero.any()
+    for f in got:
+        assert torch.all(f[zero] == 0)
+    # one thread per voxel, no reduction: the same bits on a second launch
+    assert all(torch.equal(a, b) for a, b in zip(got, K.scalar_maps(d6)))
+
+
+@pytest.mark.gpu
+def test_gpu_scalar_maps_takes_bf16_and_strided_input(cuda):
+    d6 = torch.from_numpy(chk.sample_dt_volume((6, 9, 11), 8)).to(cuda)
+    wide = torch.zeros(6, 9, 11, 8, device=cuda)
+    wide[..., 1:7] = d6
+    # contiguous, but 4 bytes off the 8-byte alignment of the kernel's loads
+    buf = torch.zeros(1 + d6.numel(), device=cuda)
+    odd = buf[1:].view(d6.shape)
+    odd.copy_(d6)
+    assert odd.is_contiguous() and odd.data_ptr() % 8 == 4
+    for x in (d6.to(torch.bfloat16), wide[..., 1:7], odd):
+        got = K.scalar_maps(x)
+        ref = K.scalar_maps(x.float().clone())  # a fresh, aligned copy
+        assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    with pytest.raises(ValueError):
+        K.scalar_maps(torch.zeros(4, 5, device=cuda))
+
+
+@pytest.mark.gpu
+def test_gpu_eval_chain_matches_cpu(cuda, tmp_path):
+    """The eval chain on the card (K8) against the same chain on the CPU
+    (plain versions), on a small synthetic tree: the written maps and the
+    error table. Maps: the K8 bound above; table cells:
+    ``compare_error_tables`` (the same maps give the same cells up to the
+    angles' last bits and one f32 rounding of each f64 sum)."""
+    import shutil
+
+    from unet_bssfp_tpu_torch.data.nifti import load_volume, save_volume
+    from unet_bssfp_tpu_torch.data.synthetic import make_synthetic_bids
+    from unet_bssfp_tpu_torch.eval import evaluate
+    from unet_bssfp_tpu_torch.ops.scalar_maps import ScalarMaps
+
+    bids = make_synthetic_bids(str(tmp_path / "bids"), subjects=("01", "02"),
+                               sessions=("1",), volume_shape=(12, 16, 20))
+    pred_dir = tmp_path / "cuda" / "pc-bssfp"
+    pred_dir.mkdir(parents=True)
+    g = torch.Generator().manual_seed(0)
+    for i, sub in enumerate(("01", "02")):
+        tgt, aff = load_volume(f"{bids}/derivatives/preproc-dove/sub-{sub}/ses-1/dwi/"
+                               f"sub-{sub}_ses-1_desc-normtensor_dwi.nii.gz")
+        pred = (torch.from_numpy(tgt) + 0.1 * torch.randn(tgt.shape, generator=g)).clamp(0, 1)
+        save_volume(str(pred_dir / f"pred-{i}_mod-pc-bssfp_sub-{sub}_ses-1.nii.gz"),
+                    pred.numpy(), aff)
+        save_volume(str(pred_dir / f"target-{i}_mod-pc-bssfp_sub-{sub}_ses-1.nii.gz"), tgt, aff)
+    shutil.copytree(tmp_path / "cuda", tmp_path / "cpu")
+    rescale = str(Path(__file__).resolve().parents[1] / "constants" / "rescale_args_dwi.txt")
+    tables = {}
+    for dev in ("cuda", "cpu"):
+        K.reset_launches()
+        evaluate.eval_dwi_tensors(str(tmp_path / dev / "pc-bssfp"), rescale, device=dev)
+        tables[dev] = evaluate.calc_error_table(str(tmp_path / dev), bids, device=dev)
+        assert K.scalar_maps.launches == (4 if dev == "cuda" else 0)
+    assert len(tables["cuda"]) == 6
+    for i, sub in enumerate(("01", "02")):
+        for kind in ("pred", "target"):
+            base = f"{kind}-{i}_mod-pc-bssfp_sub-{sub}_ses-1"
+            d6 = torch.from_numpy(load_volume(str(tmp_path / "cpu" / "pc-bssfp" /
+                                                  f"{base}_denorm.nii.gz"))[0])
+            # a 3-D map is read back with a trailing channel axis
+            maps = {dev: [torch.from_numpy(load_volume(
+                str(tmp_path / dev / "pc-bssfp" / f"{base}_{name}.nii.gz"))[0])
+                .reshape(d6.shape[:-1] + (-1,)).squeeze(-1)
+                for name in ScalarMaps._fields] for dev in ("cuda", "cpu")}
+            res = chk.compare_scalar_maps(maps["cuda"], maps["cpu"], d6)
+            assert res["ok"], (base, res)
+    assert chk.compare_error_tables(tables["cuda"], tables["cpu"]) == []

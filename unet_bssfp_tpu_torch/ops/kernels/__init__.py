@@ -20,9 +20,10 @@ from unet_bssfp_tpu_torch.ops.kernels.norm_act import (
     fused_instance_norm_leaky_relu,
     instance_norm_leaky_relu_plain,
 )
+from unet_bssfp_tpu_torch.ops.kernels.scalar_maps import scalar_maps, scalar_maps_plain
 
 WRAPPERS = (conv3x3_packed, conv3x3_packed_dgrad, conv3x3_wgrad, pack_hw,
-            unpack_hw, fused_instance_norm_leaky_relu)
+            unpack_hw, fused_instance_norm_leaky_relu, scalar_maps)
 
 
 def reset_launches() -> None:

@@ -1,10 +1,11 @@
-"""Single-volume prediction CLI: one NIfTI in → DT prediction out (the
-counterpart of ``src/predict.py``).
+"""Single-volume prediction CLI: one NIfTI in → DT prediction (+ optional
+scalar maps) out (the counterpart of ``src/predict.py``).
 
 Usage:
   python -m unet_bssfp_tpu_torch.predict INPUT.nii.gz --weights W.pt \
       [--modality pc-bssfp] [--out-dir preds] [--config cfg.json] \
-      [--patch | --whole-volume] [--device cuda]
+      [--patch | --whole-volume] [--device cuda] \
+      [--scalar-maps [--rescale-args rescale_args_dwi.txt]]
 
 ``--weights`` takes the port's ``.pt`` or an ``.npz`` of ``/``-joined Flax
 paths (``weights.py``). Runs on CUDA unless ``--device cpu``.
@@ -25,6 +26,11 @@ from unet_bssfp_tpu_torch.config import Config
 from unet_bssfp_tpu_torch.data.nifti import load_volume, save_volume
 from unet_bssfp_tpu_torch.data.transforms import crop_or_pad
 from unet_bssfp_tpu_torch.eval.inference import predict_volume
+from unet_bssfp_tpu_torch.ops.scalar_maps import (
+    compute_scalar_maps,
+    invert_dwi_tensor_norm,
+    load_rescale_args,
+)
 from unet_bssfp_tpu_torch.train.state import build_models, resolve_device
 from unet_bssfp_tpu_torch.train.steps import make_predict_fn
 
@@ -44,6 +50,10 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
     parser.add_argument("--out-dir", default=".")
     parser.add_argument("--config", default=None, help="JSON config path")
     parser.add_argument("--device", default="cuda")
+    parser.add_argument("--scalar-maps", action="store_true",
+                        help="also write FA/MD/AD/RD/azimuth/inclination/RGB maps")
+    parser.add_argument("--rescale-args", default=None,
+                        help="rescale_args_dwi.txt to de-normalise before scalar maps")
     mode = parser.add_mutually_exclusive_group()
     mode.add_argument("--patch", action="store_true",
                       help="force grid-stitched patch inference")
@@ -92,6 +102,16 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
     pred_path = os.path.join(args.out_dir, f"{base}_pred-dt.nii.gz")
     save_volume(pred_path, pred_np, affine)
     print(f"wrote {pred_path}")
+
+    if args.scalar_maps:
+        d6 = pred.float()
+        if args.rescale_args:
+            d6 = invert_dwi_tensor_norm(d6, load_rescale_args(args.rescale_args))
+        maps = compute_scalar_maps(d6)  # K8 on the card
+        for name, arr in zip(maps._fields, maps):
+            save_volume(os.path.join(args.out_dir, f"{base}_{name}.nii.gz"),
+                        arr.cpu().numpy(), affine)
+        print(f"wrote 7 scalar maps to {args.out_dir}")
     return pred_path
 
 

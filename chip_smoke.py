@@ -44,11 +44,28 @@ Phases (any failure → nonzero exit, no ``ok`` line):
    the CPU (plain versions); the card's table against the CPU's.
 8. ``predict --scalar-maps --rescale-args`` once on the card: 1 K8 launch,
    7 map files, held against the plain maps of the written prediction.
+9. Halo kernels (with phase 4): K5 (``conv3x3_packed_halo``), its input
+   gradient and its weight gradient against their plain versions at the
+   mesh path's shard shapes (B 8 × D_local 32 × 64² and B 1 × D_local 48 ×
+   128², 24/32/96 → 32), f32 and bf16, under the bounds of K1, K1's dgrad
+   and K2, on halo slices that differ from every body slice; K5 on a zero
+   halo bit-equal to K1; time, bound, plain and library times.
+10. Mesh serving path: the same generator and volume served through
+    ``make_predict_fn(gen, mesh)`` on (data, space) meshes whose positions
+    all lie on ``cuda:0``: whole-volume on (1, 2) and (1, 1), patch-stitched
+    on (2, 2). Exact launch counts of each; in f32 the sharded output against
+    the unsharded port's and against plain PyTorch/cuDNN; bf16 against f32;
+    ms per volume beside the unsharded path's, and peak memory. Then a
+    full-width ``PackedTwoConv`` forward + backward on mesh (1, 2) against
+    the same block unsharded (every gradient, exact counts of the three halo
+    kernels). With two or more cards, the (1, 2) case once more over two of
+    them; with one, a line says that it did not run.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the ``kernels`` JSON (``launches_by_path``: the serving
-run's, one training step's and the eval chain's counts; ``launches``: their
-sum); details go to ``perf_out/chip_smoke.json``.
+run's, one training step's, the eval chain's, the mesh serving run's and the
+sharded block backward's counts; ``launches``: their sum); details go to
+``perf_out/chip_smoke.json``.
 """
 
 from __future__ import annotations
@@ -77,8 +94,31 @@ SERVING_KERNELS = ("conv3x3_packed", "pack_hw", "unpack_hw",
 # reuse_fake off): the generator runs twice (4 packed convs, 2 packs and 1
 # unpack each) and back once (4 dgrad, 4 wgrad, 1 pack, 2 unpacks).
 TRAIN_STEP_LAUNCHES = {"conv3x3_packed": 8, "conv3x3_packed_dgrad": 4,
-                       "conv3x3_wgrad": 4, "pack_hw": 5, "unpack_hw": 4,
+                       "conv3x3_wgrad": 4, "conv3x3_packed_halo": 0,
+                       "conv3x3_packed_halo_dgrad": 0, "conv3x3_wgrad_halo": 0,
+                       "pack_hw": 5, "unpack_hw": 4,
                        "fused_instance_norm_leaky_relu": 0, "scalar_maps": 0}
+# The mesh serving runs: (mesh shape, whole volume?). One generator forward
+# has 4 packed convs, 2 packs and 1 unpack; every shard runs them (the 8
+# patches of a volume are one batch). A mesh with a space split sends the
+# convs through K5, one without through K1.
+MESH_RUNS = (((1, 2), True), ((1, 1), True), ((2, 2), False))
+
+
+def mesh_launches(shape):
+    n = shape[0] * shape[1]
+    out = dict.fromkeys(TRAIN_STEP_LAUNCHES, 0)
+    out["conv3x3_packed_halo" if shape[1] > 1 else "conv3x3_packed"] = 4 * n
+    out["pack_hw"], out["unpack_hw"] = 2 * n, n
+    return out
+
+
+# The sharded PackedTwoConv forward + backward on mesh (1, 2): 2 convs × 2
+# shards forward; back, each conv's dx and dw per shard; the pack of the
+# input per shard and, its input wanting a gradient, the pack's backward.
+BLOCK_BACKWARD_LAUNCHES = dict(
+    dict.fromkeys(TRAIN_STEP_LAUNCHES, 0), conv3x3_packed_halo=4,
+    conv3x3_packed_halo_dgrad=4, conv3x3_wgrad_halo=4, pack_hw=2, unpack_hw=2)
 RESCALE_ARGS = str(Path(__file__).resolve().parent / "constants" / "rescale_args_dwi.txt")
 EVAL_SUBJECTS = ("01", "02")
 # K8's work per voxel, counted from csrc/scalar_maps.cu with each add,
@@ -139,14 +179,27 @@ def phase_build(torch, K, _build):
     return {"nvcc_s": nvcc_s, "total_s": total}
 
 
-def check_conv(torch, F, K, checks, b, d, h, w, cin, cout, dtype):
+def check_conv(torch, F, K, checks, b, d, h, w, cin, cout, dtype, halo=False):
+    """K1, or with ``halo`` K5 on an input of d + 2 slices whose two halo
+    slices are random like the rest (so an off-by-one in d shows), and K5 on
+    a zero halo against K1 on the body."""
     dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(cin * 1000 + d)
-    xk = torch.randn(b, d, cin, h * w, device="cuda", generator=g).to(dt)
+    xk = torch.randn(b, d + 2 * halo, cin, h * w, device="cuda", generator=g).to(dt)
     wt = torch.randn(3, 3, 3, cin, cout, device="cuda", generator=g) / (27 * cin) ** 0.5
     bias = 0.1 * torch.randn(cout, device="cuda", generator=g)
-    got = K.conv3x3_packed(xk, wt, bias, w).float()
-    ref = K.conv3x3_packed_plain(xk, wt, bias, w).float()
+    kern, plain = ((K.conv3x3_packed_halo, K.conv3x3_packed_halo_plain) if halo
+                   else (K.conv3x3_packed, K.conv3x3_packed_plain))
+    got = kern(xk, wt, bias, w).float()
+    ref = plain(xk, wt, bias, w).float()
+    extra = {}
+    if halo:
+        # zero halo slices add only zero products, in K1's order: bit-equal
+        body = xk[:, 1:-1].contiguous()
+        zero = torch.zeros_like(xk[:, :1])
+        same = torch.equal(kern(torch.cat([zero, body, zero], 1), wt, bias, w),
+                           K.conv3x3_packed(body, wt, bias, w))
+        extra = {"zero_halo_bit_equal_to_k1": bool(same)}
     err = (got - ref).abs()
     scale = float(ref.abs().max())
     # f32: the two differ only in summation order over 27·Cin ≤ 2592 terms;
@@ -154,22 +207,23 @@ def check_conv(torch, F, K, checks, b, d, h, w, cin, cout, dtype):
     # (2^-7 relative) apart.
     rtol = 1e-5 if dtype == "float32" else 2 ** -7
     atol = 1e-4 * scale
-    ok = bool((err <= atol + rtol * ref.abs()).all())
-    xn = xk.reshape(b, d, cin, h, w).permute(0, 2, 1, 3, 4)
+    ok = bool((err <= atol + rtol * ref.abs()).all()) and all(extra.values())
+    xn = xk.reshape(b, d + 2 * halo, cin, h, w).permute(0, 2, 1, 3, 4)
     wl = wt.to(dt).permute(4, 3, 0, 1, 2).contiguous()
     bl = bias.to(dt)
+    pad = (0, 1, 1) if halo else 1
     iters = 5 if b * d * h * w >= 1 << 20 else 20
-    ms = time_ms(torch, lambda: K.conv3x3_packed(xk, wt, bias, w), iters)
-    plain_ms = time_ms(torch, lambda: K.conv3x3_packed_plain(xk, wt, bias, w), iters)
-    lib_ms = time_ms(torch, lambda: F.conv3d(xn, wl, bl, padding=1), iters)
+    ms = time_ms(torch, lambda: kern(xk, wt, bias, w), iters)
+    plain_ms = time_ms(torch, lambda: plain(xk, wt, bias, w), iters)
+    lib_ms = time_ms(torch, lambda: F.conv3d(xn, wl, bl, padding=pad), iters)
     nbytes = (xk.numel() * xk.element_size() + wt.numel() * 4 + cout * 4
               + b * d * cout * h * w * xk.element_size())
     bms, by = bound(nbytes, 2 * 27 * cin * cout * b * d * h * w, dtype)
     checks.record(ok, dict(
-        kernel="conv3x3_packed", shape=[b, d, cin, h * w], cout=cout,
+        kernel=kern.__name__, shape=list(xk.shape), cout=cout,
         dtype=dtype, max_abs_err=float(err.max()), ref_max_abs=scale,
         rtol=rtol, atol=atol, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-        bound_by=by, library_ms=lib_ms))
+        bound_by=by, library_ms=lib_ms, **extra))
 
 
 def check_layout(torch, K, checks, b, d, h, w, c, dtype, direction):
@@ -226,14 +280,17 @@ def check_norm(torch, F, K, checks, shape, dtype):
             F.instance_norm(xn, weight=sl, bias=bl, eps=1e-5), 0.1), iters)))
 
 
-def check_wgrad(torch, K, checks, b, d, h, w, cin, cout, dtype):
-    """K2 at the training step's shape of the forward conv cin → cout."""
+def check_wgrad(torch, K, checks, b, d, h, w, cin, cout, dtype, halo=False):
+    """K2 at the training step's shape of the forward conv cin → cout; with
+    ``halo`` its variant for K5 (x of d + 2 slices, every one random)."""
     dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(cin * 7 + d)
-    xk = torch.randn(b, d, cin, h * w, device="cuda", generator=g).to(dt)
+    xk = torch.randn(b, d + 2 * halo, cin, h * w, device="cuda", generator=g).to(dt)
     dy = torch.randn(b, d, cout, h * w, device="cuda", generator=g).to(dt)
-    got = K.conv3x3_wgrad(xk, dy, w)
-    ref = K.conv3x3_wgrad_plain(xk, dy, w)
+    kern, plain = ((K.conv3x3_wgrad_halo, K.conv3x3_wgrad_halo_plain) if halo
+                   else (K.conv3x3_wgrad, K.conv3x3_wgrad_plain))
+    got = kern(xk, dy, w)
+    ref = plain(xk, dy, w)
     err = (got - ref).abs()
     scale = float(ref.abs().max())
     # Both sum exact products of the same values in f32, in other orders
@@ -245,36 +302,41 @@ def check_wgrad(torch, K, checks, b, d, h, w, cin, cout, dtype):
     chain = K.conv3x3_wgrad_chain(xk, dy, w)
     rtol, atol = 0.0, 16 * math.sqrt(chain) * 2 ** -24 * scale
     ok = bool((err <= atol).all())
-    repeats = bool(torch.equal(got, K.conv3x3_wgrad(xk, dy, w)))
-    xn = xk.reshape(b, d, cin, h, w).permute(0, 2, 1, 3, 4).contiguous()
+    repeats = bool(torch.equal(got, kern(xk, dy, w)))
+    xn = xk.reshape(b, d + 2 * halo, cin, h, w).permute(0, 2, 1, 3, 4).contiguous()
     dyn = dy.reshape(b, d, cout, h, w).permute(0, 2, 1, 3, 4).contiguous()
     wn = torch.zeros(cout, cin, 3, 3, 3, device="cuda", dtype=dt)
     iters = 5
     lib = lambda: torch.ops.aten.convolution_backward(  # noqa: E731
-        dyn, xn, wn, None, [1, 1, 1], [1, 1, 1], [1, 1, 1], False, [0, 0, 0], 1,
-        [False, True, False])
+        dyn, xn, wn, None, [1, 1, 1], [0 if halo else 1, 1, 1], [1, 1, 1], False,
+        [0, 0, 0], 1, [False, True, False])
     nbytes = (xk.numel() + dy.numel()) * xk.element_size() + 27 * cin * cout * 4
     bms, by = bound(nbytes, 2 * 27 * cin * cout * b * d * h * w, dtype)
     checks.record(ok and repeats, dict(
-        kernel="conv3x3_wgrad", shape=[b, d, cin, h * w], cout=cout, dtype=dtype,
+        kernel=kern.__name__, shape=list(xk.shape), cout=cout, dtype=dtype,
         max_abs_err=float(err.max()), ref_max_abs=scale, rtol=rtol, atol=atol,
         chain=chain, bit_identical_rerun=repeats,
-        ms=time_ms(torch, lambda: K.conv3x3_wgrad(xk, dy, w), iters),
-        plain_ms=time_ms(torch, lambda: K.conv3x3_wgrad_plain(xk, dy, w), iters),
+        ms=time_ms(torch, lambda: kern(xk, dy, w), iters),
+        plain_ms=time_ms(torch, lambda: plain(xk, dy, w), iters),
         bound_ms=bms, bound_by=by, library_ms=time_ms(torch, lib, iters)))
 
 
-def check_dgrad(torch, K, checks, b, d, h, w, cin, cout, dtype):
+def check_dgrad(torch, K, checks, b, d, h, w, cin, cout, dtype, halo=False):
     """K1's dgrad launch for the forward conv cin → cout: dy (cout) → dx
-    (cin)."""
+    (cin); with ``halo`` K5's: dy of d slices → dxp of d + 2."""
     dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(cin * 11 + d)
     dy = torch.randn(b, d, cout, h * w, device="cuda", generator=g).to(dt)
     wt = torch.randn(3, 3, 3, cin, cout, device="cuda", generator=g) / (27 * cout) ** 0.5
-    got = K.conv3x3_packed_dgrad(dy, wt, w).float()
     wflip = wt.flip(0, 1, 2).transpose(3, 4)
     zero = torch.zeros(cin, device="cuda")
-    plain = lambda: K.conv3x3_packed_plain(dy, wflip, zero, w)  # noqa: E731
+    if halo:
+        kern = K.conv3x3_packed_halo_dgrad
+        plain = lambda: K.conv3x3_packed_halo_dgrad_plain(dy, wt, w)  # noqa: E731
+    else:
+        kern = K.conv3x3_packed_dgrad
+        plain = lambda: K.conv3x3_packed_plain(dy, wflip, zero, w)  # noqa: E731
+    got = kern(dy, wt, w).float()
     ref = plain().float()
     err = (got - ref).abs()
     scale = float(ref.abs().max())
@@ -283,20 +345,22 @@ def check_dgrad(torch, K, checks, b, d, h, w, cin, cout, dtype):
     rtol = 1e-5 if dtype == "float32" else 2 ** -7
     atol = 1e-4 * scale
     ok = bool((err <= atol + rtol * ref.abs()).all())
+    ok = ok and tuple(got.shape) == (b, d + 2 * halo, cin, h * w)
     dyn = dy.reshape(b, d, cout, h, w).permute(0, 2, 1, 3, 4).contiguous()
-    xn = torch.empty(b, cin, d, h, w, device="cuda", dtype=dt)
+    xn = torch.empty(b, cin, d + 2 * halo, h, w, device="cuda", dtype=dt)
     wn = wt.to(dt).permute(4, 3, 0, 1, 2).contiguous()
     iters = 5
     lib = lambda: torch.ops.aten.convolution_backward(  # noqa: E731
-        dyn, xn, wn, None, [1, 1, 1], [1, 1, 1], [1, 1, 1], False, [0, 0, 0], 1,
-        [True, False, False])
-    nbytes = ((dy.numel() + b * d * cin * h * w) * dy.element_size()
+        dyn, xn, wn, None, [1, 1, 1], [0 if halo else 1, 1, 1], [1, 1, 1], False,
+        [0, 0, 0], 1, [True, False, False])
+    nbytes = ((dy.numel() + got.numel()) * dy.element_size()
               + 27 * cin * cout * dy.element_size())
+    # halo: every one of the 3·d (kd, dy slice) products is real, as forward
     bms, by = bound(nbytes, 2 * 27 * cin * cout * b * d * h * w, dtype)
     checks.record(ok, dict(
-        kernel="conv3x3_packed_dgrad", shape=[b, d, cout, h * w], cout=cin,
+        kernel=kern.__name__, shape=[b, d, cout, h * w], cout=cin,
         dtype=dtype, max_abs_err=float(err.max()), ref_max_abs=scale, rtol=rtol,
-        atol=atol, ms=time_ms(torch, lambda: K.conv3x3_packed_dgrad(dy, wt, w), iters),
+        atol=atol, ms=time_ms(torch, lambda: kern(dy, wt, w), iters),
         plain_ms=time_ms(torch, plain, iters), bound_ms=bms, bound_by=by,
         library_ms=time_ms(torch, lib, iters)))
 
@@ -307,6 +371,18 @@ def phase_train_kernels(torch, K, checks):
         for cin in (24, 32, 96):  # conv_0.conv_0, *.conv_1, upcat_1.conv_0
             check_wgrad(torch, K, checks, b, d, h, w, cin, 32, dtype)
             check_dgrad(torch, K, checks, b, d, h, w, cin, 32, dtype)
+
+
+def phase_halo_kernels(torch, F, K, checks):
+    """K5, its dgrad and its wgrad at the shard shapes of the mesh path: a
+    batch of 8 patches with d split in two, the whole volume with d split
+    in two."""
+    for dtype in ("bfloat16", "float32"):
+        for b, d, h, w in ((8, 32, 64, 64), (1, 48, 128, 128)):
+            for cin in (24, 32, 96):
+                check_conv(torch, F, K, checks, b, d, h, w, cin, 32, dtype, halo=True)
+                check_dgrad(torch, K, checks, b, d, h, w, cin, 32, dtype, halo=True)
+                check_wgrad(torch, K, checks, b, d, h, w, cin, 32, dtype, halo=True)
 
 
 def phase_kernels(torch, F, K, checks):
@@ -822,6 +898,170 @@ def _phase_eval(torch, K, checks, pkg, work):
     return counts, timing
 
 
+def timed_volumes(torch, predict_volume, fn, vol, whole, mesh=None, runs=5):
+    """ms per volume (host clock, each run synchronised) over ``runs`` runs
+    after a warm-up, and the peak MiB allocated."""
+    call = lambda: predict_volume(fn, vol, patch_size=64, whole_volume=whole,  # noqa: E731
+                                  mesh=mesh)
+    call()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ts = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return {"ms_per_volume_median": statistics.median(ts), "ms_all": ts,
+            "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20}
+
+
+def mesh_case(torch, K, checks, pkg, devices, shape, whole, vol, sd, label):
+    """One mesh: exact launch counts of a served volume (bf16), the f32
+    sharded output against the unsharded port's and plain PyTorch/cuDNN's,
+    bf16 against f32. Returns the bf16 predict function and its mesh."""
+    Config, build_models, make_predict_fn, predict_volume, make_mesh = pkg
+    mcfg = Config().model
+    mesh = make_mesh(devices, ("data", "space"), shape)
+
+    def model(use_mesh, **over):
+        gen, _ = build_models(MODALITY, dataclasses.replace(mcfg, **over),
+                              None if use_mesh else "cuda", state_dict=sd,
+                              mesh=mesh if use_mesh else None)
+        return make_predict_fn(gen, mesh if use_mesh else None)
+
+    def run(fn, use_mesh):
+        out = predict_volume(fn, vol, patch_size=64, whole_volume=whole,
+                             mesh=mesh if use_mesh else None)
+        torch.cuda.synchronize()
+        return out
+
+    fn = model(True)
+    run(fn, True)                                      # warm-up
+    K.reset_launches()
+    out = run(fn, True).float()
+    counts, expected = K.launches(), mesh_launches(shape)
+    checks.record(counts == expected,
+                  dict(phase="mesh_serving_launches", mesh=label, whole=whole,
+                       launches=counts, expected=expected))
+    got = run(model(True, compute_dtype="float32", packed=True), True).float()
+    flat = run(model(False, compute_dtype="float32", packed=True), False).float()
+    ref = run(model(False, compute_dtype="float32", packed=False), False).float()
+    top = float(ref.abs().max())
+    rel_flat = float((got - flat).abs().max()) / top
+    rel_plain = float((got - ref).abs().max()) / top
+    rel_bf16 = float((out - ref).abs().max()) / top
+    # sharded vs unsharded, f32: the same kernels on the same values; only
+    # the norms' moments are summed in another order (per shard, then over
+    # space). vs cuDNN: the bound of main_path_f32_vs_plain; bf16 as there.
+    shape_ok = tuple(got.shape) == VOLUME + (6,) and tuple(out.shape) == VOLUME + (6,)
+    checks.record(rel_flat <= 1e-5 and rel_plain <= 1e-3 and rel_bf16 < 0.1 and shape_ok
+                  and bool(torch.isfinite(got).all()) and bool(torch.isfinite(out).all()),
+                  dict(phase="mesh_serving_f32", mesh=label, whole=whole,
+                       rel_max_err_vs_unsharded=rel_flat, tol_vs_unsharded=1e-5,
+                       rel_max_err_vs_plain=rel_plain, tol_vs_plain=1e-3,
+                       bf16_rel_max_err_vs_f32=rel_bf16))
+    return fn, mesh
+
+
+def phase_mesh_serving(torch, K, checks, pkg, weights):
+    """The generator on (data, space) meshes whose positions all lie on
+    cuda:0, then the counted and timed runs of all three."""
+    Config, build_models, make_predict_fn, predict_volume, make_mesh = pkg
+    probe, _ = build_models(MODALITY, Config().model, "cuda")
+    sd = weights.random_state_dict(probe, SEED)
+    g = torch.Generator().manual_seed(SEED)
+    vol = torch.randn(VOLUME + (24,), generator=g).to("cuda")
+    cases = []
+    for shape, whole in MESH_RUNS:
+        label = f"{shape[0]}x{shape[1]}"
+        fn, mesh = mesh_case(torch, K, checks, pkg, ["cuda:0"], shape, whole, vol, sd, label)
+        cases.append((label, whole, fn, mesh))
+        torch.cuda.empty_cache()
+
+    K.reset_launches()
+    for _, whole, fn, mesh in cases:
+        predict_volume(fn, vol, patch_size=64, whole_volume=whole, mesh=mesh)
+    torch.cuda.synchronize()
+    counts = K.launches()
+    expected = {k: sum(mesh_launches(s)[k] for s, _ in MESH_RUNS) for k in counts}
+    print("mesh-serving launches: " + json.dumps(counts), flush=True)
+    checks.record(counts == expected and counts["conv3x3_packed_halo"] > 0,
+                  dict(phase="mesh_path_launches", launches=counts, expected=expected))
+
+    timing = {}
+    flat = make_predict_fn(probe)
+    probe.load_state_dict(sd)
+    for whole in (True, False):
+        key = f"unsharded_{'whole' if whole else 'patch'}"
+        timing[key] = timed_volumes(torch, predict_volume, flat, vol, whole)
+    for label, whole, fn, mesh in cases:
+        key = f"mesh_{label}_{'whole' if whole else 'patch'}"
+        timing[key] = timed_volumes(torch, predict_volume, fn, vol, whole, mesh)
+    for key, t in timing.items():
+        print(f"ms/volume {key} (bf16): {t['ms_per_volume_median']:.3f} (runs "
+              f"{', '.join(f'{x:.3f}' for x in t['ms_all'])}); peak "
+              f"{t['peak_mib']:.0f} MiB allocated", flush=True)
+
+    if torch.cuda.device_count() >= 2:
+        mesh_case(torch, K, checks, pkg, ["cuda:0", "cuda:1"], (1, 2), True, vol, sd,
+                  "1x2_two_cards")
+        print(json.dumps({"phase": "mesh_multi_card", "ran": True,
+                          "devices": torch.cuda.device_count()}), flush=True)
+    else:
+        print(json.dumps({"phase": "mesh_multi_card", "ran": False,
+                          "devices": torch.cuda.device_count()}), flush=True)
+    return counts, timing
+
+
+def phase_mesh_block_backward(torch, K, checks, PackedTwoConv, mesh_pkg):
+    """A full-width PackedTwoConv (24 → 32 → 32, B 2 × 64³, f32) forward +
+    backward on mesh (1, 2) against the same block unsharded: dx and every
+    parameter gradient, for a non-uniform upstream gradient (the boundary
+    taps matter), under the bound of ``train_f32_grad_check``."""
+    make_mesh, shard_batch, gather_batch = mesh_pkg
+    torch.manual_seed(SEED)
+    block = PackedTwoConv(24, 32, dropout=0.0, compute_dtype=torch.float32).to("cuda")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    x = torch.randn((2,) + (TRAIN_PATCH,) * 3 + (24,), device="cuda", generator=g)
+    up = torch.rand((2, TRAIN_PATCH, 32, TRAIN_PATCH ** 2), device="cuda", generator=g)
+    mesh = make_mesh(["cuda:0"], ("data", "space"), (1, 2))
+
+    def grads(sharded):
+        xi = x.clone().requires_grad_(True)
+        block.zero_grad(set_to_none=True)
+        if sharded:
+            y = gather_batch(block.forward_packed(shard_batch(mesh, xi)))
+        else:
+            y = block.forward_packed(xi)
+        (y * up).sum().backward()
+        out = {n: p.grad.detach().clone() for n, p in block.named_parameters()}
+        out["dx"] = xi.grad.detach().clone()
+        return out
+
+    ref = grads(False)
+    K.reset_launches()
+    got = grads(True)
+    torch.cuda.synchronize()
+    counts = K.launches()
+    scale = max(float(v.abs().max()) for v in ref.values())
+    rows = []
+    for name, r in ref.items():
+        if name.endswith(".conv.bias"):  # true gradient 0: against the largest
+            rows.append((name, float((got[name] - r).abs().max()) / scale, 1e-4))
+        else:
+            rows.append((name, rel_l2(got[name], r), 5e-2))
+    bad = [r for r in rows if not r[1] <= r[2]]
+    worst = max((r for r in rows if r[2] == 5e-2), key=lambda r: r[1])
+    print(f"sharded block backward (1, 2): launches {json.dumps(counts)}; worst "
+          f"sharded-vs-unsharded rel L2 {worst[1]:.2e} at {worst[0]}; failures {bad}",
+          flush=True)
+    checks.record(not bad and counts == BLOCK_BACKWARD_LAUNCHES,
+                  dict(phase="mesh_block_backward", launches=counts,
+                       expected=BLOCK_BACKWARD_LAUNCHES, distances=rows, failures=bad))
+    return counts
+
+
 KERNEL_META = {
     "conv3x3_packed": ("cuda", "unet_bssfp_tpu_torch/csrc/conv3x3_packed.cu",
                        "unet_bssfp_tpu/ops/pallas/conv3d.py:388"),
@@ -838,11 +1078,24 @@ KERNEL_META = {
                       "unet_bssfp_tpu/ops/pallas/conv3d.py:507"),
     "scalar_maps": ("cuda", "unet_bssfp_tpu_torch/csrc/scalar_maps.cu",
                     "unet_bssfp_tpu/ops/pallas/scalar_maps_kernel.py:112"),
+    # K5: the TPU kernel of K1 with pad_d=False (conv3x3_packed_halo, :595),
+    # again on the padded dy in its VJP (:619), and the dw kernel with
+    # pad_d=False (:624)
+    "conv3x3_packed_halo": ("cuda", "unet_bssfp_tpu_torch/csrc/conv3x3_packed.cu",
+                            "unet_bssfp_tpu/ops/pallas/conv3d.py:388"),
+    "conv3x3_packed_halo_dgrad": ("cuda", "unet_bssfp_tpu_torch/csrc/conv3x3_packed.cu",
+                                  "unet_bssfp_tpu/ops/pallas/conv3d.py:388"),
+    "conv3x3_wgrad_halo": ("cuda", "unet_bssfp_tpu_torch/csrc/conv3x3_wgrad.cu",
+                           "unet_bssfp_tpu/ops/pallas/conv3d.py:507"),
 }
 # The row of each kernel in the summary line: its heaviest shape (output
 # channels, dtype) on the patch-stitched serving path, the training step or
-# the eval chain.
+# the eval chain; the halo kernels at a shard of the patch batch on a mesh
+# with a two-way space split.
 SUMMARY_SHAPE = {
+    "conv3x3_packed_halo": ([8, 34, 96, 4096], 32, "bfloat16"),
+    "conv3x3_packed_halo_dgrad": ([8, 32, 32, 4096], 96, "bfloat16"),
+    "conv3x3_wgrad_halo": ([8, 34, 96, 4096], 32, "bfloat16"),
     "conv3x3_packed": ([8, 64, 96, 4096], 32, "bfloat16"),
     "pack_hw": ([8, 64, 64, 64, 64], None, "bfloat16"),
     "unpack_hw": ([8, 64, 6, 4096], None, "bfloat16"),
@@ -856,8 +1109,8 @@ SUMMARY_SHAPE = {
 def summary(rows, by_path):
     """``by_path``: each main path's launch counts, read from its own run
     with the counters reset just before it (the serving run, one training
-    step, the eval chain). ``launches`` is their sum; ``launches_by_path``
-    keeps them apart."""
+    step, the eval chain, the mesh serving run, the sharded block backward).
+    ``launches`` is their sum; ``launches_by_path`` keeps them apart."""
     out = []
     for name, (route, source, replaces) in KERNEL_META.items():
         shape, cout, dtype = SUMMARY_SHAPE[name]
@@ -890,6 +1143,7 @@ def main() -> int:
     from unet_bssfp_tpu_torch.data.synthetic import make_synthetic_bids
     from unet_bssfp_tpu_torch.eval import evaluate
     from unet_bssfp_tpu_torch.eval.inference import predict_volume
+    from unet_bssfp_tpu_torch.models.packed_layers import PackedTwoConv
     from unet_bssfp_tpu_torch.ops import kernels as K
     from unet_bssfp_tpu_torch.ops import losses
     from unet_bssfp_tpu_torch.ops import scalar_maps_check as chk
@@ -900,6 +1154,7 @@ def main() -> int:
         invert_dwi_tensor_norm,
         load_rescale_args,
     )
+    from unet_bssfp_tpu_torch.parallel.mesh import gather_batch, make_mesh, shard_batch
     from unet_bssfp_tpu_torch.predict import main as predict_main
     from unet_bssfp_tpu_torch.train.state import build_models, create_gan_state
     from unet_bssfp_tpu_torch.train.steps import make_predict_fn, make_train_step
@@ -924,11 +1179,19 @@ def main() -> int:
         (Config, build_models, make_predict_fn, weights, predict_volume))
     print(f"serving path done at {time.perf_counter() - t_start:.1f}s", flush=True)
     phase_train_kernels(torch, K, checks)
-    print(f"training kernel checks done at {time.perf_counter() - t_start:.1f}s", flush=True)
+    phase_halo_kernels(torch, F, K, checks)
+    print(f"training and halo kernel checks done at {time.perf_counter() - t_start:.1f}s",
+          flush=True)
     train_counts, train_timing = phase_train(
         torch, K, checks, (Config, create_gan_state, make_train_step))
     phase_train_grad_check(torch, checks, (Config, build_models, weights, losses))
     print(f"training path done at {time.perf_counter() - t_start:.1f}s", flush=True)
+    mesh_counts, mesh_timing = phase_mesh_serving(
+        torch, K, checks,
+        (Config, build_models, make_predict_fn, predict_volume, make_mesh), weights)
+    block_counts = phase_mesh_block_backward(
+        torch, K, checks, PackedTwoConv, (make_mesh, shard_batch, gather_batch))
+    print(f"mesh path done at {time.perf_counter() - t_start:.1f}s", flush=True)
     phase_scalar_maps(torch, K, chk, checks, ScalarMaps._fields)
     eval_counts, eval_timing = phase_eval(
         torch, K, checks,
@@ -938,12 +1201,19 @@ def main() -> int:
     elapsed = time.perf_counter() - t_start
 
     kernels = summary(checks.rows, {"serving": counts, "train_step": train_counts,
-                                    "eval": eval_counts})
+                                    "eval": eval_counts, "mesh_serving": mesh_counts,
+                                    "mesh_block_backward": block_counts})
+    unlaunched = [k["name"] for k in kernels if k["launches"] == 0]
+    checks.record(not unlaunched, dict(phase="every_kernel_launched_on_a_path",
+                                       unlaunched=unlaunched))
     os.makedirs("perf_out", exist_ok=True)
     with open(os.path.join("perf_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__, "build": build,
                    "checks": checks.rows, "main_path_launches": counts,
                    "train_step_launches": train_counts, "eval_launches": eval_counts,
+                   "mesh_serving_launches": mesh_counts,
+                   "mesh_block_backward_launches": block_counts,
+                   "mesh_timing": mesh_timing,
                    "timing": timing, "train_timing": train_timing,
                    "eval_timing": eval_timing, "kernels": kernels,
                    "elapsed_s": elapsed}, f, indent=1)

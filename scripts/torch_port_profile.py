@@ -2,17 +2,21 @@
 """Where the time of the port's serving path or training step goes, on one
 CUDA device.
 
-  python scripts/torch_port_profile.py [--whole-volume] [--use-pallas]
+  python scripts/torch_port_profile.py [--whole-volume] [--use-pallas] [--mesh 1,2 [--devices cuda:0,cuda:1]]
   python scripts/torch_port_profile.py --train [--use-pallas]
 
 Serving: one (96, 128, 128, 24) pc-bSSFP volume with the full-width
 generator (bf16, packed, seeded random weights). ``--train``: full-width GAN
 training steps of the default config (bf16, packed, batch 8 × 64³) from
-``create_gan_state``. Runs ``--reps`` of them under ``torch.profiler`` after
-three warm-ups and prints the device time per volume or step, by kernel name
+``create_gan_state``. ``--mesh DATA,SPACE`` serves through a (data, space)
+mesh (the halo exchange, K5 and the norms' moments summed over ``space``)
+whose positions all lie on ``cuda:0``, or go to ``--devices cuda:0,cuda:1``
+in turn. Times ``--reps`` of them on the host's clock after three warm-ups,
+then runs ``--reps`` more under ``torch.profiler`` and prints the unprofiled
+time and the device time per volume or step, by kernel name
 and grouped by layer (the port's kernels, cuDNN, ATen's elementwise,
 reduction and copy kernels, the optimizer), plus the device's busy share of
-the profiled window. Writes the tables to
+the profiled window and the number of kernels launched. Writes the tables to
 ``perf_out/torch_port_profile_<mode>.json``.
 """
 
@@ -22,6 +26,7 @@ import argparse
 import dataclasses
 import json
 import os
+import statistics
 import sys
 import time
 from pathlib import Path
@@ -32,7 +37,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 K4_NAMES = {"_partial_sum", "_partial_m2", "_apply", "_single"}
 # (group, substrings of the kernel name), first match wins.
 GROUPS = (
-    ("K1 conv3x3_packed (fwd + dgrad)", ("conv3x3_packed_",)),
+    ("K1/K5 conv3x3_packed (fwd + dgrad, SAME and halo)", ("conv3x3_packed_",)),
     ("K2 conv3x3_wgrad", ("conv3x3_wgrad_",)),
     ("K3 transposes", ("transpose_kernel",)),
     ("cuDNN/cuBLAS convs and GEMMs", ("xmma", "cudnn", "nvjet", "gemm", "cutlass",
@@ -60,8 +65,15 @@ def main() -> int:
     parser.add_argument("--use-pallas", action="store_true")
     parser.add_argument("--train", action="store_true",
                         help="profile training steps instead of serving")
+    parser.add_argument("--mesh", default=None, metavar="DATA,SPACE",
+                        help="serve through a mesh over --devices")
+    parser.add_argument("--devices", default="cuda:0",
+                        help="the mesh's devices, taken in turn (default: every "
+                             "position on cuda:0; cuda:0,cuda:1 for two cards)")
     parser.add_argument("--reps", type=int, default=5)
     args = parser.parse_args()
+    if args.mesh and (args.train or args.use_pallas):
+        parser.error("--mesh profiles serving without --use-pallas")
 
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -72,6 +84,7 @@ def main() -> int:
     from unet_bssfp_tpu_torch import weights
     from unet_bssfp_tpu_torch.config import Config
     from unet_bssfp_tpu_torch.eval.inference import predict_volume
+    from unet_bssfp_tpu_torch.parallel.mesh import make_mesh
     from unet_bssfp_tpu_torch.train.state import build_models, create_gan_state
     from unet_bssfp_tpu_torch.train.steps import make_predict_fn, make_train_step
 
@@ -88,24 +101,40 @@ def main() -> int:
         def run():
             step(state, x, y)
     else:
+        mesh = None
+        if args.mesh:
+            mesh = make_mesh(args.devices.split(","), ("data", "space"),
+                             tuple(int(p) for p in args.mesh.split(",")))
         gen, _ = build_models("pc-bssfp", mcfg, "cuda")
-        gen.load_state_dict(weights.random_state_dict(gen, 0))
-        fn = make_predict_fn(gen)
+        sd = weights.random_state_dict(gen, 0)
+        gen, _ = build_models("pc-bssfp", mcfg, "cuda:0", state_dict=sd, mesh=mesh)
+        fn = make_predict_fn(gen, mesh)
         vol = torch.randn(tuple(cfg.data.volume_shape) + (24,), generator=g).cuda()
 
         def run():
             predict_volume(fn, vol, patch_size=cfg.data.patch_size,
-                           whole_volume=args.whole_volume)
+                           whole_volume=args.whole_volume, mesh=mesh)
+
+    def sync():
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
 
     for _ in range(3):
         run()
-    torch.cuda.synchronize()
+    sync()
+    clean = []
+    for _ in range(args.reps):
+        t0 = time.perf_counter()
+        run()
+        sync()
+        clean.append((time.perf_counter() - t0) * 1e3)
+    clean_ms = statistics.median(clean)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  acc_events=True) as prof:
         t0 = time.perf_counter()
         for _ in range(args.reps):
             run()
-        torch.cuda.synchronize()
+        sync()
         wall_ms = (time.perf_counter() - t0) * 1e3 / args.reps
 
     rows = []
@@ -123,10 +152,17 @@ def main() -> int:
     for r in rows:
         groups[r["group"]] = groups.get(r["group"], 0.0) + r["ms_per_rep"]
     mode = "train" if args.train else ("whole" if args.whole_volume else "patch")
+    if args.mesh:
+        mode += "_mesh" + args.mesh.replace(",", "x")
+        if args.devices != "cuda:0":
+            mode += f"_{len(args.devices.split(','))}cards"
     unit = "step" if args.train else "volume"
+    launched = sum(r["calls_per_rep"] for r in rows)
     print(f"{torch.cuda.get_device_name(0)}; mode {mode}, use_pallas "
-          f"{args.use_pallas}: wall {wall_ms:.3f} ms/{unit}, device busy "
-          f"{busy:.3f} ms/{unit} ({100 * busy / wall_ms:.1f} %)")
+          f"{args.use_pallas}: {clean_ms:.3f} ms/{unit} unprofiled (median of "
+          f"{args.reps}); profiled: wall {wall_ms:.3f} ms/{unit}, device busy "
+          f"{busy:.3f} ms/{unit} ({100 * busy / wall_ms:.1f} %; summed over the "
+          f"cards where the mesh has several), {launched:.0f} kernels launched per {unit}")
     for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"{ms:9.4f} ms  {group}")
     for r in rows[:25]:
@@ -135,7 +171,9 @@ def main() -> int:
     out = Path("perf_out") / f"torch_port_profile_{mode}{'_pallas' if args.use_pallas else ''}.json"
     out.write_text(json.dumps({"device": torch.cuda.get_device_name(0), "mode": mode,
                                "use_pallas": args.use_pallas, "unit": unit,
-                               "wall_ms": wall_ms, "busy_ms": busy, "groups": groups,
+                               "unprofiled_ms": clean_ms, "unprofiled_ms_all": clean,
+                               "wall_ms": wall_ms, "busy_ms": busy,
+                               "kernels_launched": launched, "groups": groups,
                                "kernels": rows}, indent=1))
     return 0
 

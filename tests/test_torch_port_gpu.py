@@ -329,3 +329,136 @@ def test_gpu_eval_chain_matches_cpu(cuda, tmp_path):
             res = chk.compare_scalar_maps(maps["cuda"], maps["cpu"], d6)
             assert res["ok"], (base, res)
     assert chk.compare_error_tables(tables["cuda"], tables["cpu"]) == []
+
+
+# K5: the conv on an input with a real d halo, its dgrad and its wgrad, at
+# odd shapes: Cin 3/24/96, Cout 4/32, one or two local d slices, a W that is
+# no multiple of the kernel's 32-column tile. The halo slices are random, so
+# an off-by-one between the D + 2 input slices and the D output slices shows.
+HALO_SHAPES = [(2, 1, 6, 48, 3, 4), (1, 2, 9, 35, 24, 32), (2, 2, 8, 40, 96, 4),
+               (2, 8, 32, 32, 24, 32)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,d,h,w,cin,cout", HALO_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_halo_conv_autograd_matches_plain(cuda, b, d, h, w, cin, cout, dtype):
+    g = torch.Generator(device="cuda").manual_seed(cin * cout + d)
+    x0 = torch.randn(b, d + 2, cin, h * w, device=cuda, generator=g).to(dtype)
+    w0 = torch.randn(3, 3, 3, cin, cout, device=cuda, generator=g) / (27 * cin) ** 0.5
+    b0 = torch.randn(cout, device=cuda, generator=g)
+    dy = torch.randn(b, d, cout, h * w, device=cuda, generator=g).to(dtype)
+
+    def run(fn):
+        x, wt, bias = (t.clone().requires_grad_(True) for t in (x0, w0, b0))
+        y = fn(x, wt, bias, w)
+        y.backward(dy)
+        return y.detach(), x.grad, wt.grad, bias.grad
+
+    K.reset_launches()
+    y, dx, dw, db = run(K.conv3x3_packed_halo)
+    assert (K.conv3x3_packed_halo.launches, K.conv3x3_packed_halo_dgrad.launches,
+            K.conv3x3_wgrad_halo.launches, K.conv3x3_packed.launches) == (1, 1, 1, 0)
+    ry, rdx, rdw, rdb = run(K.conv3x3_packed_halo_plain)
+    assert y.shape == (b, d, cout, h * w) and dx.shape == x0.shape
+    assert dx.dtype == dtype and dw.dtype == db.dtype == torch.float32
+    # the tolerances of K1 and of its autograd test above
+    tol = (dict(rtol=1e-5, atol=1e-4) if dtype == torch.float32
+           else dict(rtol=2 ** -7, atol=1e-2))
+    torch.testing.assert_close(y.float(), ry.float(), **tol)
+    rtol = 1e-4 if dtype == torch.float32 else 2 ** -7
+    _close(dx, rdx, rtol, 1e-4)
+    _close(dw, rdw, rtol, 1e-4)
+    _close(db, rdb, 1e-5, 1e-5)
+    # the gradient kernels alone against their own plain versions
+    _close(K.conv3x3_packed_halo_dgrad(dy, w0, w),
+           K.conv3x3_packed_halo_dgrad_plain(dy, w0, w), rtol, 1e-4)
+    chain = K.conv3x3_wgrad_chain(x0, dy, w)
+    got = K.conv3x3_wgrad_halo(x0, dy, w)
+    _close(got, K.conv3x3_wgrad_halo_plain(x0, dy, w), 0.0,
+           16 * math.sqrt(chain) * 2 ** -24)
+    assert torch.equal(got, K.conv3x3_wgrad_halo(x0, dy, w))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_halo_conv_of_zero_halo_is_k1(cuda, dtype):
+    """Zero halo slices add only zero products in K1's order: bit-equal."""
+    xk = torch.randn(2, 5, 24, 16 * 32, device=cuda).to(dtype)
+    wt = torch.randn(3, 3, 3, 24, 32, device=cuda) * 0.1
+    bias = torch.randn(32, device=cuda)
+    zero = torch.zeros_like(xk[:, :1])
+    got = K.conv3x3_packed_halo(torch.cat([zero, xk, zero], 1), wt, bias, 32)
+    assert torch.equal(got, K.conv3x3_packed(xk, wt, bias, 32))
+
+
+@pytest.mark.gpu
+def test_gpu_halo_conv_raises_instead_of_falling_back(cuda):
+    xp = torch.randn(1, 4, 3, 128, device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        K.conv3x3_packed_halo(xp, torch.randn(3, 3, 3, 3, 4, device=cuda),
+                              torch.zeros(4, device=cuda), 32)
+    with pytest.raises(ValueError):  # nothing but halo
+        K.conv3x3_packed_halo(torch.randn(1, 2, 3, 128, device=cuda),
+                              torch.randn(3, 3, 3, 3, 4, device=cuda),
+                              torch.zeros(4, device=cuda), 32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,whole", [((1, 2), True), ((2, 2), False), ((1, 1), True)])
+def test_gpu_mesh_serving_small_matches_unsharded(cuda, shape, whole):
+    """A narrow generator serves a (32, 32, 32) volume on a mesh whose
+    positions all lie on cuda:0: the f32 output within 1e-5·max|ref| of the
+    unsharded one (only the norms' summation order differs), through K5
+    exactly where the mesh has a space split."""
+    import dataclasses
+
+    from unet_bssfp_tpu_torch import weights
+    from unet_bssfp_tpu_torch.config import Config
+    from unet_bssfp_tpu_torch.eval.inference import predict_volume
+    from unet_bssfp_tpu_torch.parallel.mesh import make_mesh
+    from unet_bssfp_tpu_torch.train.state import build_models
+    from unet_bssfp_tpu_torch.train.steps import make_predict_fn
+
+    mcfg = dataclasses.replace(Config().model, features=(8, 16, 16, 32, 32, 8),
+                               compute_dtype="float32", packed=True)
+    gen, _ = build_models("pc-bssfp", mcfg, "cuda")
+    sd = weights.random_state_dict(gen, 0)
+    gen.load_state_dict(sd)
+    vol = torch.randn(32, 32, 32, 24, generator=torch.Generator().manual_seed(1)).to(cuda)
+    kw = dict(patch_size=16 * shape[1], batch_size=8, whole_volume=whole)
+    ref = predict_volume(make_predict_fn(gen), vol, **kw)
+    mesh = make_mesh(["cuda:0"], ("data", "space"), shape)
+    gen_m, _ = build_models("pc-bssfp", mcfg, state_dict=sd, mesh=mesh)
+    K.reset_launches()
+    got = predict_volume(make_predict_fn(gen_m, mesh), vol, mesh=mesh, **kw)
+    counts = K.launches()
+    assert (counts["conv3x3_packed_halo"] > 0) == (shape[1] > 1)
+    assert (counts["conv3x3_packed"] > 0) == (shape[1] == 1)
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+@pytest.mark.gpu
+def test_gpu_mesh_replicas_on_two_cards(cuda):
+    """With two cards: one replica per card, bit-equal weights, and the
+    (1, 2) mesh over both serves what one card serves."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    import dataclasses
+
+    from unet_bssfp_tpu_torch.config import Config
+    from unet_bssfp_tpu_torch.parallel.mesh import make_mesh, replicas
+    from unet_bssfp_tpu_torch.train.state import build_models
+    from unet_bssfp_tpu_torch.train.steps import make_predict_fn
+
+    mcfg = dataclasses.replace(Config().model, features=(8, 16, 16, 32, 32, 8),
+                               compute_dtype="float32", packed=True)
+    mesh = make_mesh(["cuda:0", "cuda:1"], ("data", "space"), (1, 2))
+    gen, _ = build_models("pc-bssfp", mcfg, mesh=mesh)
+    a, b = replicas(gen)
+    assert all(torch.equal(p.cpu(), q.cpu()) for p, q in
+               zip(a.state_dict().values(), b.state_dict().values()))
+    x = torch.randn(1, 32, 32, 32, 24, device=cuda)
+    ref = make_predict_fn(gen)(x)
+    got = make_predict_fn(gen, mesh)(x)
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())

@@ -100,6 +100,10 @@ class TrainConfig:
     log_dir: str = "logs"
     seed: int = 42
     finetune_lr: float = 1e-5
+    # Axes of the mesh a caller builds with ``parallel.mesh.make_mesh``:
+    # ("data",) or ("data", "space"). Serving takes a mesh today
+    # (``make_predict_fn(gen, mesh)``, ``predict --mesh``); the train step
+    # does not yet.
     mesh_axes: Tuple[str, ...] = ("data",)
     wandb_project: Optional[str] = None
     with_perceptual: Optional[bool] = None

@@ -13,6 +13,19 @@
 // with out-of-range neighbours read as zero (SAME padding is bounds masks,
 // no padded copy in memory, no channel padding in memory).
 //
+// The d geometry is a launch parameter (Din input slices, Dout output
+// slices, shift): output slice d reads input slices d + kd - 1 + shift, and
+// one that falls outside [0, Din) reads as zero. That makes one kernel of
+//   - the SAME conv:            Din = Dout = D,       shift =  0;
+//   - the conv on an input that carries a real one-slice d halo per side
+//     (conv3d.py:conv3x3_packed_halo, pad_d=False; the d-sharded path):
+//                               Din = D + 2, Dout = D, shift = +1, so every
+//     slice is in range and none is skipped;
+//   - that conv's input gradient, D + 2 slices from D slices of dy with the
+//     flipped, transposed weight:  Din = D, Dout = D + 2, shift = -1. The TPU
+//     version pads dy by two slices per side in memory (a full copy); here
+//     the out-of-range slices are bounds, as the SAME pad is.
+//
 // What bounds it on an H100: at the generator's stage shapes (Cin 24..96,
 // Cout 32) the conv does 2*27*Cin*Cout FLOPs per output voxel against
 // (Cin + Cout) * itemsize bytes, i.e. 370-650 FLOP/B in bf16: above the
@@ -20,7 +33,7 @@
 //
 // Both kernels walk the same loop: one block owns an 8 x 32 (h, w) tile of
 // one (b, d) output slice and 32 output channels; it walks kd (a slice whose
-// input d lies in the zero pad is skipped) and Cin in chunks of 16, staging
+// input d lies outside [0, Din) is skipped) and Cin in chunks of 16, staging
 // the input tile with its 1-voxel (h, w) halo and the chunk's 9 x 16 x 32
 // weights in shared memory, so the 166 KB bf16 weight of the Cin-96 conv
 // never has to sit in shared memory whole.
@@ -58,15 +71,17 @@ constexpr int F32_THREADS = TW * (CO_T / CO_PER);  // 128
 __global__ void __launch_bounds__(F32_THREADS)
 conv3x3_packed_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
                           const float* __restrict__ bias, float* __restrict__ y,
-                          int D, int Cin, int Cout, int H, int W) {
+                          int Din, int Dout, int shift, int Cin, int Cout, int H,
+                          int W) {
   __shared__ float xs[CK][TH + 2][TW + 2];
   __shared__ __align__(16) float ws[9][CK][CO_T];
 
   const int tiles_w = (W + TW - 1) / TW;
   const int h0 = (blockIdx.x / tiles_w) * TH;
   const int w0 = (blockIdx.x % tiles_w) * TW;
-  const long long bd = blockIdx.y;  // b * D + d
-  const int d = static_cast<int>(bd % D);
+  const long long bd = blockIdx.y;  // b * Dout + d
+  const int d = static_cast<int>(bd % Dout);
+  const long long bin = (bd / Dout) * Din;  // the batch's first input slice
   const int co0 = blockIdx.z * CO_T;
   const int tx = threadIdx.x % TW;
   const int cg = threadIdx.x / TW;  // == warp index
@@ -82,9 +97,9 @@ conv3x3_packed_f32_kernel(const float* __restrict__ x, const float* __restrict__
   }
 
   for (int kd = 0; kd < 3; ++kd) {
-    const int di = d + kd - 1;
-    if (di < 0 || di >= D) continue;  // uniform over the block
-    const float* xsl = x + (bd + (kd - 1)) * Cin * HW;
+    const int di = d + kd - 1 + shift;
+    if (di < 0 || di >= Din) continue;  // uniform over the block
+    const float* xsl = x + (bin + di) * Cin * HW;
     for (int c0 = 0; c0 < Cin; c0 += CK) {
       __syncthreads();
       for (int i = threadIdx.x; i < CK * (TH + 2) * (TW + 2); i += F32_THREADS) {
@@ -171,7 +186,8 @@ __device__ __forceinline__ uint32_t lds32(const uint16_t* p) {
 __global__ void __launch_bounds__(BF_THREADS)
 conv3x3_packed_bf16_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ w,
                            const float* __restrict__ bias, __nv_bfloat16* __restrict__ y,
-                           int D, int Cin, int Cout, int H, int W) {
+                           int Din, int Dout, int shift, int Cin, int Cout, int H,
+                           int W) {
   // xs: [row][col][ci], ws: [tap][co][ci]; ci runs padded to CPAD.
   __shared__ __align__(16) uint16_t xs[XROWS * XCOLS * CPAD];
   __shared__ __align__(16) uint16_t ws[9 * CO_T * CPAD];
@@ -179,8 +195,9 @@ conv3x3_packed_bf16_kernel(const uint16_t* __restrict__ x, const uint16_t* __res
   const int tiles_w = (W + TW - 1) / TW;
   const int h0 = (blockIdx.x / tiles_w) * TH;
   const int w0 = (blockIdx.x % tiles_w) * TW;
-  const long long bd = blockIdx.y;
-  const int d = static_cast<int>(bd % D);
+  const long long bd = blockIdx.y;  // b * Dout + d
+  const int d = static_cast<int>(bd % Dout);
+  const long long bin = (bd / Dout) * Din;  // the batch's first input slice
   const int co0 = blockIdx.z * CO_T;
   const int warp = threadIdx.x / 32;  // output h row within the tile
   const int lane = threadIdx.x % 32;
@@ -196,9 +213,9 @@ conv3x3_packed_bf16_kernel(const uint16_t* __restrict__ x, const uint16_t* __res
       for (int k = 0; k < 4; ++k) acc[mt][nt][k] = 0.f;
 
   for (int kd = 0; kd < 3; ++kd) {
-    const int di = d + kd - 1;
-    if (di < 0 || di >= D) continue;  // uniform over the block
-    const uint16_t* xsl = x + (bd + (kd - 1)) * Cin * HW;
+    const int di = d + kd - 1 + shift;
+    if (di < 0 || di >= Din) continue;  // uniform over the block
+    const uint16_t* xsl = x + (bin + di) * Cin * HW;
     for (int c0 = 0; c0 < Cin; c0 += CK) {
       __syncthreads();
       for (int i = threadIdx.x; i < CK * XROWS * XCOLS; i += BF_THREADS) {
@@ -271,35 +288,37 @@ conv3x3_packed_bf16_kernel(const uint16_t* __restrict__ x, const uint16_t* __res
   }
 }
 
-dim3 grid_for(int B, int D, int Cout, int H, int W) {
+dim3 grid_for(int B, int Dout, int Cout, int H, int W) {
   const int tiles = ((H + TH - 1) / TH) * ((W + TW - 1) / TW);
-  return dim3(tiles, B * D, (Cout + CO_T - 1) / CO_T);
+  return dim3(tiles, B * Dout, (Cout + CO_T - 1) / CO_T);
 }
 
 }  // namespace
 
 extern "C" {
 
-// x, y: (B, D, C, H*W) contiguous; w: (3, 3, 3, Cin, Cout) contiguous in
-// the activation dtype; bias: (Cout,) f32. Returns the launch's cudaError_t.
+// x: (B, Din, Cin, H*W), y: (B, Dout, Cout, H*W) contiguous; w: (3, 3, 3,
+// Cin, Cout) contiguous in the activation dtype; bias: (Cout,) f32; shift as
+// in the header. Returns the launch's cudaError_t.
 int conv3x3_packed_f32(const void* x, const void* w, const void* bias, void* y,
-                       int B, int D, int Cin, int Cout, int H, int W,
-                       void* stream) {
-  conv3x3_packed_f32_kernel<<<grid_for(B, D, Cout, H, W), F32_THREADS, 0,
+                       int B, int Din, int Dout, int shift, int Cin, int Cout,
+                       int H, int W, void* stream) {
+  conv3x3_packed_f32_kernel<<<grid_for(B, Dout, Cout, H, W), F32_THREADS, 0,
                               static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(w),
-      static_cast<const float*>(bias), static_cast<float*>(y), D, Cin, Cout, H, W);
+      static_cast<const float*>(bias), static_cast<float*>(y), Din, Dout, shift,
+      Cin, Cout, H, W);
   return static_cast<int>(cudaGetLastError());
 }
 
 int conv3x3_packed_bf16(const void* x, const void* w, const void* bias, void* y,
-                        int B, int D, int Cin, int Cout, int H, int W,
-                        void* stream) {
-  conv3x3_packed_bf16_kernel<<<grid_for(B, D, Cout, H, W), BF_THREADS, 0,
+                        int B, int Din, int Dout, int shift, int Cin, int Cout,
+                        int H, int W, void* stream) {
+  conv3x3_packed_bf16_kernel<<<grid_for(B, Dout, Cout, H, W), BF_THREADS, 0,
                                static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint16_t*>(x), static_cast<const uint16_t*>(w),
-      static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(y), D, Cin, Cout,
-      H, W);
+      static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(y), Din, Dout,
+      shift, Cin, Cout, H, W);
   return static_cast<int>(cudaGetLastError());
 }
 

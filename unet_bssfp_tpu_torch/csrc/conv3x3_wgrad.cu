@@ -7,6 +7,16 @@
 // f32 (3, 3, 3, Cin, Cout). Out-of-range x neighbours read as zero (SAME
 // padding as bounds masks).
 //
+// The d geometry is a template parameter HALO of both kernels. The SAME conv
+// (HALO false) has x and dy of D slices each, and skips a kd whose x slice
+// d + kd - 1 lies in the pad. The conv on an input with a real one-slice d
+// halo per side (_dw_impl(pad_d=False), the d-sharded path; HALO true) has x
+// of D + 2 slices: the product is x[d + kd] * dy[d] and nothing is skipped.
+// D is dy's in both, and the split plan and the summation chain are sized
+// from dy's (b, D, tiles). (A launch parameter instead, as conv3x3_packed.cu
+// has it, changed the SAME kernel's code: measured on an H100, bf16 8 x 64^3,
+// 96 -> 32 went from 7.01 to 8.69 ms and 24 -> 32 from 2.55 to 2.26 ms.)
+//
 // Replaces unet_bssfp_tpu/ops/pallas/conv3d.py:_dw_impl (kernel bodies
 // _dw_kernel / _dw_kernel_kstack). The TPU kernel keeps ONE accumulator for
 // the whole grid and carries it across the grid's sequential steps. Hopper
@@ -82,12 +92,22 @@ __device__ __forceinline__ uint32_t lds32(const uint16_t* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
+// The x slice that meets dy's slice bd = b*D + d at tap kd: without a halo x
+// has D slices per batch and the slice is d + kd - 1; with one it has D + 2
+// and the slice is d + kd.
+template <bool HALO>
+__device__ __forceinline__ long long x_slice(long long bd, int d, int kd, int D) {
+  if (HALO) return (bd - d) / D * (D + 2) + d + kd;
+  return bd + (kd - 1);
+}
+
 // ------------------------------------------------------- bf16, tensor cores
 constexpr int TILE_BF = TH_BF * TW;
 constexpr int XROWS_BF = TH_BF + 2;
 constexpr int XSTRIDE = 392;  // halfs per staged channel: 340 used; 196 words = 4 mod 32
 constexpr int DSTRIDE = 264;  // halfs per staged dy row: 256 used; 132 words = 4 mod 32
 
+template <bool HALO>
 __global__ void __launch_bounds__(THREADS)
 conv3x3_wgrad_bf16_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ dy,
                           float* __restrict__ part, int D, int Cin, int Cout, int H, int W,
@@ -123,9 +143,9 @@ conv3x3_wgrad_bf16_kernel(const uint16_t* __restrict__ x, const uint16_t* __rest
     const long long bd = it / tiles;
     const int t = static_cast<int>(it % tiles);
     const int d = static_cast<int>(bd % D);
-    if (d + kd - 1 < 0 || d + kd - 1 >= D) continue;  // uniform over the block
+    if (!HALO && (d + kd - 1 < 0 || d + kd - 1 >= D)) continue;  // uniform over the block
     const int h0 = (t / tiles_w) * TH_BF, w0 = (t % tiles_w) * TW;
-    const uint16_t* xsl = x + (bd + (kd - 1)) * Cin * HW;
+    const uint16_t* xsl = x + x_slice<HALO>(bd, d, kd, D) * Cin * HW;
     const uint16_t* dsl = dy + bd * Cout * HW;
     __syncthreads();
     for (int i = threadIdx.x; i < CI_T * XROWS_BF * XCOLS; i += THREADS) {
@@ -190,6 +210,7 @@ constexpr int XROWS_F = TH_F32 + 2;
 constexpr int XSTRIDE_F = 206;  // floats per staged channel: 204 used; 4*206 = 24 mod 32
 constexpr int DSTRIDE_F = 36;   // floats per staged pixel: 32 co used, float4-aligned
 
+template <bool HALO>
 __global__ void __launch_bounds__(THREADS)
 conv3x3_wgrad_f32_kernel(const float* __restrict__ x, const float* __restrict__ dy,
                          float* __restrict__ part, int D, int Cin, int Cout, int H, int W,
@@ -219,9 +240,9 @@ conv3x3_wgrad_f32_kernel(const float* __restrict__ x, const float* __restrict__ 
     const long long bd = it / tiles;
     const int t = static_cast<int>(it % tiles);
     const int d = static_cast<int>(bd % D);
-    if (d + kd - 1 < 0 || d + kd - 1 >= D) continue;  // uniform over the block
+    if (!HALO && (d + kd - 1 < 0 || d + kd - 1 >= D)) continue;  // uniform over the block
     const int h0 = (t / tiles_w) * TH_F32, w0 = (t % tiles_w) * TW;
-    const float* xsl = x + (bd + (kd - 1)) * Cin * HW;
+    const float* xsl = x + x_slice<HALO>(bd, d, kd, D) * Cin * HW;
     const float* dsl = dy + bd * Cout * HW;
     __syncthreads();
     for (int i = threadIdx.x; i < CI_T * XROWS_F * XCOLS; i += THREADS) {
@@ -329,8 +350,8 @@ int launch(Kernel kernel, int th, const void* x, const void* dy, void* part, voi
 
 extern "C" {
 
-// The number of pixel splits a launch at this shape uses: the workspace
-// ``part`` must hold splits * 27 * Cin * Cout floats.
+// The number of pixel splits a launch at this shape uses (D is dy's): the
+// workspace ``part`` must hold splits * 27 * Cin * Cout floats.
 int conv3x3_wgrad_splits(int B, int D, int Cin, int Cout, int H, int W, int bf16) {
   return plan_for(B, D, Cin, Cout, H, W, bf16 ? TH_BF : TH_F32).splits;
 }
@@ -343,19 +364,21 @@ int conv3x3_wgrad_chain(int B, int D, int Cin, int Cout, int H, int W, int bf16)
   return th * TW + static_cast<int>(p.per) + p.splits;
 }
 
-// x: (B, D, Cin, H*W), dy: (B, D, Cout, H*W) contiguous, same dtype;
-// part: f32 workspace; out: f32 (3, 3, 3, Cin, Cout). Returns the launches'
-// cudaError_t.
+// x: (B, D + 2*halo, Cin, H*W), dy: (B, D, Cout, H*W) contiguous, same
+// dtype; halo 0 or 1 as in the header; part: f32 workspace; out: f32 (3, 3,
+// 3, Cin, Cout). Returns the launches' cudaError_t.
 int conv3x3_wgrad_bf16(const void* x, const void* dy, void* part, void* out, int B, int D,
-                       int Cin, int Cout, int H, int W, void* stream) {
-  return launch<decltype(&conv3x3_wgrad_bf16_kernel), uint16_t>(
-      conv3x3_wgrad_bf16_kernel, TH_BF, x, dy, part, out, B, D, Cin, Cout, H, W, stream);
+                       int halo, int Cin, int Cout, int H, int W, void* stream) {
+  auto kernel = halo ? conv3x3_wgrad_bf16_kernel<true> : conv3x3_wgrad_bf16_kernel<false>;
+  return launch<decltype(kernel), uint16_t>(kernel, TH_BF, x, dy, part, out, B, D, Cin, Cout,
+                                            H, W, stream);
 }
 
 int conv3x3_wgrad_f32(const void* x, const void* dy, void* part, void* out, int B, int D,
-                      int Cin, int Cout, int H, int W, void* stream) {
-  return launch<decltype(&conv3x3_wgrad_f32_kernel), float>(
-      conv3x3_wgrad_f32_kernel, TH_F32, x, dy, part, out, B, D, Cin, Cout, H, W, stream);
+                      int halo, int Cin, int Cout, int H, int W, void* stream) {
+  auto kernel = halo ? conv3x3_wgrad_f32_kernel<true> : conv3x3_wgrad_f32_kernel<false>;
+  return launch<decltype(kernel), float>(kernel, TH_F32, x, dy, part, out, B, D, Cin, Cout,
+                                         H, W, stream);
 }
 
 const char* kernel_error_string(int code) {

@@ -37,7 +37,8 @@ class Generator(nn.Module):
             unet_in_channels, out_channels, features, dropout,
             unet_negative_slope, compute_dtype, use_fused, packed)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x):
+        """``x``: (B, D, H, W, C_in) or a ``parallel.mesh.Sharded`` of it."""
         if x.shape[-1] != self.in_channels:
             raise ValueError(f"{self.modality} expects {self.in_channels} "
                              f"channels, got {x.shape[-1]}")

@@ -10,6 +10,17 @@ Flax's ``train`` argument: BatchNorm normalises with the batch's moments and
 updates its running statistics in train mode, and Dropout draws its masks in
 train mode only, from the ``torch.Generator`` bound to it
 (:func:`bind_dropout_generator`).
+
+Every module also takes a ``parallel.mesh.Sharded`` value (a volume split
+over a mesh's ``data`` and ``space`` axes) and returns one. Under a
+``space`` split of d, what is local runs on each shard with the shard's
+device's replica of the module (1³ and k2s2 convs, eval-mode BatchNorm,
+pools, concat, activations); a 3³ conv first takes one d slice from each
+``space`` neighbour (``halo_d``) and then pads only (h, w); InstanceNorm
+sums its shards' moments over ``space`` (``all_sum``). In the JAX package
+XLA inserts these exchanges from the sharding annotations. Train-mode
+BatchNorm and strided 4³ convs (the discriminator) are not sharded yet and
+raise.
 """
 
 from __future__ import annotations
@@ -21,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from unet_bssfp_tpu_torch.ops.kernels import fused_instance_norm_leaky_relu
+from unet_bssfp_tpu_torch.parallel.mesh import Sharded, apply_local, local
 
 
 def to_ncdhw(x: torch.Tensor) -> torch.Tensor:
@@ -37,12 +49,55 @@ def instance_norm_f32(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     ``jnp.var``), then the affine; returns f32. Written as few full-size
     passes as eager PyTorch allows: the stats in one reduction, the affine
     folded into one per-channel multiplier."""
-    xf = x.float()
+    xf = _f32(x)
     var, mean = torch.var_mean(xf, dim=dims, correction=0, keepdim=True)
-    shape = [1] * x.ndim
+    return _norm_affine(xf, mean, var, scale, bias, epsilon, channel_dim)
+
+
+def _f32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in f32 (an f64 tensor, which only tests pass, stays f64)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+def _norm_affine(xf, mean, var, scale, bias, epsilon, channel_dim):
+    shape = [1] * xf.ndim
     shape[channel_dim] = -1
-    mul = torch.rsqrt(var + epsilon) * scale.float().reshape(shape)
-    return torch.addcmul(bias.float().reshape(shape), xf - mean, mul)
+    mul = torch.rsqrt(var + epsilon) * _f32(scale).reshape(shape)
+    return torch.addcmul(_f32(bias).reshape(shape), xf - mean, mul)
+
+
+def instance_norm(x, norm: "InstanceNorm", dims, channel_dim: int):
+    """:func:`instance_norm_f32` with ``norm``'s affine, of a tensor or of a
+    sharded volume, whose moments are those of the *whole* volume. Under a
+    ``space`` split each shard takes its own f32 mean and biased variance
+    over ``dims`` (the same two moments, by the same reduction, as the
+    unsharded function); the shards of one data row, all of one size, are
+    combined exactly (Chan et al.): ``mean = Σ mean_i / n`` and ``var =
+    Σ (var_i + (mean_i - mean)²) / n``, two ``all_sum`` s of (B, C)-sized
+    tensors over ``space``. Against the unsharded result only the order of
+    summation differs. Returns f32."""
+    def affine(t, *moments):
+        mod = local(norm, t.device)
+        if not moments:
+            return instance_norm_f32(t, mod.weight, mod.bias, norm.epsilon, dims,
+                                     channel_dim)
+        return _norm_affine(t, *moments, mod.weight, mod.bias, norm.epsilon, channel_dim)
+
+    if not isinstance(x, Sharded) or x.mesh.size("space") == 1:
+        return apply_local(affine, x)
+    n = x.mesh.size("space")
+    xf = x.map(_f32)
+    stats = xf.map(lambda t: torch.stack(torch.var_mean(
+        t, dim=dims, correction=0, keepdim=True)))  # [var_i, mean_i]
+    mean = stats.map(lambda s: s[1]).all_sum("space").map(lambda m: m / n)
+    var = stats.map(lambda s, m: s[0] + (s[1] - m) ** 2, mean
+                    ).all_sum("space").map(lambda v: v / n)
+    return xf.map(affine, mean, var)
+
+
+def _on_shards(module: nn.Module, x: Sharded, method: str = "forward") -> Sharded:
+    """A module's local op on every shard, by the shard's device's replica."""
+    return x.map(lambda t: getattr(local(module, t.device), method)(t))
 
 
 class Conv(nn.Conv3d):
@@ -54,11 +109,29 @@ class Conv(nn.Conv3d):
         super().__init__(cin, cout, kernel, stride, padding)
         self.compute_dtype = compute_dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x):
+        if not isinstance(x, Sharded):
+            return self._conv(x, self.padding)
+        # windows that do not overlap (1³, k2s2) are local to a shard
+        local_windows = self.kernel_size == self.stride and self.padding == (0, 0, 0)
+        if local_windows or x.mesh.size("space") == 1:
+            return _on_shards(self, x)
+        if (self.kernel_size, self.stride, self.padding) != (
+                (3, 3, 3), (1, 1, 1), (1, 1, 1)):
+            raise NotImplementedError(
+                f"Conv k{self.kernel_size} s{self.stride} p{self.padding} under a "
+                f"space split of d: only 3³ SAME and non-overlapping convs are sharded")
+        return _on_shards(self, x.halo_d(), "_conv_halo")
+
+    def _conv(self, x: torch.Tensor, padding) -> torch.Tensor:
         dtype = self.compute_dtype or x.dtype
         y = F.conv3d(to_ncdhw(x).to(dtype), self.weight.to(dtype),
-                     self.bias.to(dtype), self.stride, self.padding)
+                     self.bias.to(dtype), self.stride, padding)
         return to_ndhwc(y)
+
+    def _conv_halo(self, xp: torch.Tensor) -> torch.Tensor:
+        """The 3³ conv on a shard that carries its d halo: pad (h, w) only."""
+        return self._conv(xp, (0, 1, 1))
 
 
 class ConvTranspose(nn.ConvTranspose3d):
@@ -70,7 +143,9 @@ class ConvTranspose(nn.ConvTranspose3d):
         super().__init__(cin, cout, 2, 2)
         self.compute_dtype = compute_dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x):
+        if isinstance(x, Sharded):
+            return _on_shards(self, x)  # k2s2: local
         dtype = self.compute_dtype or x.dtype
         y = F.conv_transpose3d(to_ncdhw(x).to(dtype), self.weight.to(dtype),
                                self.bias.to(dtype), self.stride)
@@ -92,15 +167,20 @@ class InstanceNorm(nn.Module):
         self.compute_dtype = compute_dtype
         self.fused_slope = fused_slope
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x):
         dtype = self.compute_dtype or x.dtype
-        if self.fused_slope is not None:
-            return fused_instance_norm_leaky_relu(
-                x.contiguous(), self.weight, self.bias, self.fused_slope,
-                self.epsilon).to(dtype)
-        y = instance_norm_f32(x, self.weight, self.bias, self.epsilon,
-                              dims=(1, 2, 3), channel_dim=-1)
-        return y.to(dtype)
+        if self.fused_slope is None:
+            y = instance_norm(x, self, dims=(1, 2, 3), channel_dim=-1)
+            return apply_local(lambda t: t.to(dtype), y)
+        if isinstance(x, Sharded):
+            if x.mesh.positions > 1:
+                raise ValueError(
+                    "the fused InstanceNorm+LeakyReLU kernel (use_pallas) has no "
+                    "sharded route: it takes one whole volume")
+            return _on_shards(self, x)
+        return fused_instance_norm_leaky_relu(
+            x.contiguous(), self.weight, self.bias, self.fused_slope,
+            self.epsilon).to(dtype)
 
 
 class BatchNorm(nn.Module):
@@ -123,7 +203,13 @@ class BatchNorm(nn.Module):
         self.epsilon = epsilon
         self.compute_dtype = compute_dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x):
+        if isinstance(x, Sharded):
+            if self.training:
+                raise NotImplementedError(
+                    "train-mode BatchNorm on a sharded batch (moments over the "
+                    "global batch) is not ported yet")
+            return _on_shards(self, x)
         dtype = self.compute_dtype or x.dtype
         xf = x.float()
         if self.training:
@@ -186,12 +272,12 @@ class ConvBlock(nn.Module):
         self.activation = activation
         self.negative_slope = negative_slope
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x):
         x = self.conv(x)
         if self.bn is not None:
             x = self.bn(x)
         if self.activation:
-            x = F.leaky_relu(x, self.negative_slope)
+            x = apply_local(lambda t: F.leaky_relu(t, self.negative_slope), x)
         return x
 
 
@@ -215,8 +301,13 @@ class ConvNormAct(nn.Module):
         self.negative_slope = negative_slope
         self.compute_dtype = compute_dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x):
         x = self.norm(self.conv(x))
+        if isinstance(x, Sharded):
+            return _on_shards(self, x, "_drop_act")
+        return self._drop_act(x)
+
+    def _drop_act(self, x: torch.Tensor) -> torch.Tensor:
         x = self.drop(x)
         if self.use_fused:
             return x
@@ -238,12 +329,18 @@ class TwoConv(nn.Module):
         self.conv_1 = self.block(features, features, dropout, negative_slope,
                                  compute_dtype, use_fused)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x):
         return self.conv_1(self.conv_0(x))
 
 
-def max_pool2(x: torch.Tensor) -> torch.Tensor:
-    """2×2×2 max-pool, stride 2, on NDHWC."""
+def max_pool2(x):
+    """2×2×2 max-pool, stride 2, on NDHWC; local on the shards of a sharded
+    volume, whose local D must be even (no window spans two shards)."""
+    if isinstance(x, Sharded):
+        if x.shape[1] % 2 and x.mesh.size("space") > 1:
+            raise ValueError(f"max-pool of shards {tuple(x.shape)}: the local D is "
+                             f"odd, a window would span two shards of {x.mesh}")
+        return x.map(max_pool2)
     return to_ndhwc(F.max_pool3d(to_ncdhw(x), 2, 2))
 
 
@@ -260,7 +357,7 @@ class Down(nn.Module):
         self.convs = self.convs_cls(cin, features, dropout, negative_slope,
                                     compute_dtype, use_fused)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x):
         return self.convs(max_pool2(x))
 
 
@@ -281,12 +378,18 @@ class UpCat(nn.Module):
                                     dropout, negative_slope, compute_dtype,
                                     use_fused)
 
-    def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
-        x = self.upsample(x)
-        pads = []
-        for ax in (3, 2, 1):  # F.pad lists the last dim first
-            diff = skip.shape[ax] - x.shape[ax]
-            pads += [diff // 2, diff - diff // 2]
-        if any(pads):
-            x = to_ndhwc(F.pad(to_ncdhw(x), pads, mode="replicate"))
-        return self.convs(torch.cat([skip, x], dim=-1))
+    def forward(self, x, skip):
+        return self.convs(apply_local(pad_cat, self.upsample(x), skip))
+
+
+def pad_cat(x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+    """Edge-pad ``x`` to ``skip``'s size and concat (skip, x) on channels.
+    Local on shards: under a ``space`` split the local D is even at every
+    level, so d is never padded."""
+    pads = []
+    for ax in (3, 2, 1):  # F.pad lists the last dim first
+        diff = skip.shape[ax] - x.shape[ax]
+        pads += [diff // 2, diff - diff // 2]
+    if any(pads):
+        x = to_ndhwc(F.pad(to_ncdhw(x), pads, mode="replicate"))
+    return torch.cat([skip, x], dim=-1)

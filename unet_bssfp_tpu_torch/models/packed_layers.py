@@ -9,6 +9,11 @@ plain ones (checkpoints are interchangeable), and the plain ``forward``
 stays available for shapes the packed path does not take; the packed path
 is the ``forward_packed`` method. The ``wguard`` layout of the JAX package
 (opt-in there) is not ported: guard columns are always 0 here.
+
+Every ``forward_packed`` also takes and returns a ``parallel.mesh.Sharded``
+value: the convs go through ``conv3x3_packed_auto`` (a halo exchange over
+``space`` and the halo kernel), the norm sums its moments over ``space``,
+the rest is local to each shard.
 """
 
 from __future__ import annotations
@@ -22,24 +27,33 @@ from unet_bssfp_tpu_torch.models.layers import (
     Down,
     TwoConv,
     UpCat,
-    instance_norm_f32,
+    _f32,
+    _on_shards,
+    instance_norm,
 )
-from unet_bssfp_tpu_torch.ops.kernels import conv3x3_packed, pack_hw
+from unet_bssfp_tpu_torch.ops.kernels import conv3x3_packed_auto, pack_hw_auto
+from unet_bssfp_tpu_torch.parallel.mesh import Sharded, apply_local, local
 
 
 class PackedConvNormAct(ConvNormAct):
     """ConvNormAct on a packed (B, D, C, H·W) tensor; ``wdim`` = W. The norm
     takes f32 moments over (d, lanes), as the plain path does."""
 
-    def forward_packed(self, xk: torch.Tensor, wdim: int) -> torch.Tensor:
+    def forward_packed(self, xk, wdim: int):
         dtype = self.compute_dtype or xk.dtype
-        kernel = self.conv.weight.permute(2, 3, 4, 1, 0)  # (kd, kh, kw, I, O)
-        yk = conv3x3_packed(xk.to(dtype).contiguous(), kernel,
-                            self.conv.bias.float(), wdim)
-        y = instance_norm_f32(yk, self.norm.weight, self.norm.bias,
-                              self.norm.epsilon, dims=(1, 3), channel_dim=2)
+        xk = apply_local(lambda t: t.to(dtype).contiguous(), xk)
+        devices = xk.mesh.distinct if isinstance(xk, Sharded) else (xk.device,)
+        convs = {dev: local(self.conv, dev) for dev in devices}
+        yk = conv3x3_packed_auto(
+            xk, {dev: c.weight.permute(2, 3, 4, 1, 0)  # (kd, kh, kw, I, O)
+                 for dev, c in convs.items()},
+            {dev: _f32(c.bias) for dev, c in convs.items()}, wdim)
+        y = instance_norm(yk, self.norm, dims=(1, 3), channel_dim=2)
+        return apply_local(lambda t: local(self, t.device)._drop_act_packed(t), y)
+
+    def _drop_act_packed(self, y: torch.Tensor) -> torch.Tensor:
         y = F.leaky_relu(self.drop(y), self.negative_slope)
-        return y.to(dtype)
+        return y.to(self.compute_dtype or y.dtype)
 
 
 class PackedTwoConv(TwoConv):
@@ -47,10 +61,10 @@ class PackedTwoConv(TwoConv):
 
     block = PackedConvNormAct
 
-    def forward_packed(self, x: torch.Tensor) -> torch.Tensor:
+    def forward_packed(self, x):
         wdim = x.shape[3]
         dtype = self.conv_0.compute_dtype or x.dtype
-        xk = pack_hw(x.to(dtype).contiguous())
+        xk = pack_hw_auto(apply_local(lambda t: t.to(dtype).contiguous(), x))
         xk = self.conv_0.forward_packed(xk, wdim)
         return self.conv_1.forward_packed(xk, wdim)
 
@@ -90,17 +104,18 @@ class _PackedMaxPool2(torch.autograd.Function):
         return dx.to(xk.dtype), None
 
 
-def packed_max_pool2(xk: torch.Tensor, wdim: int) -> torch.Tensor:
+def packed_max_pool2(xk, wdim: int):
     """2×2×2 max-pool of the packed layout → NDHWC (B, D/2, H/2, W/2, C),
-    with the first-match backward of the JAX package's custom VJP."""
-    return _PackedMaxPool2.apply(xk, wdim)
+    with the first-match backward of the JAX package's custom VJP. Local on
+    the shards of a sharded volume (their D is even)."""
+    return apply_local(lambda t: _PackedMaxPool2.apply(t, wdim), xk)
 
 
 class PooledConvs(Down):
     """``Down`` on an input the packed pool already pooled (same parameter
     path: one child ``convs``)."""
 
-    def forward_pooled(self, x: torch.Tensor) -> torch.Tensor:
+    def forward_pooled(self, x):
         return self.convs(x)
 
 
@@ -110,7 +125,7 @@ class _PackedPair(TwoConv):
 
     block = PackedConvNormAct
 
-    def forward_packed(self, xk: torch.Tensor, wdim: int) -> torch.Tensor:
+    def forward_packed(self, xk, wdim: int):
         return self.conv_1.forward_packed(self.conv_0.forward_packed(xk, wdim), wdim)
 
 
@@ -120,16 +135,18 @@ class PackedUpCat(UpCat):
 
     convs_cls = _PackedPair
 
-    def forward_packed(self, x: torch.Tensor, skip_k: torch.Tensor,
-                       wdim: int) -> torch.Tensor:
-        upk = pack_hw(self.upsample(x))
-        return self.convs.forward_packed(torch.cat([skip_k, upk], dim=2), wdim)
+    def forward_packed(self, x, skip_k, wdim: int):
+        upk = pack_hw_auto(self.upsample(x))
+        cat = apply_local(lambda s, u: torch.cat([s, u], dim=2), skip_k, upk)
+        return self.convs.forward_packed(cat, wdim)
 
 
 class PackedFinalConv(Conv):
     """1³ conv; on the packed layout a channel GEMM in the compute dtype."""
 
-    def forward_packed(self, xk: torch.Tensor) -> torch.Tensor:
+    def forward_packed(self, xk):
+        if isinstance(xk, Sharded):
+            return _on_shards(self, xk, "forward_packed")
         dtype = self.compute_dtype or xk.dtype
         k = self.weight.reshape(self.out_channels, self.in_channels).to(dtype)
         y = torch.einsum("fc,bdcl->bdfl", k, xk.to(dtype))

@@ -15,6 +15,10 @@ packed layout through the hand-written kernels, where the input shape
 allows it (the JAX package's gate). The JAX package's ``folded`` and
 ``wpack_mid`` branches are TPU reformulations of the same convs with the
 same parameters and are not ported.
+
+The input may be a ``parallel.mesh.Sharded`` volume. Under a ``space``
+split every level's local D must be even (four pools: the whole D a
+multiple of 16·n_space), or the volume is refused with a ``ValueError``.
 """
 
 from __future__ import annotations
@@ -32,11 +36,15 @@ from unet_bssfp_tpu_torch.models.packed_layers import (
     PooledConvs,
     packed_max_pool2,
 )
-from unet_bssfp_tpu_torch.ops.kernels import packed_supported, unpack_hw
+from unet_bssfp_tpu_torch.ops.kernels import packed_supported, unpack_hw_auto
+from unet_bssfp_tpu_torch.parallel.mesh import Sharded
 
 
-def _can_pack(x: torch.Tensor, f0: int) -> bool:
-    """H·W % 128 == 0, even D/H/W (for the pool), channels ≤ 128."""
+def _can_pack(x, f0: int) -> bool:
+    """H·W % 128 == 0, even D/H/W (for the pool), channels ≤ 128. Of a
+    sharded volume the shard's shape decides: it differs from the whole
+    shape in B and D only, and its D is even where the whole volume's must
+    be."""
     return (packed_supported(tuple(x.shape))
             and all(s % 2 == 0 for s in x.shape[1:4])
             and x.shape[-1] <= 128 and f0 <= 128)
@@ -71,7 +79,13 @@ class BasicUNet3D(nn.Module):
         self.final_conv = final(f[5], out_channels, 1,
                                 compute_dtype=compute_dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x):
+        if isinstance(x, Sharded) and x.mesh.size("space") > 1 and x.shape[1] % 16:
+            ns, nd = x.mesh.size("space"), x.mesh.size("data")
+            whole = (x.shape[0] * nd, x.shape[1] * ns) + tuple(x.shape[2:])
+            raise ValueError(
+                f"volume {whole} on {x.mesh}: D={whole[1]} must be a multiple of "
+                f"16·n_space={16 * ns}, so that every level's shards pool locally")
         packed = self.packed and _can_pack(x, self.features[0])
         if packed:
             wdim = x.shape[3]
@@ -88,5 +102,5 @@ class BasicUNet3D(nn.Module):
         u2 = self.upcat_2(u3, x1)
         if packed:
             u1k = self.upcat_1.forward_packed(u2, xk0, wdim)
-            return unpack_hw(self.final_conv.forward_packed(u1k), wdim)
+            return unpack_hw_auto(self.final_conv.forward_packed(u1k), wdim)
         return self.final_conv(self.upcat_1(u2, x0))

@@ -3,17 +3,26 @@ PyTorch version and with a launch count on its wrapper."""
 
 from unet_bssfp_tpu_torch.ops.kernels.conv3d import (
     conv3x3_packed,
+    conv3x3_packed_auto,
     conv3x3_packed_dgrad,
+    conv3x3_packed_halo,
+    conv3x3_packed_halo_dgrad,
+    conv3x3_packed_halo_dgrad_plain,
+    conv3x3_packed_halo_plain,
     conv3x3_packed_plain,
     conv3x3_wgrad,
     conv3x3_wgrad_chain,
+    conv3x3_wgrad_halo,
+    conv3x3_wgrad_halo_plain,
     conv3x3_wgrad_plain,
     packed_supported,
 )
 from unet_bssfp_tpu_torch.ops.kernels.layout import (
     pack_hw,
+    pack_hw_auto,
     pack_hw_plain,
     unpack_hw,
+    unpack_hw_auto,
     unpack_hw_plain,
 )
 from unet_bssfp_tpu_torch.ops.kernels.norm_act import (
@@ -22,8 +31,9 @@ from unet_bssfp_tpu_torch.ops.kernels.norm_act import (
 )
 from unet_bssfp_tpu_torch.ops.kernels.scalar_maps import scalar_maps, scalar_maps_plain
 
-WRAPPERS = (conv3x3_packed, conv3x3_packed_dgrad, conv3x3_wgrad, pack_hw,
-            unpack_hw, fused_instance_norm_leaky_relu, scalar_maps)
+WRAPPERS = (conv3x3_packed, conv3x3_packed_dgrad, conv3x3_wgrad,
+            conv3x3_packed_halo, conv3x3_packed_halo_dgrad, conv3x3_wgrad_halo,
+            pack_hw, unpack_hw, fused_instance_norm_leaky_relu, scalar_maps)
 
 
 def reset_launches() -> None:

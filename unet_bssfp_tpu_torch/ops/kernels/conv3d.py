@@ -1,5 +1,5 @@
-"""K1 and K2: the 3x3x3 SAME conv + bias on the packed ``(B, D, C, H·W)``
-layout, under autograd.
+"""K1, K2 and K5: the 3x3x3 SAME conv + bias on the packed ``(B, D, C, H·W)``
+layout, under autograd, unsharded and d-sharded over a mesh.
 
 Replaces ``unet_bssfp_tpu/ops/pallas/conv3d.py::conv3x3_packed`` and its
 custom VJP (``_vjp_bwd``):
@@ -11,6 +11,17 @@ custom VJP (``_vjp_bwd``):
   (:func:`conv3x3_wgrad`);
 - db: ``Σ dy`` in f32.
 
+K5 replaces ``conv3x3_packed_halo`` (the same TPU kernel with
+``pad_d=False``) and its VJP ``_halo_vjp_bwd``: the conv on an input that
+carries a real one-slice d halo per side, which a d-sharded volume gets from
+its neighbours (:func:`conv3x3_packed_auto`). Its three parts are the same
+two CUDA kernels at another d geometry (launch parameters of the conv
+kernel, a template parameter of the wgrad kernel; see the sources'
+headers): :func:`conv3x3_packed_halo` forward,
+:func:`conv3x3_packed_halo_dgrad` (D+2 slices of dx from D of dy, the
+out-of-range dy slices being bounds, not a padded copy) and
+:func:`conv3x3_wgrad_halo`.
+
 Each source's header says what bounds it on the card and how it is laid
 out. ``*_plain`` are the same functions in plain PyTorch: the CPU path, and
 the references the kernels are held to. :func:`conv3x3_packed` is the same
@@ -21,11 +32,13 @@ kernel or the plain version by the tensor's device.
 from __future__ import annotations
 
 import ctypes
+from typing import Mapping, Optional, Union
 
 import torch
 import torch.nn.functional as F
 
 from unet_bssfp_tpu_torch.ops.kernels import _build
+from unet_bssfp_tpu_torch.parallel.mesh import Mesh, Sharded, gather_batch, shard_batch
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -39,16 +52,48 @@ def packed_supported(shape) -> bool:
     return (h * w) % 128 == 0 and h >= 3 and w >= 3 and d >= 1 and c <= 128
 
 
+def _acc(dtype: torch.dtype) -> torch.dtype:
+    """The plain versions' accumulation dtype: f32, or f64 for f64 operands
+    (CPU only: the tests' well-conditioned gradient comparisons)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+def _conv_plain(xk: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                wdim: int, pad_d: int) -> torch.Tensor:
+    b, d, cin, hw = xk.shape
+    cout = w.shape[4]
+    acc = _acc(xk.dtype)
+    x = xk.reshape(b, d, cin, hw // wdim, wdim).permute(0, 2, 1, 3, 4)
+    wt = w.to(xk.dtype).to(acc).permute(4, 3, 0, 1, 2)  # (O, I, kd, kh, kw)
+    y = F.conv3d(x.to(acc), wt, bias.to(acc), padding=(pad_d, 1, 1))
+    return y.permute(0, 2, 1, 3, 4).reshape(b, -1, cout, hw).to(xk.dtype)
+
+
 def conv3x3_packed_plain(xk: torch.Tensor, w: torch.Tensor,
                          bias: torch.Tensor, wdim: int) -> torch.Tensor:
     """Plain version: ``w`` rounded to ``xk``'s dtype, f32 products and sums,
     f32 bias, result cast to ``xk``'s dtype (as the TPU kernel does)."""
-    b, d, cin, hw = xk.shape
-    cout = w.shape[4]
-    x = xk.reshape(b, d, cin, hw // wdim, wdim).permute(0, 2, 1, 3, 4)
-    wt = w.to(xk.dtype).float().permute(4, 3, 0, 1, 2)  # (O, I, kd, kh, kw)
-    y = F.conv3d(x.float(), wt, bias.float(), padding=1)
-    return y.permute(0, 2, 1, 3, 4).reshape(b, d, cout, hw).to(xk.dtype)
+    return _conv_plain(xk, w, bias, wdim, 1)
+
+
+def conv3x3_packed_halo_plain(xp: torch.Tensor, w: torch.Tensor,
+                              bias: torch.Tensor, wdim: int) -> torch.Tensor:
+    """Plain version of K5: as :func:`conv3x3_packed_plain` with no d padding
+    (padding (0, 1, 1)): (B, D+2, Cin, H·W) → (B, D, Cout, H·W)."""
+    return _conv_plain(xp, w, bias, wdim, 0)
+
+
+def _wgrad_plain(xk: torch.Tensor, dy: torch.Tensor, wdim: int,
+                 pad_d: int) -> torch.Tensor:
+    cin, cout = xk.shape[2], dy.shape[2]
+    acc = _acc(xk.dtype)
+    w = torch.zeros((3, 3, 3, cin, cout), dtype=acc, device=xk.device,
+                    requires_grad=True)
+    zero = torch.zeros(cout, dtype=acc, device=xk.device)
+    with torch.enable_grad():
+        y = _conv_plain(xk.detach().to(acc), w, zero, wdim, pad_d)
+        (dw,) = torch.autograd.grad(y, w, dy.to(acc))
+    return dw
 
 
 def conv3x3_wgrad_plain(xk: torch.Tensor, dy: torch.Tensor,
@@ -56,14 +101,32 @@ def conv3x3_wgrad_plain(xk: torch.Tensor, dy: torch.Tensor,
     """Plain version of K2: the f32 gradient of :func:`conv3x3_packed_plain`
     with respect to ``w`` (3, 3, 3, Cin, Cout), by autograd, for the
     cotangent ``dy`` (B, D, Cout, H·W)."""
-    cin, cout = xk.shape[2], dy.shape[2]
-    w = torch.zeros((3, 3, 3, cin, cout), dtype=torch.float32,
-                    device=xk.device, requires_grad=True)
-    zero = torch.zeros(cout, dtype=torch.float32, device=xk.device)
+    return _wgrad_plain(xk, dy, wdim, 1)
+
+
+def conv3x3_wgrad_halo_plain(xp: torch.Tensor, dy: torch.Tensor,
+                             wdim: int) -> torch.Tensor:
+    """Plain version of the halo wgrad: the f32 gradient of
+    :func:`conv3x3_packed_halo_plain` with respect to ``w`` for ``xp``
+    (B, D+2, Cin, H·W) and the cotangent ``dy`` (B, D, Cout, H·W)."""
+    return _wgrad_plain(xp, dy, wdim, 0)
+
+
+def conv3x3_packed_halo_dgrad_plain(dy: torch.Tensor, w: torch.Tensor,
+                                    wdim: int) -> torch.Tensor:
+    """Plain version of the halo dgrad: the gradient of
+    :func:`conv3x3_packed_halo_plain` with respect to ``xp`` (B, D+2, Cin,
+    H·W), by autograd, for the cotangent ``dy`` (B, D, Cout, H·W), with
+    ``w`` rounded to ``dy``'s dtype and the result in ``dy``'s dtype."""
+    b, d, cout, hw = dy.shape
+    acc = _acc(dy.dtype)
+    xp = torch.zeros((b, d + 2, w.shape[3], hw), dtype=acc, device=dy.device,
+                     requires_grad=True)
+    zero = torch.zeros(cout, dtype=acc, device=dy.device)
     with torch.enable_grad():
-        y = conv3x3_packed_plain(xk.detach().float(), w, zero, wdim)
-        (dw,) = torch.autograd.grad(y, w, dy.float())
-    return dw
+        y = _conv_plain(xp, w.detach().to(dy.dtype).to(acc), zero, wdim, 0)
+        (dxp,) = torch.autograd.grad(y, xp, dy.to(acc))
+    return dxp.to(dy.dtype)
 
 
 def _check_packed(what: str, xk: torch.Tensor, wdim: int) -> None:
@@ -77,18 +140,25 @@ def _check_packed(what: str, xk: torch.Tensor, wdim: int) -> None:
         raise ValueError(f"{what}: B·D exceeds the grid limit 65535")
 
 
-def _conv_fwd(xk: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
-              wdim: int, what: str) -> torch.Tensor:
-    """One K1 launch (CUDA) or the plain version (CPU); no autograd."""
-    if xk.device.type == "cpu":
-        return conv3x3_packed_plain(xk, w, bias, wdim)
+def _conv_launch(xk: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                 wdim: int, what: str, grow: int = 0) -> torch.Tensor:
+    """One launch of the conv kernel on a CUDA tensor. ``grow`` is the d
+    geometry: 0 the SAME conv (D → D slices), -2 the conv on an input with
+    its d halo (D+2 → D, every slice real), +2 that conv's input gradient
+    (D → D+2, the missing slices zero by bounds)."""
     if xk.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {xk.device}")
-    b, d, cin, hw = xk.shape
+    b, din, cin, hw = xk.shape
+    d = din + grow
+    if d < 1:
+        raise ValueError(f"{what}: input {tuple(xk.shape)} has no d slice "
+                         f"besides its halo")
     if w.shape[:4] != (3, 3, 3, cin) or bias.shape != (w.shape[4],):
         raise ValueError(f"{what}: weight {tuple(w.shape)} / bias "
                          f"{tuple(bias.shape)} do not fit input {tuple(xk.shape)}")
     _check_packed(what, xk, wdim)
+    if b * d > 65535:
+        raise ValueError(f"{what}: B·D exceeds the grid limit 65535")
     if w.device != xk.device or bias.device != xk.device:
         raise ValueError(f"{what}: weight, bias and input on different devices")
     cout = w.shape[4]
@@ -101,9 +171,22 @@ def _conv_fwd(xk: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     with torch.cuda.device(xk.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(xk.data_ptr(), wk.data_ptr(), bk.data_ptr(), y.data_ptr(),
-                b, d, cin, cout, hw // wdim, wdim, stream)
+                b, din, d, -grow // 2, cin, cout, hw // wdim, wdim, stream)
     _build.check(lib, rc, what)
     return y
+
+
+def _conv_fwd(xk: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+              wdim: int, what: str) -> torch.Tensor:
+    """One K1 launch (CUDA) or the plain version (CPU); no autograd."""
+    if xk.device.type == "cpu":
+        return conv3x3_packed_plain(xk, w, bias, wdim)
+    return _conv_launch(xk, w, bias, wdim, what)
+
+
+def _flip_t(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``w`` flipped in (kd, kh, kw), transposed to (3, 3, 3, Cout, Cin)."""
+    return w.detach().flip(0, 1, 2).transpose(3, 4).to(dtype).contiguous()
 
 
 def conv3x3_packed_dgrad(dy: torch.Tensor, w: torch.Tensor,
@@ -111,12 +194,29 @@ def conv3x3_packed_dgrad(dy: torch.Tensor, w: torch.Tensor,
     """dx of the packed conv: K1 on ``dy`` (B, D, Cout, H·W) with ``w``
     flipped in (kd, kh, kw), transposed to (3, 3, 3, Cout, Cin) and cast to
     ``dy``'s dtype, zero bias → (B, D, Cin, H·W) in ``dy``'s dtype."""
-    wt = w.detach().flip(0, 1, 2).transpose(3, 4).to(dy.dtype).contiguous()
+    wt = _flip_t(w, dy.dtype)
     zero = torch.zeros(wt.shape[4], dtype=torch.float32, device=dy.device)
     dx = _conv_fwd(dy, wt, zero, wdim, "conv3x3_packed_dgrad")
     if dy.device.type == "cuda":
         conv3x3_packed_dgrad.launches += 1
     return dx
+
+
+def conv3x3_packed_halo_dgrad(dy: torch.Tensor, w: torch.Tensor,
+                              wdim: int) -> torch.Tensor:
+    """dxp of :func:`conv3x3_packed_halo`: ``dxp[j] = Σ_kd w[kd]ᵀ · dy[j-kd]``
+    for j in [0, D+2), from ``dy`` (B, D, Cout, H·W) → (B, D+2, Cin, H·W) in
+    ``dy``'s dtype: the conv kernel with the flipped, transposed weight and
+    zero bias, a ``dy`` slice outside [0, D) reading as zero. A CPU tensor
+    takes :func:`conv3x3_packed_halo_dgrad_plain`; a CUDA tensor launches
+    the kernel or raises."""
+    if dy.device.type == "cpu":
+        return conv3x3_packed_halo_dgrad_plain(dy, w, wdim)
+    wt = _flip_t(w, dy.dtype)
+    zero = torch.zeros(wt.shape[4], dtype=torch.float32, device=dy.device)
+    dxp = _conv_launch(dy, wt, zero, wdim, "conv3x3_packed_halo_dgrad", grow=2)
+    conv3x3_packed_halo_dgrad.launches += 1
+    return dxp
 
 
 def conv3x3_wgrad(xk: torch.Tensor, dy: torch.Tensor, wdim: int) -> torch.Tensor:
@@ -126,15 +226,38 @@ def conv3x3_wgrad(xk: torch.Tensor, dy: torch.Tensor, wdim: int) -> torch.Tensor
     launches the kernel or raises."""
     if xk.device.type == "cpu":
         return conv3x3_wgrad_plain(xk, dy, wdim)
+    dw = _wgrad_launch(xk, dy, wdim, "conv3x3_wgrad", halo=0)
+    conv3x3_wgrad.launches += 1
+    return dw
+
+
+def conv3x3_wgrad_halo(xp: torch.Tensor, dy: torch.Tensor, wdim: int) -> torch.Tensor:
+    """f32 dw (3, 3, 3, Cin, Cout) of :func:`conv3x3_packed_halo` from its
+    input ``xp`` (B, D+2, Cin, H·W) and cotangent ``dy`` (B, D, Cout, H·W):
+    the product ``xp[d+kd] · dy[d]``, no slice skipped (K2 with
+    ``pad_d=False``). A CPU tensor takes :func:`conv3x3_wgrad_halo_plain`; a
+    CUDA tensor launches the kernel or raises."""
+    if xp.device.type == "cpu":
+        return conv3x3_wgrad_halo_plain(xp, dy, wdim)
+    dw = _wgrad_launch(xp, dy, wdim, "conv3x3_wgrad_halo", halo=1)
+    conv3x3_wgrad_halo.launches += 1
+    return dw
+
+
+def _wgrad_launch(xk: torch.Tensor, dy: torch.Tensor, wdim: int, what: str,
+                  halo: int) -> torch.Tensor:
+    """One launch of the wgrad kernel (and its split sum) on CUDA tensors;
+    ``xk`` carries ``halo`` more d slices per side than ``dy``."""
     if xk.device.type != "cuda":
-        raise ValueError(f"conv3x3_wgrad: unsupported device {xk.device}")
-    b, d, cin, hw = xk.shape
+        raise ValueError(f"{what}: unsupported device {xk.device}")
+    b, dx_, cin, hw = xk.shape
+    d = dx_ - 2 * halo
     cout = dy.shape[2]
     if dy.shape != (b, d, cout, hw) or dy.dtype != xk.dtype or dy.device != xk.device:
-        raise ValueError(f"conv3x3_wgrad: dy {tuple(dy.shape)} {dy.dtype} does not "
+        raise ValueError(f"{what}: dy {tuple(dy.shape)} {dy.dtype} does not "
                          f"fit x {tuple(xk.shape)} {xk.dtype}")
-    _check_packed("conv3x3_wgrad", xk, wdim)
-    _check_packed("conv3x3_wgrad", dy, wdim)
+    _check_packed(what, xk, wdim)
+    _check_packed(what, dy, wdim)
     lib = _lib("conv3x3_wgrad")
     bf16 = xk.dtype == torch.bfloat16
     h = hw // wdim
@@ -145,19 +268,19 @@ def conv3x3_wgrad(xk: torch.Tensor, dy: torch.Tensor, wdim: int) -> torch.Tensor
     with torch.cuda.device(xk.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(xk.data_ptr(), dy.data_ptr(), part.data_ptr(), dw.data_ptr(),
-                b, d, cin, cout, h, wdim, stream)
-    _build.check(lib, rc, "conv3x3_wgrad")
-    conv3x3_wgrad.launches += 1
+                b, d, halo, cin, cout, h, wdim, stream)
+    _build.check(lib, rc, what)
     return dw
 
 
 def conv3x3_wgrad_chain(xk: torch.Tensor, dy: torch.Tensor, wdim: int) -> int:
     """The longest run of f32 roundings one product passes through in K2
     for these CUDA operands (the item's accumulator, the split's sum of
-    items, the sum of splits): the length that bounds K2's rounding error."""
-    b, d, cin, hw = xk.shape
+    items, the sum of splits): the length that bounds K2's rounding error.
+    Sized from ``dy``, so it holds for the halo variant too."""
+    b, d, cout, hw = dy.shape
     return _lib("conv3x3_wgrad").conv3x3_wgrad_chain(
-        b, d, cin, dy.shape[2], hw // wdim, wdim, int(xk.dtype == torch.bfloat16))
+        b, d, xk.shape[2], cout, hw // wdim, wdim, int(xk.dtype == torch.bfloat16))
 
 
 class _Conv3x3Packed(torch.autograd.Function):
@@ -183,7 +306,7 @@ class _Conv3x3Packed(torch.autograd.Function):
         if ctx.needs_input_grad[1]:
             dw = conv3x3_wgrad(xk, dy, ctx.wdim).to(w.dtype)
         if ctx.needs_input_grad[2]:
-            db = dy.float().sum(dim=(0, 1, 3)).to(ctx.bias_dtype)
+            db = dy.to(_acc(dy.dtype)).sum(dim=(0, 1, 3)).to(ctx.bias_dtype)
         return dx, dw, db, None
 
 
@@ -197,16 +320,97 @@ def conv3x3_packed(xk: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     return _Conv3x3Packed.apply(xk, w, bias, wdim)
 
 
+class _Conv3x3PackedHalo(torch.autograd.Function):
+    """``conv3x3_packed_halo``'s custom VJP (``conv3d.py:608-630``)."""
+
+    @staticmethod
+    def forward(ctx, xp, w, bias, wdim):
+        ctx.save_for_backward(xp, w)
+        ctx.wdim = wdim
+        ctx.bias_dtype = bias.dtype
+        if xp.device.type == "cpu":
+            return conv3x3_packed_halo_plain(xp, w, bias, wdim)
+        y = _conv_launch(xp, w, bias, wdim, "conv3x3_packed_halo", grow=-2)
+        conv3x3_packed_halo.launches += 1
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        xp, w = ctx.saved_tensors
+        dy = dy.to(xp.dtype).contiguous()
+        dxp = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dxp = conv3x3_packed_halo_dgrad(dy, w, ctx.wdim).to(xp.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = conv3x3_wgrad_halo(xp, dy, ctx.wdim).to(w.dtype)
+        if ctx.needs_input_grad[2]:
+            db = dy.to(_acc(dy.dtype)).sum(dim=(0, 1, 3)).to(ctx.bias_dtype)
+        return dxp, dw, db, None
+
+
+def conv3x3_packed_halo(xp: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                        wdim: int) -> torch.Tensor:
+    """:func:`conv3x3_packed` on an input that already carries one d slice of
+    halo per side: ``xp`` (B, D+2, Cin, H·W) → (B, D, Cout, H·W) in ``xp``'s
+    dtype; no d padding is added and no d slice is skipped. Differentiable in
+    ``xp``, ``w`` and ``bias``. On a CPU tensor every part takes its plain
+    version; on a CUDA tensor each launches its kernel or raises."""
+    return _Conv3x3PackedHalo.apply(xp, w, bias, wdim)
+
+
+Replicas = Union[torch.Tensor, Mapping[torch.device, torch.Tensor]]
+
+
+def _on(t: Replicas, device: torch.device) -> torch.Tensor:
+    """The replica of a parameter on ``device``: of a mapping its entry; of
+    one tensor the tensor itself, copied over where it lies elsewhere (a
+    copy autograd sums back)."""
+    return t[device] if isinstance(t, Mapping) else t.to(device)
+
+
+def conv3x3_packed_auto(xk: Union[torch.Tensor, Sharded], w: Replicas,
+                        bias: Replicas, wdim: int,
+                        mesh: Optional[Mesh] = None) -> Union[torch.Tensor, Sharded]:
+    """:func:`conv3x3_packed` of a volume that may be split over a mesh.
+
+    ``xk`` is one tensor (with ``mesh``: split here by the rules below and
+    gathered again) or a :class:`Sharded` value (shards in, shards out).
+    ``w`` and ``bias`` are one tensor each or one replica per device. The
+    route, per conv (the JAX package's ``_active_conv_mesh``):
+
+    - no mesh, or a mesh of one position → K1 on the whole tensor;
+    - a ``space`` axis of size n > 1 that divides D → each shard takes one d
+      slice from each ``space`` neighbour (zeros at the volume's two ends:
+      exactly the SAME pad) and runs K5, :func:`conv3x3_packed_halo`;
+    - D not divisible by n → the batch is split over ``data`` only and every
+      shard runs K1; a batch that ``data`` does not divide → K1 unsplit.
+    """
+    if isinstance(xk, torch.Tensor):
+        plan = mesh.plan(xk.shape[0], xk.shape[1]) if mesh is not None else None
+        if plan is None or plan.positions == 1:
+            return conv3x3_packed(xk, _on(w, xk.device), _on(bias, xk.device), wdim)
+        ys = conv3x3_packed_auto(shard_batch(plan, xk), w, bias, wdim)
+        return gather_batch(ys, xk.device)
+    if xk.mesh.size("space") == 1:
+        return xk.map(lambda t: conv3x3_packed(
+            t, _on(w, t.device), _on(bias, t.device), wdim))
+    return xk.halo_d().map(lambda t: conv3x3_packed_halo(
+        t, _on(w, t.device), _on(bias, t.device), wdim))
+
+
 conv3x3_packed.launches = 0
 conv3x3_packed_dgrad.launches = 0
 conv3x3_wgrad.launches = 0
+conv3x3_packed_halo.launches = 0
+conv3x3_packed_halo_dgrad.launches = 0
+conv3x3_wgrad_halo.launches = 0
 
 _ARGTYPES = {
     "conv3x3_packed": {
-        name: ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        name: ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
         for name in ("conv3x3_packed_f32", "conv3x3_packed_bf16")},
     "conv3x3_wgrad": {
-        **{name: ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        **{name: ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
            for name in ("conv3x3_wgrad_f32", "conv3x3_wgrad_bf16")},
         "conv3x3_wgrad_splits": [ctypes.c_int] * 7,
         "conv3x3_wgrad_chain": [ctypes.c_int] * 7},

@@ -12,10 +12,12 @@ the gradient runs through the kernels too.
 from __future__ import annotations
 
 import ctypes
+from typing import Union
 
 import torch
 
 from unet_bssfp_tpu_torch.ops.kernels import _build
+from unet_bssfp_tpu_torch.parallel.mesh import Sharded, apply_local
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -109,6 +111,19 @@ def unpack_hw(xk: torch.Tensor, wdim: int) -> torch.Tensor:
     """Inverse of :func:`pack_hw`: (B, D, C, H·W) → (B, D, H, W, C); its
     backward is :func:`pack_hw`."""
     return _UnpackHW.apply(xk, wdim)
+
+
+def pack_hw_auto(x: Union[torch.Tensor, Sharded]) -> Union[torch.Tensor, Sharded]:
+    """:func:`pack_hw` of a tensor or of every shard of a sharded value: the
+    relayout works on each (b, d) slice alone, so it needs no halo on either
+    mesh axis (one launch per shard)."""
+    return apply_local(pack_hw, x)
+
+
+def unpack_hw_auto(xk: Union[torch.Tensor, Sharded],
+                   wdim: int) -> Union[torch.Tensor, Sharded]:
+    """:func:`unpack_hw` of a tensor or of every shard of a sharded value."""
+    return apply_local(lambda t: unpack_hw(t, wdim), xk)
 
 
 pack_hw.launches = 0

@@ -4,11 +4,17 @@ scalar maps) out (the counterpart of ``src/predict.py``).
 Usage:
   python -m unet_bssfp_tpu_torch.predict INPUT.nii.gz --weights W.pt \
       [--modality pc-bssfp] [--out-dir preds] [--config cfg.json] \
-      [--patch | --whole-volume] [--device cuda] \
+      [--patch | --whole-volume] [--device cuda] [--mesh DATA,SPACE] \
       [--scalar-maps [--rescale-args rescale_args_dwi.txt]]
 
 ``--weights`` takes the port's ``.pt`` or an ``.npz`` of ``/``-joined Flax
 paths (``weights.py``). Runs on CUDA unless ``--device cpu``.
+
+``--mesh 1,2`` splits the work over a (data, space) mesh: the whole volume's
+d over ``space``, or each patch batch over ``data`` and each patch's d over
+``space``. The positions go to the visible CUDA devices in turn (all to the
+CPU with ``--device cpu``); one device may hold several positions, so
+``--mesh 1,2`` runs on one card too.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from unet_bssfp_tpu_torch.ops.scalar_maps import (
     invert_dwi_tensor_norm,
     load_rescale_args,
 )
+from unet_bssfp_tpu_torch.parallel.mesh import Mesh, make_mesh
 from unet_bssfp_tpu_torch.train.state import build_models, resolve_device
 from unet_bssfp_tpu_torch.train.steps import make_predict_fn
 
@@ -39,6 +46,22 @@ def _crop_offset(cur: int, tgt: int) -> int:
     """Voxel shift of :func:`crop_or_pad` along one axis (crop start
     (cur-tgt)//2; pad -((tgt-cur)//2): the floors differ for odd sizes)."""
     return (cur - tgt) // 2 if cur >= tgt else -((tgt - cur) // 2)
+
+
+def parse_mesh(text: Optional[str], device: torch.device) -> Optional[Mesh]:
+    """``--mesh DATA,SPACE`` → a ('data', 'space') mesh whose positions go to
+    ``device`` if it is the CPU or names one card (``cuda:1``), else to the
+    visible cards in turn; ``None`` for no ``--mesh``."""
+    if text is None:
+        return None
+    try:
+        shape = tuple(int(p) for p in text.split(","))
+    except ValueError:
+        shape = ()
+    if len(shape) != 2 or min(shape) < 1:
+        raise ValueError(f"--mesh takes DATA,SPACE (two positive integers), got {text!r}")
+    spread = device.type == "cuda" and device.index is None
+    return make_mesh(None if spread else [device], ("data", "space"), shape)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> str:
@@ -50,6 +73,9 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
     parser.add_argument("--out-dir", default=".")
     parser.add_argument("--config", default=None, help="JSON config path")
     parser.add_argument("--device", default="cuda")
+    parser.add_argument("--mesh", default=None, metavar="DATA,SPACE",
+                        help="split over a (data, space) mesh, e.g. 1,2 "
+                             "(default: no mesh)")
     parser.add_argument("--scalar-maps", action="store_true",
                         help="also write FA/MD/AD/RD/azimuth/inclination/RGB maps")
     parser.add_argument("--rescale-args", default=None,
@@ -67,6 +93,9 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
     else:
         config = Config()
     device = resolve_device(args.device)
+    mesh = parse_mesh(args.mesh, device)
+    if mesh is not None:
+        device = mesh.devices[0][0]
     target_shape = tuple(config.data.volume_shape)
 
     data, affine = load_volume(args.input)
@@ -87,15 +116,16 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
         whole_volume = config.data.whole_volume
 
     gen, _ = build_models(args.modality, config.model, device,
-                          state_dict=weights.load(args.weights))
-    predict_fn = make_predict_fn(gen)
+                          state_dict=weights.load(args.weights), mesh=mesh)
+    predict_fn = make_predict_fn(gen, mesh)
     t0 = time.perf_counter()
     pred = predict_volume(predict_fn, vol, patch_size=config.data.patch_size,
                           out_channels=config.model.out_channels,
-                          whole_volume=whole_volume)
+                          whole_volume=whole_volume, mesh=mesh)
     pred_np = pred.float().cpu().numpy()
     print(f"inference: {time.perf_counter() - t0:.3f}s "
-          f"({'whole-volume' if whole_volume else 'patch-stitched'}, {device})")
+          f"({'whole-volume' if whole_volume else 'patch-stitched'}, "
+          f"{mesh if mesh is not None else device})")
 
     os.makedirs(args.out_dir, exist_ok=True)
     base = os.path.basename(args.input).split(".nii")[0]

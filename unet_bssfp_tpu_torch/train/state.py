@@ -13,6 +13,7 @@ from unet_bssfp_tpu_torch.config import MODALITIES, ModelConfig, TrainConfig
 from unet_bssfp_tpu_torch.models.discriminator import Discriminator
 from unet_bssfp_tpu_torch.models.generator import Generator
 from unet_bssfp_tpu_torch.models.layers import bind_dropout_generator
+from unet_bssfp_tpu_torch.parallel.mesh import Mesh, as_device, replicate
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -27,24 +28,44 @@ def resolve_device(device: Union[str, torch.device, None] = None) -> torch.devic
     return dev
 
 
-def auto_packed(mcfg: ModelConfig, device: torch.device) -> bool:
-    """An explicit ``mcfg.packed`` wins; otherwise packed iff CUDA."""
+def auto_packed(mcfg: ModelConfig, device: Union[str, torch.device, None],
+                mesh: Optional[Mesh] = None) -> bool:
+    """An explicit ``mcfg.packed`` wins; otherwise packed iff the device the
+    model will run on is CUDA: ``device``, or with a mesh every device of
+    the mesh (the packed kernels run on every shard: split over ``data``,
+    and over ``space`` with a d-halo exchange; a shape an axis does not
+    divide falls back per conv, ``conv3x3_packed_auto``)."""
     if mcfg.packed is not None:
         return mcfg.packed
-    return torch.device(device).type == "cuda"
+    devices = mesh.distinct if mesh is not None else (torch.device(device),)
+    return all(d.type == "cuda" for d in devices)
 
 
 def build_models(modality: str, mcfg: ModelConfig,
                  device: Union[str, torch.device, None] = None,
-                 state_dict: Optional[dict] = None
+                 state_dict: Optional[dict] = None,
+                 mesh: Optional[Mesh] = None
                  ) -> Tuple[Generator, Discriminator]:
     """``(gen, disc)`` for ``modality`` on ``device`` (default ``cuda``),
-    with the generator's ``state_dict`` loaded strictly when given."""
+    with the generator's ``state_dict`` loaded strictly when given. With a
+    ``mesh`` the models live on its first device and the generator gets one
+    replica on every other distinct device of the mesh (not one per
+    position), made after the weights are loaded, so all share them bit
+    for bit. ``use_pallas`` on a mesh of more than one position raises: the
+    fused norm kernel takes one whole volume and has no sharded route."""
     if modality not in MODALITIES:
         raise ValueError(
             f"unknown modality {modality!r}; expected one of {MODALITIES}")
     if mcfg.compute_dtype not in _DTYPES:
         raise ValueError(f"compute_dtype {mcfg.compute_dtype!r} not in {tuple(_DTYPES)}")
+    if mesh is not None:
+        if device is not None and as_device(device) != mesh.devices[0][0]:
+            raise ValueError(f"device {device} is not the first device of {mesh}")
+        if mcfg.use_pallas and mesh.positions > 1:
+            raise ValueError(
+                f"use_pallas on {mesh}: the fused InstanceNorm+LeakyReLU kernel "
+                f"has no sharded route")
+        device = mesh.devices[0][0]
     dev = resolve_device(device)
     dtype = _DTYPES[mcfg.compute_dtype]
     gen = Generator(
@@ -57,7 +78,7 @@ def build_models(modality: str, mcfg: ModelConfig,
         head_negative_slope=mcfg.disc_negative_slope,
         compute_dtype=dtype,
         use_fused=mcfg.use_pallas,
-        packed=auto_packed(mcfg, dev),
+        packed=auto_packed(mcfg, dev, mesh),
     )
     if state_dict is not None:
         gen.load_state_dict(state_dict, strict=True)
@@ -68,6 +89,8 @@ def build_models(modality: str, mcfg: ModelConfig,
         negative_slope=mcfg.disc_negative_slope,
         compute_dtype=dtype,
     )
+    if mesh is not None:
+        replicate(gen, mesh)
     return gen.to(dev), disc.to(dev)
 
 

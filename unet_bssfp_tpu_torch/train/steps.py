@@ -28,6 +28,7 @@ from torch import nn
 from unet_bssfp_tpu_torch.config import TrainConfig
 from unet_bssfp_tpu_torch.ops.losses import bce_with_logits, l1_loss
 from unet_bssfp_tpu_torch.ops.metrics import mae, psnr, ssim3d
+from unet_bssfp_tpu_torch.parallel.mesh import Mesh, gather_batch, replicas, shard_batch
 from unet_bssfp_tpu_torch.train.state import GANTrainState
 
 PerceptualFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
@@ -135,14 +136,24 @@ def make_eval_step(gen: nn.Module, disc: nn.Module, tcfg: TrainConfig,
     return step
 
 
-def make_predict_fn(gen: nn.Module) -> Callable[[torch.Tensor], torch.Tensor]:
+def make_predict_fn(gen: nn.Module, mesh: Optional[Mesh] = None
+                    ) -> Callable[[torch.Tensor], torch.Tensor]:
     """Eval-mode generator forward ``x -> y_hat`` under
     ``torch.inference_mode()``. The weights live in ``gen``, so the JAX
-    signature's ``state`` argument has no counterpart."""
-    gen.eval()
+    signature's ``state`` argument has no counterpart.
+
+    With a ``mesh`` (``gen`` from ``build_models(..., mesh=mesh)``) the batch
+    is split over it (dim 0 over ``data``, d over ``space``), the generator
+    runs on the shards, exchanging d halos and norm moments over ``space``,
+    and the result is gathered on the mesh's first device. A batch or a D
+    the mesh does not divide raises."""
+    for twin in replicas(gen):  # gen and its copies on the mesh's other devices
+        twin.eval()
 
     def predict(x: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():
-            return gen(x)
+            if mesh is None:
+                return gen(x)
+            return gather_batch(gen(shard_batch(mesh, x)))
 
     return predict

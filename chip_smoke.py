@@ -60,12 +60,24 @@ Phases (any failure → nonzero exit, no ``ok`` line):
     the same block unsharded (every gradient, exact counts of the three halo
     kernels). With two or more cards, the (1, 2) case once more over two of
     them; with one, a line says that it did not run.
+11. The pfold and probe kernels: K7a (forward, dgrad and their halo forms)
+    and K7b (and its halo form) against their plain versions at the four
+    cases of ``scripts/pfold_probe.py`` in bf16 (B 8; 24/32/96 → 32 at 64³,
+    24 → 32 at 96 × 128²), the first also in f32, the halo forms at a
+    D_local-32 shard (96 → 32 bf16, 24 → 32 f32), and odd shapes (Cin 3
+    and 5, W/4 2, 3 and 9, H 3) in both dtypes, under K1's and K2's bounds,
+    each bit for bit the packed kernel's result on the same volume; K9a
+    against its plain version and ``torch.roll``; K9b's three modes against
+    theirs at the conv0 shape. Then the two probe paths, each with the
+    counts reset just before it and exact launch counts after it:
+    ``scripts/torch_port_pfold_probe.py`` (``pfold_probe``) and
+    ``scripts/torch_port_pallas_probe.py`` (``pallas_probe``).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the ``kernels`` JSON (``launches_by_path``: the serving
-run's, one training step's, the eval chain's, the mesh serving run's and the
-sharded block backward's counts; ``launches``: their sum); details go to
-``perf_out/chip_smoke.json``.
+run's, one training step's, the eval chain's, the mesh serving run's, the
+sharded block backward's and the two probe paths' counts; ``launches``: their
+sum); details go to ``perf_out/chip_smoke.json``.
 """
 
 from __future__ import annotations
@@ -93,11 +105,17 @@ SERVING_KERNELS = ("conv3x3_packed", "pack_hw", "unpack_hw",
 # Launches of one training step with the default config (use_pallas off,
 # reuse_fake off): the generator runs twice (4 packed convs, 2 packs and 1
 # unpack each) and back once (4 dgrad, 4 wgrad, 1 pack, 2 unpacks).
+# The pfold and probe kernels run on the probe paths of phase 11 only.
+PFOLD_KERNELS = ("conv3x3_pfold", "conv3x3_pfold_dgrad", "conv3x3_pfold_wgrad",
+                 "conv3x3_pfold_halo", "conv3x3_pfold_halo_dgrad", "conv3x3_pfold_wgrad_halo")
+PROBE_KERNELS = ("lane_roll", "conv3x3_probe_full", "conv3x3_probe_centre",
+                 "conv3x3_probe_fixed")
 TRAIN_STEP_LAUNCHES = {"conv3x3_packed": 8, "conv3x3_packed_dgrad": 4,
                        "conv3x3_wgrad": 4, "conv3x3_packed_halo": 0,
                        "conv3x3_packed_halo_dgrad": 0, "conv3x3_wgrad_halo": 0,
                        "pack_hw": 5, "unpack_hw": 4,
-                       "fused_instance_norm_leaky_relu": 0, "scalar_maps": 0}
+                       "fused_instance_norm_leaky_relu": 0, "scalar_maps": 0,
+                       **dict.fromkeys(PFOLD_KERNELS + PROBE_KERNELS, 0)}
 # The mesh serving runs: (mesh shape, whole volume?). One generator forward
 # has 4 packed convs, 2 packs and 1 unpack; every shard runs them (the 8
 # patches of a volume are one batch). A mesh with a space split sends the
@@ -119,6 +137,11 @@ def mesh_launches(shape):
 BLOCK_BACKWARD_LAUNCHES = dict(
     dict.fromkeys(TRAIN_STEP_LAUNCHES, 0), conv3x3_packed_halo=4,
     conv3x3_packed_halo_dgrad=4, conv3x3_wgrad_halo=4, pack_hw=2, unpack_hw=2)
+# Phase 11: the cases of scripts/pfold_probe.py (B 8; D, H = W, Cin, Cout)
+# and odd shapes (B, D, H, W, Cin, Cout); K9b at pallas_probe.py's conv0.
+PFOLD_CASES = ((64, 64, 24, 32), (64, 64, 32, 32), (64, 64, 96, 32), (96, 128, 24, 32))
+PFOLD_ODD = ((2, 3, 3, 8, 3, 4), (1, 4, 7, 12, 5, 36), (1, 2, 3, 36, 24, 32))
+PROBE_CONV = (8, 64, 64, 64, 24, 32)
 RESCALE_ARGS = str(Path(__file__).resolve().parent / "constants" / "rescale_args_dwi.txt")
 EVAL_SUBJECTS = ("01", "02")
 # K8's work per voxel, counted from csrc/scalar_maps.cu with each add,
@@ -179,10 +202,11 @@ def phase_build(torch, K, _build):
     return {"nvcc_s": nvcc_s, "total_s": total}
 
 
-def check_conv(torch, F, K, checks, b, d, h, w, cin, cout, dtype, halo=False):
+def check_conv(torch, F, K, checks, b, d, h, w, cin, cout, dtype, halo=False, fold=False):
     """K1, or with ``halo`` K5 on an input of d + 2 slices whose two halo
     slices are random like the rest (so an off-by-one in d shows), and K5 on
-    a zero halo against K1 on the body."""
+    a zero halo against K1 on the body. With ``fold``: K7a (or its halo
+    form) on the same volume folded, and bit for bit K1's (K5's) result."""
     dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(cin * 1000 + d)
     xk = torch.randn(b, d + 2 * halo, cin, h * w, device="cuda", generator=g).to(dt)
@@ -190,10 +214,20 @@ def check_conv(torch, F, K, checks, b, d, h, w, cin, cout, dtype, halo=False):
     bias = 0.1 * torch.randn(cout, device="cuda", generator=g)
     kern, plain = ((K.conv3x3_packed_halo, K.conv3x3_packed_halo_plain) if halo
                    else (K.conv3x3_packed, K.conv3x3_packed_plain))
-    got = kern(xk, wt, bias, w).float()
-    ref = plain(xk, wt, bias, w).float()
-    extra = {}
-    if halo:
+    xin, dim, extra = xk, w, {}
+    if fold:
+        from unet_bssfp_tpu_torch.ops.kernels.pfold import _to_folded
+        xin, dim = _to_folded(xk, w), w // 4
+        packed = kern(xk, wt, bias, w)
+        kern, plain = ((K.conv3x3_pfold_halo, K.conv3x3_pfold_halo_plain) if halo
+                       else (K.conv3x3_pfold, K.conv3x3_pfold_plain))
+    got = kern(xin, wt, bias, dim)
+    if fold:
+        extra = {"bit_equal_to_packed_kernel": bool(torch.equal(got, _to_folded(packed, w)))}
+        del packed
+    got = got.float()
+    ref = plain(xin, wt, bias, dim).float()
+    if halo and not fold:
         # zero halo slices add only zero products, in K1's order: bit-equal
         body = xk[:, 1:-1].contiguous()
         zero = torch.zeros_like(xk[:, :1])
@@ -213,14 +247,14 @@ def check_conv(torch, F, K, checks, b, d, h, w, cin, cout, dtype, halo=False):
     bl = bias.to(dt)
     pad = (0, 1, 1) if halo else 1
     iters = 5 if b * d * h * w >= 1 << 20 else 20
-    ms = time_ms(torch, lambda: kern(xk, wt, bias, w), iters)
-    plain_ms = time_ms(torch, lambda: plain(xk, wt, bias, w), iters)
+    ms = time_ms(torch, lambda: kern(xin, wt, bias, dim), iters)
+    plain_ms = time_ms(torch, lambda: plain(xin, wt, bias, dim), iters)
     lib_ms = time_ms(torch, lambda: F.conv3d(xn, wl, bl, padding=pad), iters)
     nbytes = (xk.numel() * xk.element_size() + wt.numel() * 4 + cout * 4
               + b * d * cout * h * w * xk.element_size())
     bms, by = bound(nbytes, 2 * 27 * cin * cout * b * d * h * w, dtype)
     checks.record(ok, dict(
-        kernel=kern.__name__, shape=list(xk.shape), cout=cout,
+        kernel=kern.__name__, shape=list(xin.shape), cout=cout,
         dtype=dtype, max_abs_err=float(err.max()), ref_max_abs=scale,
         rtol=rtol, atol=atol, ms=ms, plain_ms=plain_ms, bound_ms=bms,
         bound_by=by, library_ms=lib_ms, **extra))
@@ -280,17 +314,28 @@ def check_norm(torch, F, K, checks, shape, dtype):
             F.instance_norm(xn, weight=sl, bias=bl, eps=1e-5), 0.1), iters)))
 
 
-def check_wgrad(torch, K, checks, b, d, h, w, cin, cout, dtype, halo=False):
+def check_wgrad(torch, K, checks, b, d, h, w, cin, cout, dtype, halo=False, fold=False):
     """K2 at the training step's shape of the forward conv cin → cout; with
-    ``halo`` its variant for K5 (x of d + 2 slices, every one random)."""
+    ``halo`` its variant for K5 (x of d + 2 slices, every one random); with
+    ``fold`` K7b on the same operands folded, and bit for bit K2's result."""
     dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(cin * 7 + d)
     xk = torch.randn(b, d + 2 * halo, cin, h * w, device="cuda", generator=g).to(dt)
     dy = torch.randn(b, d, cout, h * w, device="cuda", generator=g).to(dt)
     kern, plain = ((K.conv3x3_wgrad_halo, K.conv3x3_wgrad_halo_plain) if halo
                    else (K.conv3x3_wgrad, K.conv3x3_wgrad_plain))
-    got = kern(xk, dy, w)
-    ref = plain(xk, dy, w)
+    xin, dyin, dim, chain_fn, extra = xk, dy, w, K.conv3x3_wgrad_chain, {}
+    if fold:
+        from unet_bssfp_tpu_torch.ops.kernels.pfold import _to_folded
+        packed = kern(xk, dy, w)
+        xin, dyin, dim = _to_folded(xk, w), _to_folded(dy, w), w // 4
+        kern, plain = ((K.conv3x3_pfold_wgrad_halo, K.conv3x3_pfold_wgrad_halo_plain) if halo
+                       else (K.conv3x3_pfold_wgrad, K.conv3x3_pfold_wgrad_plain))
+        chain_fn = K.conv3x3_pfold_wgrad_chain
+    got = kern(xin, dyin, dim)
+    if fold:
+        extra = {"bit_equal_to_packed_kernel": bool(torch.equal(got, packed))}
+    ref = plain(xin, dyin, dim)
     err = (got - ref).abs()
     scale = float(ref.abs().max())
     # Both sum exact products of the same values in f32, in other orders
@@ -299,10 +344,10 @@ def check_wgrad(torch, K, checks, b, d, h, w, cin, cout, dtype, halo=False):
     # sqrt(L)·2^-24·max|ref|; L is K2's longest chain (an item's products,
     # the split's items, the splits), and the factor 16 covers the plain
     # side's own order, which is not known.
-    chain = K.conv3x3_wgrad_chain(xk, dy, w)
+    chain = chain_fn(xin, dyin, dim)
     rtol, atol = 0.0, 16 * math.sqrt(chain) * 2 ** -24 * scale
-    ok = bool((err <= atol).all())
-    repeats = bool(torch.equal(got, kern(xk, dy, w)))
+    ok = bool((err <= atol).all()) and all(extra.values())
+    repeats = bool(torch.equal(got, kern(xin, dyin, dim)))
     xn = xk.reshape(b, d + 2 * halo, cin, h, w).permute(0, 2, 1, 3, 4).contiguous()
     dyn = dy.reshape(b, d, cout, h, w).permute(0, 2, 1, 3, 4).contiguous()
     wn = torch.zeros(cout, cin, 3, 3, 3, device="cuda", dtype=dt)
@@ -313,30 +358,43 @@ def check_wgrad(torch, K, checks, b, d, h, w, cin, cout, dtype, halo=False):
     nbytes = (xk.numel() + dy.numel()) * xk.element_size() + 27 * cin * cout * 4
     bms, by = bound(nbytes, 2 * 27 * cin * cout * b * d * h * w, dtype)
     checks.record(ok and repeats, dict(
-        kernel=kern.__name__, shape=list(xk.shape), cout=cout, dtype=dtype,
+        kernel=kern.__name__, shape=list(xin.shape), cout=cout, dtype=dtype,
         max_abs_err=float(err.max()), ref_max_abs=scale, rtol=rtol, atol=atol,
         chain=chain, bit_identical_rerun=repeats,
-        ms=time_ms(torch, lambda: kern(xk, dy, w), iters),
-        plain_ms=time_ms(torch, lambda: plain(xk, dy, w), iters),
-        bound_ms=bms, bound_by=by, library_ms=time_ms(torch, lib, iters)))
+        ms=time_ms(torch, lambda: kern(xin, dyin, dim), iters),
+        plain_ms=time_ms(torch, lambda: plain(xin, dyin, dim), iters),
+        bound_ms=bms, bound_by=by, library_ms=time_ms(torch, lib, iters), **extra))
 
 
-def check_dgrad(torch, K, checks, b, d, h, w, cin, cout, dtype, halo=False):
+def check_dgrad(torch, K, checks, b, d, h, w, cin, cout, dtype, halo=False, fold=False):
     """K1's dgrad launch for the forward conv cin → cout: dy (cout) → dx
-    (cin); with ``halo`` K5's: dy of d slices → dxp of d + 2."""
+    (cin); with ``halo`` K5's: dy of d slices → dxp of d + 2; with ``fold``
+    K7a's on the same dy folded, and bit for bit K1's (K5's) dgrad."""
     dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(cin * 11 + d)
     dy = torch.randn(b, d, cout, h * w, device="cuda", generator=g).to(dt)
     wt = torch.randn(3, 3, 3, cin, cout, device="cuda", generator=g) / (27 * cout) ** 0.5
     wflip = wt.flip(0, 1, 2).transpose(3, 4)
     zero = torch.zeros(cin, device="cuda")
+    dyin, dim, extra = dy, w, {}
     if halo:
         kern = K.conv3x3_packed_halo_dgrad
         plain = lambda: K.conv3x3_packed_halo_dgrad_plain(dy, wt, w)  # noqa: E731
     else:
         kern = K.conv3x3_packed_dgrad
         plain = lambda: K.conv3x3_packed_plain(dy, wflip, zero, w)  # noqa: E731
-    got = kern(dy, wt, w).float()
+    if fold:
+        from unet_bssfp_tpu_torch.ops.kernels.pfold import _to_folded
+        packed = kern(dy, wt, w)
+        dyin, dim = _to_folded(dy, w), w // 4
+        kern = K.conv3x3_pfold_halo_dgrad if halo else K.conv3x3_pfold_dgrad
+        pfn = K.conv3x3_pfold_halo_dgrad_plain if halo else K.conv3x3_pfold_dgrad_plain
+        plain = lambda: pfn(dyin, wt, dim)  # noqa: E731
+    got = kern(dyin, wt, dim)
+    if fold:
+        extra = {"bit_equal_to_packed_kernel": bool(torch.equal(got, _to_folded(packed, w)))}
+        del packed
+    got = got.float()
     ref = plain().float()
     err = (got - ref).abs()
     scale = float(ref.abs().max())
@@ -344,8 +402,9 @@ def check_dgrad(torch, K, checks, b, d, h, w, cin, cout, dtype, halo=False):
     # rounding on either side.
     rtol = 1e-5 if dtype == "float32" else 2 ** -7
     atol = 1e-4 * scale
-    ok = bool((err <= atol + rtol * ref.abs()).all())
-    ok = ok and tuple(got.shape) == (b, d + 2 * halo, cin, h * w)
+    ok = bool((err <= atol + rtol * ref.abs()).all()) and all(extra.values())
+    f = 4 if fold else 1
+    ok = ok and tuple(got.shape) == (b, d + 2 * halo, f * cin, h * w // f)
     dyn = dy.reshape(b, d, cout, h, w).permute(0, 2, 1, 3, 4).contiguous()
     xn = torch.empty(b, cin, d + 2 * halo, h, w, device="cuda", dtype=dt)
     wn = wt.to(dt).permute(4, 3, 0, 1, 2).contiguous()
@@ -358,11 +417,11 @@ def check_dgrad(torch, K, checks, b, d, h, w, cin, cout, dtype, halo=False):
     # halo: every one of the 3·d (kd, dy slice) products is real, as forward
     bms, by = bound(nbytes, 2 * 27 * cin * cout * b * d * h * w, dtype)
     checks.record(ok, dict(
-        kernel=kern.__name__, shape=[b, d, cout, h * w], cout=cin,
+        kernel=kern.__name__, shape=list(dyin.shape), cout=cin,
         dtype=dtype, max_abs_err=float(err.max()), ref_max_abs=scale, rtol=rtol,
-        atol=atol, ms=time_ms(torch, lambda: kern(dy, wt, w), iters),
+        atol=atol, ms=time_ms(torch, lambda: kern(dyin, wt, dim), iters),
         plain_ms=time_ms(torch, plain, iters), bound_ms=bms, bound_by=by,
-        library_ms=time_ms(torch, lib, iters)))
+        library_ms=time_ms(torch, lib, iters), **extra))
 
 
 def phase_train_kernels(torch, K, checks):
@@ -1062,6 +1121,102 @@ def phase_mesh_block_backward(torch, K, checks, PackedTwoConv, mesh_pkg):
     return counts
 
 
+def phase_pfold_kernels(torch, F, K, checks):
+    """K7a's four entries and K7b's two against their plain versions, each
+    bit for bit the packed kernel's result on the same volume."""
+    def all_three(b, d, h, w, cin, cout, dtype, halo):
+        check_conv(torch, F, K, checks, b, d, h, w, cin, cout, dtype, halo=halo, fold=True)
+        check_dgrad(torch, K, checks, b, d, h, w, cin, cout, dtype, halo=halo, fold=True)
+        check_wgrad(torch, K, checks, b, d, h, w, cin, cout, dtype, halo=halo, fold=True)
+        torch.cuda.empty_cache()
+
+    for d, hw, cin, cout in PFOLD_CASES:
+        all_three(8, d, hw, hw, cin, cout, "bfloat16", False)
+    all_three(8, 64, 64, 64, 24, 32, "float32", False)
+    all_three(8, 32, 64, 64, 96, 32, "bfloat16", True)   # a D_local-32 shard
+    all_three(8, 32, 64, 64, 24, 32, "float32", True)
+    for shape in PFOLD_ODD:
+        for dtype in ("bfloat16", "float32"):
+            for halo in (False, True):
+                all_three(*shape, dtype, halo)
+
+
+def phase_probe_kernels(torch, F, K, checks):
+    """K9a against its plain version and ``torch.roll``; K9b's three modes
+    against theirs at the conv0 shape, under K1's bf16 bound."""
+    x = torch.randn(8, 128, device="cuda")
+    got = K.lane_roll(x, 1)
+    ok = torch.equal(got, K.lane_roll_plain(x, 1)) and torch.equal(got, torch.roll(x, 1, 1))
+    bms, by = bound(2 * x.numel() * 4, 0, "float32")
+    checks.record(ok, dict(
+        kernel="lane_roll", shape=list(x.shape), cout=None, dtype="float32",
+        max_abs_err=float((got - K.lane_roll_plain(x, 1)).abs().max()), rtol=0.0, atol=0.0,
+        ms=time_ms(torch, lambda: K.lane_roll(x, 1), 200),
+        plain_ms=time_ms(torch, lambda: K.lane_roll_plain(x, 1), 200), bound_ms=bms,
+        bound_by=by, library_ms=time_ms(torch, lambda: torch.roll(x, 1, 1), 200)))
+
+    b, d, h, w, cin, cout = PROBE_CONV
+    g = torch.Generator(device="cuda").manual_seed(cin)
+    xk = torch.randn(b, d, cin, h * w, device="cuda", generator=g).bfloat16()
+    wt = torch.randn(3, 3, 3, cin, cout, device="cuda", generator=g) / (27 * cin) ** 0.5
+    bias = 0.1 * torch.randn(cout, device="cuda", generator=g)
+    xn = xk.reshape(b, d, cin, h, w).permute(0, 2, 1, 3, 4)
+    wl = wt.bfloat16().permute(4, 3, 0, 1, 2).contiguous()
+    wc = wl.float().sum(dim=(3, 4), keepdim=True).bfloat16()
+    vox = b * d * h * w
+    # each mode's function (csrc/probe.cu's header): the channels it reads,
+    # its multiply-adds per output, one PyTorch call computing it if any
+    work = {"full": (cin, 27 * cin, lambda: F.conv3d(xn, wl, bias.bfloat16(), padding=1)),
+            "centre": (cin, 3 * cin, lambda: F.conv3d(xn, wc, bias.bfloat16(),
+                                                      padding=(1, 0, 0))),
+            "fixed": (min(16, cin), 9 * min(16, cin), None)}
+    for mode, fn in K.PROBE_MODES.items():
+        got = fn(xk, wt, bias, w).float()
+        ref = K.conv3x3_probe_plain(xk, wt, bias, w, mode).float()
+        err = (got - ref).abs()
+        scale = float(ref.abs().max())
+        rtol, atol = 2 ** -7, 1e-4 * scale  # K1's bf16 bound
+        c_read, macs, lib = work[mode]
+        bms, by = bound(vox * (c_read + cout) * 2 + 27 * cin * cout * 2,
+                        2 * macs * cout * vox, "bfloat16")
+        checks.record(bool((err <= atol + rtol * ref.abs()).all()), dict(
+            kernel=fn.__name__, shape=list(xk.shape), cout=cout, dtype="bfloat16",
+            max_abs_err=float(err.max()), ref_max_abs=scale, rtol=rtol, atol=atol,
+            ms=time_ms(torch, lambda: fn(xk, wt, bias, w), 10),
+            plain_ms=time_ms(torch, lambda: K.conv3x3_probe_plain(xk, wt, bias, w, mode), 5),
+            bound_ms=bms, bound_by=by,
+            library_ms=time_ms(torch, lib, 10) if lib is not None else None))
+
+
+def phase_probe_paths(torch, K, checks, pfold_probe, pallas_probe):
+    """The two probe scripts' ``run`` as the paths ``pfold_probe`` and
+    ``pallas_probe``: counts reset just before each, read just after, held
+    to the exact counts each script states. pfold: K7a's output is K1's bit
+    for bit (max |diff| 0); pallas: the roll's direction, the tiny conv,
+    every mode within K1's bf16 bound of its plain version."""
+    K.reset_launches()
+    rows, pf_counts = pfold_probe.run("cuda")
+    expected = pfold_probe.expected_launches()
+    print("pfold_probe launches: " + json.dumps(pf_counts), flush=True)
+    checks.record(pf_counts == expected and all(r["max_abs_diff"] == 0 for r in rows
+                                                if "max_abs_diff" in r),
+                  dict(phase="pfold_probe_path", launches=pf_counts, expected=expected,
+                       rows=rows))
+    torch.cuda.empty_cache()
+    K.reset_launches()
+    prows, pa_counts = pallas_probe.run("cuda")
+    expected = pallas_probe.expected_launches()
+    print("pallas_probe launches: " + json.dumps(pa_counts), flush=True)
+    roll, tiny = prows[0], prows[1]
+    ok = (pa_counts == expected and roll["same_as_torch_roll_plus_1"]
+          and not roll["same_as_torch_roll_minus_1"] and tiny["max_abs_err"] <= 1e-4
+          and all(r["max_abs_err"] <= (2 ** -7 + 1e-4) * r["ref_max_abs"]
+                  for r in prows if r.get("probe") == "ablation"))
+    checks.record(ok, dict(phase="pallas_probe_path", launches=pa_counts,
+                           expected=expected, rows=prows))
+    return pf_counts, pa_counts, rows, prows
+
+
 KERNEL_META = {
     "conv3x3_packed": ("cuda", "unet_bssfp_tpu_torch/csrc/conv3x3_packed.cu",
                        "unet_bssfp_tpu/ops/pallas/conv3d.py:388"),
@@ -1087,6 +1242,19 @@ KERNEL_META = {
                                   "unet_bssfp_tpu/ops/pallas/conv3d.py:388"),
     "conv3x3_wgrad_halo": ("cuda", "unet_bssfp_tpu_torch/csrc/conv3x3_wgrad.cu",
                            "unet_bssfp_tpu/ops/pallas/conv3d.py:507"),
+    # K7a: _pfold_fwd_impl, reached by conv3x3_pfold, its dx, the halo form
+    # and its dx; K7b: _pfold_dw_impl and its halo form
+    **{name: ("cuda", "unet_bssfp_tpu_torch/csrc/conv3x3_packed.cu",
+              "unet_bssfp_tpu/ops/pallas/conv3d.py:866")
+       for name in ("conv3x3_pfold", "conv3x3_pfold_dgrad", "conv3x3_pfold_halo",
+                    "conv3x3_pfold_halo_dgrad")},
+    **{name: ("cuda", "unet_bssfp_tpu_torch/csrc/conv3x3_wgrad.cu",
+              "unet_bssfp_tpu/ops/pallas/conv3d.py:913")
+       for name in ("conv3x3_pfold_wgrad", "conv3x3_pfold_wgrad_halo")},
+    # K9a, K9b: the probe kernels of scripts/pallas_probe.py
+    "lane_roll": ("cuda", "unet_bssfp_tpu_torch/csrc/probe.cu", "scripts/pallas_probe.py:45"),
+    **{name: ("cuda", "unet_bssfp_tpu_torch/csrc/probe.cu", "scripts/pallas_probe.py:144")
+       for name in PROBE_KERNELS[1:]},
 }
 # The row of each kernel in the summary line: its heaviest shape (output
 # channels, dtype) on the patch-stitched serving path, the training step or
@@ -1103,13 +1271,23 @@ SUMMARY_SHAPE = {
     "conv3x3_packed_dgrad": ([8, 64, 32, 4096], 96, "bfloat16"),
     "conv3x3_wgrad": ([8, 64, 96, 4096], 32, "bfloat16"),
     "scalar_maps": (list(VOLUME) + [6], None, "float32"),
+    # the 96 → 32 probe case, folded; the halo forms at its D_local-32 shard
+    "conv3x3_pfold": ([8, 64, 384, 1024], 32, "bfloat16"),
+    "conv3x3_pfold_dgrad": ([8, 64, 128, 1024], 96, "bfloat16"),
+    "conv3x3_pfold_wgrad": ([8, 64, 384, 1024], 32, "bfloat16"),
+    "conv3x3_pfold_halo": ([8, 34, 384, 1024], 32, "bfloat16"),
+    "conv3x3_pfold_halo_dgrad": ([8, 32, 128, 1024], 96, "bfloat16"),
+    "conv3x3_pfold_wgrad_halo": ([8, 34, 384, 1024], 32, "bfloat16"),
+    "lane_roll": ([8, 128], None, "float32"),
+    **{name: ([8, 64, 24, 4096], 32, "bfloat16") for name in PROBE_KERNELS[1:]},
 }
 
 
 def summary(rows, by_path):
     """``by_path``: each main path's launch counts, read from its own run
     with the counters reset just before it (the serving run, one training
-    step, the eval chain, the mesh serving run, the sharded block backward).
+    step, the eval chain, the mesh serving run, the sharded block backward,
+    the two probe paths).
     ``launches`` is their sum; ``launches_by_path`` keeps them apart."""
     out = []
     for name, (route, source, replaces) in KERNEL_META.items():
@@ -1158,6 +1336,7 @@ def main() -> int:
     from unet_bssfp_tpu_torch.predict import main as predict_main
     from unet_bssfp_tpu_torch.train.state import build_models, create_gan_state
     from unet_bssfp_tpu_torch.train.steps import make_predict_fn, make_train_step
+    from scripts import torch_port_pallas_probe, torch_port_pfold_probe
 
     t_start = time.perf_counter()
     smi = subprocess.run(
@@ -1198,11 +1377,19 @@ def main() -> int:
         (Config, build_models, make_predict_fn, weights, predict_volume, nifti,
          make_synthetic_bids, evaluate, predict_main, compute_scalar_maps,
          invert_dwi_tensor_norm, load_rescale_args, chk))
+    print(f"eval path done at {time.perf_counter() - t_start:.1f}s", flush=True)
+    phase_pfold_kernels(torch, F, K, checks)
+    phase_probe_kernels(torch, F, K, checks)
+    pf_counts, pa_counts, pf_rows, pa_rows = phase_probe_paths(
+        torch, K, checks, torch_port_pfold_probe, torch_port_pallas_probe)
+    print(f"pfold and probe kernels and paths done at {time.perf_counter() - t_start:.1f}s",
+          flush=True)
     elapsed = time.perf_counter() - t_start
 
     kernels = summary(checks.rows, {"serving": counts, "train_step": train_counts,
                                     "eval": eval_counts, "mesh_serving": mesh_counts,
-                                    "mesh_block_backward": block_counts})
+                                    "mesh_block_backward": block_counts,
+                                    "pfold_probe": pf_counts, "pallas_probe": pa_counts})
     unlaunched = [k["name"] for k in kernels if k["launches"] == 0]
     checks.record(not unlaunched, dict(phase="every_kernel_launched_on_a_path",
                                        unlaunched=unlaunched))
@@ -1214,6 +1401,8 @@ def main() -> int:
                    "mesh_serving_launches": mesh_counts,
                    "mesh_block_backward_launches": block_counts,
                    "mesh_timing": mesh_timing,
+                   "pfold_probe": {"launches": pf_counts, "rows": pf_rows},
+                   "pallas_probe": {"launches": pa_counts, "rows": pa_rows},
                    "timing": timing, "train_timing": train_timing,
                    "eval_timing": eval_timing, "kernels": kernels,
                    "elapsed_s": elapsed}, f, indent=1)

@@ -9,7 +9,9 @@ builds its kernels there, and prints one JSON line: CUDA-event ms per call
 of ``conv3x3_packed``, ``conv3x3_packed_dgrad`` and ``conv3x3_wgrad`` in bf16
 at B 8 × 64³ for the convs 24 → 32, 32 → 32 and 96 → 32, each the median of
 three rounds of ``--iters`` calls; where the checkout has the halo kernels
-(K5), also theirs at a shard of that batch (B 8 × D_local 32 × 64²). To
+(K5), also theirs at a shard of that batch (B 8 × D_local 32 × 64²); where
+it has the pfold kernels (K7a, K7b), also those on the same volumes folded.
+To
 compare a parent commit with a change, unpack the parent (``git archive``)
 into a directory and run: parent, change, change, parent, all inside one
 job on one card.
@@ -72,6 +74,12 @@ def main() -> int:
                 "conv3x3_packed_halo_dgrad": ms(
                     lambda: K.conv3x3_packed_halo_dgrad(dyh, wt, w)),
                 "conv3x3_wgrad_halo": ms(lambda: K.conv3x3_wgrad_halo(xp, dyh, w))})
+        if hasattr(K, "conv3x3_pfold"):
+            xf, dyf = (K.fold4_pack(K.unpack_hw(t, w)) for t in (xk, dy))
+            out[f"{cin}->32"].update({
+                "conv3x3_pfold": ms(lambda: K.conv3x3_pfold(xf, wt, bias, w // 4)),
+                "conv3x3_pfold_dgrad": ms(lambda: K.conv3x3_pfold_dgrad(dyf, wt, w // 4)),
+                "conv3x3_pfold_wgrad": ms(lambda: K.conv3x3_pfold_wgrad(xf, dyf, w // 4))})
     print(json.dumps(out))
     return 0
 

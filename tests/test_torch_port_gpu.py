@@ -462,3 +462,144 @@ def test_gpu_mesh_replicas_on_two_cards(cuda):
     ref = make_predict_fn(gen)(x)
     got = make_predict_fn(gen, mesh)(x)
     assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+# K7a/K7b: the conv on the phase-major w-folded layout, its halo form and
+# their gradients, at odd shapes (Cin 3 and 5, W/4 2, 3 and 9, H 3, Cout past
+# one 32-channel block) and one stage shape. The halo slices are random.
+PFOLD_SHAPES = [(2, 3, 3, 8, 3, 4), (1, 4, 7, 12, 5, 36), (1, 2, 3, 36, 24, 32),
+                (2, 4, 16, 64, 96, 32)]
+
+
+def _pfold_operands(b, d, h, w, cin, cout, dtype, halo):
+    g = torch.Generator(device="cuda").manual_seed(cin * cout + d + h)
+    x0 = torch.randn(b, d + 2 * halo, 4 * cin, h * w // 4, device="cuda", generator=g).to(dtype)
+    w0 = torch.randn(3, 3, 3, cin, cout, device="cuda", generator=g) / (27 * cin) ** 0.5
+    b0 = torch.randn(cout, device="cuda", generator=g)
+    dy = torch.randn(b, d, 4 * cout, h * w // 4, device="cuda", generator=g).to(dtype)
+    return x0, w0, b0, dy
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,d,h,w,cin,cout", PFOLD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("halo", [False, True])
+def test_gpu_pfold_autograd_matches_plain(cuda, b, d, h, w, cin, cout, dtype, halo):
+    x0, w0, b0, dy = _pfold_operands(b, d, h, w, cin, cout, dtype, halo)
+    conv, plain = ((K.conv3x3_pfold_halo, K.conv3x3_pfold_halo_plain) if halo
+                   else (K.conv3x3_pfold, K.conv3x3_pfold_plain))
+
+    def run(fn):
+        x, wt, bias = (t.clone().requires_grad_(True) for t in (x0, w0, b0))
+        y = fn(x, wt, bias, w // 4)
+        y.backward(dy)
+        return y.detach(), x.grad, wt.grad, bias.grad
+
+    K.reset_launches()
+    y, dx, dw, db = run(conv)
+    counts = K.launches()
+    names = (("conv3x3_pfold_halo", "conv3x3_pfold_halo_dgrad", "conv3x3_pfold_wgrad_halo")
+             if halo else ("conv3x3_pfold", "conv3x3_pfold_dgrad", "conv3x3_pfold_wgrad"))
+    assert {k: v for k, v in counts.items() if v} == dict.fromkeys(names, 1)
+    ry, rdx, rdw, rdb = run(plain)
+    assert y.shape == (b, d, 4 * cout, h * w // 4) and dx.shape == x0.shape
+    assert dx.dtype == dtype and dw.dtype == db.dtype == torch.float32
+    # K1's forward bound, and the bounds of K1's autograd test above
+    tol = (dict(rtol=1e-5, atol=1e-4) if dtype == torch.float32
+           else dict(rtol=2 ** -7, atol=1e-2))
+    torch.testing.assert_close(y.float(), ry.float(), **tol)
+    rtol = 1e-4 if dtype == torch.float32 else 2 ** -7
+    _close(dx, rdx, rtol, 1e-4)
+    _close(dw, rdw, rtol, 1e-4)
+    _close(db, rdb, 1e-5, 1e-5)
+    # K7b alone at K2's bound, and bit for bit on a second launch
+    wgrad, wplain = ((K.conv3x3_pfold_wgrad_halo, K.conv3x3_pfold_wgrad_halo_plain) if halo
+                     else (K.conv3x3_pfold_wgrad, K.conv3x3_pfold_wgrad_plain))
+    got = wgrad(x0, dy, w // 4)
+    chain = K.conv3x3_pfold_wgrad_chain(x0, dy, w // 4)
+    _close(got, wplain(x0, dy, w // 4), 0.0, 16 * math.sqrt(chain) * 2 ** -24)
+    assert torch.equal(got, wgrad(x0, dy, w // 4))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,d,h,w,cin,cout", PFOLD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_pfold_is_k1_and_k2_bit_for_bit(cuda, b, d, h, w, cin, cout, dtype):
+    """K7a and K7b run K1's and K2's product loops: on the same volume their
+    results are the packed kernels' results, folded, bit for bit (forward,
+    dgrad, the halo forms, dw)."""
+    from unet_bssfp_tpu_torch.ops.kernels.pfold import _to_folded, _to_packed
+
+    w4 = w // 4
+    for halo in (False, True):
+        xf, wt, bias, dyf = _pfold_operands(b, d, h, w, cin, cout, dtype, halo)
+        xk, dyk = _to_packed(xf, w4).contiguous(), _to_packed(dyf, w4).contiguous()
+        if halo:
+            pairs = [(K.conv3x3_pfold_halo(xf, wt, bias, w4),
+                      K.conv3x3_packed_halo(xk, wt, bias, w)),
+                     (K.conv3x3_pfold_halo_dgrad(dyf, wt, w4),
+                      K.conv3x3_packed_halo_dgrad(dyk, wt, w))]
+            dws = (K.conv3x3_pfold_wgrad_halo(xf, dyf, w4), K.conv3x3_wgrad_halo(xk, dyk, w))
+        else:
+            pairs = [(K.conv3x3_pfold(xf, wt, bias, w4), K.conv3x3_packed(xk, wt, bias, w)),
+                     (K.conv3x3_pfold_dgrad(dyf, wt, w4), K.conv3x3_packed_dgrad(dyk, wt, w))]
+            dws = (K.conv3x3_pfold_wgrad(xf, dyf, w4), K.conv3x3_wgrad(xk, dyk, w))
+        for folded, packed in pairs:
+            assert torch.equal(folded, _to_folded(packed, w)), halo
+        assert torch.equal(*dws), halo
+
+
+@pytest.mark.gpu
+def test_gpu_fold4_pack_unpack_exact(cuda):
+    for c in (3, 24, 96):
+        x = torch.randn(2, 3, 5, 12, c, device=cuda).bfloat16()
+        xf = K.fold4_pack(x)
+        assert torch.equal(xf, K.pack_hw_plain(x.reshape(2, 3, 5, 3, 4 * c)))
+        assert torch.equal(K.unfold4_unpack(xf, 3), x)
+
+
+@pytest.mark.gpu
+def test_gpu_pfold_raises_instead_of_falling_back(cuda):
+    xf = torch.randn(1, 4, 12, 64, device=cuda)
+    wt, bias = torch.randn(3, 3, 3, 3, 4, device=cuda), torch.zeros(4, device=cuda)
+    with pytest.raises(ValueError):  # not contiguous
+        K.conv3x3_pfold(xf.transpose(2, 3).contiguous().transpose(2, 3), wt, bias, 4)
+    with pytest.raises(ValueError):  # 13 channels are not 4 phases
+        K.conv3x3_pfold(torch.randn(1, 4, 13, 64, device=cuda), wt, bias, 4)
+    with pytest.raises(ValueError):  # lanes not a multiple of W/4
+        K.conv3x3_pfold(xf, wt, bias, 5)
+    with pytest.raises(TypeError):
+        K.conv3x3_pfold(xf.half(), wt, bias, 4)
+    with pytest.raises(ValueError):  # nothing but halo
+        K.conv3x3_pfold_halo(xf[:, :2].contiguous(), wt, bias, 4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,shift", [((8, 128), 1), ((8, 128), -1), ((3, 50), 7)])
+def test_gpu_lane_roll_is_torch_roll(cuda, shape, shift):
+    x = torch.arange(shape[0] * shape[1], dtype=torch.float32, device=cuda).reshape(shape)
+    K.reset_launches()
+    got = K.lane_roll(x, shift)
+    assert K.lane_roll.launches == 1
+    assert torch.equal(got, torch.roll(x, shift, 1))
+    assert torch.equal(got, K.lane_roll_plain(x, shift))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["full", "centre", "fixed"])
+@pytest.mark.parametrize("b,d,h,w,cin,cout", [(2, 4, 8, 64, 24, 32), (1, 3, 5, 40, 5, 36)])
+def test_gpu_conv3x3_probe_modes_match_plain(cuda, mode, b, d, h, w, cin, cout):
+    g = torch.Generator(device="cuda").manual_seed(cin + d)
+    xk = torch.randn(b, d, cin, h * w, device=cuda, generator=g).bfloat16()
+    wt = torch.randn(3, 3, 3, cin, cout, device=cuda, generator=g) / (27 * cin) ** 0.5
+    bias = torch.randn(cout, device=cuda, generator=g)
+    K.reset_launches()
+    got = K.PROBE_MODES[mode](xk, wt, bias, w).float()
+    assert getattr(K.PROBE_MODES[mode], "launches") == 1
+    ref = K.conv3x3_probe_plain(xk, wt, bias, w, mode).float()
+    # K1's bf16 bound: f32 sums in another order, one bf16 rounding each side
+    torch.testing.assert_close(got, ref, rtol=2 ** -7, atol=1e-4 * float(ref.abs().max()))
+    if mode == "full":
+        assert torch.equal(K.PROBE_MODES[mode](xk, wt, bias, w), K.conv3x3_packed(xk, wt, bias, w))
+    with pytest.raises(TypeError):
+        K.PROBE_MODES[mode](xk.float(), wt, bias, w)

@@ -17,6 +17,15 @@
 // has it, changed the SAME kernel's code: measured on an H100, bf16 8 x 64^3,
 // 96 -> 32 went from 7.01 to 8.69 ms and 24 -> 32 from 2.55 to 2.26 ms.)
 //
+// The activation layout is a second template parameter FOLD (fold4.cuh):
+// FOLD true takes x and dy phase-major w-folded, (B, D, 4*C, H*W/4), and is
+// K7b, which replaces conv3d.py:_pfold_dw_impl (kernel body
+// _dw_kernel_pfold, and its halo form with pad_d=False). The TPU kernel
+// multiplies 6-block operand strips and sums the four phase blocks to taps
+// afterwards; here only the staging loads change, the product loop and the
+// split plan are K2's, so K7b's dW is K2's on the same volume bit for bit.
+// Measured on an H100, bf16, B 8 x 64^3: 1.05-1.14x K2 at 24/32/96 -> 32.
+//
 // Replaces unet_bssfp_tpu/ops/pallas/conv3d.py:_dw_impl (kernel bodies
 // _dw_kernel / _dw_kernel_kstack). The TPU kernel keeps ONE accumulator for
 // the whole grid and carries it across the grid's sequential steps. Hopper
@@ -67,6 +76,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "fold4.cuh"
+
 namespace {
 
 constexpr int TW = 32;        // pixel tile width (w)
@@ -107,7 +118,7 @@ constexpr int XROWS_BF = TH_BF + 2;
 constexpr int XSTRIDE = 392;  // halfs per staged channel: 340 used; 196 words = 4 mod 32
 constexpr int DSTRIDE = 264;  // halfs per staged dy row: 256 used; 132 words = 4 mod 32
 
-template <bool HALO>
+template <bool HALO, bool FOLD>
 __global__ void __launch_bounds__(THREADS)
 conv3x3_wgrad_bf16_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ dy,
                           float* __restrict__ part, int D, int Cin, int Cout, int H, int W,
@@ -155,7 +166,7 @@ conv3x3_wgrad_bf16_kernel(const uint16_t* __restrict__ x, const uint16_t* __rest
       const int ci = ci0 + c, hh = h0 + row - 1, ww = w0 + col - 1;
       uint16_t v = 0;
       if (ci < Cin && hh >= 0 && hh < H && ww >= 0 && ww < W)
-        v = xsl[ci * HW + static_cast<long long>(hh) * W + ww];
+        v = xsl[pix<FOLD>(ci, hh, ww, Cin, HW, W)];
       xs0[c * XSTRIDE + row * XCOLS + col] = v;
       if (col > 0) xs1[c * XSTRIDE + row * XCOLS + col - 1] = v;
     }
@@ -165,7 +176,7 @@ conv3x3_wgrad_bf16_kernel(const uint16_t* __restrict__ x, const uint16_t* __rest
       const int cc = co0 + co, hh = h0 + p / TW, ww = w0 + p % TW;
       uint16_t v = 0;  // pixels past the plane's edge carry no gradient
       if (cc < Cout && hh < H && ww < W)
-        v = dsl[cc * HW + static_cast<long long>(hh) * W + ww];
+        v = dsl[pix<FOLD>(cc, hh, ww, Cout, HW, W)];
       dys[co * DSTRIDE + p] = v;
     }
     __syncthreads();
@@ -210,7 +221,7 @@ constexpr int XROWS_F = TH_F32 + 2;
 constexpr int XSTRIDE_F = 206;  // floats per staged channel: 204 used; 4*206 = 24 mod 32
 constexpr int DSTRIDE_F = 36;   // floats per staged pixel: 32 co used, float4-aligned
 
-template <bool HALO>
+template <bool HALO, bool FOLD>
 __global__ void __launch_bounds__(THREADS)
 conv3x3_wgrad_f32_kernel(const float* __restrict__ x, const float* __restrict__ dy,
                          float* __restrict__ part, int D, int Cin, int Cout, int H, int W,
@@ -252,7 +263,7 @@ conv3x3_wgrad_f32_kernel(const float* __restrict__ x, const float* __restrict__ 
       const int ci = ci0 + c, hh = h0 + row - 1, ww = w0 + col - 1;
       float v = 0.f;
       if (ci < Cin && hh >= 0 && hh < H && ww >= 0 && ww < W)
-        v = xsl[ci * HW + static_cast<long long>(hh) * W + ww];
+        v = xsl[pix<FOLD>(ci, hh, ww, Cin, HW, W)];
       xs[c * XSTRIDE_F + row * XCOLS + col] = v;
     }
     for (int i = threadIdx.x; i < CO_T * TILE_F; i += THREADS) {
@@ -261,7 +272,7 @@ conv3x3_wgrad_f32_kernel(const float* __restrict__ x, const float* __restrict__ 
       const int cc = co0 + co, hh = h0 + p / TW, ww = w0 + p % TW;
       float v = 0.f;
       if (cc < Cout && hh < H && ww < W)
-        v = dsl[cc * HW + static_cast<long long>(hh) * W + ww];
+        v = dsl[pix<FOLD>(cc, hh, ww, Cout, HW, W)];
       dys[p * DSTRIDE_F + co] = v;
     }
     __syncthreads();
@@ -365,18 +376,25 @@ int conv3x3_wgrad_chain(int B, int D, int Cin, int Cout, int H, int W, int bf16)
 }
 
 // x: (B, D + 2*halo, Cin, H*W), dy: (B, D, Cout, H*W) contiguous, same
-// dtype; halo 0 or 1 as in the header; part: f32 workspace; out: f32 (3, 3,
-// 3, Cin, Cout). Returns the launches' cudaError_t.
+// dtype (fold: (B, D + 2*halo, 4*Cin, H*W/4) and (B, D, 4*Cout, H*W/4), W
+// the unfolded width); halo 0 or 1 as in the header; part: f32 workspace;
+// out: f32 (3, 3, 3, Cin, Cout). Returns the launches' cudaError_t.
 int conv3x3_wgrad_bf16(const void* x, const void* dy, void* part, void* out, int B, int D,
-                       int halo, int Cin, int Cout, int H, int W, void* stream) {
-  auto kernel = halo ? conv3x3_wgrad_bf16_kernel<true> : conv3x3_wgrad_bf16_kernel<false>;
+                       int halo, int fold, int Cin, int Cout, int H, int W, void* stream) {
+  auto kernel = halo ? (fold ? conv3x3_wgrad_bf16_kernel<true, true>
+                             : conv3x3_wgrad_bf16_kernel<true, false>)
+                     : (fold ? conv3x3_wgrad_bf16_kernel<false, true>
+                             : conv3x3_wgrad_bf16_kernel<false, false>);
   return launch<decltype(kernel), uint16_t>(kernel, TH_BF, x, dy, part, out, B, D, Cin, Cout,
                                             H, W, stream);
 }
 
 int conv3x3_wgrad_f32(const void* x, const void* dy, void* part, void* out, int B, int D,
-                      int halo, int Cin, int Cout, int H, int W, void* stream) {
-  auto kernel = halo ? conv3x3_wgrad_f32_kernel<true> : conv3x3_wgrad_f32_kernel<false>;
+                      int halo, int fold, int Cin, int Cout, int H, int W, void* stream) {
+  auto kernel = halo ? (fold ? conv3x3_wgrad_f32_kernel<true, true>
+                             : conv3x3_wgrad_f32_kernel<true, false>)
+                     : (fold ? conv3x3_wgrad_f32_kernel<false, true>
+                             : conv3x3_wgrad_f32_kernel<false, false>);
   return launch<decltype(kernel), float>(kernel, TH_F32, x, dy, part, out, B, D, Cin, Cout,
                                          H, W, stream);
 }

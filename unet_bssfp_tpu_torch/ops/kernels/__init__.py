@@ -29,11 +29,41 @@ from unet_bssfp_tpu_torch.ops.kernels.norm_act import (
     fused_instance_norm_leaky_relu,
     instance_norm_leaky_relu_plain,
 )
+from unet_bssfp_tpu_torch.ops.kernels.pfold import (
+    conv3x3_pfold,
+    conv3x3_pfold_dgrad,
+    conv3x3_pfold_dgrad_plain,
+    conv3x3_pfold_halo,
+    conv3x3_pfold_halo_dgrad,
+    conv3x3_pfold_halo_dgrad_plain,
+    conv3x3_pfold_halo_plain,
+    conv3x3_pfold_plain,
+    conv3x3_pfold_wgrad,
+    conv3x3_pfold_wgrad_chain,
+    conv3x3_pfold_wgrad_halo,
+    conv3x3_pfold_wgrad_halo_plain,
+    conv3x3_pfold_wgrad_plain,
+    fold4_pack,
+    pfold_supported,
+    unfold4_unpack,
+)
+from unet_bssfp_tpu_torch.ops.kernels.probe import (
+    PROBE_MODES,
+    conv3x3_probe_centre,
+    conv3x3_probe_fixed,
+    conv3x3_probe_full,
+    conv3x3_probe_plain,
+    lane_roll,
+    lane_roll_plain,
+)
 from unet_bssfp_tpu_torch.ops.kernels.scalar_maps import scalar_maps, scalar_maps_plain
 
 WRAPPERS = (conv3x3_packed, conv3x3_packed_dgrad, conv3x3_wgrad,
             conv3x3_packed_halo, conv3x3_packed_halo_dgrad, conv3x3_wgrad_halo,
-            pack_hw, unpack_hw, fused_instance_norm_leaky_relu, scalar_maps)
+            pack_hw, unpack_hw, fused_instance_norm_leaky_relu, scalar_maps,
+            conv3x3_pfold, conv3x3_pfold_dgrad, conv3x3_pfold_wgrad,
+            conv3x3_pfold_halo, conv3x3_pfold_halo_dgrad, conv3x3_pfold_wgrad_halo,
+            lane_roll, conv3x3_probe_full, conv3x3_probe_centre, conv3x3_probe_fixed)
 
 
 def reset_launches() -> None:

@@ -2,7 +2,8 @@
 ``ctypes``.
 
 Each ``csrc/<name>.cu`` becomes ``_build/<name>-<hash>.so`` (the hash is of
-the source and the flags, so an edited source never loads a stale library).
+the source, every ``csrc/*.cuh`` header and the flags, so an edited source
+or header never loads a stale library).
 Nothing is built at import: a wrapper builds its library at its first CUDA
 call, and :func:`build_all` builds every source at once, one ``nvcc`` per
 source, all started together.
@@ -22,7 +23,7 @@ from typing import Dict, Iterable
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("conv3x3_packed", "conv3x3_wgrad", "layout", "scalar_maps")
+SOURCES = ("conv3x3_packed", "conv3x3_wgrad", "layout", "probe", "scalar_maps")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -41,7 +42,8 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = b"".join(p.read_bytes() for p in
+                   [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

@@ -22,6 +22,10 @@ headers): :func:`conv3x3_packed_halo` forward,
 out-of-range dy slices being bounds, not a padded copy) and
 :func:`conv3x3_wgrad_halo`.
 
+The launchers take the phase-major w-folded layout too (``fold``): K7a and
+K7b, the pfold conv of :mod:`.pfold`, are these kernels with their staging
+and stores re-indexed.
+
 Each source's header says what bounds it on the card and how it is laid
 out. ``*_plain`` are the same functions in plain PyTorch: the CPU path, and
 the references the kernels are held to. :func:`conv3x3_packed` is the same
@@ -141,14 +145,20 @@ def _check_packed(what: str, xk: torch.Tensor, wdim: int) -> None:
 
 
 def _conv_launch(xk: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
-                 wdim: int, what: str, grow: int = 0) -> torch.Tensor:
+                 wdim: int, what: str, grow: int = 0, fold: bool = False) -> torch.Tensor:
     """One launch of the conv kernel on a CUDA tensor. ``grow`` is the d
     geometry: 0 the SAME conv (D → D slices), -2 the conv on an input with
     its d halo (D+2 → D, every slice real), +2 that conv's input gradient
-    (D → D+2, the missing slices zero by bounds)."""
+    (D → D+2, the missing slices zero by bounds). ``fold``: ``xk`` is
+    phase-major w-folded, (B, D, 4·Cin, H·W/4), ``wdim`` is W/4 and the
+    output is folded too (K7a)."""
     if xk.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {xk.device}")
-    b, din, cin, hw = xk.shape
+    f = 4 if fold else 1
+    b, din, fcin, lanes = xk.shape
+    if fcin % f:
+        raise ValueError(f"{what}: {fcin} channels are not 4 phases of Cin")
+    cin = fcin // f
     d = din + grow
     if d < 1:
         raise ValueError(f"{what}: input {tuple(xk.shape)} has no d slice "
@@ -164,14 +174,15 @@ def _conv_launch(xk: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     cout = w.shape[4]
     wk = w.detach().to(xk.dtype).contiguous()  # rounded as the TPU kernel does
     bk = bias.detach().float().contiguous()
-    y = torch.empty((b, d, cout, hw), dtype=xk.dtype, device=xk.device)
+    y = torch.empty((b, d, f * cout, lanes), dtype=xk.dtype, device=xk.device)
     lib = _lib("conv3x3_packed")
     fn = (lib.conv3x3_packed_bf16 if xk.dtype == torch.bfloat16
           else lib.conv3x3_packed_f32)
     with torch.cuda.device(xk.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(xk.data_ptr(), wk.data_ptr(), bk.data_ptr(), y.data_ptr(),
-                b, din, d, -grow // 2, cin, cout, hw // wdim, wdim, stream)
+                b, din, d, -grow // 2, int(fold), cin, cout, lanes // wdim, f * wdim,
+                stream)
     _build.check(lib, rc, what)
     return y
 
@@ -245,30 +256,33 @@ def conv3x3_wgrad_halo(xp: torch.Tensor, dy: torch.Tensor, wdim: int) -> torch.T
 
 
 def _wgrad_launch(xk: torch.Tensor, dy: torch.Tensor, wdim: int, what: str,
-                  halo: int) -> torch.Tensor:
+                  halo: int, fold: bool = False) -> torch.Tensor:
     """One launch of the wgrad kernel (and its split sum) on CUDA tensors;
-    ``xk`` carries ``halo`` more d slices per side than ``dy``."""
+    ``xk`` carries ``halo`` more d slices per side than ``dy``. ``fold``:
+    both are phase-major w-folded and ``wdim`` is W/4 (K7b)."""
     if xk.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {xk.device}")
-    b, dx_, cin, hw = xk.shape
+    f = 4 if fold else 1
+    b, dx_, fcin, lanes = xk.shape
     d = dx_ - 2 * halo
-    cout = dy.shape[2]
-    if dy.shape != (b, d, cout, hw) or dy.dtype != xk.dtype or dy.device != xk.device:
+    cin, cout = fcin // f, dy.shape[2] // f
+    if (dy.shape != (b, d, f * cout, lanes) or fcin % f or dy.dtype != xk.dtype
+            or dy.device != xk.device):
         raise ValueError(f"{what}: dy {tuple(dy.shape)} {dy.dtype} does not "
                          f"fit x {tuple(xk.shape)} {xk.dtype}")
     _check_packed(what, xk, wdim)
     _check_packed(what, dy, wdim)
     lib = _lib("conv3x3_wgrad")
     bf16 = xk.dtype == torch.bfloat16
-    h = hw // wdim
-    splits = lib.conv3x3_wgrad_splits(b, d, cin, cout, h, wdim, int(bf16))
+    h, wd = lanes // wdim, f * wdim
+    splits = lib.conv3x3_wgrad_splits(b, d, cin, cout, h, wd, int(bf16))
     part = torch.empty((splits, 27 * cin * cout), dtype=torch.float32, device=xk.device)
     dw = torch.empty((3, 3, 3, cin, cout), dtype=torch.float32, device=xk.device)
     fn = lib.conv3x3_wgrad_bf16 if bf16 else lib.conv3x3_wgrad_f32
     with torch.cuda.device(xk.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(xk.data_ptr(), dy.data_ptr(), part.data_ptr(), dw.data_ptr(),
-                b, d, halo, cin, cout, h, wdim, stream)
+                b, d, halo, int(fold), cin, cout, h, wd, stream)
     _build.check(lib, rc, what)
     return dw
 
@@ -407,10 +421,10 @@ conv3x3_wgrad_halo.launches = 0
 
 _ARGTYPES = {
     "conv3x3_packed": {
-        name: ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+        name: ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
         for name in ("conv3x3_packed_f32", "conv3x3_packed_bf16")},
     "conv3x3_wgrad": {
-        **{name: ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        **{name: ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
            for name in ("conv3x3_wgrad_f32", "conv3x3_wgrad_bf16")},
         "conv3x3_wgrad_splits": [ctypes.c_int] * 7,
         "conv3x3_wgrad_chain": [ctypes.c_int] * 7},

@@ -9,7 +9,11 @@ Phases (any failure → nonzero exit, no ``ok`` line):
 2. Kernel checks: each kernel against its plain PyTorch version at the
    serving path's shapes, f32 and bf16, with its time, its bound (bytes over
    3.35 TB/s or operations over the peak of their type), the plain version's
-   time and one PyTorch library call's time.
+   time and one PyTorch library call's time. In bf16 K1 is the wgmma kernel
+   (``csrc/conv3x3_wgmma.cu``); beside it, its ``wguard`` form K1W at
+   8 × 64 × 32 × 64·66 (W 64 + 2 guard columns, the flattened-lanes map)
+   and the ``mma.sync`` loop's check-only entry point
+   (``conv3x3_packed_mma``) at K1's heaviest shape.
 3. Serving path: the full-width pc-bSSFP generator with seeded random
    weights serves one (96, 128, 128, 24) volume through ``predict_volume``,
    patch-stitched (8 × 64³) and whole-volume, with ``use_pallas`` off and
@@ -30,6 +34,8 @@ Phases (any failure → nonzero exit, no ``ok`` line):
    gradient check (batch 2 × 64³, TF32 off): one generator-phase backward
    through the kernels (``packed``, ``use_pallas``) against plain
    PyTorch/cuDNN from the same weights and batch, every parameter's gradient.
+   The serving, training and mesh runs send no conv to the ``mma.sync`` loop
+   (``conv3x3_packed_mma`` and ``conv3x3_packed_mma_routed`` count 0).
 6. K8 (scalar maps) against its plain version on brain-like tensors (30 %
    zero background, isotropic and planar voxels) at the full (96, 128, 128)
    volume and at (5, 7, 3), at the bound derived in
@@ -66,7 +72,9 @@ Phases (any failure → nonzero exit, no ``ok`` line):
     24 → 32 at 96 × 128²), the first also in f32, the halo forms at a
     D_local-32 shard (96 → 32 bf16, 24 → 32 f32), and odd shapes (Cin 3
     and 5, W/4 2, 3 and 9, H 3) in both dtypes, under K1's and K2's bounds,
-    each bit for bit the packed kernel's result on the same volume; K9a
+    each bit for bit the result of the kernel it re-indexes on the same
+    volume (bf16: the ``mma.sync`` loop through ``conv3x3_packed_mma``; f32:
+    K1's FMA kernel; K7b: K2); K9a
     against its plain version and ``torch.roll``; K9b's three modes against
     theirs at the conv0 shape. Then the two probe paths, each with the
     counts reset just before it and exact launch counts after it:
@@ -112,6 +120,7 @@ PROBE_KERNELS = ("lane_roll", "conv3x3_probe_full", "conv3x3_probe_centre",
                  "conv3x3_probe_fixed")
 TRAIN_STEP_LAUNCHES = {"conv3x3_packed": 8, "conv3x3_packed_dgrad": 4,
                        "conv3x3_wgrad": 4, "conv3x3_packed_halo": 0,
+                       "conv3x3_packed_mma": 0, "conv3x3_packed_mma_routed": 0,
                        "conv3x3_packed_halo_dgrad": 0, "conv3x3_wgrad_halo": 0,
                        "pack_hw": 5, "unpack_hw": 4,
                        "fused_instance_norm_leaky_relu": 0, "scalar_maps": 0,
@@ -202,31 +211,42 @@ def phase_build(torch, K, _build):
     return {"nvcc_s": nvcc_s, "total_s": total}
 
 
-def check_conv(torch, F, K, checks, b, d, h, w, cin, cout, dtype, halo=False, fold=False):
+def check_conv(torch, F, K, checks, b, d, h, w, cin, cout, dtype, halo=False, fold=False,
+               wguard=0, mma=False):
     """K1, or with ``halo`` K5 on an input of d + 2 slices whose two halo
     slices are random like the rest (so an off-by-one in d shows), and K5 on
     a zero halo against K1 on the body. With ``fold``: K7a (or its halo
-    form) on the same volume folded, and bit for bit K1's (K5's) result."""
+    form) on the same volume folded, and bit for bit the result of the
+    kernel it re-indexes (bf16: the ``mma.sync`` loop, through
+    ``conv3x3_packed_mma``; f32: K1's (K5's) FMA kernel). ``wguard``: K1W,
+    ``w`` then the row width with its guard columns (zero in the input).
+    ``mma``: the check-only entry point ``conv3x3_packed_mma`` itself."""
     dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(cin * 1000 + d)
     xk = torch.randn(b, d + 2 * halo, cin, h * w, device="cuda", generator=g).to(dt)
+    xk = K.guard_mask(xk, w, wguard).contiguous()
     wt = torch.randn(3, 3, 3, cin, cout, device="cuda", generator=g) / (27 * cin) ** 0.5
     bias = 0.1 * torch.randn(cout, device="cuda", generator=g)
     kern, plain = ((K.conv3x3_packed_halo, K.conv3x3_packed_halo_plain) if halo
                    else (K.conv3x3_packed, K.conv3x3_packed_plain))
-    xin, dim, extra = xk, w, {}
+    xin, dim, extra, args = xk, w, {}, ()
+    if wguard:
+        args, extra = (wguard,), {"wguard": wguard}
+    if mma:
+        kern, plain = K.conv3x3_packed_mma, K.conv3x3_packed_plain
     if fold:
         from unet_bssfp_tpu_torch.ops.kernels.pfold import _to_folded
         xin, dim = _to_folded(xk, w), w // 4
-        packed = kern(xk, wt, bias, w)
+        packed = (K.conv3x3_packed_mma(xk, wt, bias, w, -2 if halo else 0)
+                  if dtype == "bfloat16" else kern(xk, wt, bias, w))
         kern, plain = ((K.conv3x3_pfold_halo, K.conv3x3_pfold_halo_plain) if halo
                        else (K.conv3x3_pfold, K.conv3x3_pfold_plain))
-    got = kern(xin, wt, bias, dim)
+    got = kern(xin, wt, bias, dim, *args)
     if fold:
         extra = {"bit_equal_to_packed_kernel": bool(torch.equal(got, _to_folded(packed, w)))}
         del packed
     got = got.float()
-    ref = plain(xin, wt, bias, dim).float()
+    ref = plain(xin, wt, bias, dim, *args).float()
     if halo and not fold:
         # zero halo slices add only zero products, in K1's order: bit-equal
         body = xk[:, 1:-1].contiguous()
@@ -247,8 +267,8 @@ def check_conv(torch, F, K, checks, b, d, h, w, cin, cout, dtype, halo=False, fo
     bl = bias.to(dt)
     pad = (0, 1, 1) if halo else 1
     iters = 5 if b * d * h * w >= 1 << 20 else 20
-    ms = time_ms(torch, lambda: kern(xin, wt, bias, dim), iters)
-    plain_ms = time_ms(torch, lambda: plain(xin, wt, bias, dim), iters)
+    ms = time_ms(torch, lambda: kern(xin, wt, bias, dim, *args), iters)
+    plain_ms = time_ms(torch, lambda: plain(xin, wt, bias, dim, *args), iters)
     lib_ms = time_ms(torch, lambda: F.conv3d(xn, wl, bl, padding=pad), iters)
     nbytes = (xk.numel() * xk.element_size() + wt.numel() * 4 + cout * 4
               + b * d * cout * h * w * xk.element_size())
@@ -369,7 +389,9 @@ def check_wgrad(torch, K, checks, b, d, h, w, cin, cout, dtype, halo=False, fold
 def check_dgrad(torch, K, checks, b, d, h, w, cin, cout, dtype, halo=False, fold=False):
     """K1's dgrad launch for the forward conv cin → cout: dy (cout) → dx
     (cin); with ``halo`` K5's: dy of d slices → dxp of d + 2; with ``fold``
-    K7a's on the same dy folded, and bit for bit K1's (K5's) dgrad."""
+    K7a's on the same dy folded, and bit for bit the dgrad of the kernel it
+    re-indexes (bf16: ``conv3x3_packed_mma`` on the flipped weights; f32:
+    K1's (K5's) FMA kernel)."""
     dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(cin * 11 + d)
     dy = torch.randn(b, d, cout, h * w, device="cuda", generator=g).to(dt)
@@ -385,7 +407,8 @@ def check_dgrad(torch, K, checks, b, d, h, w, cin, cout, dtype, halo=False, fold
         plain = lambda: K.conv3x3_packed_plain(dy, wflip, zero, w)  # noqa: E731
     if fold:
         from unet_bssfp_tpu_torch.ops.kernels.pfold import _to_folded
-        packed = kern(dy, wt, w)
+        packed = (K.conv3x3_packed_mma(dy, wflip.to(dt).contiguous(), zero, w, 2 if halo else 0)
+                  if dtype == "bfloat16" else kern(dy, wt, w))
         dyin, dim = _to_folded(dy, w), w // 4
         kern = K.conv3x3_pfold_halo_dgrad if halo else K.conv3x3_pfold_dgrad
         pfn = K.conv3x3_pfold_halo_dgrad_plain if halo else K.conv3x3_pfold_dgrad_plain
@@ -454,6 +477,13 @@ def phase_kernels(torch, F, K, checks):
             check_layout(torch, K, checks, b, d, h, w, 24, dtype, "pack")   # head → conv_0
             check_layout(torch, K, checks, b, d, h, w, 64, dtype, "pack")   # upcat_1 upsample
             check_layout(torch, K, checks, b, d, h, w, 6, dtype, "unpack")  # final conv
+    # K1W: guard columns as guard_cols(64, 64) gives them under
+    # UNET_BSSFP_WGUARD=1; the mma.sync loop's entry point at K1's heaviest
+    # shape, beside K1
+    check_conv(torch, F, K, checks, 8, 64, 64, 66, 32, 32, "bfloat16", wguard=2)
+    check_conv(torch, F, K, checks, 8, 64, 64, 64, 96, 32, "bfloat16", mma=True)
+    torch.cuda.empty_cache()
+    for dtype in ("bfloat16", "float32"):
         # The plain-layer stages: down_1 … down_4 (and their upcats) at
         # patch (B 8) and whole-volume (B 1) sizes.
         for n, base in ((8, (32, 32, 32)), (1, (48, 64, 64))):
@@ -500,7 +530,8 @@ def phase_main_path(torch, K, checks, pkg):
             for key, fn in runs.items()}
     counts = K.launches()
     print("serving-path launches: " + json.dumps(counts), flush=True)
-    checks.record(all(counts[k] > 0 for k in SERVING_KERNELS),
+    checks.record(all(counts[k] > 0 for k in SERVING_KERNELS)
+                  and counts["conv3x3_packed_mma"] == counts["conv3x3_packed_mma_routed"] == 0,
                   dict(phase="main_path_launches", launches=counts))
 
     timing = {}
@@ -1217,9 +1248,14 @@ def phase_probe_paths(torch, K, checks, pfold_probe, pallas_probe):
     return pf_counts, pa_counts, rows, prows
 
 
+# K1, K1's dgrad, K5 and K5's dgrad: the wgmma kernel in bf16 (the rows of
+# the summary line); the mma.sync loop it replaced stays as the check-only
+# conv3x3_packed_mma (and under K7a and K9b).
 KERNEL_META = {
-    "conv3x3_packed": ("cuda", "unet_bssfp_tpu_torch/csrc/conv3x3_packed.cu",
+    "conv3x3_packed": ("cuda", "unet_bssfp_tpu_torch/csrc/conv3x3_wgmma.cu",
                        "unet_bssfp_tpu/ops/pallas/conv3d.py:388"),
+    "conv3x3_packed_mma": ("cuda", "unet_bssfp_tpu_torch/csrc/conv3x3_packed.cu",
+                           "unet_bssfp_tpu/ops/pallas/conv3d.py:388"),
     "pack_hw": ("cuda", "unet_bssfp_tpu_torch/csrc/layout.cu",
                 "unet_bssfp_tpu/ops/pallas/conv3d.py:1259"),
     "unpack_hw": ("cuda", "unet_bssfp_tpu_torch/csrc/layout.cu",
@@ -1227,7 +1263,7 @@ KERNEL_META = {
     "fused_instance_norm_leaky_relu": (
         "triton", "unet_bssfp_tpu_torch/ops/kernels/norm_act.py",
         "unet_bssfp_tpu/ops/pallas/fused_norm_act.py:150"),
-    "conv3x3_packed_dgrad": ("cuda", "unet_bssfp_tpu_torch/csrc/conv3x3_packed.cu",
+    "conv3x3_packed_dgrad": ("cuda", "unet_bssfp_tpu_torch/csrc/conv3x3_wgmma.cu",
                              "unet_bssfp_tpu/ops/pallas/conv3d.py:388"),
     "conv3x3_wgrad": ("cuda", "unet_bssfp_tpu_torch/csrc/conv3x3_wgrad.cu",
                       "unet_bssfp_tpu/ops/pallas/conv3d.py:507"),
@@ -1236,9 +1272,9 @@ KERNEL_META = {
     # K5: the TPU kernel of K1 with pad_d=False (conv3x3_packed_halo, :595),
     # again on the padded dy in its VJP (:619), and the dw kernel with
     # pad_d=False (:624)
-    "conv3x3_packed_halo": ("cuda", "unet_bssfp_tpu_torch/csrc/conv3x3_packed.cu",
+    "conv3x3_packed_halo": ("cuda", "unet_bssfp_tpu_torch/csrc/conv3x3_wgmma.cu",
                             "unet_bssfp_tpu/ops/pallas/conv3d.py:388"),
-    "conv3x3_packed_halo_dgrad": ("cuda", "unet_bssfp_tpu_torch/csrc/conv3x3_packed.cu",
+    "conv3x3_packed_halo_dgrad": ("cuda", "unet_bssfp_tpu_torch/csrc/conv3x3_wgmma.cu",
                                   "unet_bssfp_tpu/ops/pallas/conv3d.py:388"),
     "conv3x3_wgrad_halo": ("cuda", "unet_bssfp_tpu_torch/csrc/conv3x3_wgrad.cu",
                            "unet_bssfp_tpu/ops/pallas/conv3d.py:507"),
@@ -1265,6 +1301,7 @@ SUMMARY_SHAPE = {
     "conv3x3_packed_halo_dgrad": ([8, 32, 32, 4096], 96, "bfloat16"),
     "conv3x3_wgrad_halo": ([8, 34, 96, 4096], 32, "bfloat16"),
     "conv3x3_packed": ([8, 64, 96, 4096], 32, "bfloat16"),
+    "conv3x3_packed_mma": ([8, 64, 96, 4096], 32, "bfloat16"),
     "pack_hw": ([8, 64, 64, 64, 64], None, "bfloat16"),
     "unpack_hw": ([8, 64, 6, 4096], None, "bfloat16"),
     "fused_instance_norm_leaky_relu": ([8, 32, 32, 32, 64], None, "bfloat16"),

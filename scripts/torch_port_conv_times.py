@@ -10,8 +10,10 @@ of ``conv3x3_packed``, ``conv3x3_packed_dgrad`` and ``conv3x3_wgrad`` in bf16
 at B 8 × 64³ for the convs 24 → 32, 32 → 32 and 96 → 32, each the median of
 three rounds of ``--iters`` calls; where the checkout has the halo kernels
 (K5), also theirs at a shard of that batch (B 8 × D_local 32 × 64²); where
-it has the pfold kernels (K7a, K7b), also those on the same volumes folded.
-To
+it has the pfold kernels (K7a, K7b), also those on the same volumes folded;
+where it has the ``mma.sync`` loop's check-only entry point
+(``conv3x3_packed_mma``, beside the wgmma kernel that K1 and K5 take), also
+that loop's forward and dgrad at the same shapes. To
 compare a parent commit with a change, unpack the parent (``git archive``)
 into a directory and run: parent, change, change, parent, all inside one
 job on one card.
@@ -74,6 +76,13 @@ def main() -> int:
                 "conv3x3_packed_halo_dgrad": ms(
                     lambda: K.conv3x3_packed_halo_dgrad(dyh, wt, w)),
                 "conv3x3_wgrad_halo": ms(lambda: K.conv3x3_wgrad_halo(xp, dyh, w))})
+        if hasattr(K, "conv3x3_packed_mma"):
+            from unet_bssfp_tpu_torch.ops.kernels.conv3d import _flip_t
+            wf, zero = _flip_t(wt, torch.bfloat16), torch.zeros(cin, device="cuda")
+            out[f"{cin}->32"].update({
+                "conv3x3_packed_mma": ms(lambda: K.conv3x3_packed_mma(xk, wt, bias, w)),
+                "conv3x3_packed_mma_dgrad": ms(
+                    lambda: K.conv3x3_packed_mma(dy, wf, zero, w))})
         if hasattr(K, "conv3x3_pfold"):
             xf, dyf = (K.fold4_pack(K.unpack_hw(t, w)) for t in (xk, dy))
             out[f"{cin}->32"].update({

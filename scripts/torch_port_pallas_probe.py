@@ -6,11 +6,13 @@
 
 1. K9a (``lane_roll``) against ``torch.roll``: the direction check.
 2. A tiny conv, (1, 4, 4, 64, 3 → 4) f32: K1 against its plain version.
-3. K9b at the conv0 shape (B 8, D 64, 64², 24 → 32, bf16): K1's loop in its
-   three modes (``csrc/probe.cu``: ``fixed`` the product loop on one staged
-   tile, ``centre`` the full staging with unshifted taps, ``full`` K1
+3. K9b at the conv0 shape (B 8, D 64, 64², 24 → 32, bf16): the
+   ``mma.sync`` loop of ``csrc/conv3x3_packed.cuh`` in its three modes
+   (``csrc/probe.cu``: ``fixed`` the product loop on one staged tile,
+   ``centre`` the full staging with unshifted taps, ``full`` the loop
    itself), each against its plain version, with CUDA-event ms per call
-   beside K1's, and the shares they imply: the loop ``fixed / full``, the
+   beside the loop's own entry point (``conv3x3_packed_mma``) and K1's (the
+   wgmma kernel), and the shares they imply: the loop ``fixed / full``, the
    staging ``1 - fixed / full``, the (kh, kw) shifts ``1 - centre / full``.
 
 On ``--device cpu`` the plain versions run, host-clock timed: a rehearsal,
@@ -66,6 +68,7 @@ def probe_perf_ablation(device, iters: int, shape=ABLATION):
     wt = torch.randn(3, 3, 3, cin, cout, device=device, generator=g) / (27 * cin) ** 0.5
     bias = torch.randn(cout, device=device, generator=g) * 0.1
     k1 = time_ms(lambda: K.conv3x3_packed(xk, wt, bias, w), iters, device)
+    mma = time_ms(lambda: K.conv3x3_packed_mma(xk, wt, bias, w), iters, device)
     rows, ms = [], {}
     for mode in MODES:
         fn = K.PROBE_MODES[mode]
@@ -73,10 +76,10 @@ def probe_perf_ablation(device, iters: int, shape=ABLATION):
         ref = K.conv3x3_probe_plain(xk, wt, bias, w, mode).float()
         err = float((fn(xk, wt, bias, w).float() - ref).abs().max())
         rows.append({"probe": "ablation", "mode": mode, "shape": list(shape),
-                     "ms": ms[mode], "k1_ms": k1, "max_abs_err": err,
+                     "ms": ms[mode], "mma_ms": mma, "k1_ms": k1, "max_abs_err": err,
                      "ref_max_abs": float(ref.abs().max())})
-        print(f"ablation {mode:6s}: {ms[mode]:7.3f} ms (K1 {k1:7.3f}); max|err| vs plain "
-              f"{err:.3e}", flush=True)
+        print(f"ablation {mode:6s}: {ms[mode]:7.3f} ms (loop {mma:7.3f}, K1 {k1:7.3f}); "
+              f"max|err| vs plain {err:.3e}", flush=True)
     shares = {"loop": ms["fixed"] / ms["full"], "staging": 1 - ms["fixed"] / ms["full"],
               "shifts": 1 - ms["centre"] / ms["full"]}
     print(f"K1 split: loop {shares['loop']:.3f}, staging {shares['staging']:.3f}, "
@@ -99,11 +102,11 @@ def run(device="cuda", iters: int = 10, ablation=ABLATION):
 
 def expected_launches(iters: int = 10) -> dict:
     """The launches :func:`run` makes on a card: one roll; the tiny conv's
-    pack and conv; K1 ``iters`` + 2 times; each mode ``iters`` + 2 timed
-    and 1 checked times."""
+    pack and conv; K1 and the loop's entry point ``iters`` + 2 times each;
+    each mode ``iters`` + 2 timed and 1 checked times."""
     n = iters + 2
     out = dict.fromkeys(K.launches(), 0)
-    out.update(lane_roll=1, pack_hw=1, conv3x3_packed=1 + n)
+    out.update(lane_roll=1, pack_hw=1, conv3x3_packed=1 + n, conv3x3_packed_mma=n)
     for mode in MODES:
         out[K.PROBE_MODES[mode].__name__] = n + 1
     return out

@@ -6,10 +6,11 @@ stage shapes: the port of ``scripts/pfold_probe.py``.
 
 For each case (B 8, bf16, (D, H = W, Cin, Cout)): K1's forward against
 K7a's, the forward + backward of a sum loss through each (K1, its dgrad and
-K2 against K7a, its dgrad and K7b), and the max |diff| between the two
-outputs in NDHWC. Beside the JAX probe's four cases, the halo forms (K5
-against K7a's halo form, and their gradients) at a D_local-32 shard of the
-upcat case. Then the relayouts at 8 × 64³: ``pack_hw`` at 24 channels and
+K2 against K7a, its dgrad and K7b), and the max |diff| between K7a's output
+and the ``mma.sync`` loop's on the packed layout (``conv3x3_packed_mma``,
+the loop K7a re-indexes; K1 itself is the wgmma kernel) in NDHWC. Beside
+the JAX probe's four cases, the halo forms (K5 against K7a's halo form, and
+their gradients) at a D_local-32 shard of the upcat case. Then the relayouts at 8 × 64³: ``pack_hw`` at 24 channels and
 ``fold4_pack`` at 24 and 96. Times are CUDA-event ms per call after two
 warm-up calls (on ``--device cpu``, host-clock ms of the plain versions, a
 rehearsal and no measurement of the card). Prints one JSON line per row and
@@ -83,7 +84,7 @@ def run_case(device, name, d, hw, cin, cout, halo, iters):
     t_pf = time_ms(lambda: pfold(xf, w, bias, w4), iters, device)
     tb_pk = time_ms(lambda: _fwd_bwd(packed, xk, w, bias, hw), iters, device)
     tb_pf = time_ms(lambda: _fwd_bwd(pfold, xf, w, bias, w4), iters, device)
-    y_pk = K.unpack_hw(packed(xk, w, bias, hw), hw)
+    y_pk = K.unpack_hw(K.conv3x3_packed_mma(xk, w, bias, hw, -2 if halo else 0), hw)
     y_pf = K.unfold4_unpack(pfold(xf, w, bias, w4), w4)
     err = float((y_pk.float() - y_pf.float()).abs().max())
     row = {"case": name, "shape": [B, d, hw, hw, cin, cout], "halo": halo,
@@ -121,9 +122,10 @@ def run(device="cuda", cases=CASES, relayouts=RELAYOUTS, iters: int = 10):
 
 def expected_launches(cases=CASES, relayouts=RELAYOUTS, iters: int = 10) -> dict:
     """The launches :func:`run` makes on a card: per case two packs (the
-    input packed and folded), each forward ``iters`` + 2 timed + 1 checked
-    times, each forward + backward ``iters`` + 2 times (forward, dgrad,
-    wgrad), two unpacks; per relayout ``iters`` + 2 packs."""
+    input packed and folded), each forward ``iters`` + 2 timed times (K7a
+    once more, checked against one launch of ``conv3x3_packed_mma``), each
+    forward + backward ``iters`` + 2 times (forward, dgrad, wgrad), two
+    unpacks; per relayout ``iters`` + 2 packs."""
     n = iters + 2
     out = dict.fromkeys(K.launches(), 0)
     for *_, halo in cases:
@@ -133,7 +135,8 @@ def expected_launches(cases=CASES, relayouts=RELAYOUTS, iters: int = 10) -> dict
                  ("conv3x3_packed", "conv3x3_packed_dgrad", "conv3x3_wgrad",
                   "conv3x3_pfold", "conv3x3_pfold_dgrad", "conv3x3_pfold_wgrad"))
         for i, name in enumerate(names):
-            out[name] += 2 * n + 1 if i % 3 == 0 else n
+            out[name] += 2 * n + (i == 3) if i % 3 == 0 else n
+        out["conv3x3_packed_mma"] += 1
         out["pack_hw"] += 2
         out["unpack_hw"] += 2
     out["pack_hw"] += n * len(relayouts)

@@ -37,7 +37,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 K4_NAMES = {"_partial_sum", "_partial_m2", "_apply", "_single"}
 # (group, substrings of the kernel name), first match wins.
 GROUPS = (
-    ("K1/K5 conv3x3_packed (fwd + dgrad, SAME and halo)", ("conv3x3_packed_",)),
+    ("K1/K5 conv3x3_packed (fwd + dgrad, SAME and halo)", ("conv3x3_wgmma_",
+                                                            "conv3x3_packed_")),
     ("K2 conv3x3_wgrad", ("conv3x3_wgrad_",)),
     ("K3 transposes", ("transpose_kernel",)),
     ("cuDNN/cuBLAS convs and GEMMs", ("xmma", "cudnn", "nvjet", "gemm", "cutlass",

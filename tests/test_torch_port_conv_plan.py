@@ -1,0 +1,129 @@
+"""The launch plan of the wgmma conv kernel (``ops/kernels/conv_wgmma.py``)
+on the CPU: which kernel each shape routes to, the tile, ring depth and
+shared memory at every stage shape, each output voxel written by exactly one
+block, and the weight's pre-layout. The kernel itself is held to its plain
+version on the card (``test_torch_port_gpu.py``)."""
+
+import itertools
+
+import numpy as np
+import pytest
+import torch
+
+from unet_bssfp_tpu_torch.ops import kernels as K
+from unet_bssfp_tpu_torch.ops.kernels import conv_wgmma as W
+
+# The bf16 convs of the serving, training and mesh paths: (B, Din, grow,
+# Cin, Cout, H, wdim). Forward 24/32/96 → 32 and the dgrads 32 → 24/32/96 at
+# 8 × 64³; the whole volume; K5 and its dgrad at the shards of meshes (1, 2)
+# and (2, 2).
+MAIN = [(8, 64, 0, 24, 32, 64, 64), (8, 64, 0, 32, 32, 64, 64), (8, 64, 0, 96, 32, 64, 64),
+        (8, 64, 0, 32, 24, 64, 64), (8, 64, 0, 32, 96, 64, 64),
+        (1, 96, 0, 24, 32, 128, 128), (1, 96, 0, 96, 32, 128, 128),
+        (1, 50, -2, 96, 32, 128, 128), (4, 34, -2, 24, 32, 64, 64),
+        (8, 34, -2, 96, 32, 64, 64), (8, 32, 2, 32, 96, 64, 64), (1, 48, 2, 32, 24, 128, 128)]
+
+
+def _plan(b, din, grow, cin, cout, h, wdim, wguard=0):
+    return W.wgmma_plan(b, din, din + grow, -grow // 2, cin, cout, h, wdim, wguard)
+
+
+@pytest.mark.parametrize("shape", MAIN)
+def test_every_main_path_shape_takes_the_wgmma_kernel(shape):
+    plan = _plan(*shape)
+    assert plan is not None
+    assert plan.smem <= W.SMEM_LIMIT
+    assert plan.smem == W.smem_bytes(plan.rows, plan.stages, plan.weight_bytes)
+    assert plan.n in W.N_PADS and plan.n >= plan.cout and plan.n - plan.cout < 32
+    assert plan.cin_pad % W.CK == 0 and 0 <= plan.cin_pad - plan.cin < W.CK
+    # four rows only at N 32 (the registers of three rolling slices); a
+    # ring of two stages or more
+    assert plan.rows == (4 if plan.n == 32 else 2) and plan.stages >= 2
+    # the 166 KB weight of 96 → 32 leaves room for 2 stages of 4 rows; that
+    # of 32 → 96 (N 96: 2 rows) for 4
+    if plan.cin == 96:
+        assert (plan.rows, plan.stages, plan.smem) == (4, 2, 232_104)
+    else:
+        assert plan.stages == 4
+
+
+# Ragged shapes: W 8 and 40, wdim 66 and 16 with guards (the flattened-lanes
+# map), H 3, D 1, the D → D+2 geometry, Cin 3/5/24, Cout 6/24/96.
+RAGGED = [(2, 3, 0, 3, 6, 3, 8, 0), (1, 1, 0, 5, 24, 3, 8, 0), (1, 1, 2, 24, 96, 3, 8, 0),
+          (2, 4, -2, 5, 6, 5, 40, 0), (1, 3, 0, 32, 32, 4, 66, 2), (2, 2, 2, 24, 32, 8, 16, 2),
+          (1, 5, 0, 96, 32, 7, 128, 0), (3, 9, -2, 24, 96, 9, 72, 0)]
+
+
+@pytest.mark.parametrize("shape", RAGGED)
+def test_blocks_cover_each_output_voxel_once(shape):
+    plan = _plan(*shape)
+    assert plan is not None
+    seen = np.zeros((plan.b, plan.dout, plan.h, plan.wdim), np.int32)
+    for block in range(plan.grid):
+        b, ds, hs, ws = W.block_outputs(plan, block)
+        assert len(ds) and len(hs) and len(ws)
+        seen[b, ds.start:ds.stop, hs.start:hs.stop, ws.start:ws.stop] += 1
+    assert (seen == 1).all()
+    assert plan.lanes_map == (plan.wdim % 8 != 0)
+
+
+def test_d_segments_follow_the_wave_count():
+    # 128 columns fill one wave of 132 SMs: no split; the whole volume's 64
+    # columns of 4 rows split in two; a tiny call splits d down to slices
+    assert _plan(8, 64, 0, 24, 32, 64, 64).segments == 1
+    assert _plan(1, 96, 0, 24, 32, 128, 128).segments == 2
+    tiny = _plan(1, 6, 0, 8, 8, 4, 64)
+    assert (tiny.segments, tiny.seg_len, tiny.grid) == (6, 1, 6)
+
+
+@pytest.mark.parametrize("shape,reason", [
+    ((1, 4, 0, 32, 128, 8, 64, 0), "Cout > 96"),
+    ((1, 4, 0, 24, 32, 8, 12, 0), "W % 8 without guards"),
+    ((1, 4, 0, 24, 32, 4, 36, 0), "W % 8 without guards"),
+    ((1, 4, 0, 128, 96, 8, 64, 0), "weight too large"),
+    ((1, 4, 0, 128, 32, 8, 64, 0), "weight too large")])
+def test_shapes_the_wgmma_kernel_does_not_take(shape, reason):
+    assert _plan(*shape) is None, reason
+
+
+def test_route_of_a_tensor_is_its_shape():
+    xk = torch.zeros(2, 4, 24, 8 * 12, dtype=torch.bfloat16)
+    assert K.conv_plan(xk, 32, 12) is None
+    assert K.conv_plan(xk, 32, 12, wguard=2).lanes_map
+    plan = K.conv_plan(torch.zeros(2, 4, 24, 8 * 64), 96, 64, grow=2)
+    assert (plan.din, plan.dout, plan.shift, plan.n) == (4, 6, -1, 96)
+
+
+@pytest.mark.parametrize("cin,cout", [(3, 6), (24, 32), (32, 96)])
+def test_weight_image_is_the_weight_under_its_index_map(cin, cout):
+    rng = np.random.default_rng(cin + cout)
+    w = torch.from_numpy(rng.standard_normal((3, 3, 3, cin, cout)).astype(np.float32))
+    n = next(p for p in W.N_PADS if p >= cout)
+    cin_pad = -(-cin // 16) * 16
+    img = W.weight_image(w, n, cin_pad)
+    assert img.dtype == torch.bfloat16 and img.numel() == 27 * cin_pad * n
+    wb = w.to(torch.bfloat16).reshape(27, cin, cout)
+    chunks = cin_pad // 16
+    for t, c, ng, kg, r, k8 in itertools.product(range(27), range(chunks), range(n // 8),
+                                                 range(2), range(8), range(8)):
+        ci, co = 16 * c + 8 * kg + k8, 8 * ng + r
+        got = img[(t * chunks + c) * 16 * n + ((ng * 2 + kg) * 8 + r) * 8 + k8]
+        want = wb[t, ci, co] if ci < cin and co < cout else 0.0
+        if t % 9 == 4 or (t, c) == (0, 0):  # a sample of taps keeps this quick
+            assert float(got) == float(want)
+
+
+@pytest.mark.parametrize("grow", [0, -2, 2])
+def test_mma_entry_point_on_cpu_is_the_plain_conv(grow):
+    rng = np.random.default_rng(7)
+    xk = torch.from_numpy(rng.standard_normal((1, 4, 5, 4 * 32)).astype(np.float32))
+    wt = torch.from_numpy(rng.standard_normal((3, 3, 3, 5, 6)).astype(np.float32)) * 0.2
+    bias = torch.zeros(6)
+    got = K.conv3x3_packed_mma(xk.bfloat16(), wt, bias, 32, grow)
+    assert got.shape == (1, 4 + grow, 6, 128) and got.dtype == torch.bfloat16
+    if grow == 0:
+        torch.testing.assert_close(got, K.conv3x3_packed_plain(xk.bfloat16(), wt, bias, 32))
+    if grow == -2:
+        torch.testing.assert_close(got, K.conv3x3_packed_halo_plain(xk.bfloat16(), wt, bias, 32))
+    with pytest.raises(TypeError):
+        K.conv3x3_packed_mma(xk, wt, bias, 32, grow)

@@ -525,24 +525,35 @@ def test_gpu_pfold_autograd_matches_plain(cuda, b, d, h, w, cin, cout, dtype, ha
 @pytest.mark.parametrize("b,d,h,w,cin,cout", PFOLD_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_gpu_pfold_is_k1_and_k2_bit_for_bit(cuda, b, d, h, w, cin, cout, dtype):
-    """K7a and K7b run K1's and K2's product loops: on the same volume their
-    results are the packed kernels' results, folded, bit for bit (forward,
-    dgrad, the halo forms, dw)."""
+    """K7a and K7b run the packed conv's ``mma.sync`` loop and K2's product
+    loop: on the same volume their results are those kernels' results,
+    folded, bit for bit (forward, dgrad, the halo forms, dw). In bf16 the
+    loop is reached through its check-only entry point
+    ``conv3x3_packed_mma`` (K1 itself is the wgmma kernel); in f32 K1 is
+    the FMA kernel K7a re-indexes."""
+    from unet_bssfp_tpu_torch.ops.kernels.conv3d import _flip_t
     from unet_bssfp_tpu_torch.ops.kernels.pfold import _to_folded, _to_packed
+
+    def loop(a, wt, bias, grow):
+        if dtype == torch.bfloat16:
+            return K.conv3x3_packed_mma(a, wt, bias, w, grow)
+        return (K.conv3x3_packed_halo(a, wt, bias, w) if grow == -2
+                else K.conv3x3_packed(a, wt, bias, w))
 
     w4 = w // 4
     for halo in (False, True):
         xf, wt, bias, dyf = _pfold_operands(b, d, h, w, cin, cout, dtype, halo)
         xk, dyk = _to_packed(xf, w4).contiguous(), _to_packed(dyf, w4).contiguous()
+        wflip, zero = _flip_t(wt, dtype), torch.zeros(cin, device=cuda)
         if halo:
-            pairs = [(K.conv3x3_pfold_halo(xf, wt, bias, w4),
-                      K.conv3x3_packed_halo(xk, wt, bias, w)),
-                     (K.conv3x3_pfold_halo_dgrad(dyf, wt, w4),
-                      K.conv3x3_packed_halo_dgrad(dyk, wt, w))]
+            dgrad = (K.conv3x3_packed_mma(dyk, wflip, zero, w, 2) if dtype == torch.bfloat16
+                     else K.conv3x3_packed_halo_dgrad(dyk, wt, w))
+            pairs = [(K.conv3x3_pfold_halo(xf, wt, bias, w4), loop(xk, wt, bias, -2)),
+                     (K.conv3x3_pfold_halo_dgrad(dyf, wt, w4), dgrad)]
             dws = (K.conv3x3_pfold_wgrad_halo(xf, dyf, w4), K.conv3x3_wgrad_halo(xk, dyk, w))
         else:
-            pairs = [(K.conv3x3_pfold(xf, wt, bias, w4), K.conv3x3_packed(xk, wt, bias, w)),
-                     (K.conv3x3_pfold_dgrad(dyf, wt, w4), K.conv3x3_packed_dgrad(dyk, wt, w))]
+            pairs = [(K.conv3x3_pfold(xf, wt, bias, w4), loop(xk, wt, bias, 0)),
+                     (K.conv3x3_pfold_dgrad(dyf, wt, w4), loop(dyk, wflip, zero, 0))]
             dws = (K.conv3x3_pfold_wgrad(xf, dyf, w4), K.conv3x3_wgrad(xk, dyk, w))
         for folded, packed in pairs:
             assert torch.equal(folded, _to_folded(packed, w)), halo
@@ -600,6 +611,107 @@ def test_gpu_conv3x3_probe_modes_match_plain(cuda, mode, b, d, h, w, cin, cout):
     # K1's bf16 bound: f32 sums in another order, one bf16 rounding each side
     torch.testing.assert_close(got, ref, rtol=2 ** -7, atol=1e-4 * float(ref.abs().max()))
     if mode == "full":
-        assert torch.equal(K.PROBE_MODES[mode](xk, wt, bias, w), K.conv3x3_packed(xk, wt, bias, w))
+        assert torch.equal(K.PROBE_MODES[mode](xk, wt, bias, w),
+                           K.conv3x3_packed_mma(xk, wt, bias, w))
     with pytest.raises(TypeError):
         K.PROBE_MODES[mode](xk.float(), wt, bias, w)
+
+
+# The wgmma kernel (csrc/conv3x3_wgmma.cu) that K1, K1's dgrad, K5 and K5's
+# dgrad take in bf16: the stage shapes at a small batch and ragged shapes
+# (Cin 3/5/24, Cout 6/24/96, W 8 and 40, wdim 66 and 16 with guard columns,
+# H 3, D 1), each at the three d geometries (grow 0: SAME; -2: on an input
+# with its d halo; +2: the halo dgrad's D → D+2). (B, D, H, wdim, g, Cin, Cout)
+WGMMA_SHAPES = [(2, 4, 8, 64, 0, 24, 32), (2, 4, 8, 64, 0, 96, 32), (2, 4, 8, 64, 0, 32, 96),
+                (1, 3, 4, 128, 0, 32, 24), (2, 3, 3, 8, 0, 3, 6), (1, 1, 3, 8, 0, 5, 24),
+                (1, 2, 5, 40, 0, 24, 96), (1, 3, 8, 66, 2, 32, 32), (2, 2, 8, 16, 2, 5, 6)]
+
+
+def _wgmma_operands(b, d, h, wd, g, cin, cout, grow):
+    gen = torch.Generator(device="cuda").manual_seed(cin * cout + d + h)
+    din = d + max(0, -grow)
+    xk = torch.randn(b, din, cin, h * wd, device="cuda", generator=gen).bfloat16()
+    xk = K.guard_mask(xk, wd, g).contiguous()
+    wt = torch.randn(3, 3, 3, cin, cout, device="cuda", generator=gen) / (27 * cin) ** 0.5
+    bias = torch.randn(cout, device="cuda", generator=gen)
+    return xk, wt, bias
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grow", [0, -2, 2])
+@pytest.mark.parametrize("b,d,h,wd,g,cin,cout", WGMMA_SHAPES)
+def test_gpu_wgmma_conv_matches_plain_and_repeats(cuda, b, d, h, wd, g, cin, cout, grow):
+    from unet_bssfp_tpu_torch.ops.kernels import conv3d as C, conv_wgmma
+
+    xk, wt, bias = _wgmma_operands(b, d, h, wd, g, cin, cout, grow)
+    plan = K.conv_plan(xk, cout, wd, grow, g)
+    assert plan is not None and plan.lanes_map == (wd % 8 != 0)
+    got = conv_wgmma.launch(plan, xk, wt, bias, "test")
+    ref = K.guard_mask(C._conv_plain(xk, wt, bias, wd, 1 + grow // 2), wd, g).float()
+    # K1's bf16 bound: f32 sums in another order, one bf16 rounding each side
+    torch.testing.assert_close(got.float(), ref, rtol=2 ** -7, atol=1e-4 * float(ref.abs().max()))
+    assert torch.equal(got, conv_wgmma.launch(plan, xk, wt, bias, "test"))
+    assert conv_wgmma._lib().conv3x3_wgmma_smem(plan.rows, plan.stages, plan.cin_pad,
+                                                plan.n) == plan.smem
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,d,h,wd,g,cin,cout", WGMMA_SHAPES[:3] + WGMMA_SHAPES[-2:])
+def test_gpu_wgmma_routes_and_wguard_autograd(cuda, b, d, h, wd, g, cin, cout):
+    """Through the wrappers: the forward, dx (the wgmma kernel on the
+    flipped weights, guard columns zero) and dw (K2) of K1 and K5 against
+    plain autograd; no launch goes to the mma loop."""
+    xk, wt, bias = _wgmma_operands(b, d, h, wd, g, cin, cout, 0)
+    dy = K.guard_mask(torch.randn(b, d, cout, h * wd, device=cuda), wd, g).bfloat16()
+    for conv, plain, x0 in (
+            (K.conv3x3_packed, K.conv3x3_packed_plain, xk),
+            (K.conv3x3_packed_halo, K.conv3x3_packed_halo_plain,
+             torch.nn.functional.pad(xk, (0, 0, 0, 0, 1, 1)))):
+        def grads(fn):
+            x, w_, b_ = (t.clone().requires_grad_(True) for t in (x0, wt, bias))
+            y = fn(x, w_, b_, wd, g)
+            y.backward(dy)
+            return y.detach(), x.grad, w_.grad
+        K.reset_launches()
+        y, dx, dw = grads(conv)
+        assert K.launches()["conv3x3_packed_mma_routed"] == 0
+        ry, rdx, rdw = grads(plain)
+        _close(y, ry, 2 ** -7, 1e-4)
+        _close(dx, K.guard_mask(rdx, wd, g), 2 ** -7, 1e-4)  # dx's guards: zero
+        _close(dw, rdw, 2 ** -7, 1e-4)
+        assert (dx.float().reshape(*dx.shape[:3], h, wd)[..., wd - g:] == 0).all()
+
+
+@pytest.mark.gpu
+def test_gpu_shapes_outside_the_plan_take_the_mma_loop_counted(cuda):
+    """W 12 without guard columns and Cout 128: static routes to the
+    mma.sync loop, each counted; the result is K1's function all the same."""
+    for wd, cout in ((12, 8), (64, 128)):
+        xk = torch.randn(1, 3, 8, 8 * wd, device=cuda).bfloat16()
+        wt = torch.randn(3, 3, 3, 8, cout, device=cuda) * 0.2
+        bias = torch.randn(cout, device=cuda)
+        assert K.conv_plan(xk, cout, wd) is None
+        K.reset_launches()
+        got = K.conv3x3_packed(xk, wt, bias, wd).float()
+        counts = K.launches()
+        assert (counts["conv3x3_packed"], counts["conv3x3_packed_mma_routed"]) == (1, 1)
+        ref = K.conv3x3_packed_plain(xk, wt, bias, wd).float()
+        torch.testing.assert_close(got, ref, rtol=2 ** -7, atol=1e-4 * float(ref.abs().max()))
+        assert torch.equal(got, K.conv3x3_packed_mma(xk, wt, bias, wd).float())
+
+
+@pytest.mark.gpu
+def test_gpu_wgmma_refused_launch_raises(cuda):
+    import dataclasses
+
+    from unet_bssfp_tpu_torch.ops.kernels import conv_wgmma
+
+    xk = torch.randn(1, 3, 16, 8 * 64, device=cuda).bfloat16()
+    wt, bias = torch.randn(3, 3, 3, 16, 32, device=cuda), torch.zeros(32, device=cuda)
+    plan = K.conv_plan(xk, 32, 64)
+    for bad in (dataclasses.replace(plan, stages=5), dataclasses.replace(plan, n=128),
+                dataclasses.replace(plan, seg_len=1, segments=1)):
+        with pytest.raises(RuntimeError, match="launch plan"):
+            conv_wgmma.launch(bad, xk, wt, bias, "test")
+    with pytest.raises(ValueError):  # f32 is not this kernel's
+        conv_wgmma.launch(plan, xk.float(), wt, bias, "test")

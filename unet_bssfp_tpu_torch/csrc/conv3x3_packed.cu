@@ -1,3 +1,7 @@
+// K1's f32 kernel (the gradient-check path) and the mma.sync bf16 kernel
+// that the wgmma kernel (conv3x3_wgmma.cu) replaced on K1's bf16 routes; the
+// latter still runs K7a and the check-only conv3x3_packed_mma.
+//
 // 3x3x3 SAME convolution + bias on the packed layout (B, D, Cin, H*W) ->
 // (B, D, Cout, H*W), or on the phase-major w-folded layout (B, D, 4*Cin,
 // H*W/4) -> (B, D, 4*Cout, H*W/4), f32 accumulation, f32 or bf16 activations.
@@ -52,7 +56,7 @@
 // weights in shared memory, so the 166 KB bf16 weight of the Cin-96 conv
 // never has to sit in shared memory whole.
 //
-// bf16 (the serving dtype): tensor cores through mma.sync m16n8k16 (bf16
+// bf16: tensor cores through mma.sync m16n8k16 (bf16
 // in, f32 accumulate). Each of the 8 warps owns one h row: 32 pixels (two
 // m16 tiles) x 32 channels (four n8 tiles). Shared memory holds pixels x
 // channels with the channel run padded from 16 to 24 elements (48 B), which

@@ -1,7 +1,9 @@
-// The bf16 tensor-core kernel of the 3x3x3 conv: K1's loop, shared by
-// conv3x3_packed.cu (K1, K1's dgrad, K5, K7a; its header describes the
-// function, the d geometry and the design) and probe.cu (K9b). Two template
-// parameters select what the loop is wrapped in:
+// The mma.sync bf16 kernel of the 3x3x3 conv (K1's loop until the wgmma
+// kernel, conv3x3_wgmma.cu, took K1, K1's dgrad, K5 and K5's dgrad), shared
+// by conv3x3_packed.cu (K7a, and the check-only conv3x3_packed_mma on the
+// packed layout; its header describes the function, the d geometry and the
+// design) and probe.cu (K9b). Two template parameters select what the loop
+// is wrapped in:
 //
 //   FOLD  the activation layout, packed or phase-major w-folded (fold4.cuh);
 //         it changes the staging loads and the output stores only.

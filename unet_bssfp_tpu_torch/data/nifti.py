@@ -106,7 +106,8 @@ def save_volume(path: str, data: np.ndarray,
     struct.pack_into("<f", hdr, 108, 352.0)  # vox_offset
     struct.pack_into("<f", hdr, 112, 1.0)  # scl_slope
     struct.pack_into("<f", hdr, 116, 0.0)  # scl_inter
-    struct.pack_into("<h", hdr, 252, 1)  # sform_code = NIFTI_XFORM_SCANNER
+    # qform_code (252) stays 0; sform_code (254) = NIFTI_XFORM_SCANNER
+    struct.pack_into("<h", hdr, 254, 1)
     struct.pack_into("<12f", hdr, 280, *affine[:3, :].astype(np.float32).ravel())
     struct.pack_into("<4s", hdr, 344, b"n+1\x00")
 

@@ -4,7 +4,7 @@ layout, under autograd, unsharded and d-sharded over a mesh.
 Replaces ``unet_bssfp_tpu/ops/pallas/conv3d.py::conv3x3_packed`` and its
 custom VJP (``_vjp_bwd``):
 
-- forward: K1, ``csrc/conv3x3_packed.cu`` (``_conv_fwd_impl``);
+- forward: K1 (``_conv_fwd_impl``);
 - dx: K1 again, on ``dy`` with the weight flipped in (kd, kh, kw) and
   transposed in (ci, co), zero bias (:func:`conv3x3_packed_dgrad`);
 - dw: K2, ``csrc/conv3x3_wgrad.cu`` (``_dw_impl``), f32
@@ -14,17 +14,36 @@ custom VJP (``_vjp_bwd``):
 K5 replaces ``conv3x3_packed_halo`` (the same TPU kernel with
 ``pad_d=False``) and its VJP ``_halo_vjp_bwd``: the conv on an input that
 carries a real one-slice d halo per side, which a d-sharded volume gets from
-its neighbours (:func:`conv3x3_packed_auto`). Its three parts are the same
-two CUDA kernels at another d geometry (launch parameters of the conv
-kernel, a template parameter of the wgrad kernel; see the sources'
-headers): :func:`conv3x3_packed_halo` forward,
-:func:`conv3x3_packed_halo_dgrad` (D+2 slices of dx from D of dy, the
-out-of-range dy slices being bounds, not a padded copy) and
-:func:`conv3x3_wgrad_halo`.
+its neighbours (:func:`conv3x3_packed_auto`): :func:`conv3x3_packed_halo`
+forward, :func:`conv3x3_packed_halo_dgrad` (D+2 slices of dx from D of dy,
+the out-of-range dy slices being bounds, not a padded copy) and
+:func:`conv3x3_wgrad_halo` (K2 with its d geometry as a template).
 
-The launchers take the phase-major w-folded layout too (``fold``): K7a and
-K7b, the pfold conv of :mod:`.pfold`, are these kernels with their staging
-and stores re-indexed.
+Which CUDA kernel runs a conv (K1, its dgrad, K5, its dgrad), static by
+dtype and shape:
+
+- bf16 → ``csrc/conv3x3_wgmma.cu`` (TMA ring, ``wgmma``, resident weights;
+  :mod:`.conv_wgmma` plans the launch), wherever
+  :func:`.conv_wgmma.wgmma_plan` takes the shape: Cout ≤ 96, W a multiple
+  of 8 or guard columns present, the weight resident beside a 2-stage ring.
+  Every shape of the serving, training and mesh paths is taken. Any other
+  bf16 shape runs the ``mma.sync`` loop of ``csrc/conv3x3_packed.cu``
+  (``conv3x3_packed.cuh``), and each such launch adds one to
+  ``conv3x3_packed_mma_routed.launches`` besides the wrapper's own count;
+- f32 (the gradient-check path) → the FMA kernel of ``conv3x3_packed.cu``.
+
+:func:`conv3x3_packed_mma` launches the ``mma.sync`` loop on the packed
+layout at any d geometry: a check-only entry point (K7a and K9b are held
+bit for bit to it); nothing on a model path calls it. The launchers take
+the phase-major w-folded layout too (``fold``): K7a and K7b, the pfold conv
+of :mod:`.pfold`, are the ``mma.sync`` loop and K2 with their staging and
+stores re-indexed.
+
+``wguard`` (the JAX package's ``wguard``): the last ``wguard`` columns of
+every w-row are zero guard columns. The forward and the dgrad write them as
+zero; the backward first zeroes ``dy``'s guard columns (the JAX package's
+``_project_guard_cotangent``), in plain torch; K2 runs unchanged at the full
+row width.
 
 Each source's header says what bounds it on the card and how it is laid
 out. ``*_plain`` are the same functions in plain PyTorch: the CPU path, and
@@ -41,7 +60,7 @@ from typing import Mapping, Optional, Union
 import torch
 import torch.nn.functional as F
 
-from unet_bssfp_tpu_torch.ops.kernels import _build
+from unet_bssfp_tpu_torch.ops.kernels import _build, conv_wgmma
 from unet_bssfp_tpu_torch.parallel.mesh import Mesh, Sharded, gather_batch, shard_batch
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -73,18 +92,30 @@ def _conv_plain(xk: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     return y.permute(0, 2, 1, 3, 4).reshape(b, -1, cout, hw).to(xk.dtype)
 
 
+def guard_mask(t: torch.Tensor, wdim: int, wguard: int) -> torch.Tensor:
+    """``t`` (…, H·wdim) with the last ``wguard`` columns of every w-row
+    set to zero (``t`` itself where ``wguard`` is 0)."""
+    if not wguard:
+        return t
+    keep = torch.arange(wdim, device=t.device) < wdim - wguard
+    rows = t.reshape(*t.shape[:-1], -1, wdim)
+    return torch.where(keep, rows, torch.zeros((), dtype=t.dtype, device=t.device)
+                       ).reshape(t.shape)
+
+
 def conv3x3_packed_plain(xk: torch.Tensor, w: torch.Tensor,
-                         bias: torch.Tensor, wdim: int) -> torch.Tensor:
+                         bias: torch.Tensor, wdim: int, wguard: int = 0) -> torch.Tensor:
     """Plain version: ``w`` rounded to ``xk``'s dtype, f32 products and sums,
-    f32 bias, result cast to ``xk``'s dtype (as the TPU kernel does)."""
-    return _conv_plain(xk, w, bias, wdim, 1)
+    f32 bias, result cast to ``xk``'s dtype (as the TPU kernel does); with
+    ``wguard``, the output's guard columns then set to zero."""
+    return guard_mask(_conv_plain(xk, w, bias, wdim, 1), wdim, wguard)
 
 
 def conv3x3_packed_halo_plain(xp: torch.Tensor, w: torch.Tensor,
-                              bias: torch.Tensor, wdim: int) -> torch.Tensor:
+                              bias: torch.Tensor, wdim: int, wguard: int = 0) -> torch.Tensor:
     """Plain version of K5: as :func:`conv3x3_packed_plain` with no d padding
     (padding (0, 1, 1)): (B, D+2, Cin, H·W) → (B, D, Cout, H·W)."""
-    return _conv_plain(xp, w, bias, wdim, 0)
+    return guard_mask(_conv_plain(xp, w, bias, wdim, 0), wdim, wguard)
 
 
 def _wgrad_plain(xk: torch.Tensor, dy: torch.Tensor, wdim: int,
@@ -117,11 +148,15 @@ def conv3x3_wgrad_halo_plain(xp: torch.Tensor, dy: torch.Tensor,
 
 
 def conv3x3_packed_halo_dgrad_plain(dy: torch.Tensor, w: torch.Tensor,
-                                    wdim: int) -> torch.Tensor:
+                                    wdim: int, wguard: int = 0) -> torch.Tensor:
     """Plain version of the halo dgrad: the gradient of
     :func:`conv3x3_packed_halo_plain` with respect to ``xp`` (B, D+2, Cin,
     H·W), by autograd, for the cotangent ``dy`` (B, D, Cout, H·W), with
-    ``w`` rounded to ``dy``'s dtype and the result in ``dy``'s dtype."""
+    ``w`` rounded to ``dy``'s dtype and the result in ``dy``'s dtype; with
+    ``wguard``, ``dy``'s guard columns zeroed first and the result's after."""
+    if wguard:
+        return guard_mask(conv3x3_packed_halo_dgrad_plain(
+            guard_mask(dy, wdim, wguard), w, wdim), wdim, wguard)
     b, d, cout, hw = dy.shape
     acc = _acc(dy.dtype)
     xp = torch.zeros((b, d + 2, w.shape[3], hw), dtype=acc, device=dy.device,
@@ -144,14 +179,9 @@ def _check_packed(what: str, xk: torch.Tensor, wdim: int) -> None:
         raise ValueError(f"{what}: B·D exceeds the grid limit 65535")
 
 
-def _conv_launch(xk: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
-                 wdim: int, what: str, grow: int = 0, fold: bool = False) -> torch.Tensor:
-    """One launch of the conv kernel on a CUDA tensor. ``grow`` is the d
-    geometry: 0 the SAME conv (D → D slices), -2 the conv on an input with
-    its d halo (D+2 → D, every slice real), +2 that conv's input gradient
-    (D → D+2, the missing slices zero by bounds). ``fold``: ``xk`` is
-    phase-major w-folded, (B, D, 4·Cin, H·W/4), ``wdim`` is W/4 and the
-    output is folded too (K7a)."""
+def _conv_shape(xk: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                wdim: int, what: str, grow: int, fold: bool = False):
+    """Check a CUDA conv's operands; (B, Din, Cin, lanes, Dout)."""
     if xk.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {xk.device}")
     f = 4 if fold else 1
@@ -171,6 +201,20 @@ def _conv_launch(xk: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
         raise ValueError(f"{what}: B·D exceeds the grid limit 65535")
     if w.device != xk.device or bias.device != xk.device:
         raise ValueError(f"{what}: weight, bias and input on different devices")
+    return b, din, cin, lanes, d
+
+
+def _conv_launch(xk: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                 wdim: int, what: str, grow: int = 0, fold: bool = False) -> torch.Tensor:
+    """One launch of ``csrc/conv3x3_packed.cu`` (the ``mma.sync`` loop in
+    bf16, the FMA kernel in f32) on a CUDA tensor. ``grow`` is the d
+    geometry: 0 the SAME conv (D → D slices), -2 the conv on an input with
+    its d halo (D+2 → D, every slice real), +2 that conv's input gradient
+    (D → D+2, the missing slices zero by bounds). ``fold``: ``xk`` is
+    phase-major w-folded, (B, D, 4·Cin, H·W/4), ``wdim`` is W/4 and the
+    output is folded too (K7a)."""
+    b, din, cin, lanes, d = _conv_shape(xk, w, bias, wdim, what, grow, fold)
+    f = 4 if fold else 1
     cout = w.shape[4]
     wk = w.detach().to(xk.dtype).contiguous()  # rounded as the TPU kernel does
     bk = bias.detach().float().contiguous()
@@ -187,12 +231,64 @@ def _conv_launch(xk: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     return y
 
 
+def conv_plan(xk: torch.Tensor, cout: int, wdim: int, grow: int = 0,
+              wguard: int = 0) -> Optional[conv_wgmma.WgmmaPlan]:
+    """The wgmma kernel's plan for a bf16 conv of ``xk`` (B, Din, Cin, H·W)
+    to ``cout`` channels at d geometry ``grow``, or ``None`` where the shape
+    runs the ``mma.sync`` loop (see the module's docstring)."""
+    b, din, cin, lanes = xk.shape
+    sms = (conv_wgmma.device_sms(xk.device) if xk.device.type == "cuda"
+           else conv_wgmma.SMS)
+    return conv_wgmma.wgmma_plan(b, din, din + grow, -grow // 2, cin, cout,
+                                 lanes // wdim, wdim, wguard, sms)
+
+
+def _conv_cuda(xk: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, wdim: int,
+               what: str, grow: int = 0, wguard: int = 0) -> torch.Tensor:
+    """The conv on a CUDA tensor, by the kernel its dtype and shape route
+    to; raises where no kernel takes it."""
+    _conv_shape(xk, w, bias, wdim, what, grow)
+    if xk.dtype == torch.float32:
+        return guard_mask(_conv_launch(xk, w, bias, wdim, what, grow), wdim, wguard)
+    plan = conv_plan(xk, w.shape[4], wdim, grow, wguard)
+    if plan is None:
+        return conv3x3_packed_mma_routed(xk, w, bias, wdim, what, grow, wguard)
+    return conv_wgmma.launch(plan, xk, w, bias, what)
+
+
+def conv3x3_packed_mma_routed(xk: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                              wdim: int, what: str, grow: int = 0,
+                              wguard: int = 0) -> torch.Tensor:
+    """A bf16 conv of this module's wrappers whose shape :func:`conv_plan`
+    does not take: the ``mma.sync`` loop, the guard columns zeroed after,
+    counted in its own ``launches``."""
+    y = guard_mask(_conv_launch(xk, w, bias, wdim, what, grow), wdim, wguard)
+    conv3x3_packed_mma_routed.launches += 1
+    return y
+
+
+def conv3x3_packed_mma(xk: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                       wdim: int, grow: int = 0) -> torch.Tensor:
+    """The ``mma.sync`` loop of ``csrc/conv3x3_packed.cuh`` on the packed
+    layout, bf16, at d geometry ``grow`` (0, -2 or +2, as
+    :func:`_conv_launch`): a check-only entry point (K7a and K9b ``full``
+    are bit for bit its result), on no model path. A CPU tensor takes the
+    plain version."""
+    if xk.dtype != torch.bfloat16:
+        raise TypeError(f"conv3x3_packed_mma: bf16 only, not {xk.dtype}")
+    if xk.device.type == "cpu":
+        return _conv_plain(xk, w, bias, wdim, 1 + grow // 2)
+    y = _conv_launch(xk, w, bias, wdim, "conv3x3_packed_mma", grow)
+    conv3x3_packed_mma.launches += 1
+    return y
+
+
 def _conv_fwd(xk: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
-              wdim: int, what: str) -> torch.Tensor:
+              wdim: int, what: str, wguard: int = 0) -> torch.Tensor:
     """One K1 launch (CUDA) or the plain version (CPU); no autograd."""
     if xk.device.type == "cpu":
-        return conv3x3_packed_plain(xk, w, bias, wdim)
-    return _conv_launch(xk, w, bias, wdim, what)
+        return conv3x3_packed_plain(xk, w, bias, wdim, wguard)
+    return _conv_cuda(xk, w, bias, wdim, what, 0, wguard)
 
 
 def _flip_t(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -201,31 +297,33 @@ def _flip_t(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 
 def conv3x3_packed_dgrad(dy: torch.Tensor, w: torch.Tensor,
-                         wdim: int) -> torch.Tensor:
+                         wdim: int, wguard: int = 0) -> torch.Tensor:
     """dx of the packed conv: K1 on ``dy`` (B, D, Cout, H·W) with ``w``
     flipped in (kd, kh, kw), transposed to (3, 3, 3, Cout, Cin) and cast to
-    ``dy``'s dtype, zero bias → (B, D, Cin, H·W) in ``dy``'s dtype."""
+    ``dy``'s dtype, zero bias → (B, D, Cin, H·W) in ``dy``'s dtype; with
+    ``wguard``, its guard columns zero."""
     wt = _flip_t(w, dy.dtype)
     zero = torch.zeros(wt.shape[4], dtype=torch.float32, device=dy.device)
-    dx = _conv_fwd(dy, wt, zero, wdim, "conv3x3_packed_dgrad")
+    dx = _conv_fwd(dy, wt, zero, wdim, "conv3x3_packed_dgrad", wguard)
     if dy.device.type == "cuda":
         conv3x3_packed_dgrad.launches += 1
     return dx
 
 
 def conv3x3_packed_halo_dgrad(dy: torch.Tensor, w: torch.Tensor,
-                              wdim: int) -> torch.Tensor:
+                              wdim: int, wguard: int = 0) -> torch.Tensor:
     """dxp of :func:`conv3x3_packed_halo`: ``dxp[j] = Σ_kd w[kd]ᵀ · dy[j-kd]``
     for j in [0, D+2), from ``dy`` (B, D, Cout, H·W) → (B, D+2, Cin, H·W) in
     ``dy``'s dtype: the conv kernel with the flipped, transposed weight and
-    zero bias, a ``dy`` slice outside [0, D) reading as zero. A CPU tensor
-    takes :func:`conv3x3_packed_halo_dgrad_plain`; a CUDA tensor launches
-    the kernel or raises."""
+    zero bias, a ``dy`` slice outside [0, D) reading as zero; with
+    ``wguard``, its guard columns zero. A CPU tensor takes
+    :func:`conv3x3_packed_halo_dgrad_plain`; a CUDA tensor launches the
+    kernel or raises."""
     if dy.device.type == "cpu":
-        return conv3x3_packed_halo_dgrad_plain(dy, w, wdim)
+        return conv3x3_packed_halo_dgrad_plain(dy, w, wdim, wguard)
     wt = _flip_t(w, dy.dtype)
     zero = torch.zeros(wt.shape[4], dtype=torch.float32, device=dy.device)
-    dxp = _conv_launch(dy, wt, zero, wdim, "conv3x3_packed_halo_dgrad", grow=2)
+    dxp = _conv_cuda(dy, wt, zero, wdim, "conv3x3_packed_halo_dgrad", 2, wguard)
     conv3x3_packed_halo_dgrad.launches += 1
     return dxp
 
@@ -301,11 +399,11 @@ class _Conv3x3Packed(torch.autograd.Function):
     """``conv3x3_packed``'s custom VJP (``conv3d.py:573-591``)."""
 
     @staticmethod
-    def forward(ctx, xk, w, bias, wdim):
+    def forward(ctx, xk, w, bias, wdim, wguard):
         ctx.save_for_backward(xk, w)
-        ctx.wdim = wdim
+        ctx.wdim, ctx.wguard = wdim, wguard
         ctx.bias_dtype = bias.dtype
-        y = _conv_fwd(xk, w, bias, wdim, "conv3x3_packed")
+        y = _conv_fwd(xk, w, bias, wdim, "conv3x3_packed", wguard)
         if xk.device.type == "cuda":
             conv3x3_packed.launches += 1
         return y
@@ -313,63 +411,65 @@ class _Conv3x3Packed(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         xk, w = ctx.saved_tensors
-        dy = dy.to(xk.dtype).contiguous()
+        dy = guard_mask(dy.to(xk.dtype), ctx.wdim, ctx.wguard).contiguous()
         dx = dw = db = None
         if ctx.needs_input_grad[0]:
-            dx = conv3x3_packed_dgrad(dy, w, ctx.wdim).to(xk.dtype)
+            dx = conv3x3_packed_dgrad(dy, w, ctx.wdim, ctx.wguard).to(xk.dtype)
         if ctx.needs_input_grad[1]:
             dw = conv3x3_wgrad(xk, dy, ctx.wdim).to(w.dtype)
         if ctx.needs_input_grad[2]:
             db = dy.to(_acc(dy.dtype)).sum(dim=(0, 1, 3)).to(ctx.bias_dtype)
-        return dx, dw, db, None
+        return dx, dw, db, None, None
 
 
 def conv3x3_packed(xk: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
-                   wdim: int) -> torch.Tensor:
+                   wdim: int, wguard: int = 0) -> torch.Tensor:
     """SAME 3x3x3 conv of ``xk`` (B, D, Cin, H·W) with ``w`` (3, 3, 3, Cin,
     Cout) and ``bias`` (Cout,) → (B, D, Cout, H·W) in ``xk``'s dtype,
-    differentiable in all three. On a CPU tensor every part (forward, dx,
-    dw) takes its plain version; on a CUDA tensor each launches its kernel
-    or raises."""
-    return _Conv3x3Packed.apply(xk, w, bias, wdim)
+    differentiable in all three. ``wguard``: the last ``wguard`` of the
+    ``wdim`` columns of every w-row are zero guard columns (the module's
+    docstring). On a CPU tensor every part (forward, dx, dw) takes its plain
+    version; on a CUDA tensor each launches its kernel or raises."""
+    return _Conv3x3Packed.apply(xk, w, bias, wdim, wguard)
 
 
 class _Conv3x3PackedHalo(torch.autograd.Function):
     """``conv3x3_packed_halo``'s custom VJP (``conv3d.py:608-630``)."""
 
     @staticmethod
-    def forward(ctx, xp, w, bias, wdim):
+    def forward(ctx, xp, w, bias, wdim, wguard):
         ctx.save_for_backward(xp, w)
-        ctx.wdim = wdim
+        ctx.wdim, ctx.wguard = wdim, wguard
         ctx.bias_dtype = bias.dtype
         if xp.device.type == "cpu":
-            return conv3x3_packed_halo_plain(xp, w, bias, wdim)
-        y = _conv_launch(xp, w, bias, wdim, "conv3x3_packed_halo", grow=-2)
+            return conv3x3_packed_halo_plain(xp, w, bias, wdim, wguard)
+        y = _conv_cuda(xp, w, bias, wdim, "conv3x3_packed_halo", -2, wguard)
         conv3x3_packed_halo.launches += 1
         return y
 
     @staticmethod
     def backward(ctx, dy):
         xp, w = ctx.saved_tensors
-        dy = dy.to(xp.dtype).contiguous()
+        dy = guard_mask(dy.to(xp.dtype), ctx.wdim, ctx.wguard).contiguous()
         dxp = dw = db = None
         if ctx.needs_input_grad[0]:
-            dxp = conv3x3_packed_halo_dgrad(dy, w, ctx.wdim).to(xp.dtype)
+            dxp = conv3x3_packed_halo_dgrad(dy, w, ctx.wdim, ctx.wguard).to(xp.dtype)
         if ctx.needs_input_grad[1]:
             dw = conv3x3_wgrad_halo(xp, dy, ctx.wdim).to(w.dtype)
         if ctx.needs_input_grad[2]:
             db = dy.to(_acc(dy.dtype)).sum(dim=(0, 1, 3)).to(ctx.bias_dtype)
-        return dxp, dw, db, None
+        return dxp, dw, db, None, None
 
 
 def conv3x3_packed_halo(xp: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
-                        wdim: int) -> torch.Tensor:
+                        wdim: int, wguard: int = 0) -> torch.Tensor:
     """:func:`conv3x3_packed` on an input that already carries one d slice of
     halo per side: ``xp`` (B, D+2, Cin, H·W) → (B, D, Cout, H·W) in ``xp``'s
     dtype; no d padding is added and no d slice is skipped. Differentiable in
-    ``xp``, ``w`` and ``bias``. On a CPU tensor every part takes its plain
-    version; on a CUDA tensor each launches its kernel or raises."""
-    return _Conv3x3PackedHalo.apply(xp, w, bias, wdim)
+    ``xp``, ``w`` and ``bias``; ``wguard`` as in :func:`conv3x3_packed`. On a
+    CPU tensor every part takes its plain version; on a CUDA tensor each
+    launches its kernel or raises."""
+    return _Conv3x3PackedHalo.apply(xp, w, bias, wdim, wguard)
 
 
 Replicas = Union[torch.Tensor, Mapping[torch.device, torch.Tensor]]
@@ -414,6 +514,8 @@ def conv3x3_packed_auto(xk: Union[torch.Tensor, Sharded], w: Replicas,
 
 conv3x3_packed.launches = 0
 conv3x3_packed_dgrad.launches = 0
+conv3x3_packed_mma.launches = 0
+conv3x3_packed_mma_routed.launches = 0
 conv3x3_wgrad.launches = 0
 conv3x3_packed_halo.launches = 0
 conv3x3_packed_halo_dgrad.launches = 0

@@ -1,0 +1,213 @@
+"""The launch plan, weight layout and launcher of the bf16 wgmma conv kernel
+(``csrc/conv3x3_wgmma.cu``), which runs K1, K1's dgrad, K5 and K5's dgrad
+on the card (:mod:`.conv3d` routes to it).
+
+Everything about a launch that can be decided without the card is decided
+here, in plain Python, so the CPU tests check it: which kernel a shape takes
+(:func:`wgmma_plan` returns ``None`` where the wgmma kernel does not take
+it), the tile, the ring depth, the shared memory, the d segments and the
+grid (:class:`WgmmaPlan`), the output voxels each block writes
+(:func:`block_outputs`), and the weight's pre-layout (:func:`weight_image`).
+The C launcher checks the plan's numbers again and refuses a plan that does
+not fit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from unet_bssfp_tpu_torch.ops.kernels import _build
+
+TILE_W = 64          # output w columns per tile (one wgmma M)
+PX = TILE_W + 16     # pixels per loaded row: w0 - 8 .. w0 + 71
+CK = 16              # input channels per ring stage (one wgmma K)
+N_PADS = (32, 64, 96)  # wgmma N: Cout padded up to one of these
+CONSUMERS = 2        # consumer warpgroups per block
+ROW_BYTES = CK * PX * 2  # one (h row, 16 channels) box
+EPI_BYTES = 16 * 72 * 2
+MAX_STAGES = 4
+BAR_BYTES = 8 * (MAX_STAGES + 1)
+SLACK = 128          # alignment of the dynamic shared memory base
+SMEM_LIMIT = 232_448  # shared memory one block may take on an H100
+SMS = 132             # the H100 SXM's SMs: the default for the d segments
+
+
+@dataclasses.dataclass(frozen=True)
+class WgmmaPlan:
+    """One launch: the operands' geometry and the kernel's choices.
+
+    ``rows``: output h rows per block (2 consumer warpgroups × 1 or 2);
+    ``stages``: ring depth; ``seg_len``/``segments``: each block walks
+    ``seg_len`` output d slices (the last segment may be shorter); blocks
+    are numbered (b, segment, w tile, h tile) with the h tile fastest."""
+    b: int
+    din: int
+    dout: int
+    shift: int
+    cin: int
+    cout: int
+    h: int
+    wdim: int
+    wguard: int
+    lanes_map: bool
+    n: int
+    cin_pad: int
+    rows: int
+    stages: int
+    seg_len: int
+    segments: int
+
+    @property
+    def tiles_h(self) -> int:
+        return -(-self.h // self.rows)
+
+    @property
+    def tiles_w(self) -> int:
+        return -(-self.wdim // TILE_W)
+
+    @property
+    def grid(self) -> int:
+        return self.b * self.segments * self.tiles_w * self.tiles_h
+
+    @property
+    def weight_bytes(self) -> int:
+        return 27 * self.cin_pad * self.n * 2
+
+    @property
+    def stage_bytes(self) -> int:
+        return (self.rows + 2) * ROW_BYTES
+
+    @property
+    def smem(self) -> int:
+        return smem_bytes(self.rows, self.stages, self.weight_bytes)
+
+
+def smem_bytes(rows: int, stages: int, weight_bytes: int) -> int:
+    """Dynamic shared memory of one block: alignment slack, the ring of raw
+    tiles, two transposed tiles (each a raw tile's size), the resident
+    weights, two epilogue staging tiles, the barriers."""
+    return (SLACK + (stages + 2) * (rows + 2) * ROW_BYTES + weight_bytes
+            + CONSUMERS * EPI_BYTES + BAR_BYTES)
+
+
+def wgmma_plan(b: int, din: int, dout: int, shift: int, cin: int, cout: int,
+               h: int, wdim: int, wguard: int = 0,
+               sms: int = SMS) -> Optional[WgmmaPlan]:
+    """The plan of one bf16 launch, or ``None`` where the wgmma kernel does
+    not take the shape (static, by shape alone):
+
+    - ``Cout > 96`` (the accumulators of three rolling output slices at
+      N = 128 exceed the registers);
+    - ``wdim % 8 != 0`` without guard columns (a TMA row stride must be a
+      multiple of 16 bytes, and the flattened-lanes map needs zero guards to
+      stand for the w padding);
+    - a weight too large to stay in shared memory beside a 2-stage ring.
+
+    Tiles: 4 output rows (2 per consumer warpgroup) where N is 32 and a
+    ring of 2 stages fits, else 2; the deepest ring up to 4 that fits. d segments: the count that takes the fewest block-steps per SM
+    (waves of blocks over ``sms`` SMs × steps per block)."""
+    if min(b, din, dout, cin, cout, h, wdim) < 1 or not 0 <= wguard < wdim:
+        return None
+    n = next((p for p in N_PADS if p >= cout), None)
+    if n is None:
+        return None
+    lanes_map = wdim % 8 != 0
+    if lanes_map and (wguard < 1 or (h * wdim) % 8):
+        return None
+    cin_pad = -(-cin // CK) * CK
+    wbytes = 27 * cin_pad * n * 2
+    choice = None
+    for rows in ((4, 2) if n == 32 else (2,)):
+        free = SMEM_LIMIT - smem_bytes(rows, 0, wbytes)
+        stages = min(MAX_STAGES, free // ((rows + 2) * ROW_BYTES))
+        if stages >= 2:
+            choice = rows, stages
+            break
+    if choice is None:
+        return None
+    rows, stages = choice
+    columns = b * -(-h // rows) * -(-wdim // TILE_W)
+    # one block per SM: a block's time is its steps (seg_len + 2 input
+    # slices), the call's time its waves of blocks times that
+    segments = min(range(1, dout + 1), key=lambda s: (
+        math.ceil(columns * s / sms) * (-(-dout // s) + 2), s))
+    seg_len = -(-dout // segments)
+    segments = -(-dout // seg_len)
+    return WgmmaPlan(b, din, dout, shift, cin, cout, h, wdim, wguard, lanes_map,
+                     n, cin_pad, rows, stages, seg_len, segments)
+
+
+def block_outputs(plan: WgmmaPlan, block: int) -> Tuple[int, range, range, range]:
+    """The output voxels block ``block`` writes, as the kernel decodes its
+    index: (b, d range, h range, w range)."""
+    ht = block % plan.tiles_h
+    block //= plan.tiles_h
+    wt = block % plan.tiles_w
+    block //= plan.tiles_w
+    seg = block % plan.segments
+    b = block // plan.segments
+    d0 = seg * plan.seg_len
+    h0, w0 = ht * plan.rows, wt * TILE_W
+    return (b, range(d0, min(d0 + plan.seg_len, plan.dout)),
+            range(h0, min(h0 + plan.rows, plan.h)),
+            range(w0, min(w0 + TILE_W, plan.wdim)))
+
+
+def weight_image(w: torch.Tensor, n: int, cin_pad: int) -> torch.Tensor:
+    """``w`` (3, 3, 3, Cin, Cout) as the kernel's shared memory holds it,
+    bf16, flat: block ``(t, c)`` for tap t = 9·kd + 3·kh + kw and channel
+    chunk c (16 input channels) at ``(t·cin_pad/16 + c)·16·n``; inside a
+    block element ``((ng·2 + kg)·8 + r)·8 + k8`` is
+    ``w[t][16c + 8kg + k8][8ng + r]`` (zero past Cin and Cout): the wgmma B
+    operand, K-major, 8 × 8 core matrices."""
+    cin, cout = w.shape[3], w.shape[4]
+    wp = F.pad(w.detach().to(torch.bfloat16), (0, n - cout, 0, cin_pad - cin))
+    img = wp.reshape(27, cin_pad // CK, 2, 8, n // 8, 8).permute(0, 1, 4, 2, 5, 3)
+    return img.contiguous().reshape(-1)
+
+
+def launch(plan: WgmmaPlan, xk: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+           what: str) -> torch.Tensor:
+    """One launch of the wgmma kernel on CUDA bf16 operands, as ``plan``
+    says; raises if the launch is refused."""
+    if xk.dtype != torch.bfloat16 or xk.device.type != "cuda":
+        raise ValueError(f"{what}: the wgmma kernel takes CUDA bf16, not "
+                         f"{xk.dtype} on {xk.device}")
+    if xk.data_ptr() % 16:
+        raise ValueError(f"{what}: input not 16-byte aligned")
+    img = weight_image(w, plan.n, plan.cin_pad)
+    bk = bias.detach().float().contiguous()
+    y = torch.empty((plan.b, plan.dout, plan.cout, plan.h * plan.wdim),
+                    dtype=torch.bfloat16, device=xk.device)
+    lib = _lib()
+    with torch.cuda.device(xk.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.conv3x3_wgmma_bf16(
+            xk.data_ptr(), img.data_ptr(), bk.data_ptr(), y.data_ptr(), plan.b,
+            plan.din, plan.dout, plan.shift, plan.cin, plan.cout, plan.h, plan.wdim,
+            plan.wguard, int(plan.lanes_map), plan.n, plan.cin_pad, plan.rows,
+            plan.stages, plan.seg_len, plan.segments, stream)
+    _build.check(lib, rc, what)
+    return y
+
+
+def device_sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("conv3x3_wgmma")
+    if not getattr(lib, "_typed", False):
+        lib.conv3x3_wgmma_bf16.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 16
+                                           + [ctypes.c_void_p])
+        lib.conv3x3_wgmma_bf16.restype = ctypes.c_int
+        lib.conv3x3_wgmma_smem.argtypes = [ctypes.c_int] * 4
+        lib.conv3x3_wgmma_smem.restype = ctypes.c_int
+        lib._typed = True
+    return lib

@@ -29,7 +29,7 @@ from unet_bssfp_tpu_torch.ops.kernels import _build
 from unet_bssfp_tpu_torch.ops.kernels.conv3d import _check_packed, conv3x3_packed_plain
 
 MODES = ("full", "centre", "fixed")
-CK = 16  # input channels per stage of K1's loop
+CK = 16  # input channels per stage of the mma.sync loop
 
 
 def lane_roll_plain(x: torch.Tensor, shift: int = 1) -> torch.Tensor:

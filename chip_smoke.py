@@ -13,7 +13,9 @@ Phases (any failure → nonzero exit, no ``ok`` line):
    (``csrc/conv3x3_wgmma.cu``); beside it, its ``wguard`` form K1W at
    8 × 64 × 32 × 64·66 (W 64 + 2 guard columns, the flattened-lanes map)
    and the ``mma.sync`` loop's check-only entry point
-   (``conv3x3_packed_mma``) at K1's heaviest shape.
+   (``conv3x3_packed_mma``) at K1's heaviest shape. The relayouts at the
+   generator's 24-, 64- and 6-channel sides (K3a and K3b at C 6 take the
+   kernel's narrow path).
 3. Serving path: the full-width pc-bSSFP generator with seeded random
    weights serves one (96, 128, 128, 24) volume through ``predict_volume``,
    patch-stitched (8 × 64³) and whole-volume, with ``use_pallas`` off and
@@ -23,7 +25,10 @@ Phases (any failure → nonzero exit, no ``ok`` line):
 4. Training kernels: K2 (wgrad) and K1's dgrad against their plain versions
    at the training step's shapes (8 × 64³; forward convs 24/32/96 → 32),
    f32 and bf16, with time, bound, plain and library
-   (``aten.convolution_backward``) times.
+   (``aten.convolution_backward``) times. In bf16 K2 is the wgmma kernel
+   (``csrc/conv3x3_wgrad_wgmma.cu``); beside it, at 96 → 32, the
+   ``mma.sync`` loop it replaced, through its check-only entry point
+   ``conv3x3_wgrad_mma``.
 5. Training path: full-width GAN training steps (``create_gan_state`` +
    ``make_train_step``, default config: bf16, packed, batch 8 × 64³);
    launch counts of one step against the expected ones; ms/step, patches/s
@@ -34,8 +39,10 @@ Phases (any failure → nonzero exit, no ``ok`` line):
    gradient check (batch 2 × 64³, TF32 off): one generator-phase backward
    through the kernels (``packed``, ``use_pallas``) against plain
    PyTorch/cuDNN from the same weights and batch, every parameter's gradient.
-   The serving, training and mesh runs send no conv to the ``mma.sync`` loop
-   (``conv3x3_packed_mma`` and ``conv3x3_packed_mma_routed`` count 0).
+   The serving, training and mesh runs send no conv and no weight gradient
+   to an ``mma.sync`` loop (``conv3x3_packed_mma``,
+   ``conv3x3_packed_mma_routed``, ``conv3x3_wgrad_mma`` and
+   ``conv3x3_wgrad_mma_routed`` count 0).
 6. K8 (scalar maps) against its plain version on brain-like tensors (30 %
    zero background, isotropic and planar voxels) at the full (96, 128, 128)
    volume and at (5, 7, 3), at the bound derived in
@@ -73,8 +80,8 @@ Phases (any failure → nonzero exit, no ``ok`` line):
     D_local-32 shard (96 → 32 bf16, 24 → 32 f32), and odd shapes (Cin 3
     and 5, W/4 2, 3 and 9, H 3) in both dtypes, under K1's and K2's bounds,
     each bit for bit the result of the kernel it re-indexes on the same
-    volume (bf16: the ``mma.sync`` loop through ``conv3x3_packed_mma``; f32:
-    K1's FMA kernel; K7b: K2); K9a
+    volume (bf16: the ``mma.sync`` loops through ``conv3x3_packed_mma`` and
+    ``conv3x3_wgrad_mma``; f32: K1's and K2's FMA kernels); K9a
     against its plain version and ``torch.roll``; K9b's three modes against
     theirs at the conv0 shape. Then the two probe paths, each with the
     counts reset just before it and exact launch counts after it:
@@ -121,6 +128,7 @@ PROBE_KERNELS = ("lane_roll", "conv3x3_probe_full", "conv3x3_probe_centre",
 TRAIN_STEP_LAUNCHES = {"conv3x3_packed": 8, "conv3x3_packed_dgrad": 4,
                        "conv3x3_wgrad": 4, "conv3x3_packed_halo": 0,
                        "conv3x3_packed_mma": 0, "conv3x3_packed_mma_routed": 0,
+                       "conv3x3_wgrad_mma": 0, "conv3x3_wgrad_mma_routed": 0,
                        "conv3x3_packed_halo_dgrad": 0, "conv3x3_wgrad_halo": 0,
                        "pack_hw": 5, "unpack_hw": 4,
                        "fused_instance_norm_leaky_relu": 0, "scalar_maps": 0,
@@ -334,25 +342,32 @@ def check_norm(torch, F, K, checks, shape, dtype):
             F.instance_norm(xn, weight=sl, bias=bl, eps=1e-5), 0.1), iters)))
 
 
-def check_wgrad(torch, K, checks, b, d, h, w, cin, cout, dtype, halo=False, fold=False):
+def check_wgrad(torch, K, checks, b, d, h, w, cin, cout, dtype, halo=False, fold=False,
+                mma=False):
     """K2 at the training step's shape of the forward conv cin → cout; with
     ``halo`` its variant for K5 (x of d + 2 slices, every one random); with
-    ``fold`` K7b on the same operands folded, and bit for bit K2's result."""
+    ``fold`` K7b on the same operands folded, and bit for bit the result of
+    the loop it re-indexes (bf16: the ``mma.sync`` loop through
+    ``conv3x3_wgrad_mma``; f32: K2's FMA kernel). ``mma``: the check-only
+    entry point ``conv3x3_wgrad_mma`` itself."""
     dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(cin * 7 + d)
     xk = torch.randn(b, d + 2 * halo, cin, h * w, device="cuda", generator=g).to(dt)
     dy = torch.randn(b, d, cout, h * w, device="cuda", generator=g).to(dt)
     kern, plain = ((K.conv3x3_wgrad_halo, K.conv3x3_wgrad_halo_plain) if halo
                    else (K.conv3x3_wgrad, K.conv3x3_wgrad_plain))
-    xin, dyin, dim, chain_fn, extra = xk, dy, w, K.conv3x3_wgrad_chain, {}
+    xin, dyin, dim, chain_fn, extra, args = xk, dy, w, K.conv3x3_wgrad_chain, {}, ()
+    if mma:
+        kern, chain_fn, args = K.conv3x3_wgrad_mma, K.conv3x3_wgrad_mma_chain, (int(halo),)
     if fold:
         from unet_bssfp_tpu_torch.ops.kernels.pfold import _to_folded
-        packed = kern(xk, dy, w)
+        packed = (K.conv3x3_wgrad_mma(xk, dy, w, int(halo)) if dtype == "bfloat16"
+                  else kern(xk, dy, w))
         xin, dyin, dim = _to_folded(xk, w), _to_folded(dy, w), w // 4
         kern, plain = ((K.conv3x3_pfold_wgrad_halo, K.conv3x3_pfold_wgrad_halo_plain) if halo
                        else (K.conv3x3_pfold_wgrad, K.conv3x3_pfold_wgrad_plain))
         chain_fn = K.conv3x3_pfold_wgrad_chain
-    got = kern(xin, dyin, dim)
+    got = kern(xin, dyin, dim, *args)
     if fold:
         extra = {"bit_equal_to_packed_kernel": bool(torch.equal(got, packed))}
     ref = plain(xin, dyin, dim)
@@ -367,7 +382,7 @@ def check_wgrad(torch, K, checks, b, d, h, w, cin, cout, dtype, halo=False, fold
     chain = chain_fn(xin, dyin, dim)
     rtol, atol = 0.0, 16 * math.sqrt(chain) * 2 ** -24 * scale
     ok = bool((err <= atol).all()) and all(extra.values())
-    repeats = bool(torch.equal(got, kern(xin, dyin, dim)))
+    repeats = bool(torch.equal(got, kern(xin, dyin, dim, *args)))
     xn = xk.reshape(b, d + 2 * halo, cin, h, w).permute(0, 2, 1, 3, 4).contiguous()
     dyn = dy.reshape(b, d, cout, h, w).permute(0, 2, 1, 3, 4).contiguous()
     wn = torch.zeros(cout, cin, 3, 3, 3, device="cuda", dtype=dt)
@@ -381,7 +396,7 @@ def check_wgrad(torch, K, checks, b, d, h, w, cin, cout, dtype, halo=False, fold
         kernel=kern.__name__, shape=list(xin.shape), cout=cout, dtype=dtype,
         max_abs_err=float(err.max()), ref_max_abs=scale, rtol=rtol, atol=atol,
         chain=chain, bit_identical_rerun=repeats,
-        ms=time_ms(torch, lambda: kern(xin, dyin, dim), iters),
+        ms=time_ms(torch, lambda: kern(xin, dyin, dim, *args), iters),
         plain_ms=time_ms(torch, lambda: plain(xin, dyin, dim), iters),
         bound_ms=bms, bound_by=by, library_ms=time_ms(torch, lib, iters), **extra))
 
@@ -453,6 +468,8 @@ def phase_train_kernels(torch, K, checks):
         for cin in (24, 32, 96):  # conv_0.conv_0, *.conv_1, upcat_1.conv_0
             check_wgrad(torch, K, checks, b, d, h, w, cin, 32, dtype)
             check_dgrad(torch, K, checks, b, d, h, w, cin, 32, dtype)
+    # the mma.sync loop the wgmma kernel replaced, at K2's heaviest shape
+    check_wgrad(torch, K, checks, b, d, h, w, 96, 32, "bfloat16", mma=True)
 
 
 def phase_halo_kernels(torch, F, K, checks):
@@ -477,6 +494,7 @@ def phase_kernels(torch, F, K, checks):
             check_layout(torch, K, checks, b, d, h, w, 24, dtype, "pack")   # head → conv_0
             check_layout(torch, K, checks, b, d, h, w, 64, dtype, "pack")   # upcat_1 upsample
             check_layout(torch, K, checks, b, d, h, w, 6, dtype, "unpack")  # final conv
+            check_layout(torch, K, checks, b, d, h, w, 6, dtype, "pack")    # its gradient
     # K1W: guard columns as guard_cols(64, 64) gives them under
     # UNET_BSSFP_WGUARD=1; the mma.sync loop's entry point at K1's heaviest
     # shape, beside K1
@@ -1222,15 +1240,17 @@ def phase_probe_kernels(torch, F, K, checks):
 def phase_probe_paths(torch, K, checks, pfold_probe, pallas_probe):
     """The two probe scripts' ``run`` as the paths ``pfold_probe`` and
     ``pallas_probe``: counts reset just before each, read just after, held
-    to the exact counts each script states. pfold: K7a's output is K1's bit
-    for bit (max |diff| 0); pallas: the roll's direction, the tiny conv,
-    every mode within K1's bf16 bound of its plain version."""
+    to the exact counts each script states. pfold: K7a's output and K7b's dW
+    are the ``mma.sync`` loops' bit for bit (max |diff| 0); pallas: the
+    roll's direction, the tiny conv, every mode within K1's bf16 bound of
+    its plain version."""
     K.reset_launches()
     rows, pf_counts = pfold_probe.run("cuda")
     expected = pfold_probe.expected_launches()
     print("pfold_probe launches: " + json.dumps(pf_counts), flush=True)
-    checks.record(pf_counts == expected and all(r["max_abs_diff"] == 0 for r in rows
-                                                if "max_abs_diff" in r),
+    checks.record(pf_counts == expected and all(r[k] == 0 for r in rows for k in
+                                                ("max_abs_diff", "wgrad_max_abs_diff")
+                                                if k in r),
                   dict(phase="pfold_probe_path", launches=pf_counts, expected=expected,
                        rows=rows))
     torch.cuda.empty_cache()
@@ -1248,9 +1268,11 @@ def phase_probe_paths(torch, K, checks, pfold_probe, pallas_probe):
     return pf_counts, pa_counts, rows, prows
 
 
-# K1, K1's dgrad, K5 and K5's dgrad: the wgmma kernel in bf16 (the rows of
-# the summary line); the mma.sync loop it replaced stays as the check-only
-# conv3x3_packed_mma (and under K7a and K9b).
+# K1, K1's dgrad, K5 and K5's dgrad: the wgmma conv kernel in bf16 (the
+# rows of the summary line); the mma.sync loop it replaced stays as the
+# check-only conv3x3_packed_mma (and under K7a and K9b). K2 and K5's wgrad:
+# the wgmma wgrad kernel in bf16; its mma.sync loop stays as the check-only
+# conv3x3_wgrad_mma (and under K7b).
 KERNEL_META = {
     "conv3x3_packed": ("cuda", "unet_bssfp_tpu_torch/csrc/conv3x3_wgmma.cu",
                        "unet_bssfp_tpu/ops/pallas/conv3d.py:388"),
@@ -1265,8 +1287,10 @@ KERNEL_META = {
         "unet_bssfp_tpu/ops/pallas/fused_norm_act.py:150"),
     "conv3x3_packed_dgrad": ("cuda", "unet_bssfp_tpu_torch/csrc/conv3x3_wgmma.cu",
                              "unet_bssfp_tpu/ops/pallas/conv3d.py:388"),
-    "conv3x3_wgrad": ("cuda", "unet_bssfp_tpu_torch/csrc/conv3x3_wgrad.cu",
+    "conv3x3_wgrad": ("cuda", "unet_bssfp_tpu_torch/csrc/conv3x3_wgrad_wgmma.cu",
                       "unet_bssfp_tpu/ops/pallas/conv3d.py:507"),
+    "conv3x3_wgrad_mma": ("cuda", "unet_bssfp_tpu_torch/csrc/conv3x3_wgrad.cu",
+                          "unet_bssfp_tpu/ops/pallas/conv3d.py:507"),
     "scalar_maps": ("cuda", "unet_bssfp_tpu_torch/csrc/scalar_maps.cu",
                     "unet_bssfp_tpu/ops/pallas/scalar_maps_kernel.py:112"),
     # K5: the TPU kernel of K1 with pad_d=False (conv3x3_packed_halo, :595),
@@ -1276,7 +1300,7 @@ KERNEL_META = {
                             "unet_bssfp_tpu/ops/pallas/conv3d.py:388"),
     "conv3x3_packed_halo_dgrad": ("cuda", "unet_bssfp_tpu_torch/csrc/conv3x3_wgmma.cu",
                                   "unet_bssfp_tpu/ops/pallas/conv3d.py:388"),
-    "conv3x3_wgrad_halo": ("cuda", "unet_bssfp_tpu_torch/csrc/conv3x3_wgrad.cu",
+    "conv3x3_wgrad_halo": ("cuda", "unet_bssfp_tpu_torch/csrc/conv3x3_wgrad_wgmma.cu",
                            "unet_bssfp_tpu/ops/pallas/conv3d.py:507"),
     # K7a: _pfold_fwd_impl, reached by conv3x3_pfold, its dx, the halo form
     # and its dx; K7b: _pfold_dw_impl and its halo form
@@ -1307,6 +1331,7 @@ SUMMARY_SHAPE = {
     "fused_instance_norm_leaky_relu": ([8, 32, 32, 32, 64], None, "bfloat16"),
     "conv3x3_packed_dgrad": ([8, 64, 32, 4096], 96, "bfloat16"),
     "conv3x3_wgrad": ([8, 64, 96, 4096], 32, "bfloat16"),
+    "conv3x3_wgrad_mma": ([8, 64, 96, 4096], 32, "bfloat16"),
     "scalar_maps": (list(VOLUME) + [6], None, "float32"),
     # the 96 → 32 probe case, folded; the halo forms at its D_local-32 shard
     "conv3x3_pfold": ([8, 64, 384, 1024], 32, "bfloat16"),

@@ -13,7 +13,10 @@ three rounds of ``--iters`` calls; where the checkout has the halo kernels
 it has the pfold kernels (K7a, K7b), also those on the same volumes folded;
 where it has the ``mma.sync`` loop's check-only entry point
 (``conv3x3_packed_mma``, beside the wgmma kernel that K1 and K5 take), also
-that loop's forward and dgrad at the same shapes. To
+that loop's forward and dgrad at the same shapes; where it has the weight
+gradient's ``mma.sync`` loop as a check-only entry point
+(``conv3x3_wgrad_mma``, beside the wgmma kernel that K2 and K5's wgrad
+take), also that loop's SAME and halo forms. To
 compare a parent commit with a change, unpack the parent (``git archive``)
 into a directory and run: parent, change, change, parent, all inside one
 job on one card.
@@ -83,6 +86,10 @@ def main() -> int:
                 "conv3x3_packed_mma": ms(lambda: K.conv3x3_packed_mma(xk, wt, bias, w)),
                 "conv3x3_packed_mma_dgrad": ms(
                     lambda: K.conv3x3_packed_mma(dy, wf, zero, w))})
+        if hasattr(K, "conv3x3_wgrad_mma"):
+            out[f"{cin}->32"].update({
+                "conv3x3_wgrad_mma": ms(lambda: K.conv3x3_wgrad_mma(xk, dy, w)),
+                "conv3x3_wgrad_mma_halo": ms(lambda: K.conv3x3_wgrad_mma(xp, dyh, w, 1))})
         if hasattr(K, "conv3x3_pfold"):
             xf, dyf = (K.fold4_pack(K.unpack_hw(t, w)) for t in (xk, dy))
             out[f"{cin}->32"].update({

@@ -8,7 +8,9 @@ For each case (B 8, bf16, (D, H = W, Cin, Cout)): K1's forward against
 K7a's, the forward + backward of a sum loss through each (K1, its dgrad and
 K2 against K7a, its dgrad and K7b), and the max |diff| between K7a's output
 and the ``mma.sync`` loop's on the packed layout (``conv3x3_packed_mma``,
-the loop K7a re-indexes; K1 itself is the wgmma kernel) in NDHWC. Beside
+the loop K7a re-indexes; K1 itself is the wgmma kernel) in NDHWC, and the
+max |diff| between K7b's dW and the weight gradient's ``mma.sync`` loop's
+(``conv3x3_wgrad_mma``, the loop K7b re-indexes) for one random dy. Beside
 the JAX probe's four cases, the halo forms (K5 against K7a's halo form, and
 their gradients) at a D_local-32 shard of the upcat case. Then the relayouts at 8 × 64³: ``pack_hw`` at 24 channels and
 ``fold4_pack`` at 24 and 96. Times are CUDA-event ms per call after two
@@ -30,6 +32,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import torch  # noqa: E402
 
 from unet_bssfp_tpu_torch.ops import kernels as K  # noqa: E402
+from unet_bssfp_tpu_torch.ops.kernels.pfold import _to_folded  # noqa: E402
 
 B = 8
 # (name, D, H = W, Cin, Cout, halo): a halo case's D is the shard's output
@@ -87,11 +90,17 @@ def run_case(device, name, d, hw, cin, cout, halo, iters):
     y_pk = K.unpack_hw(K.conv3x3_packed_mma(xk, w, bias, hw, -2 if halo else 0), hw)
     y_pf = K.unfold4_unpack(pfold(xf, w, bias, w4), w4)
     err = float((y_pk.float() - y_pf.float()).abs().max())
+    dyk = torch.randn(B, d, cout, hw * hw, device=device, generator=g).bfloat16()
+    wgrad = K.conv3x3_pfold_wgrad_halo if halo else K.conv3x3_pfold_wgrad
+    dw_pk = K.conv3x3_wgrad_mma(xk, dyk, hw, int(halo))
+    dw_pf = wgrad(xf, _to_folded(dyk, hw), w4)
+    err_dw = float((dw_pk - dw_pf).abs().max())
     row = {"case": name, "shape": [B, d, hw, hw, cin, cout], "halo": halo,
            "packed_fwd_ms": t_pk, "pfold_fwd_ms": t_pf, "packed_fb_ms": tb_pk,
-           "pfold_fb_ms": tb_pf, "max_abs_diff": err}
+           "pfold_fb_ms": tb_pf, "max_abs_diff": err, "wgrad_max_abs_diff": err_dw}
     print(f"{name}: packed fwd {t_pk:7.3f}  pfold fwd {t_pf:7.3f} ({t_pk / t_pf:4.2f}x)   "
-          f"f+b {tb_pk:7.3f} vs {tb_pf:7.3f} ({tb_pk / tb_pf:4.2f}x)   maxdiff {err:.2e}",
+          f"f+b {tb_pk:7.3f} vs {tb_pf:7.3f} ({tb_pk / tb_pf:4.2f}x)   maxdiff {err:.2e}, "
+          f"dW {err_dw:.2e}",
           flush=True)
     return row
 
@@ -125,7 +134,8 @@ def expected_launches(cases=CASES, relayouts=RELAYOUTS, iters: int = 10) -> dict
     input packed and folded), each forward ``iters`` + 2 timed times (K7a
     once more, checked against one launch of ``conv3x3_packed_mma``), each
     forward + backward ``iters`` + 2 times (forward, dgrad, wgrad), two
-    unpacks; per relayout ``iters`` + 2 packs."""
+    unpacks, K7b once more against one launch of ``conv3x3_wgrad_mma``; per
+    relayout ``iters`` + 2 packs."""
     n = iters + 2
     out = dict.fromkeys(K.launches(), 0)
     for *_, halo in cases:
@@ -137,6 +147,8 @@ def expected_launches(cases=CASES, relayouts=RELAYOUTS, iters: int = 10) -> dict
         for i, name in enumerate(names):
             out[name] += 2 * n + (i == 3) if i % 3 == 0 else n
         out["conv3x3_packed_mma"] += 1
+        out[names[5]] += 1
+        out["conv3x3_wgrad_mma"] += 1
         out["pack_hw"] += 2
         out["unpack_hw"] += 2
     out["pack_hw"] += n * len(relayouts)

@@ -123,14 +123,22 @@ def test_gpu_conv3x3_packed_autograd_matches_plain(cuda, cin, cout, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("c", [6, 24, 40, 64])
+@pytest.mark.parametrize("c", [1, 3, 6, 8, 16, 24, 40, 64])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_gpu_pack_unpack_exact(cuda, c, dtype):
-    for h, w in ((16, 32), (5, 19)):
-        x = torch.randn(2, 4, h, w, c, device=cuda).to(dtype)
+    """Both relayouts are exact copies on both kernel paths: C ≤ 16 with
+    whole 16-byte vectors of pixels takes the narrow path (H·W 512 and
+    4096), the rest the tiles (H·W 95, and C 24 and up)."""
+    from unet_bssfp_tpu_torch.ops.kernels import layout as L
+
+    for h, w in ((16, 32), (5, 19), (64, 64)):
+        x = torch.randn(2, 3, h, w, c, device=cuda).to(dtype)
+        narrow = L.transpose_path(h * w, c, x.element_size()) != L.PATH_TILES
+        assert narrow == (c <= 16 and h * w != 95)
         xk = K.pack_hw(x)
         assert torch.equal(xk, K.pack_hw_plain(x))
         assert torch.equal(K.unpack_hw(xk, w), x)
+        assert torch.equal(K.unpack_hw_plain(xk, w), x)
 
 
 @pytest.mark.gpu
@@ -525,12 +533,13 @@ def test_gpu_pfold_autograd_matches_plain(cuda, b, d, h, w, cin, cout, dtype, ha
 @pytest.mark.parametrize("b,d,h,w,cin,cout", PFOLD_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_gpu_pfold_is_k1_and_k2_bit_for_bit(cuda, b, d, h, w, cin, cout, dtype):
-    """K7a and K7b run the packed conv's ``mma.sync`` loop and K2's product
-    loop: on the same volume their results are those kernels' results,
+    """K7a and K7b run the packed conv's ``mma.sync`` loop and the weight
+    gradient's: on the same volume their results are those loops' results,
     folded, bit for bit (forward, dgrad, the halo forms, dw). In bf16 the
-    loop is reached through its check-only entry point
-    ``conv3x3_packed_mma`` (K1 itself is the wgmma kernel); in f32 K1 is
-    the FMA kernel K7a re-indexes."""
+    loops are reached through their check-only entry points
+    ``conv3x3_packed_mma`` and ``conv3x3_wgrad_mma`` (K1 and K2 themselves
+    are the wgmma kernels); in f32 K1 and K2 are the FMA kernels K7a and K7b
+    re-index."""
     from unet_bssfp_tpu_torch.ops.kernels.conv3d import _flip_t
     from unet_bssfp_tpu_torch.ops.kernels.pfold import _to_folded, _to_packed
 
@@ -539,6 +548,11 @@ def test_gpu_pfold_is_k1_and_k2_bit_for_bit(cuda, b, d, h, w, cin, cout, dtype):
             return K.conv3x3_packed_mma(a, wt, bias, w, grow)
         return (K.conv3x3_packed_halo(a, wt, bias, w) if grow == -2
                 else K.conv3x3_packed(a, wt, bias, w))
+
+    def wloop(a, g, halo):
+        if dtype == torch.bfloat16:
+            return K.conv3x3_wgrad_mma(a, g, w, halo)
+        return K.conv3x3_wgrad_halo(a, g, w) if halo else K.conv3x3_wgrad(a, g, w)
 
     w4 = w // 4
     for halo in (False, True):
@@ -550,11 +564,11 @@ def test_gpu_pfold_is_k1_and_k2_bit_for_bit(cuda, b, d, h, w, cin, cout, dtype):
                      else K.conv3x3_packed_halo_dgrad(dyk, wt, w))
             pairs = [(K.conv3x3_pfold_halo(xf, wt, bias, w4), loop(xk, wt, bias, -2)),
                      (K.conv3x3_pfold_halo_dgrad(dyf, wt, w4), dgrad)]
-            dws = (K.conv3x3_pfold_wgrad_halo(xf, dyf, w4), K.conv3x3_wgrad_halo(xk, dyk, w))
+            dws = (K.conv3x3_pfold_wgrad_halo(xf, dyf, w4), wloop(xk, dyk, 1))
         else:
             pairs = [(K.conv3x3_pfold(xf, wt, bias, w4), loop(xk, wt, bias, 0)),
                      (K.conv3x3_pfold_dgrad(dyf, wt, w4), loop(dyk, wflip, zero, 0))]
-            dws = (K.conv3x3_pfold_wgrad(xf, dyf, w4), K.conv3x3_wgrad(xk, dyk, w))
+            dws = (K.conv3x3_pfold_wgrad(xf, dyf, w4), wloop(xk, dyk, 0))
         for folded, packed in pairs:
             assert torch.equal(folded, _to_folded(packed, w)), halo
         assert torch.equal(*dws), halo
@@ -715,3 +729,87 @@ def test_gpu_wgmma_refused_launch_raises(cuda):
             conv_wgmma.launch(bad, xk, wt, bias, "test")
     with pytest.raises(ValueError):  # f32 is not this kernel's
         conv_wgmma.launch(plan, xk.float(), wt, bias, "test")
+
+
+# The wgmma weight gradient (csrc/conv3x3_wgrad_wgmma.cu) that K2 and K5's
+# weight gradient take in bf16: the stage shapes at a small batch and ragged
+# ones (Cin 3/5/24/40/96, Cout 4/6/32, W 8/16/40/64/128, H 3/5/7, D 1/2),
+# each in both d geometries, under K2's bound (16·sqrt(L)·2^-24·max|ref|, L
+# the plan's chain). (B, D, H, W, Cin, Cout)
+WGRAD_WGMMA_SHAPES = [(2, 4, 8, 64, 24, 32), (2, 4, 8, 64, 32, 32), (2, 4, 8, 64, 96, 32),
+                      (2, 2, 3, 8, 3, 4), (1, 1, 5, 40, 5, 6), (1, 2, 7, 16, 40, 32),
+                      (2, 3, 4, 128, 24, 6), (1, 1, 3, 64, 96, 4)]
+
+
+def _wgrad_operands(b, d, h, w, cin, cout, halo):
+    gen = torch.Generator(device="cuda").manual_seed(cin * cout + d + h + halo)
+    xk = torch.randn(b, d + 2 * halo, cin, h * w, device="cuda", generator=gen).bfloat16()
+    dy = torch.randn(b, d, cout, h * w, device="cuda", generator=gen).bfloat16()
+    return xk, dy
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("halo", [0, 1])
+@pytest.mark.parametrize("b,d,h,w,cin,cout", WGRAD_WGMMA_SHAPES)
+def test_gpu_wgmma_wgrad_matches_plain_and_repeats(cuda, b, d, h, w, cin, cout, halo):
+    from unet_bssfp_tpu_torch.ops.kernels import wgrad_wgmma
+
+    xk, dy = _wgrad_operands(b, d, h, w, cin, cout, halo)
+    plan = K.wgrad_plan(xk, dy, w)
+    assert plan is not None and plan.halo == halo
+    wrapper = K.conv3x3_wgrad_halo if halo else K.conv3x3_wgrad
+    plain = K.conv3x3_wgrad_halo_plain if halo else K.conv3x3_wgrad_plain
+    K.reset_launches()
+    got = wrapper(xk, dy, w)
+    assert K.launches()[wrapper.__name__] == 1
+    assert K.launches()["conv3x3_wgrad_mma_routed"] == 0
+    assert got.dtype == torch.float32 and got.shape == (3, 3, 3, cin, cout)
+    chain = K.conv3x3_wgrad_chain(xk, dy, w)
+    assert chain == plan.chain
+    _close(got, plain(xk, dy, w), 0.0, 16 * math.sqrt(chain) * 2 ** -24)
+    # fixed-order split sum, no atomics: a second launch bit for bit the same
+    assert torch.equal(got, wgrad_wgmma.launch(plan, xk, dy, "test"))
+    assert wgrad_wgmma._lib().conv3x3_wgrad_wgmma_smem(plan.stages) == plan.smem
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,d,h,w,cin,cout,halo", [
+    (1, 2, 9, 35, 24, 32, 0), (1, 2, 3, 66, 32, 32, 1), (2, 1, 4, 64, 8, 40, 0),
+    (1, 2, 5, 16, 5, 40, 1)])
+def test_gpu_wgrad_shapes_outside_the_plan_take_the_mma_loop_counted(
+        cuda, b, d, h, w, cin, cout, halo):
+    """W 35, the wguard width 66, Cout 40: static routes to the mma.sync loop,
+    each counted; the result is that loop's (its check-only entry point's)
+    bit for bit, within K2's bound of the plain version."""
+    xk, dy = _wgrad_operands(b, d, h, w, cin, cout, halo)
+    assert K.wgrad_plan(xk, dy, w) is None
+    wrapper = K.conv3x3_wgrad_halo if halo else K.conv3x3_wgrad
+    plain = K.conv3x3_wgrad_halo_plain if halo else K.conv3x3_wgrad_plain
+    K.reset_launches()
+    got = wrapper(xk, dy, w)
+    counts = K.launches()
+    assert (counts[wrapper.__name__], counts["conv3x3_wgrad_mma_routed"],
+            counts["conv3x3_wgrad_mma"]) == (1, 1, 0)
+    assert torch.equal(got, K.conv3x3_wgrad_mma(xk, dy, w, halo))
+    chain = K.conv3x3_wgrad_chain(xk, dy, w)
+    assert chain == K.conv3x3_wgrad_mma_chain(xk, dy, w)
+    _close(got, plain(xk, dy, w), 0.0, 16 * math.sqrt(chain) * 2 ** -24)
+
+
+@pytest.mark.gpu
+def test_gpu_wgmma_wgrad_refused_launch_raises(cuda):
+    import dataclasses
+
+    from unet_bssfp_tpu_torch.ops.kernels import wgrad_wgmma
+
+    xk, dy = _wgrad_operands(1, 3, 8, 64, 16, 32, 0)
+    plan = K.wgrad_plan(xk, dy, 64)
+    for bad in (dataclasses.replace(plan, stages=5), dataclasses.replace(plan, chunks=2),
+                dataclasses.replace(plan, per=1, splits=1),
+                dataclasses.replace(plan, cout=40)):
+        with pytest.raises(RuntimeError, match="launch plan"):
+            wgrad_wgmma.launch(bad, xk, dy, "test")
+    with pytest.raises(ValueError):  # f32 is not this kernel's
+        wgrad_wgmma.launch(plan, xk.float(), dy.float(), "test")
+    with pytest.raises(ValueError):  # dy does not fit x: raised, not run elsewhere
+        K.conv3x3_wgrad(xk, dy[:, :2].contiguous(), 64)

@@ -36,7 +36,7 @@
 //     fixed, contiguous run of (b, d, 8x32 (h, w) tile) items;
 //   - each block writes its partial sums with plain stores to its own slice
 //     of an f32 workspace (splits, 27*Cin*Cout) the caller allocates;
-//   - conv3x3_wgrad_reduce_kernel, in this file, sums the splits of every
+//   - conv3x3_wgrad_reduce_kernel (split_sum.cuh) sums the splits of every
 //     output in split order. No atomics: the result repeats bit for bit run
 //     to run.
 //
@@ -76,6 +76,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "split_sum.cuh"
 #include "fold4.cuh"
 
 namespace {
@@ -309,17 +310,7 @@ conv3x3_wgrad_f32_kernel(const float* __restrict__ x, const float* __restrict__ 
   }
 }
 
-// ------------------------------------------------ the fixed-order split sum
-__global__ void conv3x3_wgrad_reduce_kernel(const float* __restrict__ part,
-                                            float* __restrict__ out, long long n,
-                                            int splits) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float s = 0.f;
-  for (int k = 0; k < splits; ++k) s += part[k * n + i];
-  out[i] = s;
-}
-
+// --------------------------------------- the split plan (sum: split_sum.cuh)
 struct Plan {
   long long items, per;
   int splits;

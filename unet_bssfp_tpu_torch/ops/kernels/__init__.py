@@ -18,8 +18,12 @@ from unet_bssfp_tpu_torch.ops.kernels.conv3d import (
     conv3x3_wgrad_chain,
     conv3x3_wgrad_halo,
     conv3x3_wgrad_halo_plain,
+    conv3x3_wgrad_mma,
+    conv3x3_wgrad_mma_chain,
+    conv3x3_wgrad_mma_routed,
     conv3x3_wgrad_plain,
     packed_supported,
+    wgrad_plan,
 )
 from unet_bssfp_tpu_torch.ops.kernels.layout import (
     pack_hw,
@@ -65,6 +69,7 @@ from unet_bssfp_tpu_torch.ops.kernels.scalar_maps import scalar_maps, scalar_map
 WRAPPERS = (conv3x3_packed, conv3x3_packed_dgrad, conv3x3_wgrad,
             conv3x3_packed_halo, conv3x3_packed_halo_dgrad, conv3x3_wgrad_halo,
             conv3x3_packed_mma, conv3x3_packed_mma_routed,
+            conv3x3_wgrad_mma, conv3x3_wgrad_mma_routed,
             pack_hw, unpack_hw, fused_instance_norm_leaky_relu, scalar_maps,
             conv3x3_pfold, conv3x3_pfold_dgrad, conv3x3_pfold_wgrad,
             conv3x3_pfold_halo, conv3x3_pfold_halo_dgrad, conv3x3_pfold_wgrad_halo,

@@ -7,8 +7,7 @@ custom VJP (``_vjp_bwd``):
 - forward: K1 (``_conv_fwd_impl``);
 - dx: K1 again, on ``dy`` with the weight flipped in (kd, kh, kw) and
   transposed in (ci, co), zero bias (:func:`conv3x3_packed_dgrad`);
-- dw: K2, ``csrc/conv3x3_wgrad.cu`` (``_dw_impl``), f32
-  (:func:`conv3x3_wgrad`);
+- dw: K2 (``_dw_impl``), f32 (:func:`conv3x3_wgrad`);
 - db: ``Σ dy`` in f32.
 
 K5 replaces ``conv3x3_packed_halo`` (the same TPU kernel with
@@ -17,7 +16,7 @@ carries a real one-slice d halo per side, which a d-sharded volume gets from
 its neighbours (:func:`conv3x3_packed_auto`): :func:`conv3x3_packed_halo`
 forward, :func:`conv3x3_packed_halo_dgrad` (D+2 slices of dx from D of dy,
 the out-of-range dy slices being bounds, not a padded copy) and
-:func:`conv3x3_wgrad_halo` (K2 with its d geometry as a template).
+:func:`conv3x3_wgrad_halo` (K2 at the halo's d geometry).
 
 Which CUDA kernel runs a conv (K1, its dgrad, K5, its dgrad), static by
 dtype and shape:
@@ -32,18 +31,29 @@ dtype and shape:
   ``conv3x3_packed_mma_routed.launches`` besides the wrapper's own count;
 - f32 (the gradient-check path) → the FMA kernel of ``conv3x3_packed.cu``.
 
-:func:`conv3x3_packed_mma` launches the ``mma.sync`` loop on the packed
-layout at any d geometry: a check-only entry point (K7a and K9b are held
-bit for bit to it); nothing on a model path calls it. The launchers take
-the phase-major w-folded layout too (``fold``): K7a and K7b, the pfold conv
-of :mod:`.pfold`, are the ``mma.sync`` loop and K2 with their staging and
-stores re-indexed.
+Which CUDA kernel runs a weight gradient (K2, K5's), the same way:
+
+- bf16 → ``csrc/conv3x3_wgrad_wgmma.cu`` (TMA ring, dy's shifted copies in
+  shared memory, ``wgmma``; :mod:`.wgrad_wgmma` plans the launch), wherever
+  :func:`wgrad_plan` takes the shape: Cout ≤ 32 and W a multiple of 8.
+  Every shape of the training step and the mesh backward is taken. Any
+  other bf16 shape (the ``wguard`` width 66, Cout 40) runs the ``mma.sync``
+  loop of ``csrc/conv3x3_wgrad.cu``, and each such launch adds one to
+  ``conv3x3_wgrad_mma_routed.launches`` besides the wrapper's own count;
+- f32 → the FMA kernel of ``conv3x3_wgrad.cu``.
+
+:func:`conv3x3_packed_mma` and :func:`conv3x3_wgrad_mma` launch the two
+``mma.sync`` loops on the packed layout at any d geometry: check-only entry
+points (K7a and K9b, and K7b, are held bit for bit to them); nothing on a
+model path calls them. The loops take the phase-major w-folded layout too
+(``fold``): K7a and K7b, the pfold conv of :mod:`.pfold`, are those loops
+with their staging and stores re-indexed.
 
 ``wguard`` (the JAX package's ``wguard``): the last ``wguard`` columns of
 every w-row are zero guard columns. The forward and the dgrad write them as
 zero; the backward first zeroes ``dy``'s guard columns (the JAX package's
 ``_project_guard_cotangent``), in plain torch; K2 runs unchanged at the full
-row width.
+row width (through the routed loop where W + g is no multiple of 8).
 
 Each source's header says what bounds it on the card and how it is laid
 out. ``*_plain`` are the same functions in plain PyTorch: the CPU path, and
@@ -60,7 +70,7 @@ from typing import Mapping, Optional, Union
 import torch
 import torch.nn.functional as F
 
-from unet_bssfp_tpu_torch.ops.kernels import _build, conv_wgmma
+from unet_bssfp_tpu_torch.ops.kernels import _build, conv_wgmma, wgrad_wgmma
 from unet_bssfp_tpu_torch.parallel.mesh import Mesh, Sharded, gather_batch, shard_batch
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -328,6 +338,32 @@ def conv3x3_packed_halo_dgrad(dy: torch.Tensor, w: torch.Tensor,
     return dxp
 
 
+def wgrad_plan(xk: torch.Tensor, dy: torch.Tensor,
+               wdim: int) -> Optional[wgrad_wgmma.WgradPlan]:
+    """The wgmma wgrad kernel's plan for bf16 operands ``xk`` (B, D + 2·halo,
+    Cin, H·W) and ``dy`` (B, D, Cout, H·W), the halo read from their d
+    counts, or ``None`` where the shape runs the ``mma.sync`` loop (see the
+    module's docstring)."""
+    b, d, cout, lanes = dy.shape
+    sms = (conv_wgmma.device_sms(xk.device) if xk.device.type == "cuda"
+           else wgrad_wgmma.SMS)
+    return wgrad_wgmma.wgrad_plan(b, d, (xk.shape[1] - d) // 2, xk.shape[2], cout,
+                                  lanes // wdim, wdim, sms)
+
+
+def _wgrad_cuda(xk: torch.Tensor, dy: torch.Tensor, wdim: int, what: str,
+                halo: int) -> torch.Tensor:
+    """The weight gradient on CUDA tensors, by the kernel their dtype and
+    shape route to; raises where no kernel takes them."""
+    _wgrad_shape(xk, dy, wdim, what, halo)
+    if xk.dtype == torch.float32:
+        return _wgrad_launch(xk, dy, wdim, what, halo)
+    plan = wgrad_plan(xk, dy, wdim)
+    if plan is None:
+        return conv3x3_wgrad_mma_routed(xk, dy, wdim, what, halo)
+    return wgrad_wgmma.launch(plan, xk, dy, what)
+
+
 def conv3x3_wgrad(xk: torch.Tensor, dy: torch.Tensor, wdim: int) -> torch.Tensor:
     """K2: f32 dw (3, 3, 3, Cin, Cout) of the packed conv from its input
     ``xk`` (B, D, Cin, H·W) and cotangent ``dy`` (B, D, Cout, H·W), both of
@@ -335,7 +371,7 @@ def conv3x3_wgrad(xk: torch.Tensor, dy: torch.Tensor, wdim: int) -> torch.Tensor
     launches the kernel or raises."""
     if xk.device.type == "cpu":
         return conv3x3_wgrad_plain(xk, dy, wdim)
-    dw = _wgrad_launch(xk, dy, wdim, "conv3x3_wgrad", halo=0)
+    dw = _wgrad_cuda(xk, dy, wdim, "conv3x3_wgrad", halo=0)
     conv3x3_wgrad.launches += 1
     return dw
 
@@ -348,16 +384,39 @@ def conv3x3_wgrad_halo(xp: torch.Tensor, dy: torch.Tensor, wdim: int) -> torch.T
     CUDA tensor launches the kernel or raises."""
     if xp.device.type == "cpu":
         return conv3x3_wgrad_halo_plain(xp, dy, wdim)
-    dw = _wgrad_launch(xp, dy, wdim, "conv3x3_wgrad_halo", halo=1)
+    dw = _wgrad_cuda(xp, dy, wdim, "conv3x3_wgrad_halo", halo=1)
     conv3x3_wgrad_halo.launches += 1
     return dw
 
 
-def _wgrad_launch(xk: torch.Tensor, dy: torch.Tensor, wdim: int, what: str,
-                  halo: int, fold: bool = False) -> torch.Tensor:
-    """One launch of the wgrad kernel (and its split sum) on CUDA tensors;
-    ``xk`` carries ``halo`` more d slices per side than ``dy``. ``fold``:
-    both are phase-major w-folded and ``wdim`` is W/4 (K7b)."""
+def conv3x3_wgrad_mma_routed(xk: torch.Tensor, dy: torch.Tensor, wdim: int, what: str,
+                             halo: int) -> torch.Tensor:
+    """A bf16 weight gradient of this module's wrappers whose shape
+    :func:`wgrad_plan` does not take: the ``mma.sync`` loop, counted in its
+    own ``launches``."""
+    dw = _wgrad_launch(xk, dy, wdim, what, halo)
+    conv3x3_wgrad_mma_routed.launches += 1
+    return dw
+
+
+def conv3x3_wgrad_mma(xk: torch.Tensor, dy: torch.Tensor, wdim: int,
+                      halo: int = 0) -> torch.Tensor:
+    """The bf16 ``mma.sync`` loop of ``csrc/conv3x3_wgrad.cu`` on the packed
+    layout, ``xk`` carrying ``halo`` more d slices per side than ``dy``: a
+    check-only entry point (K7b and its halo form are bit for bit its
+    result), on no model path. A CPU tensor takes the plain version."""
+    if xk.dtype != torch.bfloat16:
+        raise TypeError(f"conv3x3_wgrad_mma: bf16 only, not {xk.dtype}")
+    if xk.device.type == "cpu":
+        return _wgrad_plain(xk, dy, wdim, 1 - halo)
+    dw = _wgrad_launch(xk, dy, wdim, "conv3x3_wgrad_mma", halo)
+    conv3x3_wgrad_mma.launches += 1
+    return dw
+
+
+def _wgrad_shape(xk: torch.Tensor, dy: torch.Tensor, wdim: int, what: str, halo: int,
+                 fold: bool = False):
+    """Check a CUDA weight gradient's operands; (B, D, Cin, Cout, lanes)."""
     if xk.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {xk.device}")
     f = 4 if fold else 1
@@ -370,6 +429,17 @@ def _wgrad_launch(xk: torch.Tensor, dy: torch.Tensor, wdim: int, what: str,
                          f"fit x {tuple(xk.shape)} {xk.dtype}")
     _check_packed(what, xk, wdim)
     _check_packed(what, dy, wdim)
+    return b, d, cin, cout, lanes
+
+
+def _wgrad_launch(xk: torch.Tensor, dy: torch.Tensor, wdim: int, what: str,
+                  halo: int, fold: bool = False) -> torch.Tensor:
+    """One launch of the ``mma.sync`` loop (bf16) or the FMA kernel (f32) of
+    ``csrc/conv3x3_wgrad.cu`` and its split sum on CUDA tensors; ``xk``
+    carries ``halo`` more d slices per side than ``dy``. ``fold``: both are
+    phase-major w-folded and ``wdim`` is W/4 (K7b)."""
+    b, d, cin, cout, lanes = _wgrad_shape(xk, dy, wdim, what, halo, fold)
+    f = 4 if fold else 1
     lib = _lib("conv3x3_wgrad")
     bf16 = xk.dtype == torch.bfloat16
     h, wd = lanes // wdim, f * wdim
@@ -386,10 +456,24 @@ def _wgrad_launch(xk: torch.Tensor, dy: torch.Tensor, wdim: int, what: str,
 
 
 def conv3x3_wgrad_chain(xk: torch.Tensor, dy: torch.Tensor, wdim: int) -> int:
-    """The longest run of f32 roundings one product passes through in K2
-    for these CUDA operands (the item's accumulator, the split's sum of
-    items, the sum of splits): the length that bounds K2's rounding error.
-    Sized from ``dy``, so it holds for the halo variant too."""
+    """The longest run of f32 roundings one product passes through in the
+    kernel that :func:`conv3x3_wgrad` (or its halo form) launches for these
+    operands: the length that bounds its rounding error. bf16 operands that
+    :func:`wgrad_plan` takes report the wgmma kernel's (its plan's, no card
+    needed); f32 and routed ones the ``mma.sync`` loop's
+    (:func:`conv3x3_wgrad_mma_chain`)."""
+    if xk.dtype == torch.bfloat16:
+        plan = wgrad_plan(xk, dy, wdim)
+        if plan is not None:
+            return plan.chain
+    return conv3x3_wgrad_mma_chain(xk, dy, wdim)
+
+
+def conv3x3_wgrad_mma_chain(xk: torch.Tensor, dy: torch.Tensor, wdim: int) -> int:
+    """The longest f32 rounding chain of ``csrc/conv3x3_wgrad.cu`` (the
+    ``mma.sync`` loop in bf16, the FMA kernel in f32) for these CUDA
+    operands: the item's accumulator, the split's sum of items, the sum of
+    splits. Sized from ``dy``, so it holds for the halo variant too."""
     b, d, cout, hw = dy.shape
     return _lib("conv3x3_wgrad").conv3x3_wgrad_chain(
         b, d, xk.shape[2], cout, hw // wdim, wdim, int(xk.dtype == torch.bfloat16))
@@ -517,6 +601,8 @@ conv3x3_packed_dgrad.launches = 0
 conv3x3_packed_mma.launches = 0
 conv3x3_packed_mma_routed.launches = 0
 conv3x3_wgrad.launches = 0
+conv3x3_wgrad_mma.launches = 0
+conv3x3_wgrad_mma_routed.launches = 0
 conv3x3_packed_halo.launches = 0
 conv3x3_packed_halo_dgrad.launches = 0
 conv3x3_wgrad_halo.launches = 0

@@ -3,7 +3,10 @@
 Replaces ``unet_bssfp_tpu/ops/pallas/conv3d.py::pack_hw`` / ``unpack_hw``
 (``_pack_kernel`` / ``_unpack_kernel``). Both directions are one CUDA
 transpose of the last two dims of ``(B·D, ·, ·)``, ``csrc/layout.cu``; its
-header says what bounds it and how it is laid out. The plain versions are
+header says what bounds it and how it is laid out. A side of at most 16
+channels (the generator's 6-channel output and its gradient) takes the
+kernel's narrow path, the others its tiles: :func:`transpose_path` makes
+that choice here, from the shape, so the CPU tests check it. The plain versions are
 ``permute().contiguous()``: the CPU path and the kernel's reference. Each
 direction is the other's backward, as in the JAX package's custom VJPs, so
 the gradient runs through the kernels too.
@@ -20,6 +23,30 @@ from unet_bssfp_tpu_torch.ops.kernels import _build
 from unet_bssfp_tpu_torch.parallel.mesh import Sharded, apply_local
 
 _DTYPES = (torch.float32, torch.bfloat16)
+NARROW = 16  # the widest side the narrow path takes
+PATH_TILES, PATH_NARROW_C, PATH_NARROW_R = 0, 1, 2
+
+
+def transpose_path(r: int, c: int, itemsize: int, aligned: bool = True) -> int:
+    """The kernel path of a transpose (S, R, C) → (S, C, R): the narrow
+    path where C (``pack_hw``'s channels) or else R (``unpack_hw``'s) is at
+    most 16 and the other side a whole number of 16-byte vectors (both
+    pointers 16-byte aligned), else the tiles."""
+    v = 16 // itemsize
+    if aligned and 1 <= c <= NARROW and r % v == 0:
+        return PATH_NARROW_C
+    if aligned and 1 <= r <= NARROW and c % v == 0:
+        return PATH_NARROW_R
+    return PATH_TILES
+
+
+def narrow_groups(s: int, r: int, c: int, itemsize: int, path: int) -> list:
+    """What the narrow path's threads move, as the kernel indexes it: for
+    each thread group g, the (slice, pixel) of its first pixel; each group
+    moves 16 // itemsize pixels of every channel."""
+    v = 16 // itemsize
+    pixels = r if path == PATH_NARROW_C else c
+    return [divmod(g * v, pixels) for g in range(s * pixels // v)]
 
 
 def pack_hw_plain(x: torch.Tensor) -> torch.Tensor:
@@ -41,11 +68,13 @@ def _transpose(x: torch.Tensor, s: int, r: int, c: int, out_shape,
     if s > 65535 or -(-r // 32) > 65535:
         raise ValueError(f"{what}: shape {tuple(x.shape)} exceeds the grid limits")
     out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
+    path = transpose_path(r, c, x.element_size(),
+                          x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
     lib = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.transpose_last2(x.data_ptr(), out.data_ptr(), s, r, c,
-                                 x.element_size(), stream)
+                                 x.element_size(), path, stream)
     _build.check(lib, rc, what)
     return out
 
@@ -134,7 +163,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("layout")
     if not getattr(lib, "_typed", False):
         lib.transpose_last2.argtypes = ([ctypes.c_void_p] * 2
-                                        + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                                        + [ctypes.c_int] * 5 + [ctypes.c_void_p])
         lib.transpose_last2.restype = ctypes.c_int
         lib._typed = True
     return lib

@@ -13,8 +13,9 @@ which :func:`fold4_pack` makes from NDHWC (``w4dim`` = W/4 throughout).
   in place, so its result is K1's on the same volume bit for bit;
 - dx: K7a again on ``dy`` with the weight flipped in (kd, kh, kw) and
   transposed in (ci, co), zero bias (:func:`conv3x3_pfold_dgrad`);
-- dw: K7b, ``csrc/conv3x3_wgrad.cu`` with the folded layout
-  (``_pfold_dw_impl``), f32 (:func:`conv3x3_pfold_wgrad`);
+- dw: K7b, the ``mma.sync`` loop of ``csrc/conv3x3_wgrad.cu`` with the
+  folded layout (``_pfold_dw_impl``), f32 (:func:`conv3x3_pfold_wgrad`): in
+  bf16 bit for bit :func:`conv3x3_wgrad_mma`'s result on the same volume;
 - db: ``Σ dy`` in f32 over (b, d, phase, lane).
 
 The halo form (``pad_d=False``) takes one real d slice of halo per side,
@@ -41,7 +42,7 @@ from unet_bssfp_tpu_torch.ops.kernels.conv3d import (
     conv3x3_packed_halo_dgrad_plain,
     conv3x3_packed_halo_plain,
     conv3x3_packed_plain,
-    conv3x3_wgrad_chain,
+    conv3x3_wgrad_mma_chain,
     conv3x3_wgrad_halo_plain,
     conv3x3_wgrad_plain,
 )
@@ -180,11 +181,12 @@ def conv3x3_pfold_wgrad_halo(xp: torch.Tensor, dy: torch.Tensor, w4dim: int) -> 
 
 
 def conv3x3_pfold_wgrad_chain(xf: torch.Tensor, dy: torch.Tensor, w4dim: int) -> int:
-    """K7b's longest f32 rounding chain for these CUDA operands: K2's at the
-    unfolded shape (K7b runs K2's plan), read through a free reshape."""
+    """K7b's longest f32 rounding chain for these CUDA operands: the
+    ``mma.sync`` loop's at the unfolded shape (K7b runs that loop's plan),
+    read through a free reshape."""
     def packed_shape(t):
         return t.reshape(t.shape[0], t.shape[1], t.shape[2] // FOLD, -1)
-    return conv3x3_wgrad_chain(packed_shape(xf), packed_shape(dy), FOLD * w4dim)
+    return conv3x3_wgrad_mma_chain(packed_shape(xf), packed_shape(dy), FOLD * w4dim)
 
 
 class _Conv3x3Pfold(torch.autograd.Function):

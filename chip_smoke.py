@@ -79,12 +79,16 @@ Phases (any failure → nonzero exit, no ``ok`` line):
     24 → 32 at 96 × 128²), the first also in f32, the halo forms at a
     D_local-32 shard (96 → 32 bf16, 24 → 32 f32), and odd shapes (Cin 3
     and 5, W/4 2, 3 and 9, H 3) in both dtypes, under K1's and K2's bounds,
-    each bit for bit the result of the kernel it re-indexes on the same
-    volume (bf16: the ``mma.sync`` loops through ``conv3x3_packed_mma`` and
-    ``conv3x3_wgrad_mma``; f32: K1's and K2's FMA kernels); K9a
-    against its plain version and ``torch.roll``; K9b's three modes against
-    theirs at the conv0 shape. Then the two probe paths, each with the
-    counts reset just before it and exact launch counts after it:
+    each timed beside its library call and its bound. K7a is bit for bit the
+    packed kernel its folded shape routes to on the same volume (bf16: K1's
+    wgmma kernel at the probe cases, the ``mma.sync`` loop through
+    ``conv3x3_packed_mma`` at the odd shapes; f32: K1's FMA kernel), K7b
+    within K2's bound at its own plan's chain (bit for bit
+    ``conv3x3_wgrad_mma`` or K2's FMA kernel where it runs those); K9a
+    against its plain version and ``torch.roll``, with both device times
+    from the profiler; K9b's three modes against theirs at the conv0 shape.
+    Then the two probe paths, each with the counts reset just before it and
+    exact launch counts after it (``*_mma_routed`` 0 on the pfold path):
     ``scripts/torch_port_pfold_probe.py`` (``pfold_probe``) and
     ``scripts/torch_port_pallas_probe.py`` (``pallas_probe``).
 
@@ -225,7 +229,8 @@ def check_conv(torch, F, K, checks, b, d, h, w, cin, cout, dtype, halo=False, fo
     slices are random like the rest (so an off-by-one in d shows), and K5 on
     a zero halo against K1 on the body. With ``fold``: K7a (or its halo
     form) on the same volume folded, and bit for bit the result of the
-    kernel it re-indexes (bf16: the ``mma.sync`` loop, through
+    kernel its shape routes to (bf16: K1's (K5's) wgmma kernel where the
+    fold plan takes the shape, else the ``mma.sync`` loop through
     ``conv3x3_packed_mma``; f32: K1's (K5's) FMA kernel). ``wguard``: K1W,
     ``w`` then the row width with its guard columns (zero in the input).
     ``mma``: the check-only entry point ``conv3x3_packed_mma`` itself."""
@@ -245,13 +250,16 @@ def check_conv(torch, F, K, checks, b, d, h, w, cin, cout, dtype, halo=False, fo
     if fold:
         from unet_bssfp_tpu_torch.ops.kernels.pfold import _to_folded
         xin, dim = _to_folded(xk, w), w // 4
+        route = pfold_route(K, xin, cout, dim, dt, "conv")
         packed = (K.conv3x3_packed_mma(xk, wt, bias, w, -2 if halo else 0)
-                  if dtype == "bfloat16" else kern(xk, wt, bias, w))
+                  if route == "mma_loop" else kern(xk, wt, bias, w))
         kern, plain = ((K.conv3x3_pfold_halo, K.conv3x3_pfold_halo_plain) if halo
                        else (K.conv3x3_pfold, K.conv3x3_pfold_plain))
     got = kern(xin, wt, bias, dim, *args)
     if fold:
-        extra = {"bit_equal_to_packed_kernel": bool(torch.equal(got, _to_folded(packed, w)))}
+        extra = {"route": route,
+                 "bit_equal_to_packed_kernel": bool(torch.equal(got, _to_folded(packed, w))),
+                 "bit_identical_rerun": bool(torch.equal(got, kern(xin, wt, bias, dim)))}
         del packed
     got = got.float()
     ref = plain(xin, wt, bias, dim, *args).float()
@@ -286,6 +294,20 @@ def check_conv(torch, F, K, checks, b, d, h, w, cin, cout, dtype, halo=False, fo
         dtype=dtype, max_abs_err=float(err.max()), ref_max_abs=scale,
         rtol=rtol, atol=atol, ms=ms, plain_ms=plain_ms, bound_ms=bms,
         bound_by=by, library_ms=lib_ms, **extra))
+
+
+def pfold_route(K, xf, cout, w4, dt, what):
+    """The kernel a folded launch routes to: ``wgmma`` (bf16 shapes the fold
+    plan takes), ``mma_loop`` (other bf16 shapes) or ``fma`` (f32)."""
+    import torch
+    if dt != torch.bfloat16:
+        return "fma"
+    if what == "conv":
+        plan = K.conv_plan(xf, cout, w4, fold=True)
+    else:
+        dy = torch.empty(xf.shape[0], xf.shape[1], 4 * cout, xf.shape[3], dtype=dt)
+        plan = K.wgrad_plan(xf, dy, w4, fold=True)
+    return "mma_loop" if plan is None else "wgmma"
 
 
 def check_layout(torch, K, checks, b, d, h, w, c, dtype, direction):
@@ -346,10 +368,12 @@ def check_wgrad(torch, K, checks, b, d, h, w, cin, cout, dtype, halo=False, fold
                 mma=False):
     """K2 at the training step's shape of the forward conv cin → cout; with
     ``halo`` its variant for K5 (x of d + 2 slices, every one random); with
-    ``fold`` K7b on the same operands folded, and bit for bit the result of
-    the loop it re-indexes (bf16: the ``mma.sync`` loop through
-    ``conv3x3_wgrad_mma``; f32: K2's FMA kernel). ``mma``: the check-only
-    entry point ``conv3x3_wgrad_mma`` itself."""
+    ``fold`` K7b on the same operands folded: on the wgmma kernel (bf16
+    shapes the fold plan takes) held to K2's bound at its own plan's chain,
+    on a loop bit for bit that loop's result on the packed operands (bf16:
+    the ``mma.sync`` loop through ``conv3x3_wgrad_mma``; f32: K2's FMA
+    kernel). ``mma``: the check-only entry point ``conv3x3_wgrad_mma``
+    itself."""
     dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(cin * 7 + d)
     xk = torch.randn(b, d + 2 * halo, cin, h * w, device="cuda", generator=g).to(dt)
@@ -361,15 +385,19 @@ def check_wgrad(torch, K, checks, b, d, h, w, cin, cout, dtype, halo=False, fold
         kern, chain_fn, args = K.conv3x3_wgrad_mma, K.conv3x3_wgrad_mma_chain, (int(halo),)
     if fold:
         from unet_bssfp_tpu_torch.ops.kernels.pfold import _to_folded
-        packed = (K.conv3x3_wgrad_mma(xk, dy, w, int(halo)) if dtype == "bfloat16"
-                  else kern(xk, dy, w))
         xin, dyin, dim = _to_folded(xk, w), _to_folded(dy, w), w // 4
+        route = pfold_route(K, xin, cout, dim, dt, "wgrad")
+        packed = (None if route == "wgmma" else K.conv3x3_wgrad_mma(xk, dy, w, int(halo))
+                  if route == "mma_loop" else kern(xk, dy, w))
         kern, plain = ((K.conv3x3_pfold_wgrad_halo, K.conv3x3_pfold_wgrad_halo_plain) if halo
                        else (K.conv3x3_pfold_wgrad, K.conv3x3_pfold_wgrad_plain))
         chain_fn = K.conv3x3_pfold_wgrad_chain
     got = kern(xin, dyin, dim, *args)
     if fold:
-        extra = {"bit_equal_to_packed_kernel": bool(torch.equal(got, packed))}
+        extra = {"route": route}
+        if packed is not None:
+            extra["bit_equal_to_packed_kernel"] = bool(torch.equal(got, packed))
+        del packed
     ref = plain(xin, dyin, dim)
     err = (got - ref).abs()
     scale = float(ref.abs().max())
@@ -404,9 +432,10 @@ def check_wgrad(torch, K, checks, b, d, h, w, cin, cout, dtype, halo=False, fold
 def check_dgrad(torch, K, checks, b, d, h, w, cin, cout, dtype, halo=False, fold=False):
     """K1's dgrad launch for the forward conv cin → cout: dy (cout) → dx
     (cin); with ``halo`` K5's: dy of d slices → dxp of d + 2; with ``fold``
-    K7a's on the same dy folded, and bit for bit the dgrad of the kernel it
-    re-indexes (bf16: ``conv3x3_packed_mma`` on the flipped weights; f32:
-    K1's (K5's) FMA kernel)."""
+    K7a's on the same dy folded, and bit for bit the dgrad of the kernel its
+    shape routes to (bf16: K1's (K5's) wgmma dgrad where the fold plan takes
+    it, else ``conv3x3_packed_mma`` on the flipped weights; f32: K1's (K5's)
+    FMA kernel)."""
     dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(cin * 11 + d)
     dy = torch.randn(b, d, cout, h * w, device="cuda", generator=g).to(dt)
@@ -422,15 +451,18 @@ def check_dgrad(torch, K, checks, b, d, h, w, cin, cout, dtype, halo=False, fold
         plain = lambda: K.conv3x3_packed_plain(dy, wflip, zero, w)  # noqa: E731
     if fold:
         from unet_bssfp_tpu_torch.ops.kernels.pfold import _to_folded
-        packed = (K.conv3x3_packed_mma(dy, wflip.to(dt).contiguous(), zero, w, 2 if halo else 0)
-                  if dtype == "bfloat16" else kern(dy, wt, w))
         dyin, dim = _to_folded(dy, w), w // 4
+        route = pfold_route(K, dyin, cin, dim, dt, "conv")
+        packed = (K.conv3x3_packed_mma(dy, wflip.to(dt).contiguous(), zero, w, 2 if halo else 0)
+                  if route == "mma_loop" else kern(dy, wt, w))
         kern = K.conv3x3_pfold_halo_dgrad if halo else K.conv3x3_pfold_dgrad
         pfn = K.conv3x3_pfold_halo_dgrad_plain if halo else K.conv3x3_pfold_dgrad_plain
         plain = lambda: pfn(dyin, wt, dim)  # noqa: E731
     got = kern(dyin, wt, dim)
     if fold:
-        extra = {"bit_equal_to_packed_kernel": bool(torch.equal(got, _to_folded(packed, w)))}
+        extra = {"route": route,
+                 "bit_equal_to_packed_kernel": bool(torch.equal(got, _to_folded(packed, w))),
+                 "bit_identical_rerun": bool(torch.equal(got, kern(dyin, wt, dim)))}
         del packed
     got = got.float()
     ref = plain().float()
@@ -1171,8 +1203,11 @@ def phase_mesh_block_backward(torch, K, checks, PackedTwoConv, mesh_pkg):
 
 
 def phase_pfold_kernels(torch, F, K, checks):
-    """K7a's four entries and K7b's two against their plain versions, each
-    bit for bit the packed kernel's result on the same volume."""
+    """K7a's four entries and K7b's two against their plain versions: K7a
+    bit for bit the packed kernel its folded shape routes to (bf16: K1's
+    wgmma kernel at the probe cases, the ``mma.sync`` loop at ``PFOLD_ODD``),
+    K7b within K2's bound at its plan's chain (bit for bit the loop it runs
+    where it is routed there)."""
     def all_three(b, d, h, w, cin, cout, dtype, halo):
         check_conv(torch, F, K, checks, b, d, h, w, cin, cout, dtype, halo=halo, fold=True)
         check_dgrad(torch, K, checks, b, d, h, w, cin, cout, dtype, halo=halo, fold=True)
@@ -1191,8 +1226,10 @@ def phase_pfold_kernels(torch, F, K, checks):
 
 
 def phase_probe_kernels(torch, F, K, checks):
-    """K9a against its plain version and ``torch.roll``; K9b's three modes
-    against theirs at the conv0 shape, under K1's bf16 bound."""
+    """K9a against its plain version and ``torch.roll``, with its device time
+    from the profiler beside its per-call time (CUDA events around
+    back-to-back calls, host work included); K9b's three modes against
+    theirs at the conv0 shape, under K1's bf16 bound."""
     x = torch.randn(8, 128, device="cuda")
     got = K.lane_roll(x, 1)
     ok = torch.equal(got, K.lane_roll_plain(x, 1)) and torch.equal(got, torch.roll(x, 1, 1))
@@ -1201,8 +1238,10 @@ def phase_probe_kernels(torch, F, K, checks):
         kernel="lane_roll", shape=list(x.shape), cout=None, dtype="float32",
         max_abs_err=float((got - K.lane_roll_plain(x, 1)).abs().max()), rtol=0.0, atol=0.0,
         ms=time_ms(torch, lambda: K.lane_roll(x, 1), 200),
+        device_ms=device_ms(torch, lambda: K.lane_roll(x, 1), "lane_roll_kernel", 200),
         plain_ms=time_ms(torch, lambda: K.lane_roll_plain(x, 1), 200), bound_ms=bms,
-        bound_by=by, library_ms=time_ms(torch, lambda: torch.roll(x, 1, 1), 200)))
+        bound_by=by, library_ms=time_ms(torch, lambda: torch.roll(x, 1, 1), 200),
+        library_device_ms=device_ms(torch, lambda: torch.roll(x, 1, 1), "roll", 200)))
 
     b, d, h, w, cin, cout = PROBE_CONV
     g = torch.Generator(device="cuda").manual_seed(cin)
@@ -1240,17 +1279,22 @@ def phase_probe_kernels(torch, F, K, checks):
 def phase_probe_paths(torch, K, checks, pfold_probe, pallas_probe):
     """The two probe scripts' ``run`` as the paths ``pfold_probe`` and
     ``pallas_probe``: counts reset just before each, read just after, held
-    to the exact counts each script states. pfold: K7a's output and K7b's dW
-    are the ``mma.sync`` loops' bit for bit (max |diff| 0); pallas: the
+    to the exact counts each script states (the pfold cases' ``*_mma_routed``
+    0: every launch on the wgmma kernels). pfold: K7a's output is K1's bit
+    for bit (max |diff| 0), K7b's dW within K2's bound of the plain version
+    at its plan's chain and within both kernels' bounds of the wgrad loop's
+    (``conv3x3_wgrad_mma``, the loop K7b ran before the wgmma kernel took
+    it); pallas: the
     roll's direction, the tiny conv, every mode within K1's bf16 bound of
     its plain version."""
     K.reset_launches()
     rows, pf_counts = pfold_probe.run("cuda")
     expected = pfold_probe.expected_launches()
     print("pfold_probe launches: " + json.dumps(pf_counts), flush=True)
-    checks.record(pf_counts == expected and all(r[k] == 0 for r in rows for k in
-                                                ("max_abs_diff", "wgrad_max_abs_diff")
-                                                if k in r),
+    checks.record(pf_counts == expected
+                  and all(r["max_abs_diff"] == 0 and r["wgrad_max_abs_err"] <= r["wgrad_atol"]
+                          and r["wgrad_loop_max_abs_diff"] <= r["wgrad_loop_atol"]
+                          for r in rows if "max_abs_diff" in r),
                   dict(phase="pfold_probe_path", launches=pf_counts, expected=expected,
                        rows=rows))
     torch.cuda.empty_cache()
@@ -1303,12 +1347,14 @@ KERNEL_META = {
     "conv3x3_wgrad_halo": ("cuda", "unet_bssfp_tpu_torch/csrc/conv3x3_wgrad_wgmma.cu",
                            "unet_bssfp_tpu/ops/pallas/conv3d.py:507"),
     # K7a: _pfold_fwd_impl, reached by conv3x3_pfold, its dx, the halo form
-    # and its dx; K7b: _pfold_dw_impl and its halo form
-    **{name: ("cuda", "unet_bssfp_tpu_torch/csrc/conv3x3_packed.cu",
+    # and its dx; K7b: _pfold_dw_impl and its halo form (the wgmma kernels
+    # with FOLD in bf16; the mma.sync loops of conv3x3_packed.cu and
+    # conv3x3_wgrad.cu stay for the shapes the fold plans do not take)
+    **{name: ("cuda", "unet_bssfp_tpu_torch/csrc/conv3x3_wgmma.cu",
               "unet_bssfp_tpu/ops/pallas/conv3d.py:866")
        for name in ("conv3x3_pfold", "conv3x3_pfold_dgrad", "conv3x3_pfold_halo",
                     "conv3x3_pfold_halo_dgrad")},
-    **{name: ("cuda", "unet_bssfp_tpu_torch/csrc/conv3x3_wgrad.cu",
+    **{name: ("cuda", "unet_bssfp_tpu_torch/csrc/conv3x3_wgrad_wgmma.cu",
               "unet_bssfp_tpu/ops/pallas/conv3d.py:913")
        for name in ("conv3x3_pfold_wgrad", "conv3x3_pfold_wgrad_halo")},
     # K9a, K9b: the probe kernels of scripts/pallas_probe.py

@@ -10,7 +10,8 @@ of ``conv3x3_packed``, ``conv3x3_packed_dgrad`` and ``conv3x3_wgrad`` in bf16
 at B 8 × 64³ for the convs 24 → 32, 32 → 32 and 96 → 32, each the median of
 three rounds of ``--iters`` calls; where the checkout has the halo kernels
 (K5), also theirs at a shard of that batch (B 8 × D_local 32 × 64²); where
-it has the pfold kernels (K7a, K7b), also those on the same volumes folded;
+it has the pfold kernels (K7a, K7b), also those on the same volumes folded
+(and their halo forms at the shard);
 where it has the ``mma.sync`` loop's check-only entry point
 (``conv3x3_packed_mma``, beside the wgmma kernel that K1 and K5 take), also
 that loop's forward and dgrad at the same shapes; where it has the weight
@@ -92,10 +93,16 @@ def main() -> int:
                 "conv3x3_wgrad_mma_halo": ms(lambda: K.conv3x3_wgrad_mma(xp, dyh, w, 1))})
         if hasattr(K, "conv3x3_pfold"):
             xf, dyf = (K.fold4_pack(K.unpack_hw(t, w)) for t in (xk, dy))
+            xpf, dyhf = xf[:, :d // 2 + 2].contiguous(), dyf[:, :d // 2].contiguous()
             out[f"{cin}->32"].update({
                 "conv3x3_pfold": ms(lambda: K.conv3x3_pfold(xf, wt, bias, w // 4)),
                 "conv3x3_pfold_dgrad": ms(lambda: K.conv3x3_pfold_dgrad(dyf, wt, w // 4)),
-                "conv3x3_pfold_wgrad": ms(lambda: K.conv3x3_pfold_wgrad(xf, dyf, w // 4))})
+                "conv3x3_pfold_wgrad": ms(lambda: K.conv3x3_pfold_wgrad(xf, dyf, w // 4)),
+                "conv3x3_pfold_halo": ms(lambda: K.conv3x3_pfold_halo(xpf, wt, bias, w // 4)),
+                "conv3x3_pfold_halo_dgrad": ms(
+                    lambda: K.conv3x3_pfold_halo_dgrad(dyhf, wt, w // 4)),
+                "conv3x3_pfold_wgrad_halo": ms(
+                    lambda: K.conv3x3_pfold_wgrad_halo(xpf, dyhf, w // 4))})
     print(json.dumps(out))
     return 0
 

@@ -6,23 +6,27 @@ stage shapes: the port of ``scripts/pfold_probe.py``.
 
 For each case (B 8, bf16, (D, H = W, Cin, Cout)): K1's forward against
 K7a's, the forward + backward of a sum loss through each (K1, its dgrad and
-K2 against K7a, its dgrad and K7b), and the max |diff| between K7a's output
-and the ``mma.sync`` loop's on the packed layout (``conv3x3_packed_mma``,
-the loop K7a re-indexes; K1 itself is the wgmma kernel) in NDHWC, and the
-max |diff| between K7b's dW and the weight gradient's ``mma.sync`` loop's
-(``conv3x3_wgrad_mma``, the loop K7b re-indexes) for one random dy. Beside
-the JAX probe's four cases, the halo forms (K5 against K7a's halo form, and
-their gradients) at a D_local-32 shard of the upcat case. Then the relayouts at 8 × 64³: ``pack_hw`` at 24 channels and
-``fold4_pack`` at 24 and 96. Times are CUDA-event ms per call after two
-warm-up calls (on ``--device cpu``, host-clock ms of the plain versions, a
-rehearsal and no measurement of the card). Prints one JSON line per row and
-the launch counts of the run.
+K2 against K7a, its dgrad and K7b), the max |diff| between K7a's output
+and K1's in NDHWC (K7a runs K1's wgmma kernel on the folded layout: 0), and
+the max |diff| between K7b's dW and the plain weight gradient for one
+random dy beside K2's bound there, 16·sqrt(L)·2^-24·max|ref| with L K7b's
+chain, and the max |diff| between K7b's dW and that of the ``mma.sync``
+loop K7b ran before (``conv3x3_wgrad_mma`` on the packed operands), within
+the sum of the two kernels' bounds (on the CPU the plain version is K7b
+itself and the loop's: bounds 0). Beside the JAX
+probe's four cases, the halo forms (K5 against K7a's halo form, and their
+gradients) at a D_local-32 shard of the upcat case. Then the relayouts at
+8 × 64³: ``pack_hw`` at 24 channels and ``fold4_pack`` at 24 and 96. Times
+are CUDA-event ms per call after two warm-up calls (on ``--device cpu``,
+host-clock ms of the plain versions, a rehearsal and no measurement of the
+card). Prints one JSON line per row and the launch counts of the run.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import sys
 import time
@@ -87,20 +91,30 @@ def run_case(device, name, d, hw, cin, cout, halo, iters):
     t_pf = time_ms(lambda: pfold(xf, w, bias, w4), iters, device)
     tb_pk = time_ms(lambda: _fwd_bwd(packed, xk, w, bias, hw), iters, device)
     tb_pf = time_ms(lambda: _fwd_bwd(pfold, xf, w, bias, w4), iters, device)
-    y_pk = K.unpack_hw(K.conv3x3_packed_mma(xk, w, bias, hw, -2 if halo else 0), hw)
+    y_pk = K.unpack_hw(packed(xk, w, bias, hw), hw)
     y_pf = K.unfold4_unpack(pfold(xf, w, bias, w4), w4)
     err = float((y_pk.float() - y_pf.float()).abs().max())
     dyk = torch.randn(B, d, cout, hw * hw, device=device, generator=g).bfloat16()
+    dyf = _to_folded(dyk, hw)
     wgrad = K.conv3x3_pfold_wgrad_halo if halo else K.conv3x3_pfold_wgrad
-    dw_pk = K.conv3x3_wgrad_mma(xk, dyk, hw, int(halo))
-    dw_pf = wgrad(xf, _to_folded(dyk, hw), w4)
-    err_dw = float((dw_pk - dw_pf).abs().max())
+    wplain = K.conv3x3_wgrad_halo_plain if halo else K.conv3x3_wgrad_plain
+    dw_ref = wplain(xk, dyk, hw)
+    dw_pf = wgrad(xf, dyf, w4)
+    err_dw = float((dw_pf - dw_ref).abs().max())
+    err_loop = float((dw_pf - K.conv3x3_wgrad_mma(xk, dyk, hw, int(halo))).abs().max())
+    atol_dw = atol_loop = 0.0
+    if device.type == "cuda":
+        ulp = 16 * 2 ** -24 * float(dw_ref.abs().max())
+        atol_dw = math.sqrt(K.conv3x3_pfold_wgrad_chain(xf, dyf, w4)) * ulp
+        atol_loop = atol_dw + math.sqrt(K.conv3x3_wgrad_mma_chain(xk, dyk, hw)) * ulp
     row = {"case": name, "shape": [B, d, hw, hw, cin, cout], "halo": halo,
            "packed_fwd_ms": t_pk, "pfold_fwd_ms": t_pf, "packed_fb_ms": tb_pk,
-           "pfold_fb_ms": tb_pf, "max_abs_diff": err, "wgrad_max_abs_diff": err_dw}
+           "pfold_fb_ms": tb_pf, "max_abs_diff": err, "wgrad_max_abs_err": err_dw,
+           "wgrad_atol": atol_dw, "wgrad_loop_max_abs_diff": err_loop,
+           "wgrad_loop_atol": atol_loop}
     print(f"{name}: packed fwd {t_pk:7.3f}  pfold fwd {t_pf:7.3f} ({t_pk / t_pf:4.2f}x)   "
           f"f+b {tb_pk:7.3f} vs {tb_pf:7.3f} ({tb_pk / tb_pf:4.2f}x)   maxdiff {err:.2e}, "
-          f"dW {err_dw:.2e}",
+          f"dW {err_dw:.2e} (bound {atol_dw:.2e})",
           flush=True)
     return row
 
@@ -131,11 +145,12 @@ def run(device="cuda", cases=CASES, relayouts=RELAYOUTS, iters: int = 10):
 
 def expected_launches(cases=CASES, relayouts=RELAYOUTS, iters: int = 10) -> dict:
     """The launches :func:`run` makes on a card: per case two packs (the
-    input packed and folded), each forward ``iters`` + 2 timed times (K7a
-    once more, checked against one launch of ``conv3x3_packed_mma``), each
-    forward + backward ``iters`` + 2 times (forward, dgrad, wgrad), two
-    unpacks, K7b once more against one launch of ``conv3x3_wgrad_mma``; per
-    relayout ``iters`` + 2 packs."""
+    input packed and folded), each forward ``iters`` + 2 timed times and
+    once more (K7a against K1), each forward + backward ``iters`` + 2 times
+    (forward, dgrad, wgrad), two unpacks, K7b once more against the plain
+    version and one launch of the wgrad's ``mma.sync`` loop; per relayout
+    ``iters`` + 2 packs. Every launch of the cases is
+    one of the wgmma kernels: ``*_mma_routed`` stay 0."""
     n = iters + 2
     out = dict.fromkeys(K.launches(), 0)
     for *_, halo in cases:
@@ -145,8 +160,7 @@ def expected_launches(cases=CASES, relayouts=RELAYOUTS, iters: int = 10) -> dict
                  ("conv3x3_packed", "conv3x3_packed_dgrad", "conv3x3_wgrad",
                   "conv3x3_pfold", "conv3x3_pfold_dgrad", "conv3x3_pfold_wgrad"))
         for i, name in enumerate(names):
-            out[name] += 2 * n + (i == 3) if i % 3 == 0 else n
-        out["conv3x3_packed_mma"] += 1
+            out[name] += 2 * n + 1 if i % 3 == 0 else n
         out[names[5]] += 1
         out["conv3x3_wgrad_mma"] += 1
         out["pack_hw"] += 2

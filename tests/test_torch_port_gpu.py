@@ -474,9 +474,23 @@ def test_gpu_mesh_replicas_on_two_cards(cuda):
 
 # K7a/K7b: the conv on the phase-major w-folded layout, its halo form and
 # their gradients, at odd shapes (Cin 3 and 5, W/4 2, 3 and 9, H 3, Cout past
-# one 32-channel block) and one stage shape. The halo slices are random.
+# one 32-channel block), which run the mma.sync loops, and shapes the wgmma
+# kernels take: W/4 8 and 24 (the conv kernel only), 16 and 32 (both; two w
+# tiles at 32) and one stage shape. The halo slices are random.
 PFOLD_SHAPES = [(2, 3, 3, 8, 3, 4), (1, 4, 7, 12, 5, 36), (1, 2, 3, 36, 24, 32),
-                (2, 4, 16, 64, 96, 32)]
+                (2, 4, 16, 64, 96, 32), (1, 3, 5, 32, 24, 32), (1, 2, 4, 96, 5, 6),
+                (1, 2, 5, 128, 32, 32)]
+
+
+def _pfold_routes(b, d, h, w, cin, cout, dtype):
+    """(conv, wgrad): whether the wgmma kernels take the folded shape (bf16
+    only; the plans are static)."""
+    if dtype != torch.bfloat16:
+        return False, False
+    xf = torch.empty(b, d, 4 * cin, h * w // 4, dtype=dtype)
+    dy = torch.empty(b, d, 4 * cout, h * w // 4, dtype=dtype)
+    return (K.conv_plan(xf, cout, w // 4, fold=True) is not None,
+            K.wgrad_plan(xf, dy, w // 4, fold=True) is not None)
 
 
 def _pfold_operands(b, d, h, w, cin, cout, dtype, halo):
@@ -508,7 +522,14 @@ def test_gpu_pfold_autograd_matches_plain(cuda, b, d, h, w, cin, cout, dtype, ha
     counts = K.launches()
     names = (("conv3x3_pfold_halo", "conv3x3_pfold_halo_dgrad", "conv3x3_pfold_wgrad_halo")
              if halo else ("conv3x3_pfold", "conv3x3_pfold_dgrad", "conv3x3_pfold_wgrad"))
-    assert {k: v for k, v in counts.items() if v} == dict.fromkeys(names, 1)
+    # a bf16 shape the wgmma plans do not take also counts its mma.sync launches
+    conv_wgmma_route, wgrad_wgmma_route = _pfold_routes(b, d, h, w, cin, cout, dtype)
+    expected = dict.fromkeys(names, 1)
+    if dtype == torch.bfloat16 and not conv_wgmma_route:
+        expected["conv3x3_packed_mma_routed"] = 2
+    if dtype == torch.bfloat16 and not wgrad_wgmma_route:
+        expected["conv3x3_wgrad_mma_routed"] = 1
+    assert {k: v for k, v in counts.items() if v} == expected
     ry, rdx, rdw, rdb = run(plain)
     assert y.shape == (b, d, 4 * cout, h * w // 4) and dx.shape == x0.shape
     assert dx.dtype == dtype and dw.dtype == db.dtype == torch.float32
@@ -533,45 +554,77 @@ def test_gpu_pfold_autograd_matches_plain(cuda, b, d, h, w, cin, cout, dtype, ha
 @pytest.mark.parametrize("b,d,h,w,cin,cout", PFOLD_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_gpu_pfold_is_k1_and_k2_bit_for_bit(cuda, b, d, h, w, cin, cout, dtype):
-    """K7a and K7b run the packed conv's ``mma.sync`` loop and the weight
-    gradient's: on the same volume their results are those loops' results,
-    folded, bit for bit (forward, dgrad, the halo forms, dw). In bf16 the
-    loops are reached through their check-only entry points
-    ``conv3x3_packed_mma`` and ``conv3x3_wgrad_mma`` (K1 and K2 themselves
-    are the wgmma kernels); in f32 K1 and K2 are the FMA kernels K7a and K7b
-    re-index."""
+    """K7a's four entries are, on the same volume, the packed conv's result
+    folded, bit for bit, of the kernel the folded shape routes to: in bf16
+    K1's wgmma kernel where the fold plan takes the shape (through K1's own
+    entries), else the ``mma.sync`` loop (its check-only entry point
+    ``conv3x3_packed_mma``); in f32 the FMA kernels. K7b on the wgmma
+    kernel sums each item's pixels phase-major, so it is held to K2's bound
+    (16·sqrt(L)·2^-24·max|ref|, L its plan's chain) of the plain version;
+    on the loops (routed bf16, f32) it is their result bit for bit. A second
+    launch of each is bit for bit the first."""
     from unet_bssfp_tpu_torch.ops.kernels.conv3d import _flip_t
     from unet_bssfp_tpu_torch.ops.kernels.pfold import _to_folded, _to_packed
 
-    def loop(a, wt, bias, grow):
-        if dtype == torch.bfloat16:
-            return K.conv3x3_packed_mma(a, wt, bias, w, grow)
-        return (K.conv3x3_packed_halo(a, wt, bias, w) if grow == -2
-                else K.conv3x3_packed(a, wt, bias, w))
+    conv_wgmma_route, wgrad_wgmma_route = _pfold_routes(b, d, h, w, cin, cout, dtype)
+    loop = dtype == torch.bfloat16 and not conv_wgmma_route
 
-    def wloop(a, g, halo):
-        if dtype == torch.bfloat16:
-            return K.conv3x3_wgrad_mma(a, g, w, halo)
-        return K.conv3x3_wgrad_halo(a, g, w) if halo else K.conv3x3_wgrad(a, g, w)
+    def anchors(xk, dyk, wt, bias, halo):
+        """The packed kernels K7a's forward and dgrad re-index."""
+        wflip, zero = _flip_t(wt, dtype), torch.zeros(cin, device=cuda)
+        if loop:
+            return (K.conv3x3_packed_mma(xk, wt, bias, w, -2 if halo else 0),
+                    K.conv3x3_packed_mma(dyk, wflip, zero, w, 2 if halo else 0))
+        if halo:
+            return (K.conv3x3_packed_halo(xk, wt, bias, w),
+                    K.conv3x3_packed_halo_dgrad(dyk, wt, w))
+        return K.conv3x3_packed(xk, wt, bias, w), K.conv3x3_packed_dgrad(dyk, wt, w)
 
     w4 = w // 4
     for halo in (False, True):
         xf, wt, bias, dyf = _pfold_operands(b, d, h, w, cin, cout, dtype, halo)
         xk, dyk = _to_packed(xf, w4).contiguous(), _to_packed(dyf, w4).contiguous()
-        wflip, zero = _flip_t(wt, dtype), torch.zeros(cin, device=cuda)
-        if halo:
-            dgrad = (K.conv3x3_packed_mma(dyk, wflip, zero, w, 2) if dtype == torch.bfloat16
-                     else K.conv3x3_packed_halo_dgrad(dyk, wt, w))
-            pairs = [(K.conv3x3_pfold_halo(xf, wt, bias, w4), loop(xk, wt, bias, -2)),
-                     (K.conv3x3_pfold_halo_dgrad(dyf, wt, w4), dgrad)]
-            dws = (K.conv3x3_pfold_wgrad_halo(xf, dyf, w4), wloop(xk, dyk, 1))
-        else:
-            pairs = [(K.conv3x3_pfold(xf, wt, bias, w4), loop(xk, wt, bias, 0)),
-                     (K.conv3x3_pfold_dgrad(dyf, wt, w4), loop(dyk, wflip, zero, 0))]
-            dws = (K.conv3x3_pfold_wgrad(xf, dyf, w4), wloop(xk, dyk, 0))
-        for folded, packed in pairs:
+        conv, dgrad, wgrad = ((K.conv3x3_pfold_halo, K.conv3x3_pfold_halo_dgrad,
+                               K.conv3x3_pfold_wgrad_halo) if halo else
+                              (K.conv3x3_pfold, K.conv3x3_pfold_dgrad, K.conv3x3_pfold_wgrad))
+        y_pk, dx_pk = anchors(xk, dyk, wt, bias, halo)
+        for folded, rerun, packed in ((conv(xf, wt, bias, w4), conv(xf, wt, bias, w4), y_pk),
+                                      (dgrad(dyf, wt, w4), dgrad(dyf, wt, w4), dx_pk)):
             assert torch.equal(folded, _to_folded(packed, w)), halo
-        assert torch.equal(*dws), halo
+            assert torch.equal(folded, rerun), halo
+        dw = wgrad(xf, dyf, w4)
+        assert torch.equal(dw, wgrad(xf, dyf, w4)), halo
+        if wgrad_wgmma_route:
+            wplain = K.conv3x3_pfold_wgrad_halo_plain if halo else K.conv3x3_pfold_wgrad_plain
+            chain = K.conv3x3_pfold_wgrad_chain(xf, dyf, w4)
+            _close(dw, wplain(xf, dyf, w4), 0.0, 16 * math.sqrt(chain) * 2 ** -24)
+        elif dtype == torch.bfloat16:
+            assert torch.equal(dw, K.conv3x3_wgrad_mma(xk, dyk, w, int(halo))), halo
+        else:
+            ref = K.conv3x3_wgrad_halo(xk, dyk, w) if halo else K.conv3x3_wgrad(xk, dyk, w)
+            assert torch.equal(dw, ref), halo
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,d,h,w,cin,cout", PFOLD_SHAPES)
+def test_gpu_pfold_routes_are_counted(cuda, b, d, h, w, cin, cout):
+    """A bf16 folded launch the wgmma plans do not take runs the mma.sync
+    loop and adds one to ``*_mma_routed`` besides its own count; one they
+    take adds nothing there."""
+    conv_wgmma_route, wgrad_wgmma_route = _pfold_routes(b, d, h, w, cin, cout, torch.bfloat16)
+    for halo in (False, True):
+        xf, wt, bias, dyf = _pfold_operands(b, d, h, w, cin, cout, torch.bfloat16, halo)
+        conv, dgrad, wgrad = ((K.conv3x3_pfold_halo, K.conv3x3_pfold_halo_dgrad,
+                               K.conv3x3_pfold_wgrad_halo) if halo else
+                              (K.conv3x3_pfold, K.conv3x3_pfold_dgrad, K.conv3x3_pfold_wgrad))
+        K.reset_launches()
+        conv(xf, wt, bias, w // 4)
+        dgrad(dyf, wt, w // 4)
+        wgrad(xf, dyf, w // 4)
+        counts = K.launches()
+        assert (counts[conv.__name__], counts[dgrad.__name__], counts[wgrad.__name__]) == (1, 1, 1)
+        assert counts["conv3x3_packed_mma_routed"] == 2 * (not conv_wgmma_route), halo
+        assert counts["conv3x3_wgrad_mma_routed"] == int(not wgrad_wgmma_route), halo
 
 
 @pytest.mark.gpu
@@ -597,6 +650,16 @@ def test_gpu_pfold_raises_instead_of_falling_back(cuda):
         K.conv3x3_pfold(xf.half(), wt, bias, 4)
     with pytest.raises(ValueError):  # nothing but halo
         K.conv3x3_pfold_halo(xf[:, :2].contiguous(), wt, bias, 4)
+    # shapes no kernel takes, in the dtype the wgmma kernels run: raised
+    xb = torch.randn(1, 2, 4 * 24, 4 * 16, device=cuda).bfloat16()
+    wb, bb = torch.randn(3, 3, 3, 24, 32, device=cuda), torch.zeros(32, device=cuda)
+    with pytest.raises(ValueError):  # weight does not fit 24 channels
+        K.conv3x3_pfold(xb, wb[:, :, :, :8].contiguous(), bb, 16)
+    with pytest.raises(ValueError):  # dy does not fit x
+        K.conv3x3_pfold_wgrad(xb, torch.randn(1, 2, 4 * 32, 60, device=cuda).bfloat16(), 16)
+    with pytest.raises(ValueError):  # B·D past the grid
+        K.conv3x3_pfold(torch.zeros(1, 65536, 4, 8, device=cuda).bfloat16(),
+                        torch.zeros(3, 3, 3, 1, 1, device=cuda), torch.zeros(1, device=cuda), 2)
 
 
 @pytest.mark.gpu

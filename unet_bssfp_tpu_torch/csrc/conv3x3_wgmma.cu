@@ -77,11 +77,40 @@
 //   B in all). 256 threads, one block per SM. Registers: the accumulators
 //   take 3 * RW * N / 2 per thread (96 at N 32 RW 2, 144 at N 96); in all
 //   (-Xptxas -v, nvcc 12.9 for sm_90a) 190 at N 32 RW 2, 126 at N 32 RW 1,
-//   175 at N 64, 228 at N 96, none spilled. The walk
+//   175 at N 64, 228 at N 96, none spilled (FOLD, nvcc 12.8: 196 / 110 /
+//   171 / 238, none spilled). The walk
 //   is unrolled by three so that each output's accumulator is fixed at
 //   compile time, and every tap runs even for an output outside the block's
 //   d segment (never stored): a register copy or a branch among the products
 //   makes ptxas serialise the wgmma pipeline.
+// - The phase-major w-folded layout (FOLD, K7a: the pfold conv of
+//   ops/kernels/pfold.py, replacing conv3d.py:conv3x3_pfold and
+//   conv3x3_pfold_halo), xf[b, d, p*C + c, h*(W/4) + w4] = x[b, d, h, 4*w4 + p, c],
+//   enters only where data is laid down or read back; the transposed tile,
+//   the descriptors, the products, the d walk and the weights are the
+//   packed kernel's, so on the same volume K7a's result is K1's bit for bit.
+//   - Loads: a 5-d map over (W/4, Cin, H, 4 phases, B*Din) (d and b merge:
+//     the walk loads no slice outside [0, Din); channels before rows, so
+//     the 8 channels a transpose reads are 32 B apart, as in K1); per stage
+//     one box (16 w4, 16 channels, ROWS+2 rows, 4 phases) holds the tile's
+//     64 pixels of every row, and two boxes of 8 w4 from a second map (box
+//     (8, 16, ROWS+2, 1)) the w neighbours: pixel w0-1 is phase 3 at w4 w0/4-1, pixel
+//     w0+64 phase 0 at w0/4+16. Every box starts 8-aligned, 2560 B a row
+//     as K1's, and the zero fill is still the SAME pad in h and w and the
+//     Cin tail (channels and phases are separate dimensions). Needs
+//     W/4 % 8 == 0 (TMA row strides are multiples of 16 B).
+//   - Transpose: an 8 x 8 block read by ldmatrix.trans is 8 w4 of one
+//     (phase, channel), pixels 4*w4 + p; stmatrix takes one row address per
+//     lane, so the fold is only other row addresses: block (p, g) lands at
+//     transposed pixels 8 + 32g + 4i + p, the left box's last w4 at pixel
+//     7 and the right box's first at 72 (their other rows at 0..6 and
+//     73..79, which no product reads). 10 blocks a row half, as K1's.
+//   - Epilogue: each thread stores 16 bytes, 8 consecutive w4 of one
+//     (phase, channel), read from the staging tile at stride 4.
+//   - Cost over K1: a transpose block's 8 stored rows lie 4 pixels (64 B)
+//     apart, 4-way bank conflicts where K1's rows are adjacent; inherent,
+//     since a 16-byte raw row holds one phase. K7a takes 1.01-1.14x K1's
+//     time (H100, 700 W, bf16, B 8 x 64^3, 24/32/96 -> 32 and the dgrads).
 // - Bytes pulled from L2 per call, 96 -> 32 at B 8 x 64^3: activations
 //   6 rows / 4 output rows x 96 channels x 160 B per 64 pixels of each input
 //   slice, 0.75 GB; weights 128 blocks x 166 KB, 0.02 GB. K1's mma.sync loop
@@ -111,6 +140,13 @@ constexpr int BAR_BYTES = 8 * (MAX_STAGES + 1);
 constexpr int SLACK = 128;       // alignment of the dynamic shared memory base
 constexpr int SMEM_LIMIT = 232448;
 constexpr int WCHUNK = 32768;    // bytes per bulk copy of the weight image
+
+// The folded stage (FOLD): per 16-channel chunk, the main box [4 phases]
+// [ROWS+2 rows][16 ch][16 w4], then the left and right boxes [ROWS+2 rows]
+// [16 ch][8 w4]; a row's share is ROW_BYTES, as in the packed stage.
+constexpr int FOLD_MAIN_ROW = 4 * CK * 16 * 2;  // 2048 B per row
+constexpr int FOLD_SIDE_ROW = CK * 8 * 2;       // 256 B per row and side
+static_assert(FOLD_MAIN_ROW + 2 * FOLD_SIDE_ROW == ROW_BYTES, "folded stage = packed stage");
 
 struct Params {
   const uint8_t* w;   // weight image (conv_wgmma.py:weight_image)
@@ -166,7 +202,7 @@ __device__ __forceinline__ int row_skew(const Params& p, int hh, int w0) {
 
 // One complete output slice of this warpgroup's RW rows: + bias, bf16, guard
 // columns zero, through the staging tile, 16 channels at a time.
-template <int N, int RW>
+template <int N, int RW, bool FOLD>
 __device__ __forceinline__ void store_slice(const float (&acc)[RW][N / 2], const Params& p,
                                            uint16_t* stg, int wg, int b, int d, int h0,
                                            int w0) {
@@ -194,7 +230,22 @@ __device__ __forceinline__ void store_slice(const float (&acc)[RW][N / 2], const
       named_sync(1 + wg, 128);
       const int chl = tid / 8, seg = tid % 8;
       const int co = pass * 16 + chl, ww = w0 + seg * 8;
-      if (hh < p.h && co < p.cout && ww < p.wdim) {
+      if (FOLD) {
+        // 8 consecutive w4 of phase ph: pixels w0 + 32g + 4k + ph
+        const int ph = seg >> 1, g = seg & 1, w4 = w0 / 4 + 8 * g, w4dim = p.wdim / 4;
+        if (hh < p.h && co < p.cout && w4 < w4dim) {
+          const uint16_t* src = stg + chl * EPI_STRIDE + 32 * g + ph;
+          uint4 v;
+          v.x = src[0] | (static_cast<uint32_t>(src[4]) << 16);
+          v.y = src[8] | (static_cast<uint32_t>(src[12]) << 16);
+          v.z = src[16] | (static_cast<uint32_t>(src[20]) << 16);
+          v.w = src[24] | (static_cast<uint32_t>(src[28]) << 16);
+          uint16_t* dst = out + ((static_cast<long long>(b) * p.dout + d) * 4 * p.cout +
+                                 ph * p.cout + co) * (hw / 4) +
+                          static_cast<long long>(hh) * w4dim + w4;
+          *reinterpret_cast<uint4*>(dst) = v;
+        }
+      } else if (hh < p.h && co < p.cout && ww < p.wdim) {
         const uint16_t* src = stg + chl * EPI_STRIDE + seg * 8;
         uint16_t* dst = out + ((static_cast<long long>(b) * p.dout + d) * p.cout + co) * hw +
                         static_cast<long long>(hh) * p.wdim + ww;
@@ -217,6 +268,7 @@ struct Block {
   uint32_t ring, xt, wsm, bars;
   uint16_t* stg;
   const CUtensorMap* tmap;
+  const CUtensorMap* side;  // FOLD: the map of the 8-w4 neighbour boxes
   int j_end;  // the last input slice the block loads
 };
 
@@ -229,21 +281,29 @@ struct Loader {
 // box per h row, then the loader moves on. Each row's box starts at the
 // multiple of 8 pixels at or below the pixel output pixel w0 reads at
 // kw = 0 (TMA takes an innermost start of whole 16-byte units only).
-template <int ROWS>
+template <int ROWS, bool FOLD>
 __device__ __forceinline__ void load_stage(const Params& p, const Block& k, Loader& ld,
                                            int stage) {
   constexpr int STAGE_BYTES = (ROWS + 2) * ROW_BYTES;
   const uint32_t full = k.bars + 8 * stage;
   const uint32_t dst = k.ring + stage * STAGE_BYTES;
   mbar_expect_tx(full, STAGE_BYTES);
+  if (FOLD) {  // three boxes: all rows and phases, then pixels w0-1 and w0+64
+    constexpr int MAIN = (ROWS + 2) * FOLD_MAIN_ROW, SIDE = (ROWS + 2) * FOLD_SIDE_ROW;
+    const int w4 = k.w0 / 4, bd = k.b * p.din + ld.j;
+    tma_load_5d(dst, k.tmap, full, w4, ld.c * CK, k.h0 - 1, 0, bd);
+    tma_load_5d(dst + MAIN, k.side, full, w4 - 8, ld.c * CK, k.h0 - 1, 3, bd);
+    tma_load_5d(dst + MAIN + SIDE, k.side, full, w4 + 16, ld.c * CK, k.h0 - 1, 0, bd);
+  } else {
 #pragma unroll
-  for (int rr = 0; rr < ROWS + 2; ++rr) {
-    const int hh = k.h0 - 1 + rr;
-    if (p.lanes_map) {
-      const int s0 = hh * p.wdim + k.w0 - 1;
-      tma_load_4d(dst + rr * ROW_BYTES, k.tmap, full, s0 - (s0 & 7), ld.c * CK, ld.j, k.b);
-    } else {
-      tma_load_5d(dst + rr * ROW_BYTES, k.tmap, full, k.w0 - 8, hh, ld.c * CK, ld.j, k.b);
+    for (int rr = 0; rr < ROWS + 2; ++rr) {
+      const int hh = k.h0 - 1 + rr;
+      if (p.lanes_map) {
+        const int s0 = hh * p.wdim + k.w0 - 1;
+        tma_load_4d(dst + rr * ROW_BYTES, k.tmap, full, s0 - (s0 & 7), ld.c * CK, ld.j, k.b);
+      } else {
+        tma_load_5d(dst + rr * ROW_BYTES, k.tmap, full, k.w0 - 8, hh, ld.c * CK, ld.j, k.b);
+      }
     }
   }
   if (++ld.c == p.chunks) {
@@ -259,11 +319,36 @@ struct Pipe {
   int tbuf;
 };
 
+// Lane `lane`'s rows of transpose block q of a stage: the raw row it reads
+// (16 bytes: 8 pixels of one channel) and the transposed row it writes (one
+// pixel's 8 channels); block q is (row, channel half, 8-pixel group pg).
+template <int ROWS, bool FOLD>
+__device__ __forceinline__ void xpose_rows(uint32_t rs, uint32_t xs, int q, int i,
+                                           uint32_t& from, uint32_t& to) {
+  constexpr int PLANE = (ROWS + 2) * PX * 16;
+  const int pg = q % (PX / 8), half = (q / (PX / 8)) % 2, rr = q / (2 * (PX / 8));
+  const int ch = half * 8 + i;
+  int px = pg * 8 + i;  // transposed pixel index: pixel w0 - 8 + px
+  if (!FOLD) {
+    from = rs + ((rr * CK + ch) * PX + pg * 8) * 2;
+  } else if (pg == 0) {  // left box, w4 w0/4-8+i of phase 3: pixel w0-1 at i = 7
+    from = rs + (ROWS + 2) * FOLD_MAIN_ROW + (rr * CK + ch) * 16;
+  } else if (pg == PX / 8 - 1) {  // right box, phase 0 from w4 w0/4+16: pixel w0+64 at i = 0
+    from = rs + (ROWS + 2) * (FOLD_MAIN_ROW + FOLD_SIDE_ROW) + (rr * CK + ch) * 16;
+    px = 72 + i;
+  } else {  // main box, w4 w0/4 + 8g + i of phase ph: pixel w0 + 32g + 4i + ph
+    const int ph = (pg - 1) >> 1, g = (pg - 1) & 1;
+    from = rs + (((ph * (ROWS + 2) + rr) * CK + ch) * 16 + g * 8) * 2;
+    px = 8 + 32 * g + 4 * i + ph;
+  }
+  to = xs + half * PLANE + (rr * PX + px) * 16;
+}
+
 // Step j of a block's d walk: input slice j (all its 16-channel stages)
 // into the three outputs it feeds, e = j + 1 - kd held in accumulator
 // (ROT - kd) mod 3, ROT = the step's index mod 3; then output j - 1, complete,
 // is stored and its accumulator zeroed for output j + 2.
-template <int N, int RW, int ROT>
+template <int N, int RW, bool FOLD, int ROT>
 __device__ __forceinline__ void step(float (&acc)[3][RW][N / 2], const Params& p,
                                      const Block& k, Pipe& pipe, Loader& ld, int j) {
   constexpr int ROWS = CONSUMERS * RW;
@@ -281,16 +366,15 @@ __device__ __forceinline__ void step(float (&acc)[3][RW][N / 2], const Params& p
       const uint32_t rs = k.ring + pipe.stage * STAGE_BYTES;
       const uint32_t xs = k.xt + pipe.tbuf * 2 * PLANE;
       for (int op = k.warp; op < XPOSE_OPS; op += CONSUMERS * 4) {
-        const int q = op * 4 + k.lane / 8, i = k.lane % 8;
-        const int pg = q % (PX / 8), half = (q / (PX / 8)) % 2, rr = q / (2 * (PX / 8));
-        transpose_x4(rs + ((rr * CK + half * 8 + i) * PX + pg * 8) * 2,
-                     xs + half * PLANE + (rr * PX + pg * 8 + i) * 16);
+        uint32_t from, to;
+        xpose_rows<ROWS, FOLD>(rs, xs, op * 4 + k.lane / 8, k.lane % 8, from, to);
+        transpose_x4(from, to);
       }
       asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
       named_sync(3, CONSUMERS * 128);
       // every warp is done with the raw tile: refill its stage, `stages`
       // loads ahead of the products
-      if (threadIdx.x == 0 && ld.j <= k.j_end) load_stage<ROWS>(p, k, ld, pipe.stage);
+      if (threadIdx.x == 0 && ld.j <= k.j_end) load_stage<ROWS, FOLD>(p, k, ld, pipe.stage);
       if (++pipe.stage == p.stages) {
         pipe.stage = 0;
         pipe.phase ^= 1;
@@ -328,7 +412,7 @@ __device__ __forceinline__ void step(float (&acc)[3][RW][N / 2], const Params& p
   constexpr int DONE = (ROT + 1) % 3;  // output j - 1's accumulator (kd = 2)
   const int e = j - 1;
   if (e >= k.e_lo && e <= k.e_hi)
-    store_slice<N, RW>(acc[DONE], p, k.stg, wg, k.b, e - p.shift, k.h0, k.w0);
+    store_slice<N, RW, FOLD>(acc[DONE], p, k.stg, wg, k.b, e - p.shift, k.h0, k.w0);
   __syncwarp();
 #pragma unroll
   for (int r = 0; r < RW; ++r) {
@@ -338,9 +422,10 @@ __device__ __forceinline__ void step(float (&acc)[3][RW][N / 2], const Params& p
   }
 }
 
-template <int N, int RW>
+template <int N, int RW, bool FOLD>
 __global__ void __launch_bounds__(THREADS, 1)
-conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap tmap, const Params p) {
+conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap tmap,
+                     const __grid_constant__ CUtensorMap side, const Params p) {
   constexpr int ROWS = CONSUMERS * RW;  // output h rows per block
   constexpr int STAGE_BYTES = (ROWS + 2) * ROW_BYTES;  // raw: [row][16 ch][PX]
   constexpr int PLANE = (ROWS + 2) * PX * 16;  // transposed: [8-ch half][row][PX][8 ch]
@@ -381,6 +466,7 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap tmap, const Params p) {
   blk_ctx.bars = bars;
   blk_ctx.stg = reinterpret_cast<uint16_t*>(smem_raw + (epi - raw)) + (warp / 4) * (EPI_BYTES / 2);
   blk_ctx.tmap = &tmap;
+  blk_ctx.side = &side;
   blk_ctx.j_end = min(e_hi + 1, p.din - 1);
   Loader ld = {max(e_lo - 1, 0), 0};
 
@@ -393,7 +479,7 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap tmap, const Params p) {
     mbar_expect_tx(wbar, p.wbytes);
     for (int off = 0; off < p.wbytes; off += WCHUNK)
       bulk_load(wsm + off, p.w + off, min(WCHUNK, p.wbytes - off), wbar);
-    for (int s = 0; s < p.stages && ld.j <= blk_ctx.j_end; ++s) load_stage<ROWS>(p, blk_ctx, ld, s);
+    for (int s = 0; s < p.stages && ld.j <= blk_ctx.j_end; ++s) load_stage<ROWS, FOLD>(p, blk_ctx, ld, s);
   }
   __syncthreads();
 
@@ -415,9 +501,9 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap tmap, const Params p) {
   // three steps per trip, so that which accumulator holds which output is
   // known at compile time (no register copies between steps)
   for (int j = e_lo - 1; j <= e_hi + 1; j += 3) {
-    step<N, RW, 0>(acc, p, blk_ctx, pipe, ld, j);
-    if (j + 1 <= e_hi + 1) step<N, RW, 1>(acc, p, blk_ctx, pipe, ld, j + 1);
-    if (j + 2 <= e_hi + 1) step<N, RW, 2>(acc, p, blk_ctx, pipe, ld, j + 2);
+    step<N, RW, FOLD, 0>(acc, p, blk_ctx, pipe, ld, j);
+    if (j + 1 <= e_hi + 1) step<N, RW, FOLD, 1>(acc, p, blk_ctx, pipe, ld, j + 1);
+    if (j + 2 <= e_hi + 1) step<N, RW, FOLD, 2>(acc, p, blk_ctx, pipe, ld, j + 2);
   }
 }
 
@@ -431,28 +517,39 @@ int smem_bytes(int rows, int stages, int wbytes) {
          BAR_BYTES;
 }
 
-template <int N, int RW>
-int launch(const CUtensorMap& map, const Params& p, int grid, int smem, cudaStream_t stream) {
-  auto kernel = conv3x3_wgmma_kernel<N, RW>;
+template <int N, int RW, bool FOLD>
+int launch(const CUtensorMap& map, const CUtensorMap& side, const Params& p, int grid, int smem,
+           cudaStream_t stream) {
+  auto kernel = conv3x3_wgmma_kernel<N, RW, FOLD>;
   cudaError_t rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (rc != cudaSuccess) return static_cast<int>(rc);
-  kernel<<<grid, THREADS, smem, stream>>>(map, p);
+  kernel<<<grid, THREADS, smem, stream>>>(map, side, p);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool FOLD>
+int launch_n(int n, int rows, const CUtensorMap& map, const CUtensorMap& side, const Params& p,
+             int grid, int smem, cudaStream_t s) {
+  if (n == 32 && rows == 4) return launch<32, 2, FOLD>(map, side, p, grid, smem, s);
+  if (n == 32) return launch<32, 1, FOLD>(map, side, p, grid, smem, s);
+  if (n == 64) return launch<64, 1, FOLD>(map, side, p, grid, smem, s);
+  return launch<96, 1, FOLD>(map, side, p, grid, smem, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// x: (B, Din, Cin, H*wdim) bf16, contiguous, 16-byte aligned; wimg: the
-// weight image of conv_wgmma.py:weight_image (27 * cin_pad * n bf16); bias:
-// (Cout,) f32; y: (B, Dout, Cout, H*wdim) bf16. The plan's numbers (n,
+// x: (B, Din, Cin, H*wdim) bf16, contiguous, 16-byte aligned (fold: the
+// folded (B, Din, 4*Cin, H*wdim/4), wdim = W); wimg: the weight image of
+// conv_wgmma.py:weight_image (27 * cin_pad * n bf16); bias: (Cout,) f32; y:
+// (B, Dout, Cout, H*wdim) bf16 (fold: folded). The plan's numbers (n,
 // cin_pad, rows, stages, seg_len, segments) come from wgmma_plan and are
 // checked here. Returns 0, a cudaError_t, or one of the ERR_ codes above.
 int conv3x3_wgmma_bf16(const void* x, const void* wimg, const void* bias, void* y, int B,
                        int din, int dout, int shift, int cin, int cout, int h, int wdim,
-                       int wguard, int lanes_map, int n, int cin_pad, int rows, int stages,
-                       int seg_len, int segments, void* stream) {
+                       int wguard, int lanes_map, int fold, int n, int cin_pad, int rows,
+                       int stages, int seg_len, int segments, void* stream) {
   const int chunks = cin_pad / CK;
   const int wbytes = 27 * cin_pad * n * 2;
   const int smem = smem_bytes(rows, stages, wbytes);
@@ -463,6 +560,7 @@ int conv3x3_wgmma_bf16(const void* x, const void* wimg, const void* bias, void* 
                   segments >= 1 && (segments - 1) * seg_len < dout && segments * seg_len >= dout &&
                   wguard >= 0 && wguard < wdim && (h * wdim) % 8 == 0 &&
                   (lanes_map ? wguard >= 1 : wdim % 8 == 0) &&
+                  (!fold || (wdim % 32 == 0 && wguard == 0 && !lanes_map)) &&
                   reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                   reinterpret_cast<uintptr_t>(wimg) % 16 == 0 &&
                   reinterpret_cast<uintptr_t>(y) % 16 == 0;
@@ -470,10 +568,27 @@ int conv3x3_wgmma_bf16(const void* x, const void* wimg, const void* bias, void* 
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return ERR_ENTRY;
 
-  CUtensorMap map;
+  CUtensorMap map, side;
   const cuuint64_t hw = static_cast<cuuint64_t>(h) * wdim;
   CUresult rc;
-  if (lanes_map) {
+  if (fold) {
+    // (W/4, Cin, H, 4 phases, B*Din): main box (16, 16, rows+2, 4), side box
+    // (8, 16, rows+2, 1)
+    const cuuint64_t w4 = wdim / 4, hw4 = hw / 4;
+    const cuuint64_t dims[5] = {w4, static_cast<cuuint64_t>(cin), static_cast<cuuint64_t>(h), 4,
+                                static_cast<cuuint64_t>(B) * din};
+    const cuuint64_t strides[4] = {hw4 * 2, w4 * 2, hw4 * cin * 2, hw4 * cin * 4 * 2};
+    const cuuint32_t box[5] = {16, CK, static_cast<cuuint32_t>(rows + 2), 4, 1};
+    const cuuint32_t sbox[5] = {8, CK, static_cast<cuuint32_t>(rows + 2), 1, 1};
+    const cuuint32_t estr[5] = {1, 1, 1, 1, 1};
+    rc = encode(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(x), dims, strides,
+                box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    if (rc == CUDA_SUCCESS)
+      rc = encode(&side, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(x), dims,
+                  strides, sbox, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  } else if (lanes_map) {
     const cuuint64_t dims[4] = {hw, static_cast<cuuint64_t>(cin), static_cast<cuuint64_t>(din),
                                 static_cast<cuuint64_t>(B)};
     const cuuint64_t strides[3] = {hw * 2, hw * cin * 2, hw * cin * din * 2};
@@ -495,6 +610,7 @@ int conv3x3_wgmma_bf16(const void* x, const void* wimg, const void* bias, void* 
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   }
   if (rc != CUDA_SUCCESS) return ERR_TENSORMAP;
+  if (!fold) side = map;  // unread
 
   Params p;
   p.w = static_cast<const uint8_t*>(wimg);
@@ -519,10 +635,8 @@ int conv3x3_wgmma_bf16(const void* x, const void* wimg, const void* bias, void* 
   const long long grid = static_cast<long long>(B) * segments * p.tiles_w * p.tiles_h;
   if (grid < 1 || grid > 0x7fffffff) return ERR_PLAN;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n == 32 && rows == 4) return launch<32, 2>(map, p, static_cast<int>(grid), smem, s);
-  if (n == 32) return launch<32, 1>(map, p, static_cast<int>(grid), smem, s);
-  if (n == 64) return launch<64, 1>(map, p, static_cast<int>(grid), smem, s);
-  return launch<96, 1>(map, p, static_cast<int>(grid), smem, s);
+  if (fold) return launch_n<true>(n, rows, map, side, p, static_cast<int>(grid), smem, s);
+  return launch_n<false>(n, rows, map, side, p, static_cast<int>(grid), smem, s);
 }
 
 // The shared memory a launch of this plan takes (the plan's own number is

@@ -84,7 +84,37 @@
 //   item) and 64-bit divides in the producer's item walk each cost as much
 //   as the products.
 // - Registers: 48 accumulators and 48 sums per thread; 123 in all, no spill
-//   (-Xptxas -v for sm_90a, on the card).
+//   (-Xptxas -v for sm_90a, on the card); FOLD 128, 24 bytes spilled
+//   (nvcc 12.8).
+// - The phase-major w-folded layout (FOLD, K7b: the weight gradient of the
+//   pfold conv, ops/kernels/pfold.py, replacing the dW kernel of
+//   conv3d.py:conv3x3_pfold and conv3x3_pfold_halo),
+//   xf[b, d, p*C + c, h*(W/4) + w4] = x[b, d, h, 4*w4 + p, c], enters only
+//   where data is laid down: the sum over an item's pixels does not care
+//   about their order, so K runs phase-major, k = 16p + (w4 - w0/4), in x's
+//   rows and dy's copies alike; the products, the ring and the split sum
+//   are the packed kernel's. Not bit for bit K2 (another order of sums);
+//   held to K2's bound at its own plan's chain.
+//   - x: a map over (H*W/4 lanes, Cin, D, 4 phases, B); per h row and
+//     phase one box (16 w4, cpk, 3 slices) lands the chunk's rows (kd, j)
+//     of that phase's 16 pixels, 32 B each, 32-byte swizzled: the canonical
+//     K-major SW32 layout of one wgmma K-step, 2 KB a phase, so K-step p
+//     reads plane p. 8 x boxes an item instead of 2. (A single box of all
+//     4 phases has a 32-byte inner extent: on an H100, TMA's 128-byte
+//     swizzle then does not lay it down as wgmma's SW128 layout (wrong
+//     sums), and a pass that swizzled it in place cost 0.33 of 1.35 ms at
+//     96 -> 32, B 8 x 64^3, 700 W.)
+//     Needs W/4 % 16 == 0: a row's 16 w4 never run into the next h row.
+//   - dy: a map over (W/4, 4 phases, H, Cout, B*D); per two rows one box
+//     (16 w4, 4 phases, 2 rows, 32 co), so each (co, row) is one 128-byte
+//     line of 64 pixels, phase-major, as K2's raw rows are lines of pixels
+//     (the build's reads meet no bank twice), and two of 8 w4 from a second map,
+//     phase 3 at w0/4-8 and phase 0 at w0/4+16: dy(w + 1 - kw) is phase
+//     p + 1 - kw of the same w4, except p = 3, kw = 0 (phase 0, w4 + 1) and
+//     p = 0, kw = 2 (phase 3, w4 - 1), built with the packed kernel's
+//     funnel shifts. 3 boxes of dy per item instead of 1, the same bytes.
+//   - 11 TMA boxes an item where K2 issues 3: K7b takes 1.08-1.15x K2's
+//     time (H100, 700 W, bf16, B 8 x 64^3, 24/32/96 -> 32).
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -118,6 +148,12 @@ constexpr int SLACK = 1024;         // the 1024-byte alignment of the swizzled t
 constexpr int BAR_BYTES = 16 * MAX_STAGES;
 constexpr int SMEM_LIMIT = 232448;
 
+// The folded raw dy of two rows (FOLD): [32 co][2 rows][4 phases][16 w4],
+// then the left and right boxes [32 co][2 rows][8 w4]: DY_HALF as packed.
+constexpr int FOLD_DY_MAIN = 4 * COUT_T * ROWS * 16 * 2;  // 8,192
+constexpr int FOLD_DY_SIDE = COUT_T * ROWS * 8 * 2;       // 1,024
+static_assert(FOLD_DY_MAIN + 2 * FOLD_DY_SIDE == DY_HALF, "folded dy = packed dy");
+
 struct Params {
   float* part;  // (splits, 27 * Cin * Cout)
   int d, halo, cin, cout, h, wdim, cpk, chunks, stages, tiles_h, tiles_w, items, per;
@@ -129,6 +165,14 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t saddr) {
   return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) | (1ull << 16) |
          (static_cast<uint64_t>(ATOM >> 4) << 32) | (1ull << 62);
 }
+
+// FOLD's x planes: K-major, 32-byte swizzle: rows of 32 B (one K-step),
+// 8-row atoms 256 B apart (SBO).
+__device__ __forceinline__ uint64_t desc_sw32(uint32_t saddr) {
+  return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(256 >> 4) << 32) | (3ull << 62);
+}
+constexpr int FOLD_X_PLANE = M * 32;  // one phase's 64 rows of 16 pixels
 
 // Byte offset of 16-byte chunk c of row n in a 128-byte-swizzled tile.
 __device__ __forceinline__ uint32_t sw128(int n, int c) {
@@ -163,11 +207,32 @@ __device__ __forceinline__ void advance(const Params& p, Item& t) {
 // one box of the chunk's x rows (kd, j), 64 pixels each, and dy's raw rows
 // in two boxes of two rows, h0-1, h0 and h0+1, h0+2, of which an item that
 // `follows` the one before it (the next h tile) needs only the second.
+// (FOLD: per h row and phase an x box at lane h*W/4 + w0/4, and per two dy
+// rows the main box and the two 8-w4 side boxes.)
+template <bool FOLD>
 __device__ __forceinline__ void load_item(const Params& p, const CUtensorMap* xmap,
-                                          const CUtensorMap* dymap, uint32_t dst, uint32_t bar,
-                                          const Item& t, bool follows) {
+                                          const CUtensorMap* dymap, const CUtensorMap* dyside,
+                                          uint32_t dst, uint32_t bar, const Item& t,
+                                          bool follows) {
   const int h0 = t.th * ROWS, w0 = t.tw * TILE_W;
   mbar_expect_tx(bar, ROWS * 3 * p.cpk * 128 + (follows ? DY_HALF : DY_BYTES));
+  if (FOLD) {
+    const int w4dim = p.wdim / 4, w4 = w0 / 4, bd = t.b * p.d + t.d;
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+      for (int ph = 0; ph < 4; ++ph)
+        tma_load_5d(dst + r * X_ROW_BYTES + ph * FOLD_X_PLANE, xmap, bar,
+                    (h0 + r) * w4dim + w4, blockIdx.x * p.cpk, t.d - 1 + p.halo, ph, t.b);
+    for (int half = follows ? 1 : 0; half < 2; ++half) {
+      const uint32_t dh = dst + X_BYTES + half * DY_HALF;
+      const int hh = h0 - 1 + 2 * half;
+      tma_load_5d(dh, dymap, bar, w4, 0, hh, 0, bd);
+      tma_load_5d(dh + FOLD_DY_MAIN, dyside, bar, w4 - 8, 3, hh, 0, bd);
+      tma_load_5d(dh + FOLD_DY_MAIN + FOLD_DY_SIDE, dyside, bar, w4 + 16, 0, hh, 0, bd);
+    }
+    return;
+  }
 #pragma unroll
   for (int r = 0; r < ROWS; ++r)
     tma_load_5d(dst + r * X_ROW_BYTES, xmap, bar, w0, blockIdx.x * p.cpk, t.d - 1 + p.halo,
@@ -176,14 +241,51 @@ __device__ __forceinline__ void load_item(const Params& p, const CUtensorMap* xm
   tma_load_5d(dst + X_BYTES + DY_HALF, dymap, bar, w0 - 8, h0 + 1, 0, t.d, t.b);
 }
 
+// Elements 1..8 of the 16 that a then b hold (one bf16 step up), and
+// elements 7..14 (one step down).
+__device__ __forceinline__ uint4 shift_up(uint4 a, uint4 b) {
+  return make_uint4(__funnelshift_r(a.x, a.y, 16), __funnelshift_r(a.y, a.z, 16),
+                    __funnelshift_r(a.z, a.w, 16), __funnelshift_r(a.w, b.x, 16));
+}
+
+__device__ __forceinline__ uint4 shift_down(uint4 a, uint4 b) {
+  return make_uint4(__funnelshift_r(a.w, b.x, 16), __funnelshift_r(b.x, b.y, 16),
+                    __funnelshift_r(b.y, b.z, 16), __funnelshift_r(b.z, b.w, 16));
+}
+
 // dy's shifted copies of an item's rows t0 .. ROWS + 1: copy[row t][kw][co][k]
 // = dy(co, h0 - 1 + t, w0 + k - kw + 1), from the raw rows [t / 2][co][t % 2][PX]
-// (pixel w0 - 8 + i at i), row t into ring slot (slot0 + t) % SLOTS.
+// (pixel w0 - 8 + i at i), row t into ring slot (slot0 + t) % SLOTS. FOLD: k
+// is 16p + i for pixel w0 + 4i + p, from the folded raw rows (FOLD_DY_MAIN).
+template <bool FOLD>
 __device__ __forceinline__ void build_copies(const uint8_t* raw, uint8_t* copies, int slot0,
                                              int t0) {
   const int units = (ROWS + 2 - t0) * COUT_T * (TILE_W / 8);  // 16-byte chunks per kw
   for (int u = threadIdx.x; u < units; u += THREADS) {
     const int c = u % 8, co = (u / 8) % COUT_T, t = t0 + u / (8 * COUT_T);
+    uint8_t* row = copies + (slot0 + t) % SLOTS * COPY_ROW_BYTES;
+    if (FOLD) {
+      // chunk c: 8 w4 (g) of phase ph; a (phase, w4 group) chunk of dy's row
+      const uint8_t* half = raw + (t / ROWS) * DY_HALF;
+      const int r = t % ROWS, ph = c >> 1, g = c & 1;
+      auto at = [&](int q, int gg) {
+        return *reinterpret_cast<const uint4*>(half + ((co * ROWS + r) * 4 + q) * 32 +
+                                               gg * 16);
+      };
+      auto edge = [&](int side) {  // 0: w4 w0/4-8.. of phase 3, 1: w0/4+16.. of phase 0
+        return *reinterpret_cast<const uint4*>(half + FOLD_DY_MAIN + side * FOLD_DY_SIDE +
+                                               (co * ROWS + r) * 16);
+      };
+      const uint4 s1 = at(ph, g);  // kw = 1: the pixel itself
+      // kw = 0: pixel + 1, phase ph + 1 (ph 3: phase 0 of the next w4)
+      const uint4 s0 = ph < 3 ? at(ph + 1, g) : shift_up(at(0, g), g ? edge(1) : at(0, 1));
+      // kw = 2: pixel - 1, phase ph - 1 (ph 0: phase 3 of the w4 before)
+      const uint4 s2 = ph > 0 ? at(ph - 1, g) : shift_down(g ? at(3, 0) : edge(0), at(3, g));
+      *reinterpret_cast<uint4*>(row + sw128(co, c)) = s0;
+      *reinterpret_cast<uint4*>(row + sw128(COUT_T + co, c)) = s1;
+      *reinterpret_cast<uint4*>(row + sw128(2 * COUT_T + co, c)) = s2;
+      continue;
+    }
     const uint8_t* line = raw + (t / ROWS) * DY_HALF + (co * ROWS + t % ROWS) * PX * 2;
     const uint4* src = reinterpret_cast<const uint4*>(line) + c;
     const uint4 q0 = src[0], q1 = src[1], q2 = src[2];  // pixels k - 8 .. k + 16
@@ -198,7 +300,6 @@ __device__ __forceinline__ void build_copies(const uint8_t* raw, uint8_t* copies
     s2.y = __funnelshift_r(a[1], a[2], 16);
     s2.z = __funnelshift_r(a[2], a[3], 16);
     s2.w = __funnelshift_r(a[3], a[4], 16);
-    uint8_t* row = copies + (slot0 + t) % SLOTS * COPY_ROW_BYTES;
     *reinterpret_cast<uint4*>(row + sw128(co, c)) = s0;
     *reinterpret_cast<uint4*>(row + sw128(COUT_T + co, c)) = q1;
     *reinterpret_cast<uint4*>(row + sw128(2 * COUT_T + co, c)) = s2;
@@ -217,9 +318,11 @@ __device__ __forceinline__ void wgmma_wait0() {
   asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
 }
 
+template <bool FOLD>
 __global__ void __launch_bounds__(THREADS + 32, 1)
 conv3x3_wgrad_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
-                           const __grid_constant__ CUtensorMap dymap, const Params p) {
+                           const __grid_constant__ CUtensorMap dymap,
+                           const __grid_constant__ CUtensorMap dyside, const Params p) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + SLACK - 1) & ~static_cast<uintptr_t>(SLACK - 1));
@@ -248,7 +351,8 @@ conv3x3_wgrad_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
       Item t = item_at(p, it0);
       for (int j = 0, s = 0, phase = 0; j < n; ++j) {
         if (j >= p.stages) mbar_wait(empty + 8 * s, phase ^ 1);
-        load_item(p, &xmap, &dymap, ring + s * STAGE_BYTES, full + 8 * s, t, j > 0 && t.th != 0);
+        load_item<FOLD>(p, &xmap, &dymap, &dyside, ring + s * STAGE_BYTES, full + 8 * s, t,
+                        j > 0 && t.th != 0);
         advance(p, t);
         if (++s == p.stages) {
           s = 0;
@@ -269,7 +373,7 @@ conv3x3_wgrad_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
   int slot0 = 0;
   if (n > 0) {
     mbar_wait(full, 0);
-    build_copies(base + X_BYTES, copies, slot0, 0);
+    build_copies<FOLD>(base + X_BYTES, copies, slot0, 0);
     asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
   }
   named_sync(1, THREADS);
@@ -288,7 +392,8 @@ conv3x3_wgrad_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
     for (int r = 0; r < ROWS; ++r) {
 #pragma unroll
       for (int k = 0; k < TILE_W / 16; ++k)
-        wgmma_tile<N>(acc, desc_sw128(x_s + r * X_ROW_BYTES + k * 32),
+        wgmma_tile<N>(acc, FOLD ? desc_sw32(x_s + r * X_ROW_BYTES + k * FOLD_X_PLANE)
+                                : desc_sw128(x_s + r * X_ROW_BYTES + k * 32),
                       desc_sw128(b_s[r] + k * 32));
     }
     wgmma_commit();
@@ -299,7 +404,7 @@ conv3x3_wgrad_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
     // slots no product of item i reads
     if (follows) {
       mbar_wait(full + 8 * s1, phase1);
-      build_copies(base + s1 * STAGE_BYTES + X_BYTES, copies, next, 2);
+      build_copies<FOLD>(base + s1 * STAGE_BYTES + X_BYTES, copies, next, 2);
       asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
     }
     wgmma_wait0();
@@ -315,7 +420,7 @@ conv3x3_wgrad_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
     if (more && !follows) {  // a new (b, d, w tile) run: all four rows, once item i is done
       named_sync(1, THREADS);
       mbar_wait(full + 8 * s1, phase1);
-      build_copies(base + s1 * STAGE_BYTES + X_BYTES, copies, next, 0);
+      build_copies<FOLD>(base + s1 * STAGE_BYTES + X_BYTES, copies, next, 0);
       asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
     }
     named_sync(1, THREADS);
@@ -355,9 +460,9 @@ constexpr int ERR_TENSORMAP = -3;  // a tensor map was refused
 int smem_bytes(int stages) { return SLACK + stages * STAGE_BYTES + COPY_BYTES + BAR_BYTES; }
 
 // A 5-d bf16 tensor map over dims (innermost first) with element strides
-// `str` (dim 0 contiguous), box `box`, 128-byte swizzle or none.
+// `str` (dim 0 contiguous), box `box`, swizzle `swizzle`.
 CUresult encode_5d(EncodeTiled encode, CUtensorMap* map, const void* ptr, const long long* dim,
-                   const long long* str, const int* box, bool swizzle) {
+                   const long long* str, const int* box, CUtensorMapSwizzle swizzle) {
   cuuint64_t dims[5], strides[4];
   cuuint32_t boxes[5], estr[5];
   for (int i = 0; i < 5; ++i) {
@@ -368,7 +473,7 @@ CUresult encode_5d(EncodeTiled encode, CUtensorMap* map, const void* ptr, const 
   }
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(ptr), dims, strides,
                 boxes, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+                swizzle,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
@@ -377,12 +482,13 @@ CUresult encode_5d(EncodeTiled encode, CUtensorMap* map, const void* ptr, const 
 extern "C" {
 
 // x: (B, D + 2*halo, Cin, H*wdim), dy: (B, D, Cout, H*wdim), bf16,
-// contiguous, 16-byte aligned; part: f32 (splits, 27 * Cin * Cout); out:
-// f32 (3, 3, 3, Cin, Cout). The plan's numbers (cpk, chunks, stages,
-// splits, per) come from wgrad_plan and are checked here. Returns 0, a
-// cudaError_t, or one of the ERR_ codes above.
+// contiguous, 16-byte aligned (fold: both folded, (B, ., 4*C, H*wdim/4),
+// wdim = W); part: f32 (splits, 27 * Cin * Cout); out: f32 (3, 3, 3, Cin,
+// Cout). The plan's numbers (cpk, chunks, stages, splits, per) come from
+// wgrad_plan and are checked here. Returns 0, a cudaError_t, or one of the
+// ERR_ codes above.
 int conv3x3_wgrad_wgmma_bf16(const void* x, const void* dy, void* part, void* out, int B, int D,
-                             int halo, int cin, int cout, int h, int wdim, int cpk,
+                             int halo, int fold, int cin, int cout, int h, int wdim, int cpk,
                              int chunks, int stages, int splits, long long per, void* stream) {
   const int tiles_h = (h + ROWS - 1) / ROWS, tiles_w = (wdim + TILE_W - 1) / TILE_W;
   const long long items = static_cast<long long>(B) * D * tiles_h * tiles_w;
@@ -392,7 +498,8 @@ int conv3x3_wgrad_wgmma_bf16(const void* x, const void* dy, void* part, void* ou
                   cpk <= MAX_CPK && chunks == (cin + cpk - 1) / cpk && stages >= 2 &&
                   stages <= MAX_STAGES && smem <= SMEM_LIMIT && splits >= 1 && splits <= 65535 &&
                   per >= 1 && items <= 0x7fffffff && (splits - 1) * per < items &&
-                  splits * per >= items && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                  splits * per >= items && (!fold || wdim % TILE_W == 0) &&
+                  reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                   reinterpret_cast<uintptr_t>(dy) % 16 == 0;
   if (!ok) return ERR_PLAN;
   EncodeTiled encode = encode_tiled();
@@ -401,14 +508,43 @@ int conv3x3_wgrad_wgmma_bf16(const void* x, const void* dy, void* part, void* ou
   // lands as the chunk's rows (kd, j) of one h row, 128 B each; dy as (W, H,
   // Cout, D, B): 80 pixels x 2 rows x 32 channels, [co][row][pixel]
   const long long hw = static_cast<long long>(h) * wdim, dx = D + 2 * halo;
-  const long long xdim[5] = {wdim, cin, dx, h, B}, xstr[5] = {1, hw, hw * cin, wdim, hw * cin * dx};
-  const long long ddim[5] = {wdim, h, cout, D, B};
-  const long long dstr[5] = {1, wdim, hw, hw * cout, hw * cout * D};
-  const int xbox[5] = {TILE_W, cpk, 3, 1, 1}, dbox[5] = {PX, ROWS, COUT_T, 1, 1};
-  CUtensorMap xmap, dymap;
-  if (encode_5d(encode, &xmap, x, xdim, xstr, xbox, true) != CUDA_SUCCESS ||
-      encode_5d(encode, &dymap, dy, ddim, dstr, dbox, false) != CUDA_SUCCESS)
-    return ERR_TENSORMAP;
+  CUtensorMap xmap, dymap, dyside;
+  if (fold) {
+    // x as (H*W/4 lanes, Cin, D, 4 phases, B): one box of 16 w4 x cpk
+    // channels x 3 slices lands as the chunk's rows (kd, j) of one h row and
+    // phase, 32 B each, 32-byte swizzled; dy as (W/4, 4 phases, H, Cout, B*D): the
+    // main box 16 w4 x 4 phases x 2 rows x 32 channels, the side boxes 8 w4
+    // of one phase
+    const long long w4 = wdim / 4, hw4 = hw / 4;
+    const long long xdim[5] = {h * w4, cin, dx, 4, B};
+    const long long xstr[5] = {1, hw4, hw * cin, hw4 * cin, hw * cin * dx};
+    const long long ddim[5] = {w4, 4, h, cout, static_cast<long long>(B) * D};
+    const long long dstr[5] = {1, hw4 * cout, w4, hw4, hw * cout};
+    const int xbox[5] = {16, cpk, 3, 1, 1}, dbox[5] = {16, 4, ROWS, COUT_T, 1};
+    const int sbox[5] = {8, 1, ROWS, COUT_T, 1};
+    if (encode_5d(encode, &xmap, x, xdim, xstr, xbox, CU_TENSOR_MAP_SWIZZLE_32B) !=
+            CUDA_SUCCESS ||
+        encode_5d(encode, &dymap, dy, ddim, dstr, dbox, CU_TENSOR_MAP_SWIZZLE_NONE) !=
+            CUDA_SUCCESS ||
+        encode_5d(encode, &dyside, dy, ddim, dstr, sbox, CU_TENSOR_MAP_SWIZZLE_NONE) !=
+            CUDA_SUCCESS)
+      return ERR_TENSORMAP;
+  } else {
+    // x as (W, Cin, D, H, B): one box of 64 pixels x cpk channels x 3 slices
+    // lands as the chunk's rows (kd, j) of one h row, 128 B each; dy as (W,
+    // H, Cout, D, B): 80 pixels x 2 rows x 32 channels, [co][row][pixel]
+    const long long xdim[5] = {wdim, cin, dx, h, B};
+    const long long xstr[5] = {1, hw, hw * cin, wdim, hw * cin * dx};
+    const long long ddim[5] = {wdim, h, cout, D, B};
+    const long long dstr[5] = {1, wdim, hw, hw * cout, hw * cout * D};
+    const int xbox[5] = {TILE_W, cpk, 3, 1, 1}, dbox[5] = {PX, ROWS, COUT_T, 1, 1};
+    if (encode_5d(encode, &xmap, x, xdim, xstr, xbox, CU_TENSOR_MAP_SWIZZLE_128B) !=
+            CUDA_SUCCESS ||
+        encode_5d(encode, &dymap, dy, ddim, dstr, dbox, CU_TENSOR_MAP_SWIZZLE_NONE) !=
+            CUDA_SUCCESS)
+      return ERR_TENSORMAP;
+    dyside = dymap;  // unread
+  }
 
   Params p;
   p.part = static_cast<float*>(part);
@@ -426,10 +562,10 @@ int conv3x3_wgrad_wgmma_bf16(const void* x, const void* dy, void* part, void* ou
   p.items = static_cast<int>(items);
   p.per = static_cast<int>(per);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t rc = cudaFuncSetAttribute(conv3x3_wgrad_wgmma_kernel,
-                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  auto kernel = fold ? conv3x3_wgrad_wgmma_kernel<true> : conv3x3_wgrad_wgmma_kernel<false>;
+  cudaError_t rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (rc != cudaSuccess) return static_cast<int>(rc);
-  conv3x3_wgrad_wgmma_kernel<<<dim3(chunks, splits), THREADS + 32, smem, s>>>(xmap, dymap, p);
+  kernel<<<dim3(chunks, splits), THREADS + 32, smem, s>>>(xmap, dymap, dyside, p);
   rc = cudaGetLastError();
   if (rc != cudaSuccess) return static_cast<int>(rc);
   const long long nout = 27LL * cin * cout;

@@ -44,10 +44,11 @@ Which CUDA kernel runs a weight gradient (K2, K5's), the same way:
 
 :func:`conv3x3_packed_mma` and :func:`conv3x3_wgrad_mma` launch the two
 ``mma.sync`` loops on the packed layout at any d geometry: check-only entry
-points (K7a and K9b, and K7b, are held bit for bit to them); nothing on a
-model path calls them. The loops take the phase-major w-folded layout too
-(``fold``): K7a and K7b, the pfold conv of :mod:`.pfold`, are those loops
-with their staging and stores re-indexed.
+points (K9b, and the routed shapes of K7a and K7b, are held bit for bit to
+them); nothing on a model path calls them. Every kernel here takes the
+phase-major w-folded layout too (``fold``): K7a and K7b, the pfold conv of
+:mod:`.pfold`, route by the same rules, their plans made at the unfolded
+shape.
 
 ``wguard`` (the JAX package's ``wguard``): the last ``wguard`` columns of
 every w-row are zero guard columns. The forward and the dgrad write them as
@@ -242,37 +243,40 @@ def _conv_launch(xk: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
 
 
 def conv_plan(xk: torch.Tensor, cout: int, wdim: int, grow: int = 0,
-              wguard: int = 0) -> Optional[conv_wgmma.WgmmaPlan]:
+              wguard: int = 0, fold: bool = False) -> Optional[conv_wgmma.WgmmaPlan]:
     """The wgmma kernel's plan for a bf16 conv of ``xk`` (B, Din, Cin, H·W)
     to ``cout`` channels at d geometry ``grow``, or ``None`` where the shape
-    runs the ``mma.sync`` loop (see the module's docstring)."""
+    runs the ``mma.sync`` loop (see the module's docstring). ``fold``: ``xk``
+    is phase-major w-folded, (B, Din, 4·Cin, H·W/4), and ``wdim`` is W/4."""
     b, din, cin, lanes = xk.shape
+    f = 4 if fold else 1
     sms = (conv_wgmma.device_sms(xk.device) if xk.device.type == "cuda"
            else conv_wgmma.SMS)
-    return conv_wgmma.wgmma_plan(b, din, din + grow, -grow // 2, cin, cout,
-                                 lanes // wdim, wdim, wguard, sms)
+    return conv_wgmma.wgmma_plan(b, din, din + grow, -grow // 2, cin // f, cout,
+                                 lanes // wdim, f * wdim, wguard, sms, fold)
 
 
 def _conv_cuda(xk: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, wdim: int,
-               what: str, grow: int = 0, wguard: int = 0) -> torch.Tensor:
+               what: str, grow: int = 0, wguard: int = 0, fold: bool = False) -> torch.Tensor:
     """The conv on a CUDA tensor, by the kernel its dtype and shape route
-    to; raises where no kernel takes it."""
-    _conv_shape(xk, w, bias, wdim, what, grow)
+    to; raises where no kernel takes it. ``fold``: the folded layout of
+    :func:`_conv_launch` (K7a; no guard columns)."""
+    _conv_shape(xk, w, bias, wdim, what, grow, fold)
     if xk.dtype == torch.float32:
-        return guard_mask(_conv_launch(xk, w, bias, wdim, what, grow), wdim, wguard)
-    plan = conv_plan(xk, w.shape[4], wdim, grow, wguard)
+        return guard_mask(_conv_launch(xk, w, bias, wdim, what, grow, fold), wdim, wguard)
+    plan = conv_plan(xk, w.shape[4], wdim, grow, wguard, fold)
     if plan is None:
-        return conv3x3_packed_mma_routed(xk, w, bias, wdim, what, grow, wguard)
+        return conv3x3_packed_mma_routed(xk, w, bias, wdim, what, grow, wguard, fold)
     return conv_wgmma.launch(plan, xk, w, bias, what)
 
 
 def conv3x3_packed_mma_routed(xk: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                               wdim: int, what: str, grow: int = 0,
-                              wguard: int = 0) -> torch.Tensor:
-    """A bf16 conv of this module's wrappers whose shape :func:`conv_plan`
-    does not take: the ``mma.sync`` loop, the guard columns zeroed after,
-    counted in its own ``launches``."""
-    y = guard_mask(_conv_launch(xk, w, bias, wdim, what, grow), wdim, wguard)
+                              wguard: int = 0, fold: bool = False) -> torch.Tensor:
+    """A bf16 conv of this module's or :mod:`.pfold`'s wrappers whose shape
+    :func:`conv_plan` does not take: the ``mma.sync`` loop, the guard columns
+    zeroed after, counted in its own ``launches``."""
+    y = guard_mask(_conv_launch(xk, w, bias, wdim, what, grow, fold), wdim, wguard)
     conv3x3_packed_mma_routed.launches += 1
     return y
 
@@ -281,9 +285,9 @@ def conv3x3_packed_mma(xk: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                        wdim: int, grow: int = 0) -> torch.Tensor:
     """The ``mma.sync`` loop of ``csrc/conv3x3_packed.cuh`` on the packed
     layout, bf16, at d geometry ``grow`` (0, -2 or +2, as
-    :func:`_conv_launch`): a check-only entry point (K7a and K9b ``full``
-    are bit for bit its result), on no model path. A CPU tensor takes the
-    plain version."""
+    :func:`_conv_launch`): a check-only entry point (K9b ``full`` and
+    K7a's routed shapes are bit for bit its result), on no model path. A
+    CPU tensor takes the plain version."""
     if xk.dtype != torch.bfloat16:
         raise TypeError(f"conv3x3_packed_mma: bf16 only, not {xk.dtype}")
     if xk.device.type == "cpu":
@@ -338,29 +342,32 @@ def conv3x3_packed_halo_dgrad(dy: torch.Tensor, w: torch.Tensor,
     return dxp
 
 
-def wgrad_plan(xk: torch.Tensor, dy: torch.Tensor,
-               wdim: int) -> Optional[wgrad_wgmma.WgradPlan]:
+def wgrad_plan(xk: torch.Tensor, dy: torch.Tensor, wdim: int,
+               fold: bool = False) -> Optional[wgrad_wgmma.WgradPlan]:
     """The wgmma wgrad kernel's plan for bf16 operands ``xk`` (B, D + 2·halo,
     Cin, H·W) and ``dy`` (B, D, Cout, H·W), the halo read from their d
     counts, or ``None`` where the shape runs the ``mma.sync`` loop (see the
-    module's docstring)."""
+    module's docstring). ``fold``: both are phase-major w-folded, (B, .,
+    4·C, H·W/4), and ``wdim`` is W/4."""
     b, d, cout, lanes = dy.shape
+    f = 4 if fold else 1
     sms = (conv_wgmma.device_sms(xk.device) if xk.device.type == "cuda"
            else wgrad_wgmma.SMS)
-    return wgrad_wgmma.wgrad_plan(b, d, (xk.shape[1] - d) // 2, xk.shape[2], cout,
-                                  lanes // wdim, wdim, sms)
+    return wgrad_wgmma.wgrad_plan(b, d, (xk.shape[1] - d) // 2, xk.shape[2] // f, cout // f,
+                                  lanes // wdim, f * wdim, sms, fold)
 
 
 def _wgrad_cuda(xk: torch.Tensor, dy: torch.Tensor, wdim: int, what: str,
-                halo: int) -> torch.Tensor:
+                halo: int, fold: bool = False) -> torch.Tensor:
     """The weight gradient on CUDA tensors, by the kernel their dtype and
-    shape route to; raises where no kernel takes them."""
-    _wgrad_shape(xk, dy, wdim, what, halo)
+    shape route to; raises where no kernel takes them. ``fold``: the folded
+    layout of :func:`_wgrad_launch` (K7b)."""
+    _wgrad_shape(xk, dy, wdim, what, halo, fold)
     if xk.dtype == torch.float32:
-        return _wgrad_launch(xk, dy, wdim, what, halo)
-    plan = wgrad_plan(xk, dy, wdim)
+        return _wgrad_launch(xk, dy, wdim, what, halo, fold)
+    plan = wgrad_plan(xk, dy, wdim, fold)
     if plan is None:
-        return conv3x3_wgrad_mma_routed(xk, dy, wdim, what, halo)
+        return conv3x3_wgrad_mma_routed(xk, dy, wdim, what, halo, fold)
     return wgrad_wgmma.launch(plan, xk, dy, what)
 
 
@@ -390,11 +397,11 @@ def conv3x3_wgrad_halo(xp: torch.Tensor, dy: torch.Tensor, wdim: int) -> torch.T
 
 
 def conv3x3_wgrad_mma_routed(xk: torch.Tensor, dy: torch.Tensor, wdim: int, what: str,
-                             halo: int) -> torch.Tensor:
-    """A bf16 weight gradient of this module's wrappers whose shape
-    :func:`wgrad_plan` does not take: the ``mma.sync`` loop, counted in its
-    own ``launches``."""
-    dw = _wgrad_launch(xk, dy, wdim, what, halo)
+                             halo: int, fold: bool = False) -> torch.Tensor:
+    """A bf16 weight gradient of this module's or :mod:`.pfold`'s wrappers
+    whose shape :func:`wgrad_plan` does not take: the ``mma.sync`` loop,
+    counted in its own ``launches``."""
+    dw = _wgrad_launch(xk, dy, wdim, what, halo, fold)
     conv3x3_wgrad_mma_routed.launches += 1
     return dw
 
@@ -403,8 +410,9 @@ def conv3x3_wgrad_mma(xk: torch.Tensor, dy: torch.Tensor, wdim: int,
                       halo: int = 0) -> torch.Tensor:
     """The bf16 ``mma.sync`` loop of ``csrc/conv3x3_wgrad.cu`` on the packed
     layout, ``xk`` carrying ``halo`` more d slices per side than ``dy``: a
-    check-only entry point (K7b and its halo form are bit for bit its
-    result), on no model path. A CPU tensor takes the plain version."""
+    check-only entry point (K7b's routed shapes, its halo form's too, are
+    bit for bit its result), on no model path. A CPU tensor takes the
+    plain version."""
     if xk.dtype != torch.bfloat16:
         raise TypeError(f"conv3x3_wgrad_mma: bf16 only, not {xk.dtype}")
     if xk.device.type == "cpu":
@@ -455,17 +463,23 @@ def _wgrad_launch(xk: torch.Tensor, dy: torch.Tensor, wdim: int, what: str,
     return dw
 
 
-def conv3x3_wgrad_chain(xk: torch.Tensor, dy: torch.Tensor, wdim: int) -> int:
+def conv3x3_wgrad_chain(xk: torch.Tensor, dy: torch.Tensor, wdim: int,
+                        fold: bool = False) -> int:
     """The longest run of f32 roundings one product passes through in the
-    kernel that :func:`conv3x3_wgrad` (or its halo form) launches for these
-    operands: the length that bounds its rounding error. bf16 operands that
-    :func:`wgrad_plan` takes report the wgmma kernel's (its plan's, no card
-    needed); f32 and routed ones the ``mma.sync`` loop's
-    (:func:`conv3x3_wgrad_mma_chain`)."""
+    kernel that :func:`conv3x3_wgrad` (or its halo form, or with ``fold``
+    K7b) launches for these operands: the length that bounds its rounding
+    error. bf16 operands that :func:`wgrad_plan` takes report the wgmma
+    kernel's (its plan's, no card needed); f32 and routed ones the
+    ``mma.sync`` loop's (:func:`conv3x3_wgrad_mma_chain`, at the unfolded
+    shape)."""
     if xk.dtype == torch.bfloat16:
-        plan = wgrad_plan(xk, dy, wdim)
+        plan = wgrad_plan(xk, dy, wdim, fold)
         if plan is not None:
             return plan.chain
+    if fold:
+        def packed(t):  # the unfolded shape, through a free reshape
+            return t.reshape(t.shape[0], t.shape[1], t.shape[2] // 4, -1)
+        return conv3x3_wgrad_mma_chain(packed(xk), packed(dy), 4 * wdim)
     return conv3x3_wgrad_mma_chain(xk, dy, wdim)
 
 

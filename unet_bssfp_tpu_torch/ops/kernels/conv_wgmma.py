@@ -1,6 +1,7 @@
 """The launch plan, weight layout and launcher of the bf16 wgmma conv kernel
 (``csrc/conv3x3_wgmma.cu``), which runs K1, K1's dgrad, K5 and K5's dgrad
-on the card (:mod:`.conv3d` routes to it).
+on the card (:mod:`.conv3d` routes to it), and on the phase-major w-folded
+layout K7a with its dgrad and halo forms (:mod:`.pfold`, ``fold``).
 
 Everything about a launch that can be decided without the card is decided
 here, in plain Python, so the CPU tests check it: which kernel a shape takes
@@ -17,7 +18,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -36,6 +37,19 @@ BAR_BYTES = 8 * (MAX_STAGES + 1)
 SLACK = 128          # alignment of the dynamic shared memory base
 SMEM_LIMIT = 232_448  # shared memory one block may take on an H100
 SMS = 132             # the H100 SXM's SMs: the default for the d segments
+FOLD_MAIN_ROW = 4 * CK * 16 * 2  # folded stage: a row's share of the main box
+FOLD_SIDE_ROW = CK * 8 * 2       # and of each 8-w4 side box (with it ROW_BYTES)
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorMap:
+    """A TMA tensor map as a launcher encodes it: ``dims`` innermost first,
+    ``strides`` in bytes of dims 1.., ``box`` the extent of one load,
+    ``swizzle`` the span in bytes of its shared-memory swizzle (0: none)."""
+    dims: Tuple[int, ...]
+    strides: Tuple[int, ...]
+    box: Tuple[int, ...]
+    swizzle: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,7 +59,10 @@ class WgmmaPlan:
     ``rows``: output h rows per block (2 consumer warpgroups × 1 or 2);
     ``stages``: ring depth; ``seg_len``/``segments``: each block walks
     ``seg_len`` output d slices (the last segment may be shorter); blocks
-    are numbered (b, segment, w tile, h tile) with the h tile fastest."""
+    are numbered (b, segment, w tile, h tile) with the h tile fastest.
+    ``fold``: the operands are phase-major w-folded, (B, D, 4·C, H·W/4);
+    ``wdim`` is then the unfolded W, and every other number is the packed
+    plan's at that shape."""
     b: int
     din: int
     dout: int
@@ -62,6 +79,7 @@ class WgmmaPlan:
     stages: int
     seg_len: int
     segments: int
+    fold: bool = False
 
     @property
     def tiles_h(self) -> int:
@@ -97,8 +115,8 @@ def smem_bytes(rows: int, stages: int, weight_bytes: int) -> int:
 
 
 def wgmma_plan(b: int, din: int, dout: int, shift: int, cin: int, cout: int,
-               h: int, wdim: int, wguard: int = 0,
-               sms: int = SMS) -> Optional[WgmmaPlan]:
+               h: int, wdim: int, wguard: int = 0, sms: int = SMS,
+               fold: bool = False) -> Optional[WgmmaPlan]:
     """The plan of one bf16 launch, or ``None`` where the wgmma kernel does
     not take the shape (static, by shape alone):
 
@@ -107,12 +125,16 @@ def wgmma_plan(b: int, din: int, dout: int, shift: int, cin: int, cout: int,
     - ``wdim % 8 != 0`` without guard columns (a TMA row stride must be a
       multiple of 16 bytes, and the flattened-lanes map needs zero guards to
       stand for the w padding);
-    - a weight too large to stay in shared memory beside a 2-stage ring.
+    - a weight too large to stay in shared memory beside a 2-stage ring;
+    - with ``fold`` (W = ``wdim``), W/4 not a multiple of 8 (the folded
+      map's row stride is W/4 elements) or guard columns.
 
     Tiles: 4 output rows (2 per consumer warpgroup) where N is 32 and a
     ring of 2 stages fits, else 2; the deepest ring up to 4 that fits. d segments: the count that takes the fewest block-steps per SM
     (waves of blocks over ``sms`` SMs × steps per block)."""
     if min(b, din, dout, cin, cout, h, wdim) < 1 or not 0 <= wguard < wdim:
+        return None
+    if fold and (wdim % 32 or wguard):
         return None
     n = next((p for p in N_PADS if p >= cout), None)
     if n is None:
@@ -140,7 +162,55 @@ def wgmma_plan(b: int, din: int, dout: int, shift: int, cin: int, cout: int,
     seg_len = -(-dout // segments)
     segments = -(-dout // seg_len)
     return WgmmaPlan(b, din, dout, shift, cin, cout, h, wdim, wguard, lanes_map,
-                     n, cin_pad, rows, stages, seg_len, segments)
+                     n, cin_pad, rows, stages, seg_len, segments, fold)
+
+
+def fold_maps(plan: WgmmaPlan) -> Dict[str, TensorMap]:
+    """The folded launch's two maps over (W/4, Cin, H, 4 phases, B·Din):
+    ``main`` boxes of 16 w4 × 16 channels × all the block's rows × 4
+    phases, ``side`` boxes of 8 w4 × 16 channels × rows of one phase."""
+    w4, hw4 = plan.wdim // 4, plan.h * plan.wdim // 4
+    dims = (w4, plan.cin, plan.h, 4, plan.b * plan.din)
+    strides = (2 * hw4, 2 * w4, 2 * hw4 * plan.cin, 2 * hw4 * plan.cin * 4)
+    return {"main": TensorMap(dims, strides, (16, CK, plan.rows + 2, 4, 1)),
+            "side": TensorMap(dims, strides, (8, CK, plan.rows + 2, 1, 1))}
+
+
+def fold_stage_loads(plan: WgmmaPlan, b: int, j: int, c: int, h0: int,
+                     w0: int) -> List[Tuple[str, Tuple[int, ...], int]]:
+    """The loads of one folded ring stage, as ``load_stage`` issues them:
+    input slice j, channel chunk c, for the block at (b, h0, w0); each
+    (map, start coordinates, byte offset in the stage)."""
+    main = (plan.rows + 2) * FOLD_MAIN_ROW
+    side = (plan.rows + 2) * FOLD_SIDE_ROW
+    w4, bd = w0 // 4, b * plan.din + j
+    return [("main", (w4, c * CK, h0 - 1, 0, bd), 0),
+            ("side", (w4 - 8, c * CK, h0 - 1, 3, bd), main),
+            ("side", (w4 + 16, c * CK, h0 - 1, 0, bd), main + side)]
+
+
+def fold_xpose_row(rows: int, q: int, i: int) -> Tuple[int, int, int, int]:
+    """Lane i of transpose block q of a folded stage (``xpose_rows``): the
+    byte offset in the stage of the 8 elements it reads (channel 8·half + i
+    of h row rr) and the transposed pixel index px its stored row holds
+    (pixel w0 - 8 + px); (offset, rr, half, px)."""
+    groups = PX // 8
+    pg, half, rr = q % groups, (q // groups) % 2, q // (2 * groups)
+    ch = half * 8 + i
+    if pg == 0:
+        return (rows + 2) * FOLD_MAIN_ROW + (rr * CK + ch) * 16, rr, half, i
+    if pg == groups - 1:
+        return ((rows + 2) * (FOLD_MAIN_ROW + FOLD_SIDE_ROW) + (rr * CK + ch) * 16,
+                rr, half, 72 + i)
+    ph, g = (pg - 1) >> 1, (pg - 1) & 1
+    return (((ph * (rows + 2) + rr) * CK + ch) * 16 + g * 8) * 2, rr, half, 8 + 32 * g + 4 * i + ph
+
+
+def fold_store(seg: int, k: int) -> Tuple[int, int, int]:
+    """Element k of the 16 bytes epilogue thread segment ``seg`` stores,
+    folded: (its pixel in the 64-pixel staging row, phase, w4 - w0/4)."""
+    ph, g = seg >> 1, seg & 1
+    return 32 * g + 4 * k + ph, ph, 8 * g + k
 
 
 def block_outputs(plan: WgmmaPlan, block: int) -> Tuple[int, range, range, range]:
@@ -183,7 +253,8 @@ def launch(plan: WgmmaPlan, xk: torch.Tensor, w: torch.Tensor, bias: torch.Tenso
         raise ValueError(f"{what}: input not 16-byte aligned")
     img = weight_image(w, plan.n, plan.cin_pad)
     bk = bias.detach().float().contiguous()
-    y = torch.empty((plan.b, plan.dout, plan.cout, plan.h * plan.wdim),
+    f = 4 if plan.fold else 1
+    y = torch.empty((plan.b, plan.dout, f * plan.cout, plan.h * plan.wdim // f),
                     dtype=torch.bfloat16, device=xk.device)
     lib = _lib()
     with torch.cuda.device(xk.device):
@@ -191,8 +262,8 @@ def launch(plan: WgmmaPlan, xk: torch.Tensor, w: torch.Tensor, bias: torch.Tenso
         rc = lib.conv3x3_wgmma_bf16(
             xk.data_ptr(), img.data_ptr(), bk.data_ptr(), y.data_ptr(), plan.b,
             plan.din, plan.dout, plan.shift, plan.cin, plan.cout, plan.h, plan.wdim,
-            plan.wguard, int(plan.lanes_map), plan.n, plan.cin_pad, plan.rows,
-            plan.stages, plan.seg_len, plan.segments, stream)
+            plan.wguard, int(plan.lanes_map), int(plan.fold), plan.n, plan.cin_pad,
+            plan.rows, plan.stages, plan.seg_len, plan.segments, stream)
     _build.check(lib, rc, what)
     return y
 
@@ -204,7 +275,7 @@ def device_sms(device: torch.device) -> int:
 def _lib() -> ctypes.CDLL:
     lib = _build.load("conv3x3_wgmma")
     if not getattr(lib, "_typed", False):
-        lib.conv3x3_wgmma_bf16.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 16
+        lib.conv3x3_wgmma_bf16.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 17
                                            + [ctypes.c_void_p])
         lib.conv3x3_wgmma_bf16.restype = ctypes.c_int
         lib.conv3x3_wgmma_smem.argtypes = [ctypes.c_int] * 4

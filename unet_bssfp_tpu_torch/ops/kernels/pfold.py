@@ -8,15 +8,27 @@ Replaces ``unet_bssfp_tpu/ops/pallas/conv3d.py::conv3x3_pfold`` and
 
 which :func:`fold4_pack` makes from NDHWC (``w4dim`` = W/4 throughout).
 
-- forward: K7a, ``csrc/conv3x3_packed.cu`` with the folded layout
-  (``_pfold_fwd_impl``): K1's kernel reading and writing the folded tensor
-  in place, so its result is K1's on the same volume bit for bit;
+- forward: K7a (``_pfold_fwd_impl``), K1's kernel reading and writing the
+  folded tensor in place, so its result is K1's on the same volume bit for
+  bit;
 - dx: K7a again on ``dy`` with the weight flipped in (kd, kh, kw) and
   transposed in (ci, co), zero bias (:func:`conv3x3_pfold_dgrad`);
-- dw: K7b, the ``mma.sync`` loop of ``csrc/conv3x3_wgrad.cu`` with the
-  folded layout (``_pfold_dw_impl``), f32 (:func:`conv3x3_pfold_wgrad`): in
-  bf16 bit for bit :func:`conv3x3_wgrad_mma`'s result on the same volume;
+- dw: K7b (``_pfold_dw_impl``), K2's kernel on the folded operands, f32
+  (:func:`conv3x3_pfold_wgrad`);
 - db: ``Σ dy`` in f32 over (b, d, phase, lane).
+
+Which CUDA kernel runs them, static by dtype and shape as for K1 and K2
+(:mod:`.conv3d`): in bf16 the wgmma conv kernel (``csrc/conv3x3_wgmma.cu``,
+the layout a template parameter ``FOLD``) wherever
+:func:`.conv3d.conv_plan` takes the folded shape (W/4 a multiple of 8), and
+the wgmma wgrad kernel (``csrc/conv3x3_wgrad_wgmma.cu``, ``FOLD``) wherever
+:func:`.conv3d.wgrad_plan` does (W/4 a multiple of 16, Cout ≤ 32); there K7a
+is K1's wgmma kernel bit for bit and K7b sums each item's pixels
+phase-major, so it is held to K2's bound at its own plan's chain. Any other
+bf16 shape runs the ``mma.sync`` loops with the folded layout
+(``csrc/fold4.cuh``), each launch counted in
+``conv3x3_packed_mma_routed`` / ``conv3x3_wgrad_mma_routed``; f32 runs the
+FMA kernels with the folded layout.
 
 The halo form (``pad_d=False``) takes one real d slice of halo per side,
 and its three parts are the same kernels at K5's d geometries. The TPU's
@@ -36,13 +48,13 @@ import torch
 
 from unet_bssfp_tpu_torch.ops.kernels.conv3d import (
     _acc,
-    _conv_launch,
+    _conv_cuda,
     _flip_t,
-    _wgrad_launch,
+    _wgrad_cuda,
     conv3x3_packed_halo_dgrad_plain,
     conv3x3_packed_halo_plain,
     conv3x3_packed_plain,
-    conv3x3_wgrad_mma_chain,
+    conv3x3_wgrad_chain,
     conv3x3_wgrad_halo_plain,
     conv3x3_wgrad_plain,
 )
@@ -139,7 +151,7 @@ def _dgrad(dy: torch.Tensor, w: torch.Tensor, w4dim: int, halo: bool) -> torch.T
     wt = _flip_t(w, dy.dtype)
     zero = torch.zeros(wt.shape[4], dtype=torch.float32, device=dy.device)
     fn = conv3x3_pfold_halo_dgrad if halo else conv3x3_pfold_dgrad
-    dx = _conv_launch(dy, wt, zero, w4dim, fn.__name__, grow=2 if halo else 0, fold=True)
+    dx = _conv_cuda(dy, wt, zero, w4dim, fn.__name__, grow=2 if halo else 0, fold=True)
     fn.launches += 1
     return dx
 
@@ -165,7 +177,7 @@ def conv3x3_pfold_wgrad(xf: torch.Tensor, dy: torch.Tensor, w4dim: int) -> torch
     """K7b: f32 dw (3, 3, 3, Cin, Cout) from the folded input and cotangent."""
     if xf.device.type == "cpu":
         return conv3x3_pfold_wgrad_plain(xf, dy, w4dim)
-    dw = _wgrad_launch(xf, dy, w4dim, "conv3x3_pfold_wgrad", halo=0, fold=True)
+    dw = _wgrad_cuda(xf, dy, w4dim, "conv3x3_pfold_wgrad", halo=0, fold=True)
     conv3x3_pfold_wgrad.launches += 1
     return dw
 
@@ -175,18 +187,16 @@ def conv3x3_pfold_wgrad_halo(xp: torch.Tensor, dy: torch.Tensor, w4dim: int) -> 
     H·W/4), no slice skipped."""
     if xp.device.type == "cpu":
         return conv3x3_pfold_wgrad_halo_plain(xp, dy, w4dim)
-    dw = _wgrad_launch(xp, dy, w4dim, "conv3x3_pfold_wgrad_halo", halo=1, fold=True)
+    dw = _wgrad_cuda(xp, dy, w4dim, "conv3x3_pfold_wgrad_halo", halo=1, fold=True)
     conv3x3_pfold_wgrad_halo.launches += 1
     return dw
 
 
 def conv3x3_pfold_wgrad_chain(xf: torch.Tensor, dy: torch.Tensor, w4dim: int) -> int:
-    """K7b's longest f32 rounding chain for these CUDA operands: the
-    ``mma.sync`` loop's at the unfolded shape (K7b runs that loop's plan),
-    read through a free reshape."""
-    def packed_shape(t):
-        return t.reshape(t.shape[0], t.shape[1], t.shape[2] // FOLD, -1)
-    return conv3x3_wgrad_mma_chain(packed_shape(xf), packed_shape(dy), FOLD * w4dim)
+    """K7b's longest f32 rounding chain for these operands, in the kernel
+    they route to: the wgmma wgrad plan's where it takes the folded shape
+    (no card needed), else the ``mma.sync`` loop's at the unfolded shape."""
+    return conv3x3_wgrad_chain(xf, dy, w4dim, fold=True)
 
 
 class _Conv3x3Pfold(torch.autograd.Function):
@@ -201,7 +211,7 @@ class _Conv3x3Pfold(torch.autograd.Function):
             plain = conv3x3_pfold_halo_plain if halo else conv3x3_pfold_plain
             return plain(xf, w, bias, w4dim)
         fn = conv3x3_pfold_halo if halo else conv3x3_pfold
-        y = _conv_launch(xf, w, bias, w4dim, fn.__name__, grow=-2 if halo else 0, fold=True)
+        y = _conv_cuda(xf, w, bias, w4dim, fn.__name__, grow=-2 if halo else 0, fold=True)
         fn.launches += 1
         return y
 

@@ -1,6 +1,7 @@
 """The launch plan, the GEMM view and the launcher of the bf16 wgmma weight
 gradient kernel (``csrc/conv3x3_wgrad_wgmma.cu``), which runs K2 and K5's
-weight gradient on the card (:mod:`.conv3d` routes to it).
+weight gradient on the card (:mod:`.conv3d` routes to it), and on the
+phase-major w-folded layout K7b and its halo form (:mod:`.pfold`, ``fold``).
 
 Everything about a launch that can be decided without the card is decided
 here, in plain Python, so the CPU tests check it: which kernel a shape takes
@@ -18,12 +19,13 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from unet_bssfp_tpu_torch.ops.kernels import _build
+from unet_bssfp_tpu_torch.ops.kernels.conv_wgmma import TensorMap
 
 ROWS = 2             # h rows per item
 TILE_W = 64          # w columns per item (128 B of bf16: one swizzle span)
@@ -56,7 +58,10 @@ class WgradPlan:
     """One launch. ``d`` is dy's slice count, ``halo`` 1 where x carries one
     more slice per side; Cin in ``chunks`` of ``cpk`` channels, one block
     each per split, whose rows (kd, j) are ci = chunk·cpk + j; split ``s``
-    owns items [s·per, (s+1)·per); grid (chunks, splits)."""
+    owns items [s·per, (s+1)·per); grid (chunks, splits). ``fold``: both
+    operands are phase-major w-folded, (B, ., 4·C, H·W/4), ``wdim`` is the
+    unfolded W, and an item's 128 pixels are summed phase-major
+    (:func:`fold_k`); every number is the packed plan's at that shape."""
     b: int
     d: int
     halo: int
@@ -69,6 +74,7 @@ class WgradPlan:
     stages: int
     splits: int
     per: int
+    fold: bool = False
 
     @property
     def tiles_h(self) -> int:
@@ -99,14 +105,17 @@ class WgradPlan:
 
 
 def wgrad_plan(b: int, d: int, halo: int, cin: int, cout: int, h: int, wdim: int,
-               sms: int = SMS) -> Optional[WgradPlan]:
+               sms: int = SMS, fold: bool = False) -> Optional[WgradPlan]:
     """The plan of one bf16 launch, or ``None`` where the wgmma kernel does
     not take the shape (static, by shape alone):
 
     - ``Cout > 32`` (dy's (kw, co) columns are one wgmma N of 96);
     - ``wdim % 8 != 0`` (a TMA row stride must be a multiple of 16 bytes;
       the ``wguard`` width 66 is one);
-    - 2³¹ items or more (the kernel counts them in 32 bits).
+    - 2³¹ items or more (the kernel counts them in 32 bits);
+    - with ``fold`` (W = ``wdim``), W/4 not a multiple of 16 (x's folded map
+      runs over the flattened lanes h·W/4 + w4, so a tile's 16 w4 must end
+      inside their row).
 
     Rows: Cin in the fewest chunks of at most 21 channels (3 kd × 21 rows
     fill one wgmma M of 64), as even as can be. Ring: the deepest up to 4
@@ -114,14 +123,14 @@ def wgrad_plan(b: int, d: int, halo: int, cin: int, cout: int, h: int, wdim: int
     (``sms // chunks``), at most one per item."""
     if min(b, d, cin, cout, h, wdim) < 1 or halo not in (0, 1):
         return None
-    if cout > COUT_MAX or wdim % 8:
+    if cout > COUT_MAX or wdim % 8 or (fold and wdim % (4 * 16)):
         return None
     chunks = -(-cin // MAX_CPK)
     cpk = -(-cin // chunks)
     stages = max(s for s in range(MAX_STAGES + 1) if smem_bytes(s) <= SMEM_LIMIT)
     if stages < 2:
         return None
-    plan = WgradPlan(b, d, halo, cin, cout, h, wdim, cpk, chunks, stages, 1, 1)
+    plan = WgradPlan(b, d, halo, cin, cout, h, wdim, cpk, chunks, stages, 1, 1, fold)
     if plan.items >= 2 ** 31:
         return None
     splits = max(1, min(plan.items, sms // chunks, 65535))
@@ -159,6 +168,66 @@ def copy_offset(slot: int, kw: int, co: int, k: int) -> int:
     the next h tile's slot0 is slot0 + 2."""
     n = kw * COUT_MAX + co
     return slot * N * 128 + n * 128 + (((k // 8) ^ (n % 8)) << 4) + (k % 8) * 2
+
+
+FOLD_X_PLANE = M * 32  # folded x: one phase's 64 rows of 16 pixels, 32-byte swizzled
+FOLD_DY_MAIN = 4 * COUT_MAX * ROWS * 16 * 2  # folded raw dy of two rows: main box
+FOLD_DY_SIDE = COUT_MAX * ROWS * 8 * 2       # and each 8-w4 side box
+
+
+def fold_maps(plan: WgradPlan) -> Dict[str, TensorMap]:
+    """The folded launch's maps: ``x`` over (H·W/4 lanes, Cin, D + 2·halo,
+    4 phases, B), boxes (16 w4, cpk, 3 slices) 32-byte swizzled, one per h
+    row and phase (K-step p of an item reads plane p); ``dy`` and
+    ``dy_side`` over (W/4, 4 phases, H, Cout, B·D), boxes (16, 4, 2 rows,
+    32) and (8, 1, 2, 32)."""
+    w4, hw4, dx = plan.wdim // 4, plan.h * plan.wdim // 4, plan.d + 2 * plan.halo
+    hw = 4 * hw4
+    x = TensorMap((plan.h * w4, plan.cin, dx, 4, plan.b),
+                  (2 * hw4, 2 * hw * plan.cin, 2 * hw4 * plan.cin, 2 * hw * plan.cin * dx),
+                  (16, plan.cpk, 3, 1, 1), swizzle=32)
+    ddims = (w4, 4, plan.h, plan.cout, plan.b * plan.d)
+    dstr = (2 * hw4 * plan.cout, 2 * w4, 2 * hw4, 2 * hw * plan.cout)
+    return {"x": x, "dy": TensorMap(ddims, dstr, (16, 4, ROWS, COUT_MAX, 1)),
+            "dy_side": TensorMap(ddims, dstr, (8, 1, ROWS, COUT_MAX, 1))}
+
+
+def fold_item_loads(plan: WgradPlan, item: int, chunk: int,
+                    follows: bool) -> List[Tuple[str, Tuple[int, ...], int]]:
+    """The loads of one folded item, as ``load_item`` issues them: (map,
+    start coordinates, byte offset in the stage); an item that ``follows``
+    the one before it loads only its second pair of dy rows."""
+    b, d, h0, w0 = item_tile(plan, item)
+    w4dim, w4, bd = plan.wdim // 4, w0 // 4, b * plan.d + d
+    out = [("x", ((h0 + r) * w4dim + w4, chunk * plan.cpk, d - 1 + plan.halo, p, b),
+            r * M * 128 + p * FOLD_X_PLANE) for r in range(ROWS) for p in range(4)]
+    for half in range(1 if follows else 0, 2):
+        at, hh = X_BYTES + half * DY_BYTES // 2, h0 - 1 + 2 * half
+        out += [("dy", (w4, 0, hh, 0, bd), at),
+                ("dy_side", (w4 - 8, 3, hh, 0, bd), at + FOLD_DY_MAIN),
+                ("dy_side", (w4 + 16, 0, hh, 0, bd), at + FOLD_DY_MAIN + FOLD_DY_SIDE)]
+    return out
+
+
+def fold_k(k: int) -> int:
+    """The pixel offset from w0 of element k of a folded item's row (x's
+    rows and dy's copies alike): k = 16·p + i is pixel w0 + 4·i + p."""
+    return 4 * (k % 16) + k // 16
+
+
+def fold_copy_source(kw: int, k: int) -> Tuple[str, int, int]:
+    """Where the folded copy build reads element k of copy ``kw`` of a dy
+    row: (box, phase, element of that box's row). The main box holds the
+    tile's 16 w4 of every phase (element i: w4 w0/4 + i), the left box
+    phase 3 from w4 w0/4 - 8, the right box phase 0 from w4 w0/4 + 16;
+    copy kw's element k is dy at pixel w0 + fold_k(k) + 1 - kw."""
+    p, i = k // 16, k % 16
+    q = p + 1 - kw
+    if q == 4:
+        return ("right", 0, 0) if i == 15 else ("main", 0, i + 1)
+    if q == -1:
+        return ("left", 3, 7) if i == 0 else ("main", 3, i - 1)
+    return "main", q, i
 
 
 def wgrad_gemm_plain(xk: torch.Tensor, dy: torch.Tensor, wdim: int, halo: int) -> torch.Tensor:
@@ -199,8 +268,8 @@ def launch(plan: WgradPlan, xk: torch.Tensor, dy: torch.Tensor, what: str) -> to
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.conv3x3_wgrad_wgmma_bf16(
             xk.data_ptr(), dy.data_ptr(), part.data_ptr(), dw.data_ptr(), plan.b, plan.d,
-            plan.halo, plan.cin, plan.cout, plan.h, plan.wdim, plan.cpk, plan.chunks,
-            plan.stages, plan.splits, plan.per, stream)
+            plan.halo, int(plan.fold), plan.cin, plan.cout, plan.h, plan.wdim, plan.cpk,
+            plan.chunks, plan.stages, plan.splits, plan.per, stream)
     _build.check(lib, rc, what)
     return dw
 
@@ -209,7 +278,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("conv3x3_wgrad_wgmma")
     if not getattr(lib, "_typed", False):
         lib.conv3x3_wgrad_wgmma_bf16.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_longlong, ctypes.c_void_p])
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + [ctypes.c_longlong, ctypes.c_void_p])
         lib.conv3x3_wgrad_wgmma_bf16.restype = ctypes.c_int
         lib.conv3x3_wgrad_wgmma_smem.argtypes = [ctypes.c_int]
         lib.conv3x3_wgrad_wgmma_smem.restype = ctypes.c_int

@@ -85,10 +85,13 @@ Phases (any failure → nonzero exit, no ``ok`` line):
     ``conv3x3_packed_mma`` at the odd shapes; f32: K1's FMA kernel), K7b
     within K2's bound at its own plan's chain (bit for bit
     ``conv3x3_wgrad_mma`` or K2's FMA kernel where it runs those); K9a
-    against its plain version and ``torch.roll``, with both device times
-    from the profiler; K9b's three modes against theirs at the conv0 shape.
-    Then the two probe paths, each with the counts reset just before it and
-    exact launch counts after it (``*_mma_routed`` 0 on the pfold path):
+    against its plain version and ``torch.roll`` (also past the 12,288
+    elements its first kernel took), with both device times from the
+    profiler; K9b's three modes (K1's wgmma kernel with template ``MODE``)
+    against theirs at the conv0 shape, ``full`` bit for bit K1 with K1's
+    time in its row. Then the two probe paths, each with the counts reset
+    just before it and exact launch counts after it (``*_mma_routed`` 0 on
+    both):
     ``scripts/torch_port_pfold_probe.py`` (``pfold_probe``) and
     ``scripts/torch_port_pallas_probe.py`` (``pallas_probe``).
 
@@ -213,14 +216,16 @@ def phase_build(torch, K, _build):
     shutil.rmtree(_build.BUILD_DIR, ignore_errors=True)
     _build.build_all()
     nvcc_s = time.perf_counter() - t0
+    each = dict(sorted(_build.BUILD_SECONDS.items(), key=lambda kv: -kv[1]))
     x = torch.randn(1, 2, 2, 2, 8, device="cuda")
     K.fused_instance_norm_leaky_relu(x, torch.ones(8, device="cuda"),
                                      torch.zeros(8, device="cuda"))
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
-    print(f"build: nvcc {nvcc_s:.1f}s (csrc/*.cu in parallel), "
+    print(f"build: nvcc {nvcc_s:.1f}s (csrc/*.cu in parallel: "
+          f"{', '.join(f'{k} {v:.1f}s' for k, v in each.items())}), "
           f"with Triton JIT {total:.1f}s", flush=True)
-    return {"nvcc_s": nvcc_s, "total_s": total}
+    return {"nvcc_s": nvcc_s, "nvcc_s_each": each, "total_s": total}
 
 
 def check_conv(torch, F, K, checks, b, d, h, w, cin, cout, dtype, halo=False, fold=False,
@@ -1227,21 +1232,36 @@ def phase_pfold_kernels(torch, F, K, checks):
 
 def phase_probe_kernels(torch, F, K, checks):
     """K9a against its plain version and ``torch.roll``, with its device time
-    from the profiler beside its per-call time (CUDA events around
-    back-to-back calls, host work included); K9b's three modes against
-    theirs at the conv0 shape, under K1's bf16 bound."""
+    from the profiler beside its per-call time (CUDA events around 200
+    back-to-back calls, host work included, the median of 7 runs alternating
+    with ``torch.roll``'s); K9b's three modes against
+    theirs at the conv0 shape, under K1's bf16 bound, ``full`` bit for bit
+    K1 (``conv3x3_packed``), timed beside it."""
     x = torch.randn(8, 128, device="cuda")
     got = K.lane_roll(x, 1)
-    ok = torch.equal(got, K.lane_roll_plain(x, 1)) and torch.equal(got, torch.roll(x, 1, 1))
+    big = torch.randn(1000, 129, device="cuda")  # past the old 12,288-element cap
+    big_ok = all(torch.equal(K.lane_roll(big, s), torch.roll(big, s, 1)) for s in (-1, 0, 129))
+    ok = (torch.equal(got, K.lane_roll_plain(x, 1)) and torch.equal(got, torch.roll(x, 1, 1))
+          and big_ok)
     bms, by = bound(2 * x.numel() * 4, 0, "float32")
+    # per call: 200 back-to-back calls between CUDA events, host work
+    # included, 7 runs alternating with torch.roll's, the medians (the
+    # host's clock moves by tens of percent from run to run)
+    runs = [(time_ms(torch, lambda: K.lane_roll(x, 1), 200),
+             time_ms(torch, lambda: torch.roll(x, 1, 1), 200)) for _ in range(7)]
+    ms, lib_ms = (statistics.median(r[i] for r in runs) for i in (0, 1))
+    ratio_quartiles = statistics.quantiles([a / b for a, b in runs], n=4)
+    dev = device_ms(torch, lambda: K.lane_roll(x, 1), "lane_roll_kernel", 200)
+    lib_dev = device_ms(torch, lambda: torch.roll(x, 1, 1), "roll", 200)
     checks.record(ok, dict(
         kernel="lane_roll", shape=list(x.shape), cout=None, dtype="float32",
         max_abs_err=float((got - K.lane_roll_plain(x, 1)).abs().max()), rtol=0.0, atol=0.0,
-        ms=time_ms(torch, lambda: K.lane_roll(x, 1), 200),
-        device_ms=device_ms(torch, lambda: K.lane_roll(x, 1), "lane_roll_kernel", 200),
+        big_tile_bit_equal=big_ok, ms=ms, device_ms=dev,
         plain_ms=time_ms(torch, lambda: K.lane_roll_plain(x, 1), 200), bound_ms=bms,
-        bound_by=by, library_ms=time_ms(torch, lambda: torch.roll(x, 1, 1), 200),
-        library_device_ms=device_ms(torch, lambda: torch.roll(x, 1, 1), "roll", 200)))
+        bound_by=by, library_ms=lib_ms, library_device_ms=lib_dev,
+        per_call_over_library=ms / lib_ms, per_call_runs=runs,
+        per_call_ratio_quartiles=ratio_quartiles,
+        device_over_library=dev / lib_dev if dev and lib_dev else None))
 
     b, d, h, w, cin, cout = PROBE_CONV
     g = torch.Generator(device="cuda").manual_seed(cin)
@@ -1252,28 +1272,42 @@ def phase_probe_kernels(torch, F, K, checks):
     wl = wt.bfloat16().permute(4, 3, 0, 1, 2).contiguous()
     wc = wl.float().sum(dim=(3, 4), keepdim=True).bfloat16()
     vox = b * d * h * w
-    # each mode's function (csrc/probe.cu's header): the channels it reads,
-    # its multiply-adds per output, one PyTorch call computing it if any
-    work = {"full": (cin, 27 * cin, lambda: F.conv3d(xn, wl, bias.bfloat16(), padding=1)),
-            "centre": (cin, 3 * cin, lambda: F.conv3d(xn, wc, bias.bfloat16(),
-                                                      padding=(1, 0, 0))),
-            "fixed": (min(16, cin), 9 * min(16, cin), None)}
+    k1_out = K.conv3x3_packed(xk, wt, bias, w)
+    k1_ms = time_ms(torch, lambda: K.conv3x3_packed(xk, wt, bias, w), 10)
+    # each mode's function (csrc/conv3x3_wgmma.cuh's MODE note): the input
+    # bytes it reads (fixed: min(16, Cin) channels of slice 0 of each
+    # batch), its multiply-adds per output (fixed: 27·min(16, Cin), the
+    # chunk-summed weights), one PyTorch call computing it if any
+    work = {"full": (vox * cin * 2, 27 * cin,
+                     lambda: F.conv3d(xn, wl, bias.bfloat16(), padding=1)),
+            "centre": (vox * cin * 2, 3 * cin,
+                       lambda: F.conv3d(xn, wc, bias.bfloat16(), padding=(1, 0, 0))),
+            "fixed": (b * min(16, cin) * h * w * 2, 27 * min(16, cin), None)}
+    cin_pad = -(-cin // 16) * 16
     for mode, fn in K.PROBE_MODES.items():
-        got = fn(xk, wt, bias, w).float()
+        out = fn(xk, wt, bias, w)
+        got = out.float()
         ref = K.conv3x3_probe_plain(xk, wt, bias, w, mode).float()
         err = (got - ref).abs()
         scale = float(ref.abs().max())
         rtol, atol = 2 ** -7, 1e-4 * scale  # K1's bf16 bound
-        c_read, macs, lib = work[mode]
-        bms, by = bound(vox * (c_read + cout) * 2 + 27 * cin * cout * 2,
+        in_bytes, macs, lib = work[mode]
+        bms, by = bound(in_bytes + vox * cout * 2 + 27 * cin * cout * 2,
                         2 * macs * cout * vox, "bfloat16")
-        checks.record(bool((err <= atol + rtol * ref.abs()).all()), dict(
+        extra = {}
+        if mode == "full":  # K1's own kernel: bit for bit, and its time
+            extra = {"bit_equal_to_k1": bool(torch.equal(out, k1_out)), "k1_ms": k1_ms}
+        if mode == "fixed":  # the products the kernel runs: full's, at cin_pad
+            extra = {"padded_products_bound_ms": bound(
+                0, 2 * 27 * cin_pad * cout * vox, "bfloat16")[0]}
+        checks.record(bool((err <= atol + rtol * ref.abs()).all())
+                      and extra.get("bit_equal_to_k1", True), dict(
             kernel=fn.__name__, shape=list(xk.shape), cout=cout, dtype="bfloat16",
             max_abs_err=float(err.max()), ref_max_abs=scale, rtol=rtol, atol=atol,
             ms=time_ms(torch, lambda: fn(xk, wt, bias, w), 10),
             plain_ms=time_ms(torch, lambda: K.conv3x3_probe_plain(xk, wt, bias, w, mode), 5),
             bound_ms=bms, bound_by=by,
-            library_ms=time_ms(torch, lib, 10) if lib is not None else None))
+            library_ms=time_ms(torch, lib, 10) if lib is not None else None, **extra))
 
 
 def phase_probe_paths(torch, K, checks, pfold_probe, pallas_probe):
@@ -1286,7 +1320,7 @@ def phase_probe_paths(torch, K, checks, pfold_probe, pallas_probe):
     (``conv3x3_wgrad_mma``, the loop K7b ran before the wgmma kernel took
     it); pallas: the
     roll's direction, the tiny conv, every mode within K1's bf16 bound of
-    its plain version."""
+    its plain version, ``full`` bit for bit K1, no routed launch."""
     K.reset_launches()
     rows, pf_counts = pfold_probe.run("cuda")
     expected = pfold_probe.expected_launches()
@@ -1303,9 +1337,11 @@ def phase_probe_paths(torch, K, checks, pfold_probe, pallas_probe):
     expected = pallas_probe.expected_launches()
     print("pallas_probe launches: " + json.dumps(pa_counts), flush=True)
     roll, tiny = prows[0], prows[1]
-    ok = (pa_counts == expected and roll["same_as_torch_roll_plus_1"]
+    ok = (pa_counts == expected and pa_counts["conv3x3_packed_mma_routed"] == 0
+          and roll["same_as_torch_roll_plus_1"]
           and not roll["same_as_torch_roll_minus_1"] and tiny["max_abs_err"] <= 1e-4
           and all(r["max_abs_err"] <= (2 ** -7 + 1e-4) * r["ref_max_abs"]
+                  and r.get("bit_equal_to_k1", True)
                   for r in prows if r.get("probe") == "ablation"))
     checks.record(ok, dict(phase="pallas_probe_path", launches=pa_counts,
                            expected=expected, rows=prows))
@@ -1314,7 +1350,7 @@ def phase_probe_paths(torch, K, checks, pfold_probe, pallas_probe):
 
 # K1, K1's dgrad, K5 and K5's dgrad: the wgmma conv kernel in bf16 (the
 # rows of the summary line); the mma.sync loop it replaced stays as the
-# check-only conv3x3_packed_mma (and under K7a and K9b). K2 and K5's wgrad:
+# check-only conv3x3_packed_mma (and under K7a's routed shapes). K2 and K5's wgrad:
 # the wgmma wgrad kernel in bf16; its mma.sync loop stays as the check-only
 # conv3x3_wgrad_mma (and under K7b).
 KERNEL_META = {
@@ -1357,11 +1393,17 @@ KERNEL_META = {
     **{name: ("cuda", "unet_bssfp_tpu_torch/csrc/conv3x3_wgrad_wgmma.cu",
               "unet_bssfp_tpu/ops/pallas/conv3d.py:913")
        for name in ("conv3x3_pfold_wgrad", "conv3x3_pfold_wgrad_halo")},
-    # K9a, K9b: the probe kernels of scripts/pallas_probe.py
+    # K9a, K9b: the probe kernels of scripts/pallas_probe.py; K9b is K1's
+    # wgmma kernel with template MODE, instanced in probe.cu's library
     "lane_roll": ("cuda", "unet_bssfp_tpu_torch/csrc/probe.cu", "scripts/pallas_probe.py:45"),
-    **{name: ("cuda", "unet_bssfp_tpu_torch/csrc/probe.cu", "scripts/pallas_probe.py:144")
+    **{name: ("cuda", "unet_bssfp_tpu_torch/csrc/conv3x3_wgmma.cu",
+              "scripts/pallas_probe.py:144")
        for name in PROBE_KERNELS[1:]},
 }
+# The kernel body of conv3x3_wgmma.cu's kernels, and the library K9b's
+# instances are built in
+WGMMA_HEADER = "unet_bssfp_tpu_torch/csrc/conv3x3_wgmma.cuh"
+BUILT_IN = dict.fromkeys(PROBE_KERNELS[1:], "unet_bssfp_tpu_torch/csrc/probe.cu")
 # The row of each kernel in the summary line: its heaviest shape (output
 # channels, dtype) on the patch-stitched serving path, the training step or
 # the eval chain; the halo kernels at a shard of the patch batch on a mesh
@@ -1403,7 +1445,12 @@ def summary(rows, by_path):
         row = next(r for r in rows if r.get("kernel") == name
                    and r["dtype"] == dtype and r["shape"] == shape
                    and r.get("cout") == cout)
-        out.append({"name": name, "route": route, "source": source,
+        extra = {}
+        if source.endswith("conv3x3_wgmma.cu"):
+            extra["header"] = WGMMA_HEADER
+        if name in BUILT_IN:
+            extra["built_in"] = BUILT_IN[name]
+        out.append({"name": name, "route": route, "source": source, **extra,
                     "replaces": replaces,
                     "launches": sum(c[name] for c in by_path.values()),
                     "launches_by_path": {p: c[name] for p, c in by_path.items()},

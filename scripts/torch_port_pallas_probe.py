@@ -6,14 +6,17 @@
 
 1. K9a (``lane_roll``) against ``torch.roll``: the direction check.
 2. A tiny conv, (1, 4, 4, 64, 3 → 4) f32: K1 against its plain version.
-3. K9b at the conv0 shape (B 8, D 64, 64², 24 → 32, bf16): the
-   ``mma.sync`` loop of ``csrc/conv3x3_packed.cuh`` in its three modes
-   (``csrc/probe.cu``: ``fixed`` the product loop on one staged tile,
-   ``centre`` the full staging with unshifted taps, ``full`` the loop
-   itself), each against its plain version, with CUDA-event ms per call
-   beside the loop's own entry point (``conv3x3_packed_mma``) and K1's (the
-   wgmma kernel), and the shares they imply: the loop ``fixed / full``, the
-   staging ``1 - fixed / full``, the (kh, kw) shifts ``1 - centre / full``.
+3. K9b at the conv0 shape (B 8, D 64, 64², 24 → 32, bf16): K1's wgmma
+   kernel (``csrc/conv3x3_wgmma.cuh``) in its three modes (``fixed``: the
+   products and the epilogue on one tile staged before the d walk;
+   ``centre``: the full staging with every (kh, kw) tap unshifted; ``full``:
+   K1 itself, bit for bit), each against its plain version, with CUDA-event
+   ms per call beside K1's own entry point (``conv3x3_packed``) and the
+   ``mma.sync`` loop K9b split before the wgmma kernel
+   (``conv3x3_packed_mma``), and the shares of K1's time they imply: the
+   products and epilogue ``fixed / full``, the staging (TMA waits,
+   transpose, barrier, refill) ``1 - fixed / full``, the shifted descriptor
+   addresses ``1 - centre / full``.
 
 On ``--device cpu`` the plain versions run, host-clock timed: a rehearsal,
 no measurement of the card. Prints one JSON line per row and the launch
@@ -67,23 +70,30 @@ def probe_perf_ablation(device, iters: int, shape=ABLATION):
     xk = torch.randn(b, d, cin, h * w, device=device, generator=g).bfloat16()
     wt = torch.randn(3, 3, 3, cin, cout, device=device, generator=g) / (27 * cin) ** 0.5
     bias = torch.randn(cout, device=device, generator=g) * 0.1
+    k1_out = K.conv3x3_packed(xk, wt, bias, w)
     k1 = time_ms(lambda: K.conv3x3_packed(xk, wt, bias, w), iters, device)
-    mma = time_ms(lambda: K.conv3x3_packed_mma(xk, wt, bias, w), iters, device)
+    loop = time_ms(lambda: K.conv3x3_packed_mma(xk, wt, bias, w), iters, device)
     rows, ms = [], {}
     for mode in MODES:
         fn = K.PROBE_MODES[mode]
         ms[mode] = time_ms(lambda: fn(xk, wt, bias, w), iters, device)
+        got = fn(xk, wt, bias, w)
         ref = K.conv3x3_probe_plain(xk, wt, bias, w, mode).float()
-        err = float((fn(xk, wt, bias, w).float() - ref).abs().max())
-        rows.append({"probe": "ablation", "mode": mode, "shape": list(shape),
-                     "ms": ms[mode], "mma_ms": mma, "k1_ms": k1, "max_abs_err": err,
-                     "ref_max_abs": float(ref.abs().max())})
-        print(f"ablation {mode:6s}: {ms[mode]:7.3f} ms (loop {mma:7.3f}, K1 {k1:7.3f}); "
-              f"max|err| vs plain {err:.3e}", flush=True)
-    shares = {"loop": ms["fixed"] / ms["full"], "staging": 1 - ms["fixed"] / ms["full"],
-              "shifts": 1 - ms["centre"] / ms["full"]}
-    print(f"K1 split: loop {shares['loop']:.3f}, staging {shares['staging']:.3f}, "
-          f"(kh, kw) shifts {shares['shifts']:.3f}", flush=True)
+        err = float((got.float() - ref).abs().max())
+        row = {"probe": "ablation", "mode": mode, "shape": list(shape), "ms": ms[mode],
+               "k1_ms": k1, "loop_ms": loop, "max_abs_err": err,
+               "ref_max_abs": float(ref.abs().max())}
+        if mode == "full":
+            row["bit_equal_to_k1"] = bool(torch.equal(got, k1_out))
+        rows.append(row)
+        print(f"ablation {mode:6s}: {ms[mode]:7.3f} ms (K1 {k1:7.3f}, the old loop {loop:7.3f}); "
+              f"max|err| vs plain {err:.3e}"
+              + (f"; bit-equal to K1 {row['bit_equal_to_k1']}" if mode == "full" else ""),
+              flush=True)
+    shares = {"products_epilogue": ms["fixed"] / ms["full"],
+              "staging": 1 - ms["fixed"] / ms["full"], "shifts": 1 - ms["centre"] / ms["full"]}
+    print(f"K1 split: products and epilogue {shares['products_epilogue']:.3f}, staging "
+          f"{shares['staging']:.3f}, shifted addresses {shares['shifts']:.3f}", flush=True)
     rows.append({"probe": "ablation_shares", **shares})
     return rows
 
@@ -102,11 +112,12 @@ def run(device="cuda", iters: int = 10, ablation=ABLATION):
 
 def expected_launches(iters: int = 10) -> dict:
     """The launches :func:`run` makes on a card: one roll; the tiny conv's
-    pack and conv; K1 and the loop's entry point ``iters`` + 2 times each;
-    each mode ``iters`` + 2 timed and 1 checked times."""
+    pack and conv; K1 once for the bit-equality anchor and ``iters`` + 2
+    times timed, the old loop ``iters`` + 2 times; each mode ``iters`` + 2
+    timed and 1 checked times; no routed launch."""
     n = iters + 2
     out = dict.fromkeys(K.launches(), 0)
-    out.update(lane_roll=1, pack_hw=1, conv3x3_packed=1 + n, conv3x3_packed_mma=n)
+    out.update(lane_roll=1, pack_hw=1, conv3x3_packed=2 + n, conv3x3_packed_mma=n)
     for mode in MODES:
         out[K.PROBE_MODES[mode].__name__] = n + 1
     return out

@@ -663,14 +663,58 @@ def test_gpu_pfold_raises_instead_of_falling_back(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape,shift", [((8, 128), 1), ((8, 128), -1), ((3, 50), 7)])
+@pytest.mark.parametrize("shape,shift", [((8, 128), 1), ((8, 128), -1), ((3, 50), 7),
+                                         ((8, 128), 0), ((8, 128), 129), ((100, 200), -1),
+                                         ((1000, 129), 129)])
 def test_gpu_lane_roll_is_torch_roll(cuda, shape, shift):
+    """Every shift the host normalises, and tiles past the 12,288 elements
+    the shared-memory kernel took."""
     x = torch.arange(shape[0] * shape[1], dtype=torch.float32, device=cuda).reshape(shape)
     K.reset_launches()
     got = K.lane_roll(x, shift)
     assert K.lane_roll.launches == 1
     assert torch.equal(got, torch.roll(x, shift, 1))
     assert torch.equal(got, K.lane_roll_plain(x, shift))
+
+
+@pytest.mark.gpu
+def test_gpu_lane_roll_launches_on_the_current_stream(cuda):
+    raw = torch._C._cuda_getCurrentRawStream  # what _build.launch passes
+    x = torch.randn(8, 128, device=cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        assert raw(x.get_device()) == side.cuda_stream
+        got = K.lane_roll(x, 5)
+    side.synchronize()
+    assert torch.equal(got, torch.roll(x, 5, 1))
+    assert raw(x.get_device()) == torch.cuda.current_stream().cuda_stream
+    with pytest.raises(ValueError):
+        K.lane_roll(x.t(), 1)  # not contiguous
+    with pytest.raises(ValueError):
+        K.lane_roll(x.double(), 1)
+    with pytest.raises(ValueError):
+        K.lane_roll(x.reshape(2, 4, 128), 1)
+
+
+@pytest.mark.gpu
+def test_gpu_lane_roll_int_range_edges(cuda):
+    """The kernel's int range at both edges: a (1, INT_MAX) tile, whose
+    last block ends on index INT_MAX, rolls exactly; one element more is
+    refused before any launch."""
+    from unet_bssfp_tpu_torch.ops.kernels import probe
+
+    n = 2 ** 31 - 1
+    x = torch.arange(n, dtype=torch.int32, device=cuda).remainder_(1 << 20).float()
+    x = x.reshape(1, n)
+    torch.cuda.empty_cache()
+    y = K.lane_roll(x, 1)
+    assert torch.equal(y[:, 1:], x[:, :-1]) and torch.equal(y[:, :1], x[:, -1:])
+    del x, y
+    torch.cuda.empty_cache()
+    lib = probe._lib()
+    invalid_value = 1  # cudaErrorInvalidValue
+    assert lib.lane_roll_f32(None, None, 2, 2 ** 30, 0, None) == invalid_value
 
 
 @pytest.mark.gpu
@@ -687,11 +731,28 @@ def test_gpu_conv3x3_probe_modes_match_plain(cuda, mode, b, d, h, w, cin, cout):
     ref = K.conv3x3_probe_plain(xk, wt, bias, w, mode).float()
     # K1's bf16 bound: f32 sums in another order, one bf16 rounding each side
     torch.testing.assert_close(got, ref, rtol=2 ** -7, atol=1e-4 * float(ref.abs().max()))
-    if mode == "full":
+    if mode == "full":  # K1's wgmma kernel, instanced in the probe's library
         assert torch.equal(K.PROBE_MODES[mode](xk, wt, bias, w),
-                           K.conv3x3_packed_mma(xk, wt, bias, w))
+                           K.conv3x3_packed(xk, wt, bias, w))
+        assert K.conv3x3_packed_mma_routed.launches == 0
     with pytest.raises(TypeError):
         K.PROBE_MODES[mode](xk.float(), wt, bias, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["full", "centre", "fixed"])
+def test_gpu_conv3x3_probe_raises_without_a_plan(cuda, mode):
+    """Probe-only entry points: no routed fallback. Cout 128 has no wgmma
+    plan, W 36 neither (no guard columns), Cout 96 a plan the probe library
+    does not compile."""
+    fn = K.PROBE_MODES[mode]
+    K.reset_launches()
+    for w, cout in ((64, 128), (36, 32), (64, 96)):
+        xk = torch.randn(1, 2, 8, 4 * w, device=cuda).bfloat16()
+        wt, bias = torch.randn(3, 3, 3, 8, cout, device=cuda), torch.zeros(cout, device=cuda)
+        with pytest.raises(ValueError):
+            fn(xk, wt, bias, w)
+    assert set(K.launches().values()) == {0}
 
 
 # The wgmma kernel (csrc/conv3x3_wgmma.cu) that K1, K1's dgrad, K5 and K5's

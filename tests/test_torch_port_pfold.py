@@ -167,8 +167,9 @@ def test_pfold_cpu_path_counts_nothing_and_refuses_other_devices():
 
 
 # K9b's plain versions against an independent statement of each mode's
-# function (csrc/probe.cu's header): K1's plain conv with the weights
-# rearranged. f32 on both sides; only the summation order differs.
+# function (csrc/conv3x3_wgmma.cuh's MODE note): K1's plain conv with the
+# weights rearranged. f32 on both sides; only the summation order differs.
+# The fixed mode's statement is in test_torch_port_probe_plan.py.
 def _probe_inputs(cin, seed):
     rng = np.random.default_rng(seed)
     b, d, h, w, cout = 2, 4, 5, 8, 6
@@ -184,19 +185,6 @@ def test_probe_centre_plain_is_summed_tap_conv(cin):
     wc[:, 1, 1] = wt.sum(dim=(1, 2))  # every tap's weight on the centre tap
     torch.testing.assert_close(K.conv3x3_probe_plain(xk, wt, bias, w, "centre"),
                                K.conv3x3_packed_plain(xk, wc, bias, w), rtol=1e-5, atol=1e-5)
-
-
-@pytest.mark.parametrize("cin", [5, 24])
-def test_probe_fixed_plain_is_scaled_centre_slice_conv(cin):
-    xk, wt, bias, w = _probe_inputs(cin, cin + 1)
-    wf = torch.zeros_like(wt)
-    wf[1, :, :, :16] = wt[1, :, :, :16]  # slice d, channels 0..15 only
-    d = xk.shape[1]
-    n = torch.tensor([2.0] + [3.0] * (d - 2) + [2.0])  # valid kd per output slice
-    ref = (K.conv3x3_packed_plain(xk, wf, torch.zeros_like(bias), w)
-           * (n * -(-cin // 16)).view(1, d, 1, 1) + bias.view(1, 1, -1, 1))
-    torch.testing.assert_close(K.conv3x3_probe_plain(xk, wt, bias, w, "fixed"), ref,
-                               rtol=1e-5, atol=1e-5)
 
 
 def test_probe_full_plain_is_jax_reference_conv():

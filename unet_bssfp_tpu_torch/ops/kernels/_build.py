@@ -6,7 +6,9 @@ the source, every ``csrc/*.cuh`` header and the flags, so an edited source
 or header never loads a stale library).
 Nothing is built at import: a wrapper builds its library at its first CUDA
 call, and :func:`build_all` builds every source at once, one ``nvcc`` per
-source, all started together.
+source, all started together (each one's seconds in :data:`BUILD_SECONDS`).
+:func:`launch` calls a library's entry point on the current stream of a
+tensor's device.
 """
 
 from __future__ import annotations
@@ -17,8 +19,11 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Callable, Dict, Iterable
+
+import torch
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -30,6 +35,28 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+BUILD_SECONDS: Dict[str, float] = {}  # wall seconds of each library's last nvcc
+# The raw handle of a device's current stream, and the current device:
+# PyTorch's private accessors, which build no Stream object and run no lazy
+# init check (the public torch.cuda.current_stream(i).cuda_stream and
+# torch.cuda.current_device() give the same; scripts/torch_port_launch_cost.py
+# times both). Looked up here, called only with a CUDA tensor in hand.
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) or (
+    lambda index: torch.cuda.current_stream(index).cuda_stream)
+_current_device = getattr(torch._C, "_cuda_getDevice", None) or (
+    lambda: torch.cuda.current_device())
+
+
+def launch(fn: Callable[..., int], t: torch.Tensor, *args) -> int:
+    """``fn(*args, stream)`` with ``stream`` the raw handle of the current
+    stream on CUDA tensor ``t``'s device; returns ``fn``'s code. A kernel
+    launches on the current device, so the call switches to ``t``'s device
+    only where that is not the current one, and back after."""
+    index = t.get_device()
+    if index == _current_device():
+        return fn(*args, _raw_stream(index))
+    with torch.cuda.device(index):
+        return fn(*args, _raw_stream(index))
 
 
 def _nvcc() -> str:
@@ -55,15 +82,20 @@ def _start(name: str) -> subprocess.Popen:
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
-    proc.tmp, proc.out, proc.cmd = tmp, out, cmd
+    proc.tmp, proc.out, proc.cmd, proc.name = tmp, out, cmd, name
+    proc.t0, proc.log = time.perf_counter(), ""
     return proc
 
 
+def _wait(proc: subprocess.Popen) -> None:
+    proc.log, _ = proc.communicate()
+    BUILD_SECONDS[proc.name] = time.perf_counter() - proc.t0
+
+
 def _finish(proc: subprocess.Popen) -> None:
-    log, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(proc.cmd)}\n{log}")
+            f"nvcc failed ({proc.returncode}): {' '.join(proc.cmd)}\n{proc.log}")
     os.replace(proc.tmp, proc.out)
 
 
@@ -73,6 +105,12 @@ def build_all(names: Iterable[str] = SOURCES) -> None:
     with _LOCK:
         procs = [_start(n) for n in names if not _target(n).exists()]
         try:
+            # one waiting thread per nvcc, so that each one's time is its own
+            waiters = [threading.Thread(target=_wait, args=(p,)) for p in procs]
+            for w in waiters:
+                w.start()
+            for w in waiters:
+                w.join()
             for p in procs:
                 _finish(p)
         finally:

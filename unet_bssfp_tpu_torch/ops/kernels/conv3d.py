@@ -26,8 +26,8 @@ dtype and shape:
   :func:`.conv_wgmma.wgmma_plan` takes the shape: Cout ≤ 96, W a multiple
   of 8 or guard columns present, the weight resident beside a 2-stage ring.
   Every shape of the serving, training and mesh paths is taken. Any other
-  bf16 shape runs the ``mma.sync`` loop of ``csrc/conv3x3_packed.cu``
-  (``conv3x3_packed.cuh``), and each such launch adds one to
+  bf16 shape runs the ``mma.sync`` loop of ``csrc/conv3x3_packed.cu``,
+  and each such launch adds one to
   ``conv3x3_packed_mma_routed.launches`` besides the wrapper's own count;
 - f32 (the gradient-check path) → the FMA kernel of ``conv3x3_packed.cu``.
 
@@ -44,8 +44,9 @@ Which CUDA kernel runs a weight gradient (K2, K5's), the same way:
 
 :func:`conv3x3_packed_mma` and :func:`conv3x3_wgrad_mma` launch the two
 ``mma.sync`` loops on the packed layout at any d geometry: check-only entry
-points (K9b, and the routed shapes of K7a and K7b, are held bit for bit to
-them); nothing on a model path calls them. Every kernel here takes the
+points (the routed shapes of K7a and K7b are held bit for bit to them,
+and the pallas probe times the conv loop beside K9b); nothing on a model
+path calls them. Every kernel here takes the
 phase-major w-folded layout too (``fold``): K7a and K7b, the pfold conv of
 :mod:`.pfold`, route by the same rules, their plans made at the unfolded
 shape.
@@ -283,10 +284,10 @@ def conv3x3_packed_mma_routed(xk: torch.Tensor, w: torch.Tensor, bias: torch.Ten
 
 def conv3x3_packed_mma(xk: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                        wdim: int, grow: int = 0) -> torch.Tensor:
-    """The ``mma.sync`` loop of ``csrc/conv3x3_packed.cuh`` on the packed
+    """The ``mma.sync`` loop of ``csrc/conv3x3_packed.cu`` on the packed
     layout, bf16, at d geometry ``grow`` (0, -2 or +2, as
-    :func:`_conv_launch`): a check-only entry point (K9b ``full`` and
-    K7a's routed shapes are bit for bit its result), on no model path. A
+    :func:`_conv_launch`): a check-only entry point (K7a's routed shapes
+    are bit for bit its result), on no model path. A
     CPU tensor takes the plain version."""
     if xk.dtype != torch.bfloat16:
         raise TypeError(f"conv3x3_packed_mma: bf16 only, not {xk.dtype}")

@@ -5,7 +5,7 @@
 
 Phases (any failure → nonzero exit, no ``ok`` line):
 1. The card's name and power limit; build of every kernel from the
-   repository's sources (``nvcc`` for ``csrc/*.cu``, Triton JIT for the norm).
+   repository's sources (``nvcc`` for ``csrc/*.cu``, all at once).
 2. Kernel checks: each kernel against its plain PyTorch version at the
    serving path's shapes, f32 and bf16, with its time, its bound (bytes over
    3.35 TB/s or operations over the peak of their type), the plain version's
@@ -15,11 +15,15 @@ Phases (any failure → nonzero exit, no ``ok`` line):
    and the ``mma.sync`` loop's check-only entry point
    (``conv3x3_packed_mma``) at K1's heaviest shape. The relayouts at the
    generator's 24-, 64- and 6-channel sides (K3a and K3b at C 6 take the
-   kernel's narrow path).
+   kernel's narrow path). K4 (one cooperative launch, ``csrc/norm_act.cu``)
+   at the 8 plain-layer stage shapes of serving under ``use_pallas``, f32
+   and bf16, a rerun bit for bit, with its device time (profiler) beside
+   its time per call.
 3. Serving path: the full-width pc-bSSFP generator with seeded random
    weights serves one (96, 128, 128, 24) volume through ``predict_volume``,
    patch-stitched (8 × 64³) and whole-volume, with ``use_pallas`` off and
-   on; launch counts of every serving kernel in that run; ms per volume; the
+   on; launch counts of every serving kernel in that run; ms per volume
+   (the four ways in turns, ``use_pallas`` on beside off); the
    f32 output of the packed kernel path against the same model on plain
    PyTorch/cuDNN, and the bf16 output's error against f32.
 4. Training kernels: K2 (wgrad) and K1's dgrad against their plain versions
@@ -46,15 +50,19 @@ Phases (any failure → nonzero exit, no ``ok`` line):
 6. K8 (scalar maps) against its plain version on brain-like tensors (30 %
    zero background, isotropic and planar voxels) at the full (96, 128, 128)
    volume and at (5, 7, 3), at the bound derived in
-   ``ops/kernels/scalar_maps.py``; a second launch bit for bit; time, bound,
-   plain time and ``torch.linalg.eigh``'s time.
+   ``ops/scalar_maps_check.py`` (bit-equality with the plain version is
+   recorded, not required: the kernel contracts a·b + c into FMAs); a
+   second launch bit for bit; time per call and device time, the bound (the
+   largest of bytes, f32 operations and special-function operations at the
+   SM clock read under load), plain time and ``torch.linalg.eigh``'s time.
 7. Evaluation path: ``make_synthetic_bids`` writes 2 subjects at (96, 128,
    128); the full-width generator (seeded random weights, bf16,
    patch-stitched) predicts each subject's DT; ``eval_dwi_tensors`` (with
    ``constants/rescale_args_dwi.txt``) and ``calc_error_table`` run on the
    card with the launch counts reset before them (K8: 2 subjects × pred and
    target), then once more with one worker and the NIfTI I/O timed, and on
-   the CPU (plain versions); the card's table against the CPU's.
+   the CPU (plain versions); every file of the card's chain and its table
+   against the CPU's, at the maps' bound carried through the chain.
 8. ``predict --scalar-maps --rescale-args`` once on the card: 1 K8 launch,
    7 map files, held against the plain maps of the written prediction.
 9. Halo kernels (with phase 4): K5 (``conv3x3_packed_halo``), its input
@@ -175,6 +183,15 @@ EVAL_SUBJECTS = ("01", "02")
 # and RD 22; the angles and RGB 14. Bytes: 6 f32 in, 9 f32 out.
 SCALAR_MAPS_OPS_PER_VOXEL = 18 + 15 * 42 + 3 + 8 + 22 + 14
 SCALAR_MAPS_BYTES_PER_VOXEL = (6 + 9) * 4
+# The special-function (MUFU) operations of the same work: at least one for
+# each division (or correctly rounded reciprocal), square root, reciprocal
+# square root and angle. 15 rotations of 4 (theta's division, sqrt(theta² +
+# 1), t's reciprocal, c's reciprocal square root); the scaling's reciprocal
+# 1; md's division, the two square roots of FA and its division, atan2,
+# the eigenvector's length, its division and acos 8. An H100 SM issues 16
+# of them a clock.
+SCALAR_MAPS_MUFU_PER_VOXEL = 15 * 4 + 1 + 8
+MUFU_PER_CLOCK_PER_SM = 16
 
 
 def bound(bytes_moved: float, ops: float, dtype: str):
@@ -217,15 +234,9 @@ def phase_build(torch, K, _build):
     _build.build_all()
     nvcc_s = time.perf_counter() - t0
     each = dict(sorted(_build.BUILD_SECONDS.items(), key=lambda kv: -kv[1]))
-    x = torch.randn(1, 2, 2, 2, 8, device="cuda")
-    K.fused_instance_norm_leaky_relu(x, torch.ones(8, device="cuda"),
-                                     torch.zeros(8, device="cuda"))
-    torch.cuda.synchronize()
-    total = time.perf_counter() - t0
     print(f"build: nvcc {nvcc_s:.1f}s (csrc/*.cu in parallel: "
-          f"{', '.join(f'{k} {v:.1f}s' for k, v in each.items())}), "
-          f"with Triton JIT {total:.1f}s", flush=True)
-    return {"nvcc_s": nvcc_s, "nvcc_s_each": each, "total_s": total}
+          f"{', '.join(f'{k} {v:.1f}s' for k, v in each.items())})", flush=True)
+    return {"nvcc_s": nvcc_s, "nvcc_s_each": each}
 
 
 def check_conv(torch, F, K, checks, b, d, h, w, cin, cout, dtype, halo=False, fold=False,
@@ -347,22 +358,34 @@ def check_norm(torch, F, K, checks, shape, dtype):
     x = torch.randn(shape, device="cuda", generator=g).to(dt)
     s = 1 + 0.1 * torch.randn(c, device="cuda", generator=g)
     bb = 0.1 * torch.randn(c, device="cuda", generator=g)
-    got = K.fused_instance_norm_leaky_relu(x, s, bb, 0.1).float()
+    fn = lambda: K.fused_instance_norm_leaky_relu(x, s, bb, 0.1)  # noqa: E731
+    launches = K.fused_instance_norm_leaky_relu.launches
+    out = fn()
+    one_launch = K.fused_instance_norm_leaky_relu.launches == launches + 1
+    repeats = bool(torch.equal(out, fn()))  # every sum in the plan's fixed order
+    got = out.float()
     ref = K.instance_norm_leaky_relu_plain(x, s, bb, 0.1).float()
     err = (got - ref).abs()
     # f32: moments summed in another order over ≤ 196608 voxels; bf16: the
     # output rounds once, so the two may land one bf16 ulp apart.
     rtol, atol = (1e-5, 1e-4) if dtype == "float32" else (2 ** -7, 1e-2)
-    ok = bool((err <= atol + rtol * ref.abs()).all())
+    ok = bool((err <= atol + rtol * ref.abs()).all()) and repeats and one_launch
+    max_err = float(err.max())
+    del out, got, ref, err
     xn = x.permute(0, 4, 1, 2, 3)
     sl, bl = s.to(dt), bb.to(dt)
     iters = 10
     nbytes = 2 * x.numel() * x.element_size() + 2 * c * 4
     bms, by = bound(nbytes, 9 * x.numel(), "float32")
+    ms = time_ms(torch, fn, iters)
+    dev = device_ms(torch, fn, "norm_act_kernel")
+    print(f"K4 {dtype} {tuple(shape)}: {ms:.4f} ms per call, device {dev} ms "
+          f"(bound {bms:.4f}, {by})", flush=True)
     checks.record(ok, dict(
         kernel="fused_instance_norm_leaky_relu", shape=list(shape),
-        dtype=dtype, max_abs_err=float(err.max()), rtol=rtol, atol=atol,
-        ms=time_ms(torch, lambda: K.fused_instance_norm_leaky_relu(x, s, bb, 0.1), iters),
+        dtype=dtype, max_abs_err=max_err, rtol=rtol, atol=atol,
+        bit_identical_rerun=repeats, one_launch_per_call=one_launch,
+        ms=ms, device_ms=dev,
         plain_ms=time_ms(torch, lambda: K.instance_norm_leaky_relu_plain(x, s, bb, 0.1), iters),
         bound_ms=bms, bound_by=by,
         library_ms=time_ms(torch, lambda: F.leaky_relu(
@@ -577,7 +600,7 @@ def phase_main_path(torch, K, checks, pkg):
         fn = model(use_pallas=use_pallas)
         for whole in (False, True):
             runs[(whole, use_pallas)] = fn
-    for (whole, _), fn in runs.items():           # warm-up (Triton JIT, cuDNN)
+    for (whole, _), fn in runs.items():           # warm-up (cuDNN plans)
         run_volume(torch, predict_volume, fn, vol, whole)
 
     K.reset_launches()
@@ -585,25 +608,36 @@ def phase_main_path(torch, K, checks, pkg):
             for key, fn in runs.items()}
     counts = K.launches()
     print("serving-path launches: " + json.dumps(counts), flush=True)
+    # K4: the 14 plain-layer norms of a volume (down_1 … down_4, upcat_4 …
+    # upcat_2, two each), once patch-stitched and once whole under use_pallas
     checks.record(all(counts[k] > 0 for k in SERVING_KERNELS)
+                  and counts["fused_instance_norm_leaky_relu"] == 2 * 14
                   and counts["conv3x3_packed_mma"] == counts["conv3x3_packed_mma_routed"] == 0,
                   dict(phase="main_path_launches", launches=counts))
 
-    timing = {}
+    # peak memory of each way alone, then 5 rounds of the four ways in turns
+    # (use_pallas on beside off, so that both see the same card state)
+    timing, ts = {}, {key: [] for key in runs}
     for (whole, use_pallas), fn in runs.items():
-        ts = []
         torch.cuda.reset_peak_memory_stats()
-        for _ in range(5):
+        run_volume(torch, predict_volume, fn, vol, whole)
+        key = f"{'whole' if whole else 'patch'}_use_pallas_{use_pallas}"
+        timing[key] = {"peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20}
+    for _ in range(5):
+        for (whole, use_pallas), fn in runs.items():
             t0 = time.perf_counter()
             run_volume(torch, predict_volume, fn, vol, whole)
-            ts.append((time.perf_counter() - t0) * 1e3)
-        peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+            ts[(whole, use_pallas)].append((time.perf_counter() - t0) * 1e3)
+    for (whole, use_pallas), t in ts.items():
         key = f"{'whole' if whole else 'patch'}_use_pallas_{use_pallas}"
-        timing[key] = {"ms_per_volume_median": statistics.median(ts),
-                       "ms_all": ts, "peak_mib": peak_mib}
-        print(f"ms/volume {key} (bf16): {statistics.median(ts):.3f} "
-              f"(runs {', '.join(f'{t:.3f}' for t in ts)}); peak "
-              f"{peak_mib:.0f} MiB allocated", flush=True)
+        timing[key].update(ms_per_volume_median=statistics.median(t), ms_all=t)
+        print(f"ms/volume {key} (bf16): {statistics.median(t):.3f} "
+              f"(runs {', '.join(f'{v:.3f}' for v in t)}); peak "
+              f"{timing[key]['peak_mib']:.0f} MiB allocated", flush=True)
+    for mode in ("patch", "whole"):
+        on, off = (timing[f"{mode}_use_pallas_{v}"]["ms_per_volume_median"] for v in (True, False))
+        print(f"serving {mode}: use_pallas on {on:.3f} ms / off {off:.3f} ms per volume "
+              f"(on/off {on / off:.3f})", flush=True)
     del runs
 
     # f32: packed kernel path (K1, K3, K4) vs the same weights on plain
@@ -736,7 +770,7 @@ def phase_train(torch, K, checks, pkg):
         state = create_gan_state(SEED, MODALITY, dataclasses.replace(mcfg, packed=packed),
                                  tcfg, "cuda")
         step = make_train_step(state.gen, state.disc, tcfg)
-        step(state, x, y)  # warm-up (cuDNN plans, Triton JIT)
+        step(state, x, y)  # warm-up (cuDNN plans)
         torch.cuda.synchronize()
         if packed:
             K.reset_launches()
@@ -845,6 +879,43 @@ def device_ms(torch, fn, kernel: str, iters: int = 20):
     return total / 1e3 / iters if total else None
 
 
+def sm_clock_under_load(torch, fn, seconds: float = 0.8):
+    """The SM clock (MHz) ``nvidia-smi`` reads every 20 ms while the card
+    runs ``fn`` back to back for ``seconds`` (the median of those samples,
+    the first three dropped), and the card's maximum: for the
+    special-function bound."""
+    top = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                                "--format=csv,noheader,nounits"], capture_output=True,
+                               text=True, timeout=60).stdout.split()[0])
+    fn()
+    torch.cuda.synchronize()
+    smi = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits",
+                            "-lms", "20"], stdout=subprocess.PIPE, text=True)
+    try:
+        smi.stdout.readline()  # sampling has started
+        t0, n = time.perf_counter(), 0
+        while time.perf_counter() - t0 < seconds:
+            fn()
+            n += 1
+        torch.cuda.synchronize()
+    finally:
+        smi.terminate()
+        out, _ = smi.communicate(timeout=60)
+    samples = [float(v) for v in out.split()][3:]
+    return {"mhz": statistics.median(samples) if samples else top, "max_mhz": top,
+            "samples": len(samples), "launches": n}
+
+
+def load_dir(nifti, path):
+    """Every NIfTI file of ``path`` by name, read in 8 threads."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    names = sorted(os.listdir(path))
+    with ThreadPoolExecutor(8) as pool:
+        arrays = pool.map(lambda fn: nifti.load_volume(str(path / fn))[0], names)
+        return dict(zip(names, arrays))
+
+
 def eigh_batch_limit(torch, mats) -> int:
     """The largest batch (V halved until it is taken) that cuSOLVER's
     batched eigh accepts: it refuses a whole (96, 128, 128) volume."""
@@ -885,10 +956,19 @@ def check_scalar_maps(torch, K, chk, checks, fields, shape, seed):
     chunk = eigh_batch_limit(torch, mats)
     lib_ms = time_ms(torch, lambda: [torch.linalg.eigh(mats[i:i + chunk])
                                      for i in range(0, nvox, chunk)], 3 if big else 20)
-    bms, by = bound(nvox * SCALAR_MAPS_BYTES_PER_VOXEL, nvox * SCALAR_MAPS_OPS_PER_VOXEL,
-                    "float32")
-    print(f"K8 scalar_maps {tuple(shape)}: {ms:.4f} ms per call, device {kern_ms} ms "
-          f"(bound {bms:.4f}, {by}; plain "
+    clock = sm_clock_under_load(torch, lambda: K.scalar_maps(d6))
+    t_bytes = nvox * SCALAR_MAPS_BYTES_PER_VOXEL / HBM_BYTES_PER_S * 1e3
+    t_ops = nvox * SCALAR_MAPS_OPS_PER_VOXEL / PEAK_OPS["float32"] * 1e3
+    t_mufu = nvox * SCALAR_MAPS_MUFU_PER_VOXEL / (
+        MUFU_PER_CLOCK_PER_SM * torch.cuda.get_device_properties(0).multi_processor_count
+        * clock["mhz"] * 1e6) * 1e3
+    bms = max(t_bytes, t_ops, t_mufu)
+    by = "bytes" if bms == t_bytes else "operations"
+    binding = {t_bytes: "bytes", t_ops: "f32 operations", t_mufu: "special functions"}[bms]
+    print(f"K8 scalar_maps {tuple(shape)}: {ms:.4f} ms per call, device {kern_ms} ms; "
+          f"bound {bms:.4f} ({binding}: bytes {t_bytes:.4f}, "
+          f"f32 operations {t_ops:.4f}, special functions {t_mufu:.4f} at "
+          f"{clock['mhz']} MHz); plain "
           f"{plain_ms:.3f}; torch.linalg.eigh {lib_ms:.3f} in {-(-nvox // chunk)} "
           f"call(s)); max err per field "
           f"{ {k: res[k]['max_abs_err'] for k in fields} }; bit-equal to plain "
@@ -900,7 +980,10 @@ def check_scalar_maps(torch, K, chk, checks, fields, shape, seed):
         fields={k: res[k] for k in fields}, gated_out=res["gated_out"],
         voxels=nvox, bitwise_equal_to_plain=bitwise, zeros_exact=zeros_exact,
         bit_identical_rerun=repeats, ms=ms, device_ms=kern_ms, plain_ms=plain_ms,
-        bound_ms=bms, bound_by=by, library_ms=lib_ms,
+        bound_ms=bms, bound_by=by, binding=binding,
+        bound_terms={"bytes_ms": t_bytes, "f32_operations_ms": t_ops,
+                     "special_functions_ms": t_mufu, "sm_clock": clock},
+        library_ms=lib_ms,
         library="torch.linalg.eigh on (V, 3, 3): the eigendecomposition alone",
         library_calls=-(-nvox // chunk)))
 
@@ -1002,7 +1085,24 @@ def _phase_eval(torch, K, checks, pkg, work):
     finally:
         evaluate.load_volume, evaluate.save_volume = load, save
     cpu_rows, cpu_wall = chain("host", "cpu", 8)
-    bad = chk.compare_error_tables(rows, cpu_rows)
+    # K8 contracts a·b + c into FMAs, so the card's maps are not the CPU's
+    # bit for bit: every file is held to the maps' bound carried through the
+    # chain, and each table cell to its share of its diff map's bound
+    t0 = time.perf_counter()
+    files = {k: load_dir(nifti, roots[k] / MODALITY) for k in ("card", "host")}
+    bounds = chk.chain_bounds(files["host"], load_rescale_args(RESCALE_ARGS))
+    chain_res = chk.compare_chain_files(files["card"], files["host"], bounds)
+    masks, probsegs = evaluate._load_masks(bids, EVAL_SUBJECTS, "derivatives/preproc-dove",
+                                           torch.device("cpu"))
+    cells = chk.table_cell_bounds(cpu_rows, files["card"], files["host"], bounds, masks,
+                                  probsegs)
+    del files, bounds
+    checks.record(chain_res["ok"], dict(phase="eval_files_cuda_vs_cpu",
+                                        failures=chain_res["failures"][:20],
+                                        most_left_out=max(chain_res["left_out"].values(),
+                                                          default=0),
+                                        seconds=time.perf_counter() - t0))
+    bad = chk.compare_error_tables(rows, cpu_rows, cells)
     worst = max(((k, abs(g[k] - c[k]) / max(abs(c[k]), 1e-300)) for g, c in zip(rows, cpu_rows)
                  for k in c if not isinstance(c[k], str)), key=lambda kv: kv[1], default=None)
     nvol = 2 * len(EVAL_SUBJECTS)
@@ -1363,7 +1463,7 @@ KERNEL_META = {
     "unpack_hw": ("cuda", "unet_bssfp_tpu_torch/csrc/layout.cu",
                   "unet_bssfp_tpu/ops/pallas/conv3d.py:1287"),
     "fused_instance_norm_leaky_relu": (
-        "triton", "unet_bssfp_tpu_torch/ops/kernels/norm_act.py",
+        "cuda", "unet_bssfp_tpu_torch/csrc/norm_act.cu",
         "unet_bssfp_tpu/ops/pallas/fused_norm_act.py:150"),
     "conv3x3_packed_dgrad": ("cuda", "unet_bssfp_tpu_torch/csrc/conv3x3_wgmma.cu",
                              "unet_bssfp_tpu/ops/pallas/conv3d.py:388"),
@@ -1457,6 +1557,7 @@ def summary(rows, by_path):
                     "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                     "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                     "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+                    **({"device_ms": row["device_ms"]} if "device_ms" in row else {}),
                     "shape": row["shape"], "dtype": row["dtype"]})
     return out
 

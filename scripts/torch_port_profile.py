@@ -33,10 +33,9 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-# K4's Triton kernels, by their exact names.
-K4_NAMES = {"_partial_sum", "_partial_m2", "_apply", "_single"}
 # (group, substrings of the kernel name), first match wins.
 GROUPS = (
+    ("K4 norm_act", ("norm_act_kernel",)),
     ("K1/K5 conv3x3_packed (fwd + dgrad, SAME and halo)", ("conv3x3_wgmma_",
                                                             "conv3x3_packed_")),
     ("K2 conv3x3_wgrad", ("conv3x3_wgrad_",)),
@@ -52,8 +51,6 @@ GROUPS = (
 
 
 def group_of(name: str) -> str:
-    if name in K4_NAMES:
-        return "K4 (Triton)"
     for group, keys in GROUPS:
         if any(k in name for k in keys):
             return group

@@ -1,4 +1,4 @@
-"""The port's CUDA/Triton kernels against their plain PyTorch versions, on
+"""The port's CUDA kernels against their plain PyTorch versions, on
 the card (``gpu`` marker; skipped without a CUDA device).
 
 This file imports no JAX, so it runs where the port runs:
@@ -154,6 +154,75 @@ def test_gpu_fused_norm_act_matches_plain(cuda, shape, dtype, atol):
     torch.testing.assert_close(got, ref, rtol=0, atol=atol)
 
 
+# K4 at the plain-layer stage shapes of serving under use_pallas (patch B 8,
+# whole volume B 1) and at odd ones: C 3 and 24 (no 16-byte vector), S 1, 7
+# and 513, B 1-8, and C past one channel group (f32 4100, bf16 8200).
+NORM_SERVING = [(n,) + tuple(s >> level for s in base) + (c,)
+                for n, base in ((8, (32, 32, 32)), (1, (48, 64, 64)))
+                for level, c in enumerate((64, 128, 256, 512))]
+NORM_ODD = [(1, 1, 1, 1, 3), (8, 1, 1, 1, 24), (3, 1, 1, 7, 3), (2, 7, 1, 1, 24),
+            (1, 1, 27, 19, 24), (5, 1, 3, 171, 3), (4, 3, 3, 3, 40)]
+
+
+def _norm_inputs(shape, dtype, device):
+    c = shape[-1]
+    g = torch.Generator(device="cuda").manual_seed(c + shape[0])
+    x = (3 * torch.randn(shape, device=device, generator=g) + 1).to(dtype)
+    s = 1 + 0.1 * torch.randn(c, device=device, generator=g)
+    b = 0.1 * torch.randn(c, device=device, generator=g)
+    return x, s, b
+
+
+def _assert_norm_close(got, ref, dtype):
+    # the smoke's bounds: f32, moments summed in another order; bf16, the
+    # output rounds once, so the two may land one bf16 ulp apart
+    rtol, atol = (1e-5, 1e-4) if dtype == torch.float32 else (2 ** -7, 1e-2)
+    err = (got.float() - ref.float()).abs()
+    assert bool((err <= atol + rtol * ref.float().abs()).all()), float(err.max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", NORM_SERVING + NORM_ODD + [(1, 1, 1, 5, 4100), (1, 1, 1, 3, 8200)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_fused_norm_act_stage_and_odd_shapes(cuda, shape, dtype):
+    x, s, b = _norm_inputs(shape, dtype, cuda)
+    K.reset_launches()
+    got = K.fused_instance_norm_leaky_relu(x, s, b, 0.1)
+    assert K.fused_instance_norm_leaky_relu.launches == 1
+    assert got.dtype == dtype and got.shape == x.shape
+    _assert_norm_close(got, K.instance_norm_leaky_relu_plain(x, s, b, 0.1), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_fused_norm_act_reruns_bit_for_bit_and_raises(cuda, dtype):
+    """Every sum runs in the plan's fixed order: a rerun gives the same bits.
+    One launch per call; an input off the 16-byte alignment takes narrower
+    vectors; a non-contiguous input, another dtype or a scale on another
+    device raises (no fallback)."""
+    x, s, b = _norm_inputs((8, 32, 32, 32, 64), dtype, cuda)
+    K.reset_launches()
+    first = K.fused_instance_norm_leaky_relu(x, s, b, 0.1)
+    assert all(torch.equal(first, K.fused_instance_norm_leaky_relu(x, s, b, 0.1))
+               for _ in range(3))
+    assert K.fused_instance_norm_leaky_relu.launches == 4
+    shape = (2, 5, 6, 7, 24)
+    buf = torch.zeros(1 + math.prod(shape), device=cuda, dtype=dtype)
+    odd = buf[1:].view(shape)
+    odd.copy_(_norm_inputs(shape, dtype, cuda)[0])
+    assert odd.is_contiguous() and odd.data_ptr() % 16
+    sc, bc = s[:24].contiguous(), b[:24].contiguous()
+    _assert_norm_close(K.fused_instance_norm_leaky_relu(odd, sc, bc, 0.2),
+                       K.instance_norm_leaky_relu_plain(odd, sc, bc, 0.2), dtype)
+    with pytest.raises(ValueError):
+        K.fused_instance_norm_leaky_relu(x.transpose(1, 2), s, b)
+    with pytest.raises(TypeError):
+        K.fused_instance_norm_leaky_relu(x.half(), s, b)
+    with pytest.raises(ValueError):
+        K.fused_instance_norm_leaky_relu(x, s.cpu(), b)
+    assert K.fused_instance_norm_leaky_relu.launches == 5
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("use_pallas", [False, True])
 def test_gpu_generator_packed_matches_plain(cuda, use_pallas):
@@ -228,11 +297,12 @@ def test_gpu_generator_phase_grads_packed_match_plain(cuda):
             assert err <= 5e-2, (name, err)
 
 
-# K8. The kernel repeats its plain version op for op (no a·b + c contraction,
-# IEEE division and square root), so on one card the two
-# differ at most by atan2f/acosf's last bits; they are held to the bound
-# two f32 implementations of the maps obey (compare_scalar_maps, derived
-# beside it), angles only where defined, zero voxels exactly.
+# K8. The kernel follows its plain version step for step with correctly
+# rounded division and square root, but contracts a·b + c into FMAs and
+# takes 1/sqrt(t² + 1) as one correctly rounded reciprocal square root, so
+# the two are not bit-equal: they are held to the bound two f32
+# implementations of the maps obey (compare_scalar_maps, derived beside it),
+# angles only where defined, zero voxels exactly.
 def _edge_tensors():
     """Zero, diagonal, isotropic, repeated-eigenvalue and 1e-3/1e3-scaled
     matrices, (n, 6)."""
@@ -267,7 +337,8 @@ def test_gpu_scalar_maps_matches_plain_and_repeats(cuda, shape):
     assert zero.any()
     for f in got:
         assert torch.all(f[zero] == 0)
-    # one thread per voxel, no reduction: the same bits on a second launch
+    # no reduction, each voxel's chain on its own: the same bits on a second
+    # launch
     assert all(torch.equal(a, b) for a, b in zip(got, K.scalar_maps(d6)))
 
 
@@ -293,9 +364,12 @@ def test_gpu_scalar_maps_takes_bf16_and_strided_input(cuda):
 def test_gpu_eval_chain_matches_cpu(cuda, tmp_path):
     """The eval chain on the card (K8) against the same chain on the CPU
     (plain versions), on a small synthetic tree: the written maps and the
-    error table. Maps: the K8 bound above; table cells:
-    ``compare_error_tables`` (the same maps give the same cells up to the
-    angles' last bits and one f32 rounding of each f64 sum)."""
+    error table. Maps: the K8 bound above; every file: that bound carried
+    through the chain (``chain_bounds``); table cells:
+    ``compare_error_tables`` with each cell's share of its diff map's bound
+    (K8 contracts a·b + c into FMAs, so its maps are not the CPU's bit for
+    bit), on top of one f32 rounding of each f64 sum."""
+    import os
     import shutil
 
     from unet_bssfp_tpu_torch.data.nifti import load_volume, save_volume
@@ -336,7 +410,19 @@ def test_gpu_eval_chain_matches_cpu(cuda, tmp_path):
                 for name in ScalarMaps._fields] for dev in ("cuda", "cpu")}
             res = chk.compare_scalar_maps(maps["cuda"], maps["cpu"], d6)
             assert res["ok"], (base, res)
-    assert chk.compare_error_tables(tables["cuda"], tables["cpu"]) == []
+    from unet_bssfp_tpu_torch.ops.scalar_maps import load_rescale_args
+
+    files = {dev: {fn: load_volume(os.path.join(tmp_path, dev, "pc-bssfp", fn))[0]
+                   for fn in sorted(os.listdir(tmp_path / dev / "pc-bssfp"))}
+             for dev in ("cuda", "cpu")}
+    bounds = chk.chain_bounds(files["cpu"], load_rescale_args(rescale))
+    res = chk.compare_chain_files(files["cuda"], files["cpu"], bounds)
+    assert res["ok"], res["failures"]
+    masks, probsegs = evaluate._load_masks(bids, ("01", "02"), "derivatives/preproc-dove",
+                                           torch.device("cpu"))
+    cells = chk.table_cell_bounds(tables["cpu"], files["cuda"], files["cpu"], bounds, masks,
+                                  probsegs)
+    assert chk.compare_error_tables(tables["cuda"], tables["cpu"], cells) == []
 
 
 # K5: the conv on an input with a real d halo, its dgrad and its wgrad, at

@@ -1,4 +1,4 @@
-"""Hand-written CUDA/Triton kernels of the port, each beside its plain
+"""Hand-written CUDA kernels of the port, each beside its plain
 PyTorch version and with a launch count on its wrapper."""
 
 from unet_bssfp_tpu_torch.ops.kernels.conv3d import (
@@ -64,7 +64,7 @@ from unet_bssfp_tpu_torch.ops.kernels.probe import (
     lane_roll,
     lane_roll_plain,
 )
-from unet_bssfp_tpu_torch.ops.kernels.scalar_maps import scalar_maps, scalar_maps_plain
+from unet_bssfp_tpu_torch.ops.kernels.scalar_maps import scalar_maps, scalar_maps_plain, scalar_maps_plan
 
 WRAPPERS = (conv3x3_packed, conv3x3_packed_dgrad, conv3x3_wgrad,
             conv3x3_packed_halo, conv3x3_packed_halo_dgrad, conv3x3_wgrad_halo,

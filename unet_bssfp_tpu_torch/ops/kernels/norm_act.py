@@ -1,30 +1,12 @@
-"""K4: fused InstanceNorm(affine) + LeakyReLU on NDHWC, in Triton.
+"""K4: fused InstanceNorm(affine) + LeakyReLU on NDHWC, one CUDA launch.
 
 Replaces ``unet_bssfp_tpu/ops/pallas/fused_norm_act.py::
-fused_instance_norm_leaky_relu`` (``_kernel``). The TPU kernel loads one
-(sample, channel block) volume into VMEM and does everything there; a
-Hopper block has no room for a 32³×64 volume, and blocks cannot carry a sum
-from one to the next, so the work is split:
-
-1. ``_partial_sum``: each program sums a chunk of rows (spatial positions)
-   for a block of channels, in f32.
-2. ``_partial_m2``: each program reads all chunk sums of its channels to
-   get the mean, then sums ``(x - mean)²`` over its chunk (the centred second
-   moment, as ``jnp.var`` and the TPU kernel compute it).
-3. ``_apply``: each program derives mean and variance from the partials and
-   writes ``leaky_relu((x - mean)·rsqrt(var + eps)·scale + bias)`` in the
-   input dtype.
-
-Where a sample has at most ``_SINGLE_MAX_ROWS`` spatial positions (the
-8³/4³ stages), ``_single`` runs the three phases in one program per
-(sample, channel block) instead: one launch instead of three.
-
-What bounds it on an H100: memory. It does a few operations per element and
-reads the input three times and writes it once (4 passes against the 2 a
-single fused pass needs). The stage tensors (≤ 33.5 MB in bf16, down_1
-in patch mode) fit the 50 MB L2, so the re-reads are mostly served from L2.
-Rows are the contiguous channel-minor NDHWC rows, so every load and store
-is coalesced along C.
+fused_instance_norm_leaky_relu`` (``_kernel``). The kernel is
+``csrc/norm_act.cu`` (its header says what bounds it and how the three
+phases of its one cooperative launch run, between two grid barriers);
+:func:`norm_plan` is its launch plan: the grid (every CTA the card holds at
+once), the tiles of whole rows each CTA owns, the rows it keeps in shared
+memory, and the fixed order in which the tiles' partials merge.
 
 :func:`instance_norm_leaky_relu_plain` is the same function in plain
 PyTorch: the CPU path, the kernel's reference, and (recomputed under
@@ -33,14 +15,30 @@ autograd) the backward, as in the JAX package.
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
+import functools
+from typing import Callable, Iterator, Tuple
+
 import torch
 
+from unet_bssfp_tpu_torch.ops.kernels import _build
+
 _DTYPES = (torch.float32, torch.bfloat16)
-_BLOCK_ROWS = 64
-_TARGET_PROGRAMS = 1024
-# Up to this many spatial positions per sample, one program per (sample,
-# channel block) runs all three phases (one launch instead of three).
-_SINGLE_MAX_ROWS = 512
+# Threads a CTA aims at (a row's columns times the rows walked at once), and
+# the most columns one channel group may have (one thread each): the
+# kernel's launch bound (csrc/norm_act.cu:MAX_THREADS), which leaves each
+# thread 128 registers.
+THREADS = 512
+MAX_COLS = 512
+# The H100's opt-in shared memory per block (227 KB): the plan's budget
+# where no card is asked (the wrapper passes the card's own).
+SMEM_OPTIN = 232448
+# A tile of a small sample is cut no finer than this: every CTA of a (sample,
+# channel group) merges all k of its tiles' partials, so that L2 traffic
+# grows as k² (scripts/torch_port_norm_ablation.py sweeps it at the small
+# stages).
+MIN_TILE_BYTES = 32768
 
 
 def instance_norm_leaky_relu_plain(x: torch.Tensor, scale: torch.Tensor,
@@ -58,139 +56,172 @@ def instance_norm_leaky_relu_plain(x: torch.Tensor, scale: torch.Tensor,
     return torch.where(y >= 0, y, negative_slope * y).to(x.dtype)
 
 
-_KERNELS = None
+class NormPlanC(ctypes.Structure):
+    """The plan as ``csrc/norm_act.cu`` reads it."""
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "bf16", "vec", "n", "c", "cg", "ncg", "cols", "lanes", "lanes_p2", "threads", "k",
+        "items", "grid", "smem_rows", "smem_bytes", "scratch_bytes")] + [("s", ctypes.c_longlong)]
 
 
-def _kernels():
-    """Define the Triton kernels on first use (this module is imported on
-    machines without Triton)."""
-    global _KERNELS
-    if _KERNELS is not None:
-        return _KERNELS
-    import triton
-    import triton.language as tl
+@dataclasses.dataclass(frozen=True)
+class NormPlan:
+    """One launch of K4 on (n, s, c) rows.
 
-    @triton.jit
-    def _rows(n, start, r0, cols, cmask, S, C, BLOCK_ROWS: tl.constexpr):
-        """Offsets and mask of one (BLOCK_ROWS, BLOCK_C) tile of sample n."""
-        r = start + r0 + tl.arange(0, BLOCK_ROWS)
-        m = (r < S)[:, None] & cmask[None, :]
-        off = n.to(tl.int64) * S * C + r.to(tl.int64)[:, None] * C + cols[None, :]
-        return off, m
+    Item ``i`` of ``items`` is the tile (sample, channel group, row chunk) =
+    (i // (k·ncg), i // k % ncg, i % k): rows [s·chunk // k, s·(chunk+1) // k)
+    of that sample, channels [g·cg, min(c, (g+1)·cg)). CTA b takes items b,
+    b + grid, ... and keeps their rows, in that order, in ``smem_rows`` rows
+    of shared memory; the rest it reads again. Thread t of a CTA is column
+    t % cols (``vec`` channels) of row lane = t // cols, and sums rows lane,
+    lane + lanes, ... of a tile in that order; the lanes' sums meet in a
+    tree (stride lanes_p2 / 2, then half that, ...), and the tiles'
+    partials of a (sample, channel) merge in chunk order 0, 1, ..., k - 1."""
+    n: int
+    s: int
+    c: int
+    bf16: bool
+    vec: int          # elements per load and store (16 bytes where C and the pointer allow)
+    cg: int           # channels per group, a multiple of vec
+    ncg: int          # channel groups
+    cols: int         # cg // vec: threads across a row
+    lanes: int        # rows a CTA walks at once
+    threads: int      # cols · lanes
+    k: int            # row chunks per (sample, channel group)
+    grid: int         # CTAs, all resident at once
+    smem_rows: int    # rows of cg elements a CTA keeps in shared memory
+    scratch_bytes: int
+    smem_bytes: int   # scratch + kept rows: the launch's dynamic shared memory
 
-    @triton.jit
-    def _chunk_sum(x_ptr, n, start, CHUNK, cols, cmask, S, C,
-                   BLOCK_ROWS: tl.constexpr, BLOCK_C: tl.constexpr):
-        acc = tl.zeros((BLOCK_ROWS, BLOCK_C), dtype=tl.float32)
-        for r0 in range(0, CHUNK, BLOCK_ROWS):
-            off, m = _rows(n, start, r0, cols, cmask, S, C, BLOCK_ROWS)
-            acc += tl.load(x_ptr + off, mask=m, other=0.0).to(tl.float32)
-        return tl.sum(acc, axis=0)
+    @property
+    def items(self) -> int:
+        return self.n * self.ncg * self.k
 
-    @triton.jit
-    def _chunk_m2(x_ptr, n, start, CHUNK, cols, cmask, S, C, mean,
-                  BLOCK_ROWS: tl.constexpr, BLOCK_C: tl.constexpr):
-        acc = tl.zeros((BLOCK_ROWS, BLOCK_C), dtype=tl.float32)
-        for r0 in range(0, CHUNK, BLOCK_ROWS):
-            off, m = _rows(n, start, r0, cols, cmask, S, C, BLOCK_ROWS)
-            v = tl.load(x_ptr + off, mask=m, other=0.0).to(tl.float32)
-            dv = tl.where(m, v - mean[None, :], 0.0)
-            acc += dv * dv
-        return tl.sum(acc, axis=0)
+    @property
+    def lanes_p2(self) -> int:
+        return 1 << (self.lanes - 1).bit_length()
 
-    @triton.jit
-    def _chunk_apply(x_ptr, y_ptr, n, start, CHUNK, cols, cmask, S, C, mean,
-                     mul, shift, slope, BLOCK_ROWS: tl.constexpr):
-        for r0 in range(0, CHUNK, BLOCK_ROWS):
-            off, m = _rows(n, start, r0, cols, cmask, S, C, BLOCK_ROWS)
-            v = tl.load(x_ptr + off, mask=m, other=0.0).to(tl.float32)
-            yv = (v - mean[None, :]) * mul[None, :] + shift[None, :]
-            yv = tl.where(yv >= 0, yv, slope * yv)
-            tl.store(y_ptr + off, yv.to(y_ptr.dtype.element_ty), mask=m)
+    @property
+    def workspace(self) -> int:
+        """f32 elements of the partials' workspace: the tiles' sums, then
+        their second moments about the sample's mean."""
+        return 2 * self.n * self.k * self.c
 
-    @triton.jit
-    def _mean_of(part_ptr, n, cols, cmask, S, C, NSPLIT,
-                 SPLIT_P2: tl.constexpr):
-        """Σ over the NSPLIT chunk partials of sample n, divided by S."""
-        sps = tl.arange(0, SPLIT_P2)
-        pm = (sps < NSPLIT)[:, None] & cmask[None, :]
-        parts = tl.load(part_ptr + (n * NSPLIT + sps)[:, None] * C + cols[None, :],
-                        mask=pm, other=0.0)
-        return tl.sum(parts, axis=0) / S
+    def item(self, i: int) -> Tuple[int, int, int, int, int]:
+        """(sample, first channel, channels, first row, rows) of item i."""
+        chunk, g, n = i % self.k, i // self.k % self.ncg, i // (self.k * self.ncg)
+        r0, r1 = self.s * chunk // self.k, self.s * (chunk + 1) // self.k
+        c0 = g * self.cg
+        return n, c0, min(self.cg, self.c - c0), r0, r1 - r0
 
-    @triton.jit
-    def _partial_sum(x_ptr, part_ptr, S, C, CHUNK, NSPLIT,
-                     BLOCK_ROWS: tl.constexpr, BLOCK_C: tl.constexpr):
-        n, sp = tl.program_id(0), tl.program_id(1)
-        cols = tl.program_id(2) * BLOCK_C + tl.arange(0, BLOCK_C)
-        cmask = cols < C
-        s1 = _chunk_sum(x_ptr, n, sp * CHUNK, CHUNK, cols, cmask, S, C,
-                        BLOCK_ROWS, BLOCK_C)
-        tl.store(part_ptr + (n * NSPLIT + sp) * C + cols, s1, mask=cmask)
+    def cta_items(self, b: int) -> Iterator[int]:
+        return iter(range(b, self.items, self.grid))
 
-    @triton.jit
-    def _partial_m2(x_ptr, part_ptr, m2_ptr, S, C, CHUNK, NSPLIT,
-                    BLOCK_ROWS: tl.constexpr, BLOCK_C: tl.constexpr,
-                    SPLIT_P2: tl.constexpr):
-        n, sp = tl.program_id(0), tl.program_id(1)
-        cols = tl.program_id(2) * BLOCK_C + tl.arange(0, BLOCK_C)
-        cmask = cols < C
-        mean = _mean_of(part_ptr, n, cols, cmask, S, C, NSPLIT, SPLIT_P2)
-        m2 = _chunk_m2(x_ptr, n, sp * CHUNK, CHUNK, cols, cmask, S, C, mean,
-                       BLOCK_ROWS, BLOCK_C)
-        tl.store(m2_ptr + (n * NSPLIT + sp) * C + cols, m2, mask=cmask)
-
-    @triton.jit
-    def _apply(x_ptr, part_ptr, m2_ptr, scale_ptr, bias_ptr, y_ptr,
-               S, C, CHUNK, NSPLIT, slope, eps,
-               BLOCK_ROWS: tl.constexpr, BLOCK_C: tl.constexpr,
-               SPLIT_P2: tl.constexpr):
-        n, sp = tl.program_id(0), tl.program_id(1)
-        cols = tl.program_id(2) * BLOCK_C + tl.arange(0, BLOCK_C)
-        cmask = cols < C
-        mean = _mean_of(part_ptr, n, cols, cmask, S, C, NSPLIT, SPLIT_P2)
-        var = _mean_of(m2_ptr, n, cols, cmask, S, C, NSPLIT, SPLIT_P2)
-        mul = tl.rsqrt(var + eps) * tl.load(scale_ptr + cols, mask=cmask, other=1.0)
-        shift = tl.load(bias_ptr + cols, mask=cmask, other=0.0)
-        _chunk_apply(x_ptr, y_ptr, n, sp * CHUNK, CHUNK, cols, cmask, S, C,
-                     mean, mul, shift, slope, BLOCK_ROWS)
-
-    @triton.jit
-    def _single(x_ptr, scale_ptr, bias_ptr, y_ptr, S, C, slope, eps,
-                BLOCK_ROWS: tl.constexpr, BLOCK_C: tl.constexpr):
-        """All three phases in one program per (sample, channel block): the
-        small-volume stages, where three launches would cost more than the
-        work."""
-        n = tl.program_id(0)
-        cols = tl.program_id(2) * BLOCK_C + tl.arange(0, BLOCK_C)
-        cmask = cols < C
-        mean = _chunk_sum(x_ptr, n, 0, S, cols, cmask, S, C,
-                          BLOCK_ROWS, BLOCK_C) / S
-        var = _chunk_m2(x_ptr, n, 0, S, cols, cmask, S, C, mean,
-                        BLOCK_ROWS, BLOCK_C) / S
-        mul = tl.rsqrt(var + eps) * tl.load(scale_ptr + cols, mask=cmask, other=1.0)
-        shift = tl.load(bias_ptr + cols, mask=cmask, other=0.0)
-        _chunk_apply(x_ptr, y_ptr, n, 0, S, cols, cmask, S, C, mean, mul,
-                     shift, slope, BLOCK_ROWS)
-
-    _KERNELS = (triton, _partial_sum, _partial_m2, _apply, _single)
-    return _KERNELS
+    def as_c(self) -> NormPlanC:
+        return NormPlanC(int(self.bf16), self.vec, self.n, self.c, self.cg, self.ncg, self.cols,
+                         self.lanes, self.lanes_p2, self.threads, self.k, self.items, self.grid,
+                         self.smem_rows, self.smem_bytes, self.scratch_bytes, self.s)
 
 
-def _split(n: int, s: int, c_blocks: int):
-    """(rows per program, number of row chunks): enough programs to fill the
-    card, every chunk a whole number of row blocks."""
-    def cdiv(a, b):
-        return -(-a // b)
+def norm_plan(n: int, s: int, c: int, bf16: bool, sms: int,
+              blocks_per_sm: Callable[[int, int, int], int],
+              smem_optin: int = SMEM_OPTIN, align: int = 16,
+              min_tile: int = MIN_TILE_BYTES) -> NormPlan:
+    """K4's launch plan for (n, s, c) rows of f32 or bf16 on a card with
+    ``sms`` SMs; ``blocks_per_sm(vec, threads, smem_bytes)`` is how many such
+    CTAs one SM holds at once (the card's occupancy), ``align`` the largest
+    power of two (≤ 16) dividing the byte address of x. Tiles are whole rows
+    of one sample; a sample's rows are cut into k chunks so that there are
+    about as many tiles as SMs, but none under ``min_tile`` bytes; each CTA
+    keeps as many of its rows in shared memory as fit."""
+    if min(n, s, c) < 1:
+        raise ValueError(f"norm_plan: empty shape {(n, s, c)}")
+    el = 2 if bf16 else 4
+    vec = 16 // el
+    while vec > 1 and (c % vec or align % (vec * el)):
+        vec //= 2
+    cols = min(c // vec, MAX_COLS)
+    cg = cols * vec
+    ncg = -(-c // cg)
+    lanes = max(1, THREADS // cols)
+    threads = cols * lanes
+    row_bytes = cg * el
+    k = max(1, min(s, sms // (n * ncg), -(-s * row_bytes // min_tile)))
+    items = n * ncg * k
+    rows_max = -(-s // k)
+    # the lanes' sums, or the merged means and variances; the rows after it
+    # 16-byte aligned
+    scratch = -(-4 * max(threads * vec, 2 * cg) // 16) * 16
+    per_cta = -(-items // sms)
+    keep = min(per_cta * rows_max, (smem_optin - scratch) // row_bytes)
+    if keep < 0:
+        raise ValueError(f"norm_plan: {scratch} bytes of scratch exceed the card's "
+                         f"{smem_optin} bytes of shared memory")
+    smem = scratch + keep * row_bytes
+    occupancy = blocks_per_sm(vec, threads, smem)
+    if occupancy < 1:
+        raise RuntimeError(f"norm_plan: no CTA of {threads} threads and {smem} bytes of "
+                           "shared memory fits on an SM")
+    grid = min(items, occupancy * sms)
+    return NormPlan(n=n, s=s, c=c, bf16=bf16, vec=vec, cg=cg, ncg=ncg, cols=cols, lanes=lanes,
+                    threads=threads, k=k, grid=grid, smem_rows=keep, scratch_bytes=scratch,
+                    smem_bytes=smem)
 
-    nsplit = min(cdiv(s, _BLOCK_ROWS),
-                 max(1, cdiv(_TARGET_PROGRAMS, n * c_blocks)))
-    chunk = cdiv(cdiv(s, nsplit), _BLOCK_ROWS) * _BLOCK_ROWS
-    return chunk, cdiv(s, chunk)
+
+_LIB = None
+
+
+def _lib() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is None:
+        lib = _build.load("norm_act")
+        lib.norm_act.argtypes = ([ctypes.POINTER(NormPlanC)] + [ctypes.c_void_p] * 5
+                                 + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+        lib.norm_act.restype = ctypes.c_int
+        lib.norm_act_blocks_per_sm.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+        lib.norm_act_blocks_per_sm.restype = ctypes.c_int
+        lib.norm_act_device.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
+        lib.norm_act_device.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+@functools.lru_cache(maxsize=None)
+def _device(index: int) -> Tuple[int, int]:
+    """(SMs, opt-in shared memory per block) of CUDA device ``index``, read
+    once; raises where it takes no cooperative launch."""
+    lib, out = _lib(), [ctypes.c_int() for _ in range(3)]
+    with torch.cuda.device(index):
+        _build.check(lib, lib.norm_act_device(*[ctypes.byref(o) for o in out]),
+                     "fused_instance_norm_leaky_relu")
+    sms, optin, coop = (o.value for o in out)
+    if not coop:
+        raise RuntimeError(f"fused_instance_norm_leaky_relu: device {index} takes no "
+                           "cooperative launch")
+    return sms, optin
+
+
+@functools.lru_cache(maxsize=None)
+def _blocks_per_sm(index: int, bf16: bool, vec: int, threads: int, smem: int) -> int:
+    lib, out = _lib(), ctypes.c_int()
+    with torch.cuda.device(index):
+        _build.check(lib, lib.norm_act_blocks_per_sm(int(bf16), vec, threads, smem,
+                                                     ctypes.byref(out)),
+                     "fused_instance_norm_leaky_relu")
+    return out.value
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(index: int, n: int, s: int, c: int, bf16: bool, align: int):
+    """The plan (and its C struct) for device ``index``, cached per shape."""
+    sms, optin = _device(index)
+    plan = norm_plan(n, s, c, bf16, sms,
+                     lambda vec, threads, smem: _blocks_per_sm(index, bf16, vec, threads, smem),
+                     optin, align)
+    return plan, plan.as_c()
 
 
 def _norm_act_fwd(x, scale, bias, negative_slope, epsilon):
-    """The Triton kernels (CUDA) or the plain version (CPU); no autograd."""
+    """The kernel (CUDA) or the plain version (CPU); no autograd."""
     if x.device.type == "cpu":
         return instance_norm_leaky_relu_plain(x, scale, bias, negative_slope,
                                               epsilon)
@@ -203,34 +234,22 @@ def _norm_act_fwd(x, scale, bias, negative_slope, epsilon):
     n, c = x.shape[0], x.shape[-1]
     if scale.shape != (c,) or bias.shape != (c,):
         raise ValueError("fused_instance_norm_leaky_relu: scale/bias must be (C,)")
-    triton, k_sum, k_m2, k_apply, k_single = _kernels()
-    s = x.numel() // (n * c)
-    block_c = min(triton.next_power_of_2(c), 128)
-    c_blocks = -(-c // block_c)
+    if scale.device != x.device or bias.device != x.device:
+        raise ValueError("fused_instance_norm_leaky_relu: scale/bias on another device")
     y = torch.empty_like(x)
+    if not x.numel():
+        return y
+    ptr = x.data_ptr()
+    plan, cplan = _plan(x.get_device(), n, x.numel() // (n * c), c,
+                        x.dtype == torch.bfloat16, min(16, ptr & -ptr))
+    part = torch.empty(plan.workspace, dtype=torch.float32, device=x.device)
     g = scale.detach().float().contiguous()
     b = bias.detach().float().contiguous()
-    if s <= _SINGLE_MAX_ROWS:
-        with torch.cuda.device(x.device):
-            k_single[(n, 1, c_blocks)](x, g, b, y, s, c, float(negative_slope),
-                                       float(epsilon), BLOCK_ROWS=_BLOCK_ROWS,
-                                       BLOCK_C=block_c)
-        fused_instance_norm_leaky_relu.launches += 1
-        return y
-    chunk, nsplit = _split(n, s, c_blocks)
-    split_p2 = triton.next_power_of_2(nsplit)
-    part = torch.empty((n, nsplit, c), dtype=torch.float32, device=x.device)
-    m2 = torch.empty_like(part)
-    grid = (n, nsplit, c_blocks)
-    with torch.cuda.device(x.device):
-        k_sum[grid](x, part, s, c, chunk, nsplit,
-                    BLOCK_ROWS=_BLOCK_ROWS, BLOCK_C=block_c)
-        k_m2[grid](x, part, m2, s, c, chunk, nsplit,
-                   BLOCK_ROWS=_BLOCK_ROWS, BLOCK_C=block_c, SPLIT_P2=split_p2)
-        k_apply[grid](x, part, m2, g, b, y, s, c, chunk, nsplit,
-                      float(negative_slope), float(epsilon),
-                      BLOCK_ROWS=_BLOCK_ROWS, BLOCK_C=block_c,
-                      SPLIT_P2=split_p2)
+    lib = _lib()
+    rc = _build.launch(lib.norm_act, x, ctypes.byref(cplan), ptr, g.data_ptr(),
+                       b.data_ptr(), y.data_ptr(), part.data_ptr(),
+                       float(negative_slope), float(epsilon))
+    _build.check(lib, rc, "fused_instance_norm_leaky_relu")
     fused_instance_norm_leaky_relu.launches += 1
     return y
 
@@ -266,7 +285,7 @@ def fused_instance_norm_leaky_relu(x: torch.Tensor, scale: torch.Tensor,
     """Fused IN+LeakyReLU on NDHWC ``x`` → same shape and dtype,
     differentiable. A CPU tensor takes
     :func:`instance_norm_leaky_relu_plain`; a CUDA tensor launches the
-    Triton kernels or raises. The backward is the plain version's."""
+    kernel once or raises. The backward is the plain version's."""
     return _FusedNormAct.apply(x, scale, bias, negative_slope, epsilon)
 
 

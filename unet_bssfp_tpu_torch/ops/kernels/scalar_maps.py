@@ -4,7 +4,10 @@ Replaces ``unet_bssfp_tpu/ops/pallas/scalar_maps_kernel.py::
 scalar_maps_planar``. The kernel is ``csrc/scalar_maps.cu`` (its header says
 what bounds it and how it is laid out); :func:`scalar_maps_plain` is the same
 function in plain PyTorch (``unet_bssfp_tpu/ops/scalar_maps.py:33-72``), the
-CPU path and the kernel's reference, which the kernel repeats op for op.
+CPU path and the kernel's reference, which the kernel repeats step for step
+(with FMA contraction and a correctly rounded reciprocal square root, so
+within the bound of ``ops/scalar_maps_check.py``, not bit for bit).
+:func:`scalar_maps_plan` is the launch plan: voxels per thread and blocks.
 """
 
 from __future__ import annotations
@@ -21,6 +24,28 @@ from unet_bssfp_tpu_torch.ops.kernels import _build
 
 RAD2DEG = 180.0 / math.pi
 _COUNT_LOCK = threading.Lock()
+THREADS = 128  # csrc/scalar_maps.cu: THREADS, threads per block
+VPT = 1        # csrc/scalar_maps.cu: VPT, voxels per thread (its comment says why)
+
+
+def scalar_maps_plan(nvox: int, vpt: int = VPT) -> int:
+    """The blocks of a launch on ``nvox`` voxels with ``vpt`` voxels per
+    thread (the kernel's VPT): every voxel once, as :func:`plan_voxels`
+    lists them."""
+    if vpt < 1:
+        raise ValueError(f"scalar_maps: {vpt} voxels per thread")
+    return -(-nvox // (THREADS * vpt))
+
+
+def plan_voxels(blocks: int, vpt: int) -> torch.Tensor:
+    """The voxel the kernel gives (block, j, thread), as a (blocks, vpt,
+    THREADS) index: block·THREADS·vpt + j·THREADS + thread, so each j is a
+    coalesced run across the warp. Indices ≥ V are computed on voxel V - 1
+    and not stored."""
+    b = torch.arange(blocks)[:, None, None] * (THREADS * vpt)
+    return b + torch.arange(vpt)[None, :, None] * THREADS + torch.arange(THREADS)
+
+
 
 
 def scalar_maps_plain(d6: torch.Tensor) -> Tuple[torch.Tensor, ...]:
@@ -71,14 +96,12 @@ def scalar_maps(d6: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     rgb = torch.empty((nvox, 3), dtype=torch.float32, device=x.device)
     if nvox:
         lib = _lib()
-        with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            rc = lib.scalar_maps(x.data_ptr(), planes.data_ptr(), rgb.data_ptr(),
-                                 nvox, stream)
+        rc = _build.launch(lib.scalar_maps, x, x.data_ptr(), planes.data_ptr(),
+                           rgb.data_ptr(), nvox, scalar_maps_plan(nvox))
         _build.check(lib, rc, "scalar_maps")
         with _COUNT_LOCK:  # the eval chain launches from several threads
             scalar_maps.launches += 1
-    return tuple(p.view(shape) for p in planes) + (rgb.view(shape + (3,)),)
+    return planes.view((6,) + shape).unbind(0) + (rgb.view(shape + (3,)),)
 
 
 scalar_maps.launches = 0
@@ -87,8 +110,8 @@ scalar_maps.launches = 0
 def _lib() -> ctypes.CDLL:
     lib = _build.load("scalar_maps")
     if not getattr(lib, "_typed", False):
-        lib.scalar_maps.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong,
-                                                            ctypes.c_void_p]
+        lib.scalar_maps.argtypes = [ctypes.c_void_p] * 3 + [
+            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
         lib.scalar_maps.restype = ctypes.c_int
         lib._typed = True
     return lib

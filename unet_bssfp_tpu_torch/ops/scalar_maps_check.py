@@ -2,15 +2,16 @@
 against its plain version, either against the JAX package): realistic
 tensors to check them on (:func:`sample_dt_volume`), the per-voxel bound
 they obey (:func:`scalar_maps_tolerance`, :func:`compare_scalar_maps`), and
-the bound that carries into the ROI error table
-(:func:`compare_error_tables`). The tests and ``chip_smoke.py`` use these;
-the eval path does not.
+how that bound carries through the eval chain's files
+(:func:`chain_bounds`, :func:`compare_chain_files`) into the ROI error
+table (:func:`table_cell_bounds`, :func:`compare_error_tables`). The tests
+and ``chip_smoke.py`` use these; the eval path does not.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -136,19 +137,165 @@ def compare_scalar_maps(got, ref, d6: torch.Tensor, angle_atol: float = 0.0,
     return out
 
 
+def _relative_bound(p, t, dp, dt, den=None, dden=None):
+    """Bound on |Δ(|p − t|/den)| for p, t known within dp, dt (den = |t| by
+    default): first order in dp/den, dden/den, plus the output's rounding;
+    inf where the denominator is within 2·dden of 0 (ill-conditioned)."""
+    den = np.abs(t) if den is None else den
+    dden = dt if dden is None else dden
+    r = np.abs(p - t) / np.where(den == 0, 1, den)
+    b = (dp + dt) / den + r * dden / np.maximum(den - dden, 1e-300) + 4 * U * r
+    b = np.where(den > 2 * dden, b, np.inf)
+    return np.where((dp == 0) & (dt == 0) & (dden == 0), 4 * U * r, b)
+
+
+def chain_bounds(files: Dict[str, np.ndarray], minmax) -> Dict[str, np.ndarray]:
+    """Per-file bound on |a − b| between two runs of the eval chain
+    (``eval.evaluate.eval_dwi_tensors``) on the same predictions that differ
+    in their scalar-maps implementation (e.g. K8 on the card against its
+    plain version on the CPU) and may round x·a + b as one FMA, from one
+    run's files (name → array; ``minmax``: the rescale arguments). Inputs
+    copied: 0; de-normalised: 2u·(|x|·a + |b|); maps:
+    :func:`scalar_maps_tolerance` with that input bound; the relative-error
+    maps (``diff-``, and ``dfloor-`` with its floor 0.1·mean|t| over t ≠ 0,
+    whose N-term sum rounds by N·u and moves with the mean of dt): first
+    order in their inputs' bounds, inf where a denominator is within twice
+    its own bound of 0; the angles' diff maps: the sum of their bounds plus
+    4u·180°."""
+    from unet_bssfp_tpu_torch.eval.evaluate import parse_pred_name
+
+    mm = np.asarray(minmax, np.float32)
+    a, b = np.abs(mm[:, 1] - mm[:, 0]), mm[:, 0]
+    bounds = {}
+    for fn, x in files.items():
+        ents = parse_pred_name(fn)
+        if ents["kind"] in ("pred", "target") and ents["deriv"] == "":
+            bounds[fn] = np.zeros_like(x)
+        elif ents["kind"] in ("pred", "target") and ents["deriv"] == "denorm":
+            bounds[fn] = 2 * U * (np.abs(files[fn.replace("_denorm", "")]) * a + np.abs(b))
+    for fn, x in files.items():
+        ents = parse_pred_name(fn)
+        if ents["kind"] in ("pred", "target") and ents["deriv"] == "denorm":
+            tol, _ = scalar_maps_tolerance(torch.from_numpy(x),
+                                           input_err=torch.from_numpy(bounds[fn].max(-1)))
+            for k, v in tol.items():
+                mfn = fn.replace("_denorm", f"_{k}")
+                bounds[mfn] = v.numpy().reshape(files[mfn].shape)
+    for fn, x in files.items():
+        ents = parse_pred_name(fn)
+        if ents["kind"] not in ("diff", "dfloor"):
+            continue
+        pfn = fn.replace(f"{ents['kind']}-", "pred-", 1)
+        tfn = pfn.replace("pred-", "target-", 1)
+        p, t = files[pfn].astype(np.float64), files[tfn].astype(np.float64)
+        dp, dt = bounds[pfn], bounds[tfn]
+        if ents["deriv"] in ("azimuth", "inclination"):
+            bounds[fn] = dp + dt + 4 * U * 180
+        elif ents["kind"] == "diff":
+            bounds[fn] = _relative_bound(p, t, dp, dt)
+        else:
+            at = np.abs(t)
+            axes = (0, 1, 2)
+            nz = at > 0
+            count = np.maximum(nz.sum(axes, keepdims=True), 1)
+            scale = (at * nz).sum(axes, keepdims=True) / count
+            dscale = (dt * nz).sum(axes, keepdims=True) / count + at[..., :1].size * U * scale
+            den = np.maximum(at, 0.1 * scale)
+            dden = np.where(at >= 0.1 * scale, dt, 0.1 * dscale) + np.zeros_like(at)
+            bounds[fn] = _relative_bound(p, t, dp, dt, den, dden)
+    return bounds
+
+
+def compare_chain_files(got: Dict[str, np.ndarray], ref: Dict[str, np.ndarray],
+                        bounds: Dict[str, np.ndarray]) -> Dict[str, object]:
+    """Hold every file of one chain run to the other's at ``bounds``
+    (:func:`chain_bounds`): the same names, shapes and inf/NaN pattern, and
+    |Δ| within the bound wherever it is finite (angles as
+    :func:`angular_error_map`). Returns the files past their bound
+    (``failures``), per file the voxels left out (an infinite bound), and
+    ``ok``."""
+    from unet_bssfp_tpu_torch.eval.evaluate import parse_pred_name
+
+    failures, left_out = [], {}
+    if sorted(got) != sorted(ref):
+        return {"ok": False, "failures": [("names", sorted(got), sorted(ref))], "left_out": {}}
+    for fn, x in got.items():
+        y, bnd = ref[fn], bounds[fn]
+        if x.shape != y.shape:
+            failures.append((fn, "shape", x.shape, y.shape))
+            continue
+        if not (np.array_equal(np.isnan(x), np.isnan(y))
+                and np.array_equal(np.isinf(x), np.isinf(y))):
+            failures.append((fn, "inf/nan pattern"))
+            continue
+        fin = np.isfinite(x) & np.isfinite(bnd)
+        if parse_pred_name(fn)["deriv"] in ("azimuth", "inclination"):
+            err = angular_error_map(torch.from_numpy(x).double(),
+                                    torch.from_numpy(y).double()).numpy()
+        else:
+            err = np.abs(x.astype(np.float64) - y)
+        over = err[fin] - bnd[fin]
+        if over.size and over.max() > 0:
+            failures.append((fn, "past bound", float(over.max())))
+        left_out[fn] = int((~np.isfinite(bnd) & np.isfinite(x)).sum())
+    return {"ok": not failures, "failures": failures, "left_out": left_out}
+
+
+def table_cell_bounds(rows: List[Dict[str, object]], got: Dict[str, np.ndarray],
+                      ref: Dict[str, np.ndarray], bounds: Dict[str, np.ndarray],
+                      masks, probsegs) -> List[Dict[str, float]]:
+    """Per row and value column of an error table (``calc_error_table``'s
+    rows of one run), how far the other run's cell may lie from it given the
+    diff maps' bounds (:func:`chain_bounds`): each cell is Σ p·|diff| / Σ p
+    over the subject's masked probseg (``masks``, ``probsegs``: the chain's
+    own, by subject), so it moves by the probseg-weighted mean of its diff
+    map's bound; voxels left out of that bound count with their measured
+    difference between ``got`` and ``ref``."""
+    from unet_bssfp_tpu_torch.eval.evaluate import ROI_NAMES, TENSOR_COLS
+
+    out = []
+    for row in rows:
+        mask = np.asarray(masks[row["sub"]]) > 0
+        w = np.asarray(probsegs[row["sub"]])[..., ROI_NAMES.index(row["roi"])]
+        cells = {}
+        for col, v in row.items():
+            if isinstance(v, str):
+                continue
+            base = col[: -len("_floored")] if col.endswith("_floored") else col
+            kind = "dfloor" if col.endswith("_floored") else "diff"
+            deriv = "" if base in TENSOR_COLS else f"_{base}"
+            fn = (f"{kind}-{row['pred_id']}_mod-{row['modality']}_sub-{row['sub']}"
+                  f"_ses-{row['ses']}{deriv}.nii.gz")
+            x, y, bnd = got[fn], ref[fn], bounds[fn]
+            if deriv:
+                x, y, bnd = x[..., 0], y[..., 0], bnd.reshape(x.shape)[..., 0]
+            else:
+                ch = TENSOR_COLS.index(base)
+                x, y, bnd = x[..., ch], y[..., ch], bnd[..., ch]
+            keep = mask & np.isfinite(x)
+            measured = np.abs(np.abs(x.astype(np.float64)) - np.abs(y))
+            b = np.where(np.isfinite(bnd), bnd, measured)
+            cells[col] = float((w * np.where(keep, b, 0)).sum() / max(w.sum(), 1e-300))
+        out.append(cells)
+    return out
+
+
 def compare_error_tables(got: List[Dict[str, object]],
-                         want: List[Dict[str, object]]) -> List[tuple]:
+                         want: List[Dict[str, object]],
+                         cell_bounds: Optional[List[Dict[str, float]]] = None) -> List[tuple]:
     """The cells of two ROI error tables (``eval.evaluate.calc_error_table``
     rows) that differ past their bound; empty where they agree. Two chains
-    that differ only in their scalar-maps implementation (K8 on the card,
-    the plain version on the CPU) compute the same maps bit for bit except
-    the angles' last bits (atan2f/acosf against the CPU's, ≤ 3 ulp of
-    ≤ 180° on each side), and each cell is an f64 sum rounded once to f32:
-    so |Δ| ≤ 4u·|cell|, plus 16u·180° for the angles."""
+    that compute the same maps bit for bit except the angles' last bits
+    (atan2f/acosf against the CPU's, ≤ 3 ulp of ≤ 180° on each side) give
+    cells within 4u·|cell|, plus 16u·180° for the angles, since each cell is
+    an f64 sum rounded once to f32. Where the maps differ by more (K8
+    contracts a·b + c into FMAs, its plain version does not),
+    ``cell_bounds`` (:func:`table_cell_bounds`) adds each cell's share of
+    the diff maps' bound."""
     if len(got) != len(want):
         return [("rows", len(got), len(want))]
     bad = []
-    for g, w in zip(got, want):
+    for i, (g, w) in enumerate(zip(got, want)):
         if list(g) != list(w):
             return [("columns", list(g), list(w))]
         for k, v in w.items():
@@ -157,6 +304,8 @@ def compare_error_tables(got: List[Dict[str, object]],
                     bad.append((k, g[k], v))
                 continue
             tol = 4 * U * abs(v) + (16 * U * 180 if k in ("azimuth", "inclination") else 0)
+            if cell_bounds is not None:
+                tol += cell_bounds[i][k]
             if not abs(g[k] - v) <= tol:
                 bad.append((g["sub"], g["roi"], k, g[k], v, tol))
     return bad

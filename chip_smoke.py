@@ -55,12 +55,15 @@ Phases (any failure → nonzero exit, no ``ok`` line):
    second launch bit for bit; time per call and device time, the bound (the
    largest of bytes, f32 operations and special-function operations at the
    SM clock read under load), plain time and ``torch.linalg.eigh``'s time.
-7. Evaluation path: ``make_synthetic_bids`` writes 2 subjects at (96, 128,
-   128); the full-width generator (seeded random weights, bf16,
+7. Evaluation path: ``make_synthetic_bids`` writes 4 subjects at (96, 128,
+   128) through the native NIfTI codec (subjects 01 and 02 in one thread,
+   as this phase always had them, 03 and 04 in another; the tree is phase
+   12's too); the full-width generator (seeded random weights, bf16,
    patch-stitched) predicts each subject's DT; ``eval_dwi_tensors`` (with
    ``constants/rescale_args_dwi.txt``) and ``calc_error_table`` run on the
    card with the launch counts reset before them (K8: 2 subjects × pred and
-   target), then once more with one worker and the NIfTI I/O timed, and on
+   target), then once more with one worker and the NIfTI I/O timed (its
+   share of the chain recorded beside the codec in use), and on
    the CPU (plain versions); every file of the card's chain and its table
    against the CPU's, at the maps' bound carried through the chain.
 8. ``predict --scalar-maps --rescale-args`` once on the card: 1 K8 launch,
@@ -102,12 +105,34 @@ Phases (any failure → nonzero exit, no ``ok`` line):
     both):
     ``scripts/torch_port_pfold_probe.py`` (``pfold_probe``) and
     ``scripts/torch_port_pallas_probe.py`` (``pallas_probe``).
+12. The training data path: on phase 7's tree (4 subjects, val and test
+    splits 0.25: 2 / 1 / 1 subjects), the codec's seconds per file (load
+    and save of one 24-channel volume, native and pure-Python, their arrays
+    bit-equal, ``nifti.codec()`` native); ``DoveDataModule`` with the
+    default ``DataConfig`` otherwise (batch 8 × 64³, 8 patches a volume,
+    ``augment_prob`` 0.1, 8 workers, seed 42) on ``cuda``: two epochs of
+    ``train_batches`` (cold, then from ``cache_volumes``; ms per batch),
+    every batch a CUDA tensor of (8, 64, 64, 64, 24) / (…, 6) with
+    ``dwi-tensor_orig`` the clean patch at the stream's corners, one
+    ``val_batches(augment=False)`` and one ``test_volumes`` pass; default
+    GAN steps fed from ``train_batches``, the pristine ``dwi-tensor_orig``
+    as the target as the JAX loop takes it (one step's launch counts reset
+    just before it and held to ``TRAIN_STEP_LAUNCHES``: the
+    ``train_from_data`` path; losses finite; ms per step; the device's busy
+    share over a profiled window of steps); each of the seven augmentation
+    applies on one (96, 128, 128, 24) volume on the card against its CPU
+    apply on the same drawn parameters (1e-5·max|ref| for noise, gamma,
+    blur, bias field and the rotation, 1e-4·max|ref| for spike, ghosting
+    and motion), with each one's ms and the chain's at p = 1 and p = 0.1;
+    the same seed's batches bit-identical with prefetch on and off, at the
+    default p and at p = 1.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the ``kernels`` JSON (``launches_by_path``: the serving
 run's, one training step's, the eval chain's, the mesh serving run's, the
-sharded block backward's and the two probe paths' counts; ``launches``: their
-sum); details go to ``perf_out/chip_smoke.json``.
+sharded block backward's, the two probe paths' and one data-fed training
+step's counts; ``launches``: their sum); details go to
+``perf_out/chip_smoke.json``.
 """
 
 from __future__ import annotations
@@ -176,6 +201,16 @@ PFOLD_ODD = ((2, 3, 3, 8, 3, 4), (1, 4, 7, 12, 5, 36), (1, 2, 3, 36, 24, 32))
 PROBE_CONV = (8, 64, 64, 64, 24, 32)
 RESCALE_ARGS = str(Path(__file__).resolve().parent / "constants" / "rescale_args_dwi.txt")
 EVAL_SUBJECTS = ("01", "02")
+# Phase 12: the tree's subjects (phase 7 evaluates the first two), the
+# modalities the data path feeds the pc-bSSFP GAN, and each augmentation
+# apply's tolerance on the card against the CPU, a share of max|ref|: the
+# elementwise ones and the rotation differ only in exp/pow/sin/cos
+# roundings, the k-space ones also in cuFFT against pocketfft.
+DATA_SUBJECTS = ("01", "02", "03", "04")
+DATA_KEYS = ("pc-bssfp", "dwi-tensor")
+REPEAT = 4  # the train samples repeated for the steady-state epochs
+AUG_TOL = {"noise": 1e-5, "gamma": 1e-5, "blur": 1e-5, "bias_field": 1e-5,
+           "rotate_trilinear": 1e-5, "spike": 1e-4, "ghosting": 1e-4, "motion": 1e-4}
 # K8's work per voxel, counted from csrc/scalar_maps.cu with each add,
 # multiply, divide, square root, abs, max, atan2 and acos as one operation:
 # the scaling 18; 15 Jacobi rotations of 42 (14 for c, s and t, 10 for the
@@ -192,6 +227,14 @@ SCALAR_MAPS_BYTES_PER_VOXEL = (6 + 9) * 4
 # of them a clock.
 SCALAR_MAPS_MUFU_PER_VOXEL = 15 * 4 + 1 + 8
 MUFU_PER_CLOCK_PER_SM = 16
+# The digest (ops/scalar_maps_check.py:maps_digest) of K8's maps of
+# sample_dt_volume(VOLUME, SEED) from the kernel as it was while it still
+# carried its voxels-per-thread loops at a constant 1, built for sm_90a and
+# run on an H100 80GB HBM3 at 700 W: the one-voxel-a-thread
+# kernel must give them bit for bit. A new nvcc may contract a*b + c into
+# FMAs elsewhere and move the digest while the maps stay within their bound
+# (the scalar_maps rows): the row then says so.
+K8_VPT1_SHA256 = "ee19be7a7d61c5cb16105d3ba2fd31ed4de5e86aa3aa4196fa5444673ac71ae0"
 
 
 def bound(bytes_moved: float, ops: float, dtype: str):
@@ -228,15 +271,21 @@ class Checks:
             self.failures.append(row)
 
 
-def phase_build(torch, K, _build):
+def phase_build(torch, K, _build, native):
     t0 = time.perf_counter()
     shutil.rmtree(_build.BUILD_DIR, ignore_errors=True)
     _build.build_all()
     nvcc_s = time.perf_counter() - t0
     each = dict(sorted(_build.BUILD_SECONDS.items(), key=lambda kv: -kv[1]))
+    t0 = time.perf_counter()
+    codec_built = native.is_available()  # g++ of the NIfTI codec into _build/
+    codec_s = time.perf_counter() - t0
     print(f"build: nvcc {nvcc_s:.1f}s (csrc/*.cu in parallel: "
-          f"{', '.join(f'{k} {v:.1f}s' for k, v in each.items())})", flush=True)
-    return {"nvcc_s": nvcc_s, "nvcc_s_each": each}
+          f"{', '.join(f'{k} {v:.1f}s' for k, v in each.items())}); native NIfTI codec "
+          f"{'built' if codec_built else 'NOT built'} in {codec_s:.1f}s", flush=True)
+    if not codec_built:
+        raise RuntimeError("the native NIfTI codec did not build (g++ and zlib needed)")
+    return {"nvcc_s": nvcc_s, "nvcc_s_each": each, "native_codec_s": codec_s}
 
 
 def check_conv(torch, F, K, checks, b, d, h, w, cin, cout, dtype, halo=False, fold=False,
@@ -989,31 +1038,72 @@ def check_scalar_maps(torch, K, chk, checks, fields, shape, seed):
 
 
 def phase_scalar_maps(torch, K, chk, checks, fields):
+    """K8 at both shapes; at (96, 128, 128) its maps are also held bit for bit
+    to those of the kernel before its voxels-per-thread loops went
+    (K8_VPT1_SHA256), and their digest returned."""
     check_scalar_maps(torch, K, chk, checks, fields, VOLUME, SEED)
     check_scalar_maps(torch, K, chk, checks, fields, (5, 7, 3), SEED + 1)
+    d6 = torch.from_numpy(chk.sample_dt_volume(VOLUME, SEED)).to("cuda")
+    maps = K.scalar_maps(d6)
+    digest = chk.maps_digest(maps)
+    same = digest == K8_VPT1_SHA256
+    row = dict(phase="scalar_maps_unchanged", sha256=digest, expected=K8_VPT1_SHA256,
+               nvcc=_nvcc_version())
+    if not same:
+        row["within_bound_of_plain"] = chk.compare_scalar_maps(
+            maps, K.scalar_maps_plain(d6), d6)["ok"]
+        row["hint"] = ("maps moved bit-wise but stay within their bound: an nvcc or "
+                       "contraction change, not a kernel fault" if row["within_bound_of_plain"]
+                       else "maps out of their bound: a kernel fault")
+    print(f"K8 maps at {VOLUME} from seed {SEED}: sha256 {digest} "
+          f"(the loop kernel's: {K8_VPT1_SHA256}){'' if same else '; ' + row['hint']}",
+          flush=True)
+    checks.record(same, row)
+    return digest
 
 
-def phase_eval(torch, K, checks, pkg):
+def _nvcc_version() -> str:
+    from unet_bssfp_tpu_torch.ops.kernels import _build
+
+    out = subprocess.run([_build._nvcc(), "--version"], capture_output=True, text=True)
+    return out.stdout.strip().splitlines()[-1] if out.stdout.strip() else "unknown"
+
+
+def make_tree(make_synthetic_bids, root: Path) -> float:
+    """The synthetic BIDS tree of phases 7 and 12 at full size: subjects 01
+    and 02 from SEED (the arrays phase 7 always had) and 03 and 04 from
+    SEED + 1, written in two threads (the native codec releases the GIL).
+    Returns its seconds."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        futures = [pool.submit(make_synthetic_bids, str(root), subjects=subs, sessions=("1",),
+                               volume_shape=VOLUME, seed=seed)
+                   for subs, seed in ((EVAL_SUBJECTS, SEED), (DATA_SUBJECTS[2:], SEED + 1))]
+        for f in futures:
+            f.result()
+    return time.perf_counter() - t0
+
+
+def phase_eval(torch, K, checks, pkg, bids: str, synth_s: float):
     """The evaluation path at full size on the card, its launches, its wall
     time (and, with one worker, its NIfTI I/O share), the CPU chain's table
     against the card's, then ``predict --scalar-maps``."""
     work = Path("perf_out") / "eval_smoke"
     shutil.rmtree(work, ignore_errors=True)
     try:
-        return _phase_eval(torch, K, checks, pkg, work)
+        return _phase_eval(torch, K, checks, pkg, work, bids, synth_s)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
 
-def _phase_eval(torch, K, checks, pkg, work):
+def _phase_eval(torch, K, checks, pkg, work, bids, synth_s):
     (Config, build_models, make_predict_fn, weights, predict_volume, nifti,
-     make_synthetic_bids, evaluate, predict_main, compute_scalar_maps,
-     invert_dwi_tensor_norm, load_rescale_args, chk) = pkg
+     evaluate, predict_main, compute_scalar_maps, invert_dwi_tensor_norm,
+     load_rescale_args, chk) = pkg
     cfg = Config()
-    t0 = time.perf_counter()
-    bids = make_synthetic_bids(str(work / "bids"), subjects=EVAL_SUBJECTS, sessions=("1",),
-                               volume_shape=VOLUME, seed=SEED)
-    synth_s = time.perf_counter() - t0
     gen, _ = build_models(MODALITY, cfg.model, "cuda")
     sd = weights.random_state_dict(gen, SEED)
     gen.load_state_dict(sd)
@@ -1106,14 +1196,17 @@ def _phase_eval(torch, K, checks, pkg, work):
     worst = max(((k, abs(g[k] - c[k]) / max(abs(c[k]), 1e-300)) for g, c in zip(rows, cpu_rows)
                  for k in c if not isinstance(c[k], str)), key=lambda kv: kv[1], default=None)
     nvol = 2 * len(EVAL_SUBJECTS)
-    timing = {"synthetic_tree_s": synth_s, "predict_2_volumes_s": predict_s,
+    timing = {"synthetic_tree_s": synth_s, "synthetic_tree_subjects": len(DATA_SUBJECTS),
+              "predict_2_volumes_s": predict_s,
               "chain_s_8_workers": wall, "chain_s_1_worker": wall_1,
               "chain_1_worker_nifti_io_s": io[0], "chain_1_worker_rest_s": wall_1 - io[0],
+              "chain_1_worker_nifti_io_share": io[0] / wall_1, "nifti_codec": nifti.codec(),
               "cpu_chain_s_8_workers": cpu_wall, "volumes": nvol,
               "s_per_volume_8_workers": wall / nvol}
     print(f"eval chain (2 subjects × pred+target at {VOLUME}): {wall:.2f} s with 8 "
           f"workers ({wall / nvol:.2f} s per volume); 1 worker {wall_1:.2f} s, of which "
-          f"NIfTI I/O {io[0]:.2f} s; CPU chain {cpu_wall:.2f} s; synthetic tree "
+          f"NIfTI I/O {io[0]:.2f} s ({100 * io[0] / wall_1:.1f} %, {nifti.codec()} codec); "
+          f"CPU chain {cpu_wall:.2f} s; synthetic tree of {len(DATA_SUBJECTS)} subjects "
           f"{synth_s:.1f} s; card vs CPU table: largest relative difference {worst}, "
           f"cells past their bound {bad}", flush=True)
     checks.record(not bad, dict(phase="eval_table_cuda_vs_cpu", failures=bad[:20],
@@ -1448,6 +1541,264 @@ def phase_probe_paths(torch, K, checks, pfold_probe, pallas_probe):
     return pf_counts, pa_counts, rows, prows
 
 
+def busy_share(prof, wall_s: float):
+    """The union of the CUDA kernels' intervals in a profile (two streams'
+    kernels overlapping counted once) over the window's wall time, and the
+    kernels' summed time; (None, None) where the trace holds no kernel."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if getattr(e.device_type, "name", "") == "CUDA")
+    if not spans:
+        return None, None
+    union, end = 0.0, -math.inf
+    for a, b in spans:
+        if b > end:
+            union += b - max(a, end)
+            end = b
+    return union / 1e6 / wall_s, sum(b - a for a, b in spans) / 1e6
+
+
+def codec_times(nifti, native, path: str, work: Path):
+    """Seconds to load and save one volume with each codec, and whether the
+    four reads (each codec on each codec's file) give the same array."""
+    import numpy as np
+
+    out = {}
+    t0 = time.perf_counter()
+    x, aff = native.read_volume(path)
+    out["native_load_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    py, _ = nifti._python_load(path)
+    out["python_load_s"] = time.perf_counter() - t0
+    files = {"native": str(work / "native.nii.gz"), "python": str(work / "python.nii.gz")}
+    t0 = time.perf_counter()
+    native.write_volume(files["native"], x, aff)
+    out["native_save_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nifti._python_save(files["python"], x, aff)
+    out["python_save_s"] = time.perf_counter() - t0
+    reads = [x.reshape(py.shape), py] + [
+        r(f)[0].reshape(py.shape) for f in files.values()
+        for r in (native.read_volume, nifti._python_load)]
+    out["bit_equal"] = all(np.array_equal(reads[0], r) for r in reads[1:])
+    out["shape"] = list(py.shape)
+    return out
+
+
+def clean_patches(torch, dm, seed: int, key: str, patch_fns):
+    """The un-augmented patches of ``key`` in a train stream's order: the
+    stream's sample order and corners, cut from the loaded volumes."""
+    sample_generator, uniform_patch_starts, extract_patches = patch_fns
+    cfg, samples = dm.config, dm.train_samples
+    parts = []
+    for i in torch.randperm(len(samples), generator=torch.Generator().manual_seed(seed)).tolist():
+        vol = torch.from_numpy(dm.load_subject(samples[i], (key,))[key])
+        starts = uniform_patch_starts(sample_generator(seed, i, 1), cfg.volume_shape,
+                                      cfg.patch_size, cfg.samples_per_vol)
+        parts.append(extract_patches(vol, starts, cfg.patch_size))
+    return torch.cat(parts)
+
+
+def epoch(torch, dm, seed, prefetch=True):
+    """One train stream on the card → (its batches, wall seconds)."""
+    t0 = time.perf_counter()
+    batches = list(dm.train_batches(seed, keys=DATA_KEYS, device="cuda", prefetch=prefetch))
+    torch.cuda.synchronize()
+    return batches, time.perf_counter() - t0
+
+
+def batch_shapes_ok(torch, batches, batch, patch):
+    want = {"pc-bssfp": 24, "dwi-tensor": 6, "dwi-tensor_orig": 6}
+    return bool(batches) and all(
+        set(b) == set(want) and all(
+            b[k].is_cuda and b[k].dtype == torch.float32
+            and tuple(b[k].shape) == (batch,) + (patch,) * 3 + (c,) for k, c in want.items())
+        for b in batches)
+
+
+def phase_data(torch, K, checks, pkg, tree: str):
+    """Phase 12: the training data path on the card (see the docstring)."""
+    work = Path("perf_out") / "data_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        return _phase_data(torch, K, checks, pkg, tree, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _phase_data(torch, K, checks, pkg, tree, work):
+    (Config, DoveDataModule, aug, nifti, native, patch_fns, create_gan_state,
+     make_train_step) = pkg
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = Config()
+    out = {}
+    # 1. the codecs on one 24-channel volume of the tree
+    pc_file = str(Path(tree) / "derivatives" / "preproc-dove" / "sub-01" / "ses-1" / "dwi"
+                  / "sub-01_ses-1_desc-normflatbet_bssfp.nii.gz")
+    out["codec"] = dict(codec_times(nifti, native, pc_file, work), in_use=nifti.codec())
+    print(f"NIfTI codec ({out['codec']['in_use']}) on one {out['codec']['shape']} volume: "
+          f"load native {out['codec']['native_load_s']:.3f} s / python "
+          f"{out['codec']['python_load_s']:.3f} s, save native "
+          f"{out['codec']['native_save_s']:.3f} s / python {out['codec']['python_save_s']:.3f} s;"
+          f" arrays bit-equal {out['codec']['bit_equal']}", flush=True)
+    checks.record(out["codec"]["bit_equal"] and nifti.codec() == "native",
+                  dict(phase="data_codec", **out["codec"]))
+
+    # 2. the data module: two epochs, cold then from the cache
+    dcfg = dataclasses.replace(cfg.data, val_split=0.25, test_split=0.25, cache_volumes=True)
+    dm = DoveDataModule(tree, config=dcfg)
+    dm.prepare_data()
+    splits = [len(dm.train_samples), len(dm.val_samples), len(dm.test_samples)]
+    b, p = dcfg.batch_size, dcfg.patch_size
+    seed = dcfg.seed
+    cold, cold_s = epoch(torch, dm, seed)
+    warm, warm_s = epoch(torch, dm, seed + 1)
+    want_batches = len(dm.train_samples) * dcfg.samples_per_vol // b
+    orig_ok = all(torch.equal(torch.cat([x["dwi-tensor_orig"] for x in batches]).cpu(),
+                              clean_patches(torch, dm, s, "dwi-tensor", patch_fns))
+                  for batches, s in ((cold, seed), (warm, seed + 1)))
+    val = list(dm.val_batches(seed, keys=DATA_KEYS, augment=False, device="cuda"))
+    val_ok = batch_shapes_ok(torch, val, b, p) and all(
+        torch.equal(x["dwi-tensor"], x["dwi-tensor_orig"]) for x in val)
+    tests = list(dm.test_volumes(keys=DATA_KEYS, device="cuda"))
+    test_ok = len(tests) == len(dm.test_samples) and all(
+        v["pc-bssfp"].is_cuda and tuple(v["pc-bssfp"].shape) == VOLUME + (24,)
+        for _, v in tests)
+    out["module"] = {"splits": splits, "batches_per_epoch": len(cold),
+                     "ms_per_batch_cold": cold_s * 1e3 / max(len(cold), 1),
+                     "ms_per_batch_warm": warm_s * 1e3 / max(len(warm), 1),
+                     "val_batches": len(val), "test_volumes": len(tests)}
+    print(f"data module (splits {splits}): {len(cold)} batches an epoch, "
+          f"{out['module']['ms_per_batch_cold']:.1f} ms per batch cold, "
+          f"{out['module']['ms_per_batch_warm']:.1f} warm (cache_volumes); clean targets "
+          f"{orig_ok}; val {len(val)} batches ok {val_ok}; test volumes {len(tests)} ok "
+          f"{test_ok}", flush=True)
+    checks.record(splits == [2, 1, 1] and len(cold) == len(warm) == want_batches
+                  and batch_shapes_ok(torch, cold + warm, b, p) and orig_ok and val_ok
+                  and test_ok, dict(phase="data_module", **out["module"]))
+    del cold, warm, val, tests
+
+    # 3. default GAN steps fed from the stream, the pristine DT the target
+    # (unet_bssfp_tpu/train/loop.py:207). Two train subjects make a
+    # two-batch epoch, all start-up; the steady state is read on epochs of
+    # the train samples repeated (REPEAT × 2 batches, volumes cached): the
+    # stream alone, then one epoch of steps (the second step's launches
+    # counted), then one epoch of steps under the profiler
+    base = dm.train_samples
+    dm.train_samples = base * REPEAT
+    try:
+        produced, produce_s = epoch(torch, dm, seed + 2)
+        n_batches = len(produced)
+        del produced
+        state = create_gan_state(SEED, MODALITY, cfg.model, cfg.train, "cuda")
+        step = make_train_step(state.gen, state.disc, cfg.train)
+        counts, loop_ms, step_ms, metrics = None, [], [], []
+        t_prev = time.perf_counter()
+        for batch in dm.train_batches(seed + 10, keys=DATA_KEYS, device="cuda"):
+            n = len(metrics)
+            if n == 1:
+                torch.cuda.synchronize()
+                K.reset_launches()
+            t0 = time.perf_counter()
+            m = step(state, batch["pc-bssfp"], batch["dwi-tensor_orig"])
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            if n == 1:
+                counts = K.launches()
+            step_ms.append((now - t0) * 1e3)
+            loop_ms.append((now - t_prev) * 1e3)
+            t_prev = now
+            metrics.append({k: float(v) for k, v in m.items()})
+        # the profiled epoch: the stream's background thread included
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for batch in dm.train_batches(seed + 20, keys=DATA_KEYS, device="cuda"):
+                m = step(state, batch["pc-bssfp"], batch["dwi-tensor_orig"])
+                metrics.append({k: float(v) for k, v in m.items()})
+            torch.cuda.synchronize()
+            prof_wall = time.perf_counter() - t0
+    finally:
+        dm.train_samples = base
+    n_prof = len(metrics) - len(step_ms)
+    busy, kernel_s = busy_share(prof, prof_wall)
+    finite = all(math.isfinite(v) for m in metrics for v in m.values())
+    out["train"] = {"steps": len(metrics), "batches_per_epoch": n_batches,
+                    "stream_alone_ms_per_batch": produce_s * 1e3 / n_batches,
+                    "ms_per_step_median": statistics.median(step_ms[1:]),
+                    "ms_per_loop_iteration_median": statistics.median(loop_ms[1:]),
+                    "ms_per_step_all": step_ms, "ms_per_loop_iteration_all": loop_ms,
+                    "profiled_steps": n_prof, "profiled_wall_ms_per_step": prof_wall * 1e3 / n_prof,
+                    "device_busy_share": busy,
+                    "kernel_ms_per_step_summed": None if kernel_s is None
+                    else kernel_s * 1e3 / n_prof, "last_metrics": metrics[-1]}
+    print("training-from-data launches (one step): " + json.dumps(counts), flush=True)
+    print(f"train from data: epochs of {n_batches} batches (the stream alone "
+          f"{out['train']['stream_alone_ms_per_batch']:.1f} ms per batch); {len(metrics)} steps, "
+          f"{out['train']['ms_per_step_median']:.2f} ms per step, "
+          f"{out['train']['ms_per_loop_iteration_median']:.2f} ms per loop iteration (data "
+          f"wait included; all {', '.join(f'{t:.1f}' for t in loop_ms)}); profiled epoch "
+          f"{out['train']['profiled_wall_ms_per_step']:.2f} ms a step, device busy "
+          f"{'not measured' if busy is None else f'{100 * busy:.1f} %'}; last losses "
+          f"{json.dumps(metrics[-1])}", flush=True)
+    checks.record(counts == TRAIN_STEP_LAUNCHES, dict(phase="train_from_data_launches",
+                                                      launches=counts,
+                                                      expected=TRAIN_STEP_LAUNCHES))
+    checks.record(finite and len(metrics) >= 4, dict(phase="train_from_data", **out["train"]))
+    del state, step, prof
+    torch.cuda.empty_cache()
+
+    # 4. the seven applies on the card against the CPU, same parameters
+    vol_cpu = torch.from_numpy(dm.load_subject(dm.train_samples[0], ("pc-bssfp",))["pc-bssfp"])
+    vol = vol_cpu.to("cuda")
+    g = torch.Generator().manual_seed(SEED)
+    draws = {name: draw(g, VOLUME) for name, draw, _ in aug.CHAIN}
+    field = aug.noise_field(draws["noise"]["seed"], vol)
+    cases = {name: (lambda v, f=fn, kw=draws[name]: f(v, **kw))
+             for name, _, fn in aug.CHAIN if name != "noise"}
+    cases["noise"] = lambda v: aug.apply_noise(v, draws["noise"]["std"],
+                                               field if v.is_cuda else field.cpu())
+    cases["rotate_trilinear"] = lambda v: aug.rotate_trilinear(v, draws["motion"]["angles"][0])
+    rows = {}
+    for name, fn in cases.items():
+        got = fn(vol)
+        ref = fn(vol_cpu)
+        err = float((got.cpu() - ref).abs().max())
+        scale = float(ref.abs().max())
+        ms = time_ms(torch, lambda: fn(vol), 5)
+        rows[name] = {"max_abs_err": err, "max_abs_ref": scale, "tol": AUG_TOL[name] * scale,
+                      "ms": ms, "ok": err <= AUG_TOL[name] * scale}
+    chain = {}
+    g1 = torch.Generator().manual_seed(SEED)
+    chain["p1_ms"] = time_ms(torch, lambda: aug.augment_volume(g1, vol, 1.0), 3)
+    g01 = torch.Generator().manual_seed(SEED)
+    chain["p0.1_ms"] = time_ms(torch, lambda: aug.augment_volume(g01, vol, 0.1), 40)
+    out["augment"] = {"transforms": rows, "chain": chain}
+    print("augmentation on the card vs CPU at " + str(VOLUME + (24,)) + ": " + ", ".join(
+        f"{k} {r['ms']:.2f} ms err/max {r['max_abs_err'] / max(r['max_abs_ref'], 1e-30):.1e}"
+        for k, r in rows.items()) + f"; chain p=1 {chain['p1_ms']:.2f} ms, p=0.1 "
+        f"{chain['p0.1_ms']:.2f} ms", flush=True)
+    checks.record(all(r["ok"] for r in rows.values()), dict(phase="augment_cuda_vs_cpu",
+                                                             **out["augment"]))
+    del vol, vol_cpu, field
+
+    # 5. the same seed's batches with prefetch on and off
+    same = {}
+    for prob in (dcfg.augment_prob, 1.0):
+        dmp = DoveDataModule(tree, config=dataclasses.replace(dcfg, augment_prob=prob))
+        dmp.prepare_data()
+        on, _ = epoch(torch, dmp, seed + 30, prefetch=True)
+        off, _ = epoch(torch, dmp, seed + 30, prefetch=False)
+        same[str(prob)] = len(on) == len(off) > 0 and all(
+            x.keys() == y.keys() and all(torch.equal(x[k], y[k]) for k in x)
+            for x, y in zip(on, off))
+        del on, off
+    out["determinism"] = same
+    print(f"batches bit-identical with prefetch on and off: {same}", flush=True)
+    checks.record(all(same.values()), dict(phase="data_prefetch_determinism", by_prob=same))
+    return counts, out
+
+
 # K1, K1's dgrad, K5 and K5's dgrad: the wgmma conv kernel in bf16 (the
 # rows of the summary line); the mma.sync loop it replaced stays as the
 # check-only conv3x3_packed_mma (and under K7a's routed shapes). K2 and K5's wgrad:
@@ -1571,9 +1922,11 @@ def main() -> int:
         return 2
     import torch.nn.functional as F
 
-    from unet_bssfp_tpu_torch import weights
+    from unet_bssfp_tpu_torch import native, weights
     from unet_bssfp_tpu_torch.config import Config
-    from unet_bssfp_tpu_torch.data import nifti
+    from unet_bssfp_tpu_torch.data import augment, nifti
+    from unet_bssfp_tpu_torch.data.datamodule import DoveDataModule, sample_generator
+    from unet_bssfp_tpu_torch.data.sampler import extract_patches, uniform_patch_starts
     from unet_bssfp_tpu_torch.data.synthetic import make_synthetic_bids
     from unet_bssfp_tpu_torch.eval import evaluate
     from unet_bssfp_tpu_torch.eval.inference import predict_volume
@@ -1606,7 +1959,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     checks = Checks()
-    build = phase_build(torch, K, _build)
+    build = phase_build(torch, K, _build, native)
     phase_kernels(torch, F, K, checks)
     print(f"kernel checks done at {time.perf_counter() - t_start:.1f}s", flush=True)
     counts, timing = phase_main_path(
@@ -1627,25 +1980,39 @@ def main() -> int:
     block_counts = phase_mesh_block_backward(
         torch, K, checks, PackedTwoConv, (make_mesh, shard_batch, gather_batch))
     print(f"mesh path done at {time.perf_counter() - t_start:.1f}s", flush=True)
-    phase_scalar_maps(torch, K, chk, checks, ScalarMaps._fields)
-    eval_counts, eval_timing = phase_eval(
-        torch, K, checks,
-        (Config, build_models, make_predict_fn, weights, predict_volume, nifti,
-         make_synthetic_bids, evaluate, predict_main, compute_scalar_maps,
-         invert_dwi_tensor_norm, load_rescale_args, chk))
-    print(f"eval path done at {time.perf_counter() - t_start:.1f}s", flush=True)
-    phase_pfold_kernels(torch, F, K, checks)
-    phase_probe_kernels(torch, F, K, checks)
-    pf_counts, pa_counts, pf_rows, pa_rows = phase_probe_paths(
-        torch, K, checks, torch_port_pfold_probe, torch_port_pallas_probe)
-    print(f"pfold and probe kernels and paths done at {time.perf_counter() - t_start:.1f}s",
-          flush=True)
+    k8_digest = phase_scalar_maps(torch, K, chk, checks, ScalarMaps._fields)
+    tree = Path("perf_out") / "smoke_tree"
+    try:
+        synth_s = make_tree(make_synthetic_bids, tree)
+        print(f"synthetic tree ({len(DATA_SUBJECTS)} subjects at {VOLUME}, {nifti.codec()} "
+              f"codec): {synth_s:.1f}s", flush=True)
+        eval_counts, eval_timing = phase_eval(
+            torch, K, checks,
+            (Config, build_models, make_predict_fn, weights, predict_volume, nifti,
+             evaluate, predict_main, compute_scalar_maps, invert_dwi_tensor_norm,
+             load_rescale_args, chk), str(tree), synth_s)
+        print(f"eval path done at {time.perf_counter() - t_start:.1f}s", flush=True)
+        phase_pfold_kernels(torch, F, K, checks)
+        phase_probe_kernels(torch, F, K, checks)
+        pf_counts, pa_counts, pf_rows, pa_rows = phase_probe_paths(
+            torch, K, checks, torch_port_pfold_probe, torch_port_pallas_probe)
+        print(f"pfold and probe kernels and paths done at {time.perf_counter() - t_start:.1f}s",
+              flush=True)
+        data_counts, data_out = phase_data(
+            torch, K, checks,
+            (Config, DoveDataModule, augment, nifti, native,
+             (sample_generator, uniform_patch_starts, extract_patches), create_gan_state,
+             make_train_step), str(tree))
+        print(f"data path done at {time.perf_counter() - t_start:.1f}s", flush=True)
+    finally:
+        shutil.rmtree(tree, ignore_errors=True)
     elapsed = time.perf_counter() - t_start
 
     kernels = summary(checks.rows, {"serving": counts, "train_step": train_counts,
                                     "eval": eval_counts, "mesh_serving": mesh_counts,
                                     "mesh_block_backward": block_counts,
-                                    "pfold_probe": pf_counts, "pallas_probe": pa_counts})
+                                    "pfold_probe": pf_counts, "pallas_probe": pa_counts,
+                                    "train_from_data": data_counts})
     unlaunched = [k["name"] for k in kernels if k["launches"] == 0]
     checks.record(not unlaunched, dict(phase="every_kernel_launched_on_a_path",
                                        unlaunched=unlaunched))
@@ -1660,8 +2027,9 @@ def main() -> int:
                    "pfold_probe": {"launches": pf_counts, "rows": pf_rows},
                    "pallas_probe": {"launches": pa_counts, "rows": pa_rows},
                    "timing": timing, "train_timing": train_timing,
-                   "eval_timing": eval_timing, "kernels": kernels,
-                   "elapsed_s": elapsed}, f, indent=1)
+                   "eval_timing": eval_timing, "k8_sha256": k8_digest,
+                   "train_from_data_launches": data_counts, "data_path": data_out,
+                   "kernels": kernels, "elapsed_s": elapsed}, f, indent=1)
     if checks.failures:
         print(f"chip_smoke: {len(checks.failures)} check(s) failed:", file=sys.stderr)
         for row in checks.failures:

@@ -17,12 +17,16 @@ its kernels), builds its kernels there and prints one JSON line per case:
   each: generic tensors (random eigenvalues and rotations), zeros,
   diagonal and isotropic ones, beside the brain-like mix (the classes whose
   divisions and square roots meet zero operands show).
+The K8 line carries ``sha256``, a digest of the maps' bytes at (96, 128,
+128) from seed 0 (phase 6's input in ``chip_smoke.py``): equal digests of
+two checkouts mean bit-identical maps.
 Run checkouts in turns (parent, change, change, parent). Needs a card.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import subprocess
 import sys
@@ -66,6 +70,15 @@ def device_ms(torch, fn, iters: int = 20):
     return (total / 1e3 / iters if total else None), sorted(set(names))
 
 
+def maps_digest(maps) -> str:
+    """sha256 of the maps' bytes, field after field (kept here, not taken
+    from ``ops/scalar_maps_check.py``, so that older checkouts run too)."""
+    h = hashlib.sha256()
+    for f in maps:
+        h.update(f.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
@@ -106,11 +119,12 @@ def main() -> int:
     d6 = torch.from_numpy(chk.sample_dt_volume((96, 128, 128), 0)).to("cuda")
     ref = K.scalar_maps_plain(d6)
     fn = lambda: K.scalar_maps(d6)  # noqa: E731
-    res = chk.compare_scalar_maps(fn(), ref, d6)
+    got = fn()
+    res = chk.compare_scalar_maps(got, ref, d6)
     dev, names = device_ms(torch, fn)
     print(json.dumps({"tag": tag, "card": card, "kernel": "K8", "shape": [96, 128, 128, 6],
                       "ms": per_call_ms(torch, fn), "device_ms": dev, "device_kernels": names,
-                      "within_bound": res["ok"],
+                      "within_bound": res["ok"], "sha256": maps_digest(got),
                       "max_err_over_tol": max(v["max_err_over_tol"] for v in res.values()
                                               if isinstance(v, dict))}), flush=True)
     if args.k8_classes:

@@ -321,7 +321,7 @@ def _edge_tensors():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(5, 7, 3), (96, 128, 128), "edge"])
+@pytest.mark.parametrize("shape", [(5, 7, 3), (97, 33, 3), (96, 128, 128), "edge"])
 def test_gpu_scalar_maps_matches_plain_and_repeats(cuda, shape):
     if shape == "edge":
         d6 = _edge_tensors().to(cuda)
@@ -1023,3 +1023,99 @@ def test_gpu_wgmma_wgrad_refused_launch_raises(cuda):
         wgrad_wgmma.launch(plan, xk.float(), dy.float(), "test")
     with pytest.raises(ValueError):  # dy does not fit x: raised, not run elsewhere
         K.conv3x3_wgrad(xk, dy[:, :2].contiguous(), 64)
+
+
+# The training data path (data/augment.py, data/datamodule.py): the seven
+# applies on the card against their CPU applies on the same parameters
+# (the elementwise ones and the rotation differ only in exp/pow/sin/cos
+# roundings: 1e-5·max|ref|; the k-space ones also in cuFFT against
+# pocketfft: 1e-4·max|ref|), the batch streams repeatable with prefetch on
+# and off, and a packed GAN step fed from them with exact launches.
+AUG_TOL = {"noise": 1e-5, "gamma": 1e-5, "blur": 1e-5, "bias_field": 1e-5,
+           "rotate_trilinear": 1e-5, "spike": 1e-4, "ghosting": 1e-4, "motion": 1e-4}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(AUG_TOL))
+@pytest.mark.parametrize("shape", [(32, 40, 48, 6), (17, 23, 29, 3)])
+def test_gpu_augment_applies_match_cpu(cuda, name, shape):
+    from unet_bssfp_tpu_torch.data import augment as aug
+
+    g = torch.Generator().manual_seed(len(name))
+    vol_cpu = torch.rand(shape, generator=g)
+    vol = vol_cpu.to(cuda)
+    draws = {n: draw(g, shape) for n, draw, _ in aug.CHAIN}
+    if name == "noise":
+        field = aug.noise_field(draws["noise"]["seed"], vol)
+        assert field.is_cuda
+        got = aug.apply_noise(vol, draws["noise"]["std"], field)
+        ref = aug.apply_noise(vol_cpu, draws["noise"]["std"], field.cpu())
+    elif name == "rotate_trilinear":
+        got = aug.rotate_trilinear(vol, draws["motion"]["angles"][1])
+        ref = aug.rotate_trilinear(vol_cpu, draws["motion"]["angles"][1])
+    else:
+        apply = dict((n, fn) for n, _, fn in aug.CHAIN)[name]
+        got = apply(vol, **draws[name])
+        ref = apply(vol_cpu, **draws[name])
+    assert got.is_cuda and got.shape == ref.shape
+    err = float((got.cpu() - ref).abs().max())
+    assert err <= AUG_TOL[name] * float(ref.abs().max()), (name, err)
+
+
+def _tree(tmp_path, shape, subjects=("01", "02", "03", "04")):
+    from unet_bssfp_tpu_torch.data.synthetic import make_synthetic_bids
+
+    return make_synthetic_bids(str(tmp_path / "bids"), subjects=subjects, sessions=("1",),
+                               volume_shape=shape)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("prob", [0.1, 1.0])
+def test_gpu_data_batches_repeat_with_prefetch_on_and_off(cuda, tmp_path, prob):
+    from unet_bssfp_tpu_torch.data.datamodule import DoveDataModule
+
+    dm = DoveDataModule(_tree(tmp_path, (32, 32, 32)), batch_size=4, samples_per_vol=4,
+                        patch_size=16, volume_shape=(32, 32, 32), val_split=0.25,
+                        test_split=0.25, augment_prob=prob)
+    dm.prepare_data()
+    runs = [list(dm.train_batches(3, keys=("pc-bssfp", "dwi-tensor"), device=cuda,
+                                  prefetch=p)) for p in (True, False, True)]
+    assert len(runs[0]) == 2
+    for batches in runs:
+        for b in batches:
+            assert all(v.is_cuda for v in b.values())
+            assert b["pc-bssfp"].shape == (4, 16, 16, 16, 24)
+            assert b["dwi-tensor_orig"].shape == (4, 16, 16, 16, 6)
+    for other in runs[1:]:
+        for a, b in zip(runs[0], other):
+            assert all(torch.equal(a[k], b[k]) for k in a)
+
+
+@pytest.mark.gpu
+def test_gpu_packed_step_fed_from_data_launches_exactly(cuda, tmp_path):
+    """The default GAN step (bf16, packed, full width) on batches of the data
+    module at 64³, the pristine DT as the target (``unet_bssfp_tpu/train/
+    loop.py:207``): one step's launches are the training step's."""
+    from unet_bssfp_tpu_torch.config import Config
+    from unet_bssfp_tpu_torch.data.datamodule import DoveDataModule
+    from unet_bssfp_tpu_torch.train.state import create_gan_state
+    from unet_bssfp_tpu_torch.train.steps import make_train_step
+
+    cfg = Config()
+    dm = DoveDataModule(_tree(tmp_path, (64, 64, 64)), config=cfg.data, batch_size=2,
+                        samples_per_vol=2, volume_shape=(64, 64, 64), val_split=0.25,
+                        test_split=0.25)
+    dm.prepare_data()
+    state = create_gan_state(0, "pc-bssfp", cfg.model, cfg.train, cuda)
+    step = make_train_step(state.gen, state.disc, cfg.train)
+    want = dict.fromkeys(K.launches(), 0)
+    want.update(conv3x3_packed=8, conv3x3_packed_dgrad=4, conv3x3_wgrad=4, pack_hw=5,
+                unpack_hw=4)
+    batches = list(dm.train_batches(0, keys=("pc-bssfp", "dwi-tensor"), device=cuda))
+    assert len(batches) == 2
+    for i, b in enumerate(batches):
+        K.reset_launches()
+        metrics = step(state, b["pc-bssfp"], b["dwi-tensor_orig"])
+        torch.cuda.synchronize()
+        assert K.launches() == want, i
+        assert all(math.isfinite(float(v)) for v in metrics.values())

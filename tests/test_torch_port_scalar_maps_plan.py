@@ -1,10 +1,8 @@
 """K8's launch plan (``ops/kernels/scalar_maps.py:scalar_maps_plan``)
-without a card: every voxel given to exactly one (block, slot, thread) at
-the kernel's voxels per thread and at other counts of the same mapping,
-for V that is a multiple of neither the block nor the voxels per thread;
-and the bound the eval chain's files and table are held to, card against
-CPU. The kernel is held to its plain version on the card in
-``test_torch_port_gpu.py``."""
+without a card: every voxel given to exactly one (block, thread), one voxel
+a thread, for V that is and is not a multiple of the block; and the bound
+the eval chain's files and table are held to, card against CPU. The kernel
+is held to its plain version on the card in ``test_torch_port_gpu.py``."""
 
 import importlib
 
@@ -15,26 +13,28 @@ import torch
 sm = importlib.import_module("unet_bssfp_tpu_torch.ops.kernels.scalar_maps")
 
 
-@pytest.mark.parametrize("nvox", [1, 7, 127, 129, 255, 257, 1001, 5 * 7 * 3, 96 * 128 * 128 + 3])
-@pytest.mark.parametrize("vpt", [1, 2, 4])
-def test_scalar_maps_plan_gives_every_voxel_once(nvox, vpt):
-    blocks = sm.scalar_maps_plan(nvox, vpt)
-    idx = sm.plan_voxels(blocks, vpt)
-    assert idx.shape == (blocks, vpt, sm.THREADS)
+@pytest.mark.parametrize("nvox", [
+    1, 2, 7, 31, 32, 33, 64, 127, 128, 129, 255, 256, 257, 383, 384, 385, 511, 512,
+    513, 1000, 1001, 4096, 5 * 7 * 3, 97 * 33 * 3, 12 * 15 * 17, 96 * 128 * 128,
+    96 * 128 * 128 + 3])
+def test_scalar_maps_plan_gives_every_voxel_once(nvox):
+    blocks = sm.scalar_maps_plan(nvox)
+    idx = sm.plan_voxels(blocks)
+    assert idx.shape == (blocks, sm.THREADS)
     stored = idx[idx < nvox]
     assert torch.equal(torch.bincount(stored, minlength=nvox), torch.ones(nvox, dtype=torch.long))
     # no block is wholly past the end: the grid is the least that covers V
     assert int(idx[-1].min()) < nvox
-    # each slot j of a warp reads one coalesced run of 32 voxels
-    runs = idx.reshape(blocks, vpt, sm.THREADS // 32, 32)
+    # each warp reads one coalesced run of 32 voxels
+    runs = idx.reshape(blocks, sm.THREADS // 32, 32)
     assert bool((runs.diff(dim=-1) == 1).all())
 
 
 def test_scalar_maps_plan_default_and_refused_counts():
-    assert sm.scalar_maps_plan(1000) == -(-1000 // (sm.THREADS * sm.VPT))
+    assert sm.scalar_maps_plan(1000) == -(-1000 // sm.THREADS)
     for bad in (0, -1):
         with pytest.raises(ValueError):
-            sm.scalar_maps_plan(1000, bad)
+            sm.scalar_maps_plan(bad)
 
 
 def test_scalar_maps_cpu_takes_the_plain_version():

@@ -14,15 +14,14 @@
 // Jacobi rotations each hold two IEEE divisions (one a correctly rounded
 // reciprocal), a square root and a reciprocal square root, each at least one
 // MUFU instruction (16 per clock per SM), and each rotation waits on the one
-// before it. Design: VPT voxels per thread, interleaved (the same step of
-// every voxel one after the other), so that independent chains hide the
-// latency of MUFU and of the division's fix-ups; no shared memory, no
-// reduction, a fixed trip count (the three rotations unrolled, the five
-// sweeps a loop, which measured as fast or faster than unrolling them and
-// fetches a fifth of the code). Voxel j of a thread is
-// blockIdx.x * THREADS * VPT + j * THREADS + threadIdx.x, so every one of
-// the VPT loads and stores is coalesced across the warp; voxels past V are
-// computed on voxel V - 1 and not stored (no branch around the chain).
+// before it. Design: one voxel a thread (two or four interleaved voxels a
+// thread took more registers, fewer resident warps, and ran 1.03x and
+// 1.3x as long: PERF.md, F2), no shared memory, no reduction, a fixed trip
+// count (the three rotations unrolled, the five sweeps a loop, which
+// measured as fast or faster than unrolling them and fetches a fifth of the
+// code). Voxel blockIdx.x * THREADS + threadIdx.x, so the loads and stores
+// are coalesced across the warp; voxels past V are computed on voxel V - 1
+// and not stored (no branch around the chain).
 //
 // Numerics: the arithmetic is ops/eig3.py and the plain version in
 // ops/kernels/scalar_maps.py step for step, with correctly rounded division
@@ -44,10 +43,6 @@
 namespace {
 
 constexpr int THREADS = 128;
-// Voxels per thread, interleaved (ops/kernels/scalar_maps.py:VPT): 2 and 4
-// measured no faster than 1 on the H100 (each chain more took registers,
-// and so resident warps, without hiding more latency).
-constexpr int VPT = 1;
 constexpr int N_SWEEPS = 5;
 constexpr float SQRT_1_5 = 1.22474487139158904909f;
 constexpr float RAD2DEG = 57.2957795130823208768f;  // 180 / pi
@@ -201,39 +196,29 @@ __device__ __forceinline__ void maps(const Voxel& m, float scale, long long i, l
 __global__ void __launch_bounds__(THREADS)
 scalar_maps_kernel(const float* __restrict__ d6, float* __restrict__ planes,
                    float* __restrict__ rgb, long long V) {
-  const long long first = static_cast<long long>(blockIdx.x) * THREADS * VPT + threadIdx.x;
-  Voxel m[VPT];
-  float scale[VPT];
+  const long long i = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
+  // 24 B per voxel: three aligned 8-byte loads
+  const float2* src = reinterpret_cast<const float2*>(d6 + 6 * (i < V ? i : V - 1));
+  const float2 p0 = src[0], p1 = src[1], p2 = src[2];
+  const float scale = fmaxf(fabsf(p0.x), fmaxf(fabsf(p0.y), fmaxf(fabsf(p1.x),
+                      fmaxf(fabsf(p1.y), fmaxf(fabsf(p2.x), fabsf(p2.y))))));
+  const float inv_scale = scale == 0.0f ? 1.0f : __frcp_rn(scale);
+  Voxel m;
+  m.a00 = p0.x * inv_scale;
+  m.a01 = p0.y * inv_scale;
+  m.a02 = p1.x * inv_scale;
+  m.a11 = p1.y * inv_scale;
+  m.a12 = p2.x * inv_scale;
+  m.a22 = p2.y * inv_scale;
 #pragma unroll
-  for (int j = 0; j < VPT; ++j) {
-    const long long i = first + static_cast<long long>(j) * THREADS;
-    // 24 B per voxel: three aligned 8-byte loads
-    const float2* src = reinterpret_cast<const float2*>(d6 + 6 * (i < V ? i : V - 1));
-    const float2 p0 = src[0], p1 = src[1], p2 = src[2];
-    scale[j] = fmaxf(fabsf(p0.x), fmaxf(fabsf(p0.y), fmaxf(fabsf(p1.x),
-               fmaxf(fabsf(p1.y), fmaxf(fabsf(p2.x), fabsf(p2.y))))));
-    const float inv_scale = scale[j] == 0.0f ? 1.0f : __frcp_rn(scale[j]);
-    m[j].a00 = p0.x * inv_scale;
-    m[j].a01 = p0.y * inv_scale;
-    m[j].a02 = p1.x * inv_scale;
-    m[j].a11 = p1.y * inv_scale;
-    m[j].a12 = p2.x * inv_scale;
-    m[j].a22 = p2.y * inv_scale;
-#pragma unroll
-    for (int e = 0; e < 9; ++e) m[j].v[e] = e % 4 == 0 ? 1.0f : 0.0f;
-  }
+  for (int e = 0; e < 9; ++e) m.v[e] = e % 4 == 0 ? 1.0f : 0.0f;
 #pragma unroll 1  // the sweep's code once: a fifth of the instructions to fetch
   for (int sweep = 0; sweep < N_SWEEPS; ++sweep) {
-#pragma unroll
-    for (int j = 0; j < VPT; ++j) rotate<0>(m[j]);
-#pragma unroll
-    for (int j = 0; j < VPT; ++j) rotate<1>(m[j]);
-#pragma unroll
-    for (int j = 0; j < VPT; ++j) rotate<2>(m[j]);
+    rotate<0>(m);
+    rotate<1>(m);
+    rotate<2>(m);
   }
-#pragma unroll
-  for (int j = 0; j < VPT; ++j)
-    maps(m[j], scale[j], first + static_cast<long long>(j) * THREADS, V, planes, rgb);
+  maps(m, scale, i, V, planes, rgb);
 }
 
 }  // namespace
@@ -241,12 +226,12 @@ scalar_maps_kernel(const float* __restrict__ d6, float* __restrict__ planes,
 extern "C" {
 
 // d6: (V, 6) f32 contiguous, 8-byte aligned; planes: (6, V) f32; rgb: (V, 3)
-// f32; `blocks` CTAs of THREADS threads, VPT voxels each, as
+// f32; `blocks` CTAs of THREADS threads, one voxel each, as
 // ops/kernels/scalar_maps.py:scalar_maps_plan sets them. Returns the
 // cudaError_t of the launch.
 int scalar_maps(const void* d6, void* planes, void* rgb, long long V, long long blocks,
                 void* stream) {
-  if (V <= 0 || blocks <= 0 || blocks > 0x7fffffffLL || blocks * THREADS * VPT < V)
+  if (V <= 0 || blocks <= 0 || blocks > 0x7fffffffLL || blocks * THREADS < V)
     return static_cast<int>(cudaErrorInvalidValue);
   scalar_maps_kernel<<<static_cast<unsigned>(blocks), THREADS, 0,
                        static_cast<cudaStream_t>(stream)>>>(

@@ -10,7 +10,9 @@ scope=derivatives).
 from __future__ import annotations
 
 import os
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
 
 
 def parse_entities(path: str) -> Dict[str, str]:
@@ -68,13 +70,21 @@ class BIDSIndex:
         scope = os.path.basename(deriv_dir.rstrip("/"))
         self._walk(deriv_dir, scope)
 
+    def get_subjects(self) -> List[str]:
+        """Every subject label of the indexed files, sorted."""
+        return sorted({ents["subject"] for ents in map(parse_entities, self.files)
+                       if "subject" in ents})
+
     def get(
         self,
         scope: Optional[str] = None,
         subject: Optional[str] = None,
         suffix: Optional[str] = None,
         desc: Optional[str] = None,
+        extension: Optional[str] = None,
     ) -> List[str]:
+        """Sorted paths matching every given entity (``extension`` matches
+        the end of the path)."""
         out = []
         for p in self.files:
             if scope is not None and self.scopes.get(p) != scope:
@@ -86,6 +96,30 @@ class BIDSIndex:
                 continue
             if desc is not None and ents.get("desc") != desc:
                 continue
+            if extension is not None and not p.endswith(extension):
+                continue
             out.append(p)
         return sorted(out)
 
+
+def subject_split(subjects: Sequence[str], val_split: float, test_split: float,
+                  seed: int) -> Tuple[List[str], List[str], List[str]]:
+    """Seeded subject-level train/val/test split (reference
+    ``src/data_module.py:70-75``, torch ``random_split`` over subject ids).
+
+    Each split gets the floor of its fraction of ``n``; the remainder goes
+    round-robin from the first split (torch's rule). The order is
+    ``np.random.default_rng(seed).permutation(n)``, as the JAX package
+    draws it, so both packages split a cohort the same way."""
+    n = len(subjects)
+    fracs = [1.0 - val_split - test_split, val_split, test_split]
+    lengths = [int(np.floor(n * f)) for f in fracs]
+    for i in range(n - sum(lengths)):
+        lengths[i % 3] += 1
+    perm = np.random.default_rng(seed).permutation(n)
+    subjects = list(subjects)
+    out, start = [], 0
+    for ln in lengths:
+        out.append([subjects[i] for i in perm[start:start + ln]])
+        start += ln
+    return out[0], out[1], out[2]

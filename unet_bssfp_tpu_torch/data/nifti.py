@@ -1,6 +1,14 @@
-"""Minimal NIfTI-1 codec, channels-last (the pure-Python path of
+"""NIfTI-1 codec, channels-last (the port's counterpart of
 ``unet_bssfp_tpu/data/nifti.py``): 348-byte header + raw data, plain or
 gzip; float volumes with dim/affine round-trip.
+
+Two codecs, tried in the JAX package's order: the native C++ codec
+(``unet_bssfp_tpu_torch.native``: one ctypes call that releases the GIL,
+built at first use) and this module's pure-Python codec, which takes
+whatever the native one does not (big-endian files, a ``dtype`` other than
+float32 on load, arrays other than float32 on save, no compiler). Both give
+the same arrays, bit for bit, and write the same header; :func:`codec`
+names the one in use.
 
 NIfTI stores spatial-first with a trailing channel dim, which is the port's
 ``(D, H, W, C)`` volume layout.
@@ -13,6 +21,8 @@ import struct
 from typing import Optional, Tuple
 
 import numpy as np
+
+from unet_bssfp_tpu_torch import native
 
 _DTYPE_CODES = {
     2: np.uint8,
@@ -59,9 +69,27 @@ def _affine(srow: np.ndarray) -> np.ndarray:
     return affine
 
 
+def codec() -> str:
+    """``"native"`` where the C++ codec is built and loaded, else
+    ``"python"``."""
+    return "native" if native.is_available() else "python"
+
+
 def load_volume(path: str, dtype=np.float32) -> Tuple[np.ndarray, np.ndarray]:
     """NIfTI file → (data ``(D, H, W, C)``, affine ``(4, 4)``); a 3-D volume
-    gains a singleton channel dim."""
+    gains a singleton channel dim. The native codec reads a float32 load;
+    what it refuses falls to the pure-Python codec."""
+    if np.dtype(dtype) == np.float32 and native.is_available():
+        try:
+            data, affine = native.read_volume(path)
+        except OSError:
+            pass  # e.g. a big-endian file: the Python codec reads it
+        else:
+            return (data[..., None] if data.ndim == 3 else data), affine
+    return _python_load(path, dtype)
+
+
+def _python_load(path: str, dtype=np.float32) -> Tuple[np.ndarray, np.ndarray]:
     buf = _read_bytes(path)
     endian, shape, datatype, vox_offset, slope, inter, srow = _parse_header(buf)
     if datatype not in _DTYPE_CODES:
@@ -81,17 +109,31 @@ def load_volume(path: str, dtype=np.float32) -> Tuple[np.ndarray, np.ndarray]:
 
 
 def load_affine(path: str) -> np.ndarray:
-    """The ``(4, 4)`` affine of a NIfTI header."""
+    """The ``(4, 4)`` affine of a NIfTI header (no voxel decode natively)."""
+    if native.is_available():
+        try:
+            return native.read_header(path)[1]
+        except OSError:
+            pass
     return _affine(_parse_header(_read_bytes(path))[6])
 
 
 def save_volume(path: str, data: np.ndarray,
                 affine: Optional[np.ndarray] = None) -> None:
-    """Save a ``(D, H, W, C)`` (or 3-D) array; affine defaults to identity."""
+    """Save a ``(D, H, W, C)`` (or 3-D) array; affine defaults to identity.
+    A float32 array goes through the native codec; another type keeps its
+    type through the pure-Python codec."""
     affine = np.eye(4) if affine is None else np.asarray(affine, np.float64)
     data = np.asarray(data)
     if data.ndim == 4 and data.shape[-1] == 1:
         data = data[..., 0]
+    if data.dtype == np.float32 and native.is_available():
+        native.write_volume(path, data, affine)
+        return
+    _python_save(path, data, affine)
+
+
+def _python_save(path: str, data: np.ndarray, affine: np.ndarray) -> None:
     data = np.ascontiguousarray(data)
     if data.dtype not in _CODES_DTYPE:
         data = data.astype(np.float32)

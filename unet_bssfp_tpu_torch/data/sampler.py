@@ -1,6 +1,7 @@
-"""Grid patch sampling and stitching on device (counterpart of the
-inference half of ``unet_bssfp_tpu/data/sampler.py``). Volumes are
-``(D, H, W, C)``."""
+"""Patch sampling and stitching on device (counterpart of
+``unet_bssfp_tpu/data/sampler.py``): uniform random corners for training
+patches, a static grid and its aggregator for stitched inference. Volumes
+are ``(D, H, W, C)``."""
 
 from __future__ import annotations
 
@@ -8,6 +9,18 @@ from typing import Sequence, Tuple
 
 import numpy as np
 import torch
+
+
+def uniform_patch_starts(generator: torch.Generator, volume_shape: Sequence[int],
+                         patch_size: int, num_patches: int) -> np.ndarray:
+    """``(num_patches, 3)`` int32 patch corners, uniform over the valid
+    starts of each axis (TorchIO ``UniformSampler``): floor(U · (dim − p +
+    1)) with U ~ U[0, 1) in f32, drawn from ``generator`` (a CPU generator:
+    the corners are host numbers)."""
+    maxs = torch.tensor([volume_shape[i] - patch_size + 1 for i in range(3)],
+                        dtype=torch.float32)
+    u = torch.rand((num_patches, 3), generator=generator, dtype=torch.float32)
+    return torch.floor(u * maxs).to(torch.int32).numpy()
 
 
 def grid_patch_starts(volume_shape: Sequence[int], patch_size: int) -> np.ndarray:

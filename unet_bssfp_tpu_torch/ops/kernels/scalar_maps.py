@@ -7,7 +7,7 @@ function in plain PyTorch (``unet_bssfp_tpu/ops/scalar_maps.py:33-72``), the
 CPU path and the kernel's reference, which the kernel repeats step for step
 (with FMA contraction and a correctly rounded reciprocal square root, so
 within the bound of ``ops/scalar_maps_check.py``, not bit for bit).
-:func:`scalar_maps_plan` is the launch plan: voxels per thread and blocks.
+:func:`scalar_maps_plan` is the launch plan: one voxel a thread.
 """
 
 from __future__ import annotations
@@ -25,27 +25,21 @@ from unet_bssfp_tpu_torch.ops.kernels import _build
 RAD2DEG = 180.0 / math.pi
 _COUNT_LOCK = threading.Lock()
 THREADS = 128  # csrc/scalar_maps.cu: THREADS, threads per block
-VPT = 1        # csrc/scalar_maps.cu: VPT, voxels per thread (its comment says why)
 
 
-def scalar_maps_plan(nvox: int, vpt: int = VPT) -> int:
-    """The blocks of a launch on ``nvox`` voxels with ``vpt`` voxels per
-    thread (the kernel's VPT): every voxel once, as :func:`plan_voxels`
-    lists them."""
-    if vpt < 1:
-        raise ValueError(f"scalar_maps: {vpt} voxels per thread")
-    return -(-nvox // (THREADS * vpt))
+def scalar_maps_plan(nvox: int) -> int:
+    """The blocks of a launch on ``nvox`` voxels, one voxel a thread:
+    every voxel once, as :func:`plan_voxels` lists them."""
+    if nvox < 1:
+        raise ValueError(f"scalar_maps: {nvox} voxels")
+    return -(-nvox // THREADS)
 
 
-def plan_voxels(blocks: int, vpt: int) -> torch.Tensor:
-    """The voxel the kernel gives (block, j, thread), as a (blocks, vpt,
-    THREADS) index: block·THREADS·vpt + j·THREADS + thread, so each j is a
-    coalesced run across the warp. Indices ≥ V are computed on voxel V - 1
-    and not stored."""
-    b = torch.arange(blocks)[:, None, None] * (THREADS * vpt)
-    return b + torch.arange(vpt)[None, :, None] * THREADS + torch.arange(THREADS)
-
-
+def plan_voxels(blocks: int) -> torch.Tensor:
+    """The voxel the kernel gives (block, thread), as a (blocks, THREADS)
+    index: block·THREADS + thread, a coalesced run across the warp.
+    Indices ≥ V are computed on voxel V - 1 and not stored."""
+    return torch.arange(blocks)[:, None] * THREADS + torch.arange(THREADS)
 
 
 def scalar_maps_plain(d6: torch.Tensor) -> Tuple[torch.Tensor, ...]:

@@ -1,5 +1,6 @@
-"""Image-quality metrics on NDHWC volumes: PSNR, MAE, 3D SSIM (counterpart of
-``unet_bssfp_tpu/ops/metrics.py``; its FID comes with the MedicalNet slice).
+"""Image-quality metrics on NDHWC volumes: PSNR, MAE, 3D SSIM and the
+whole-tensor z-normalisation (counterpart of ``unet_bssfp_tpu/ops/metrics.py``;
+its FID comes with the MedicalNet slice).
 
 The SSIM window is applied as explicit shifted, weighted sums in the input's
 (at least f32) precision: no convolution library call, so no TF32 on the
@@ -25,6 +26,12 @@ def psnr(pred: torch.Tensor, target: torch.Tensor, max_val: float = 1.0) -> torc
 def mae(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     """Per-item mean absolute error (MONAI ``MAEMetric``) → shape (N,)."""
     return torch.mean(torch.abs(_flatten_per_item(pred) - _flatten_per_item(target)), dim=-1)
+
+
+def znorm(volume: torch.Tensor) -> torch.Tensor:
+    """Whole-tensor z-normalisation (reference ``src/model.py:222-226``):
+    the population standard deviation, as ``jnp.std`` takes it."""
+    return (volume - torch.mean(volume)) / torch.std(volume, correction=0)
 
 
 def _gaussian_kernel1d(win_size: int, sigma: float, dtype, device) -> torch.Tensor:

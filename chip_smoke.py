@@ -126,17 +126,45 @@ Phases (any failure → nonzero exit, no ``ok`` line):
     and motion), with each one's ms and the chain's at p = 1 and p = 0.1;
     the same seed's batches bit-identical with prefetch on and off, at the
     default p and at p = 1.
+13. The training loop, on phase 12's tree (2 / 1 / 1 subjects), the
+    default config at full width (bf16, 8 × 64³, ``packed``) with
+    ``max_epochs`` 2 (3 made the phase take over a minute: every epoch's
+    loads are cold, ≈ 7 s), ``checkpoint_top_k`` 2, ``log_clean_val`` on
+    and the split of phase 12 (val and test 0.25): ``Trainer.fit`` on ``cuda`` from
+    the data module (no volume cache: every epoch's loads are cold), with
+    the launch counts reset just before it (the ``train_loop`` path):
+    ``metrics.csv`` a row an epoch, every column finite; at most 2 step
+    directories and ``config.json`` on disk; the counts exactly the train
+    steps × ``TRAIN_STEP_LAUNCHES`` plus the eval steps ×
+    ``EVAL_STEP_LAUNCHES`` (``*_mma_routed`` 0). Recorded: ms per epoch,
+    each synchronised step beside its loop iteration (data wait included),
+    each checkpoint's seconds and MB, the load's seconds, the device's busy
+    share over one profiled epoch (the resume's below, its Trainer build
+    and load included). The best checkpoint loaded into a fresh state gives
+    the eval step's metrics on the fit's last val batch bit for bit the
+    in-memory state's where the best is the last epoch, else finite ones;
+    ``train_model(ckpt_path="auto", max_epochs=1)`` continues the step
+    counter of the newest checkpoint. One default step with ``remat`` off
+    and one on, from the same seed and the fit's last train batch, dropout
+    on, cuDNN deterministic: every
+    gradient, parameter and BatchNorm buffer and the dropout generator
+    bit-equal, the remat step's launches ``REMAT_STEP_LAUNCHES`` (the
+    ``train_step_remat`` path), each one's ms and peak MiB. Last, the
+    ``CANONICAL_CPU`` regime (``scripts/torch_port_convergence.py``, from
+    the JAX package's ``PRNGKey(42)`` weights) through the port's Trainer
+    on the card, held to the band 6.487 ± 1.0 dB.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the ``kernels`` JSON (``launches_by_path``: the serving
 run's, one training step's, the eval chain's, the mesh serving run's, the
-sharded block backward's, the two probe paths' and one data-fed training
-step's counts; ``launches``: their sum); details go to
-``perf_out/chip_smoke.json``.
+sharded block backward's, the two probe paths', one data-fed training
+step's, the training loop's and one remat step's counts; ``launches``:
+their sum); details go to ``perf_out/chip_smoke.json``.
 """
 
 from __future__ import annotations
 
+import csv
 import dataclasses
 import json
 import math
@@ -173,6 +201,17 @@ TRAIN_STEP_LAUNCHES = {"conv3x3_packed": 8, "conv3x3_packed_dgrad": 4,
                        "pack_hw": 5, "unpack_hw": 4,
                        "fused_instance_norm_leaky_relu": 0, "scalar_maps": 0,
                        **dict.fromkeys(PFOLD_KERNELS + PROBE_KERNELS, 0)}
+# Launches of one eval step (the generator's packed forward, no gradient):
+# 4 packed convs, 2 packs, 1 unpack.
+EVAL_STEP_LAUNCHES = dict(dict.fromkeys(TRAIN_STEP_LAUNCHES, 0), conv3x3_packed=4,
+                          pack_hw=2, unpack_hw=1)
+# A step with ModelConfig.remat: the generator phase's backward recomputes
+# the blocks it wraps (models/layers.py:remat); of those only the packed
+# conv_0 and upcat_1 launch kernels, their 4 convs and 2 packs once more.
+REMAT_STEP_LAUNCHES = dict(TRAIN_STEP_LAUNCHES, conv3x3_packed=8 + 4, pack_hw=5 + 2)
+# Phase 13: the fit's epochs and the checkpoints it keeps. 3 epochs made
+# the phase take 64-68 s (cold loads ≈ 7 s an epoch); cut to 2.
+LOOP_EPOCHS, LOOP_TOP_K = 2, 2
 # The mesh serving runs: (mesh shape, whole volume?). One generator forward
 # has 4 packed convs, 2 packs and 1 unpack; every shard runs them (the 8
 # patches of a volume are one batch). A mesh with a space split sends the
@@ -227,14 +266,6 @@ SCALAR_MAPS_BYTES_PER_VOXEL = (6 + 9) * 4
 # of them a clock.
 SCALAR_MAPS_MUFU_PER_VOXEL = 15 * 4 + 1 + 8
 MUFU_PER_CLOCK_PER_SM = 16
-# The digest (ops/scalar_maps_check.py:maps_digest) of K8's maps of
-# sample_dt_volume(VOLUME, SEED) from the kernel as it was while it still
-# carried its voxels-per-thread loops at a constant 1, built for sm_90a and
-# run on an H100 80GB HBM3 at 700 W: the one-voxel-a-thread
-# kernel must give them bit for bit. A new nvcc may contract a*b + c into
-# FMAs elsewhere and move the digest while the maps stay within their bound
-# (the scalar_maps rows): the row then says so.
-K8_VPT1_SHA256 = "ee19be7a7d61c5cb16105d3ba2fd31ed4de5e86aa3aa4196fa5444673ac71ae0"
 
 
 def bound(bytes_moved: float, ops: float, dtype: str):
@@ -1038,35 +1069,10 @@ def check_scalar_maps(torch, K, chk, checks, fields, shape, seed):
 
 
 def phase_scalar_maps(torch, K, chk, checks, fields):
-    """K8 at both shapes; at (96, 128, 128) its maps are also held bit for bit
-    to those of the kernel before its voxels-per-thread loops went
-    (K8_VPT1_SHA256), and their digest returned."""
+    """K8 at both shapes: within ``compare_scalar_maps``' bound of its plain
+    version, and a second launch bit for bit the first."""
     check_scalar_maps(torch, K, chk, checks, fields, VOLUME, SEED)
     check_scalar_maps(torch, K, chk, checks, fields, (5, 7, 3), SEED + 1)
-    d6 = torch.from_numpy(chk.sample_dt_volume(VOLUME, SEED)).to("cuda")
-    maps = K.scalar_maps(d6)
-    digest = chk.maps_digest(maps)
-    same = digest == K8_VPT1_SHA256
-    row = dict(phase="scalar_maps_unchanged", sha256=digest, expected=K8_VPT1_SHA256,
-               nvcc=_nvcc_version())
-    if not same:
-        row["within_bound_of_plain"] = chk.compare_scalar_maps(
-            maps, K.scalar_maps_plain(d6), d6)["ok"]
-        row["hint"] = ("maps moved bit-wise but stay within their bound: an nvcc or "
-                       "contraction change, not a kernel fault" if row["within_bound_of_plain"]
-                       else "maps out of their bound: a kernel fault")
-    print(f"K8 maps at {VOLUME} from seed {SEED}: sha256 {digest} "
-          f"(the loop kernel's: {K8_VPT1_SHA256}){'' if same else '; ' + row['hint']}",
-          flush=True)
-    checks.record(same, row)
-    return digest
-
-
-def _nvcc_version() -> str:
-    from unet_bssfp_tpu_torch.ops.kernels import _build
-
-    out = subprocess.run([_build._nvcc(), "--version"], capture_output=True, text=True)
-    return out.stdout.strip().splitlines()[-1] if out.stdout.strip() else "unknown"
 
 
 def make_tree(make_synthetic_bids, root: Path) -> float:
@@ -1799,6 +1805,254 @@ def _phase_data(torch, K, checks, pkg, tree, work):
     return counts, out
 
 
+def phase_loop(torch, K, checks, pkg, tree: str):
+    """Phase 13: the training loop on phase 12's tree (see the docstring)."""
+    work = Path("perf_out") / "loop_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        return _phase_loop(torch, K, checks, pkg, tree, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _phase_loop(torch, K, checks, pkg, tree, work):
+    (Config, DoveDataModule, Trainer, train_model, ckpt, create_gan_state, make_train_step,
+     flops, conv) = pkg
+    from torch.profiler import ProfilerActivity, profile
+
+    base = Config()
+    cfg = dataclasses.replace(
+        base, data=dataclasses.replace(base.data, val_split=0.25, test_split=0.25),
+        train=dataclasses.replace(base.train, max_epochs=LOOP_EPOCHS,
+                                  checkpoint_top_k=LOOP_TOP_K, log_clean_val=True,
+                                  log_dir=str(work / "logs"),
+                                  checkpoint_dir=str(work / "ckpts")))
+    dm = DoveDataModule(tree, config=cfg.data)
+    dm.prepare_data()
+    out = {}
+
+    # 1. Trainer.fit, its steps timed (each synchronised: the step, and the
+    # loop iteration from the last step's end, data wait included), its
+    # checkpoint writes timed and sized, the launch counts of the whole fit
+    trainer = Trainer(cfg, MODALITY, device="cuda")
+    state = trainer.init_state()
+    train_step, eval_step, save = trainer.train_step, trainer.eval_step, trainer.ckpt.save
+    calls = {"train": 0, "eval": 0}
+    step_ms, loop_ms, saves, sizes, last_end = [], [], [], [], [None]
+    seen = {}  # the last train and eval batches, for the checks after the fit
+
+    def timed_train(st, x, y):
+        seen["train"] = (x, y)
+        t0 = time.perf_counter()
+        m = train_step(st, x, y)
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        step_ms.append((now - t0) * 1e3)
+        if last_end[0] is not None:
+            loop_ms.append((now - last_end[0]) * 1e3)
+        last_end[0] = now
+        calls["train"] += 1
+        return m
+
+    def counted_eval(st, x, y):
+        seen["eval"] = (x, y)
+        calls["eval"] += 1
+        last_end[0] = None  # the next epoch's first step follows the val passes
+        return eval_step(st, x, y)
+
+    def timed_save(step, st, row):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save(step, st, row)
+        saves.append(time.perf_counter() - t0)
+
+    real_write = ckpt.atomic_save
+
+    def sized_write(obj, path):
+        real_write(obj, path)
+        sizes.append(os.path.getsize(path) / 1e6)
+
+    trainer.train_step, trainer.eval_step, trainer.ckpt.save = timed_train, counted_eval, timed_save
+    ckpt.atomic_save = sized_write
+    try:
+        torch.cuda.synchronize()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        state, best = trainer.fit(dm, state)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        counts = K.launches()
+    finally:
+        ckpt.atomic_save = real_write
+    with open(os.path.join(trainer.logger.log_dir, "metrics.csv")) as f:
+        rows = list(csv.DictReader(f))
+    per_epoch = {s: -(-n * cfg.data.samples_per_vol // cfg.data.batch_size)
+                 for s, n in (("train", len(dm.train_samples)), ("val", len(dm.val_samples)))}
+    want_calls = {"train": LOOP_EPOCHS * per_epoch["train"], "eval": LOOP_EPOCHS * 2 * per_epoch["val"]}
+    expected = {k: calls["train"] * TRAIN_STEP_LAUNCHES[k] + calls["eval"] * EVAL_STEP_LAUNCHES[k]
+                for k in TRAIN_STEP_LAUNCHES}
+    on_disk = sorted(os.listdir(trainer.ckpt.directory))
+    steps_on_disk = [int(d) for d in on_disk if d.isdigit()]
+    finite = len(rows) == LOOP_EPOCHS and all(
+        math.isfinite(float(v)) for r in rows for v in r.values())
+    disk_ok = ("config.json" in on_disk and 1 <= len(steps_on_disk) <= LOOP_TOP_K
+               and sorted(steps_on_disk) == sorted(trainer.ckpt.steps)
+               and set(on_disk) == {"config.json", *map(str, steps_on_disk)})
+    out["fit"] = {"rows": len(rows), "columns": list(rows[0]) if rows else [],
+                  "calls": calls, "expected_calls": want_calls,
+                  "steps_on_disk": steps_on_disk, "best_step": trainer.ckpt.best_step,
+                  "fit_s": fit_s, "last_row": rows[-1] if rows else None}
+    print("training-loop launches (the whole fit): " + json.dumps(counts), flush=True)
+    print(f"Trainer.fit: {len(rows)} epochs, {calls['train']} train and {calls['eval']} eval steps "
+          f"in {fit_s:.1f} s; checkpoints kept {steps_on_disk} (best {trainer.ckpt.best_step}); "
+          f"last row {json.dumps(rows[-1] if rows else None)}", flush=True)
+    checks.record(finite and disk_ok and calls == want_calls and counts == expected,
+                  dict(phase="train_loop_fit", launches=counts, expected=expected,
+                       finite=finite, disk_ok=disk_ok, **out["fit"]))
+
+    # 2. what the fit took
+    step_flops = flops.gan_step_flops(batch=cfg.data.batch_size, patch=cfg.data.patch_size)
+    step_med = statistics.median(step_ms)
+    out["timing"] = {
+        "ms_per_epoch": [float(r["epoch_seconds"]) * 1e3 for r in rows],
+        "ms_per_step_median": step_med, "ms_per_step_all": step_ms,
+        "ms_per_loop_iteration_median": statistics.median(loop_ms) if loop_ms else None,
+        "ms_per_loop_iteration_all": loop_ms,
+        "step_tflops_per_s": step_flops / step_med / 1e9,
+        "checkpoint_save_s": saves, "checkpoint_mb": sizes}
+
+    # 3. the best checkpoint into a fresh state: the eval step's metrics on
+    # a val batch, bit for bit the in-memory state's where the best is the
+    # last epoch (cuDNN held to deterministic algorithms for the two calls)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        fresh = trainer.init_state(seed=SEED + 7)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.load_checkpoint(best, fresh)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        got = {k: float(v) for k, v in eval_step(fresh, *seen["eval"])[0].items()}
+        ref = {k: float(v) for k, v in eval_step(state, *seen["eval"])[0].items()}
+    finally:
+        torch.backends.cudnn.deterministic = det
+    last = trainer.ckpt.best_step == LOOP_EPOCHS - 1
+    restore_ok = (got == ref and fresh.step == state.step) if last else all(
+        math.isfinite(v) for v in got.values())
+    out["timing"]["checkpoint_load_s"] = load_s
+    out["restore"] = {"best_step": trainer.ckpt.best_step, "best_is_last": last,
+                      "restored_step": fresh.step, "metrics": got, "in_memory": ref}
+    print(f"restore: best {best} (step {fresh.step}) loaded in {load_s:.3f} s; eval metrics "
+          f"{'bit-equal to the in-memory state' if got == ref else 'differ from it'}"
+          f"{'' if last else ' (best is not the last epoch: finite held)'}", flush=True)
+    checks.record(restore_ok, dict(phase="train_loop_restore", **out["restore"]))
+    del fresh
+
+    # 4. --ckpt auto: the newest whole checkpoint, one more epoch, under the
+    # profiler (the loop's one profiled epoch: the resume's Trainer build
+    # and load are inside its wall too)
+    latest = ckpt.find_latest_checkpoint(cfg.train.checkpoint_dir, MODALITY)
+    s0 = torch.load(os.path.join(latest, ckpt.STATE_FILE), map_location="cpu",
+                    weights_only=True)["step"]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        best2 = train_model(dm, MODALITY, ckpt_path="auto", config=cfg, max_epochs=1,
+                            device="cuda")
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    busy, kernel_s = busy_share(prof, prof_wall)
+    del prof
+    s2 = torch.load(os.path.join(best2, ckpt.STATE_FILE), map_location="cpu",
+                    weights_only=True)["step"]
+    out["resume"] = {"from": latest, "from_step": s0, "to": best2, "to_step": s2,
+                     "expected_step": s0 + per_epoch["train"]}
+    out["timing"].update(profiled_epoch_ms=prof_wall * 1e3, device_busy_share=busy,
+                         kernel_ms_summed=None if kernel_s is None else kernel_s * 1e3)
+    print(f"resume auto: from {latest} (step {s0}) to {best2} (step {s2})", flush=True)
+    checks.record(s2 == s0 + per_epoch["train"] and os.path.dirname(best2) != os.path.dirname(
+        latest), dict(phase="train_loop_resume", **out["resume"]))
+    t = out["timing"]
+    print(f"loop timing: epochs {', '.join(f'{v:.0f}' for v in t['ms_per_epoch'])} ms; step "
+          f"{step_med:.2f} ms ({t['step_tflops_per_s']:.1f} TFLOP/s), loop iteration "
+          f"{t['ms_per_loop_iteration_median']} ms (data wait included; all "
+          f"{', '.join(f'{v:.1f}' for v in loop_ms)}); checkpoint save "
+          f"{', '.join(f'{v:.3f}' for v in saves)} s of {', '.join(f'{v:.1f}' for v in sizes)} MB, "
+          f"load {load_s:.3f} s; profiled resume epoch {prof_wall * 1e3:.0f} ms, device busy "
+          f"{'not measured' if busy is None else f'{100 * busy:.1f} %'}", flush=True)
+    checks.record(True, dict(phase="train_loop_timing", **t))
+
+    # 5. remat off and on: one default step each from the same seed and
+    # batch (the fit's last), dropout on, cuDNN deterministic; then each
+    # one's ms and peak
+    remat = {}
+    x, y = seen.pop("train")
+    del seen
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for on in (False, True):
+            st = create_gan_state(SEED, MODALITY, dataclasses.replace(cfg.model, remat=on),
+                                  cfg.train, "cuda")
+            step = make_train_step(st.gen, st.disc, cfg.train)
+            torch.cuda.synchronize()
+            K.reset_launches()
+            m = step(st, x, y)
+            torch.cuda.synchronize()
+            r = {"launches": K.launches(), "metrics": {k: float(v) for k, v in m.items()},
+                 "grads": {f"{n}.{k}": p.grad.cpu() for n in ("gen", "disc")
+                           for k, p in getattr(st, n).named_parameters()},
+                 "state": {f"{n}.{k}": v.cpu() for n in ("gen", "disc")
+                           for k, v in getattr(st, n).state_dict().items()},
+                 "rng": st.rng.get_state()}
+            step(st, x, y)
+            step(st, x, y)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                step(st, x, y)
+            torch.cuda.synchronize()
+            r["ms"] = (time.perf_counter() - t0) * 1e3 / 5
+            r["peak_mib"] = torch.cuda.max_memory_allocated() / 2 ** 20
+            r["step_peak_over_resident_mib"] = (torch.cuda.max_memory_allocated() - before) / 2 ** 20
+            remat[on] = r
+            del st, step, m
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = det
+    off, on = remat[False], remat[True]
+    same = {"metrics": off["metrics"] == on["metrics"],
+            "grads": off["grads"].keys() == on["grads"].keys() and all(
+                torch.equal(off["grads"][k], on["grads"][k]) for k in off["grads"]),
+            "params_and_buffers": off["state"].keys() == on["state"].keys() and all(
+                torch.equal(off["state"][k], on["state"][k]) for k in off["state"]),
+            "dropout_generator": torch.equal(off["rng"], on["rng"])}
+    out["remat"] = {"bit_equal": same, "launches_off": off["launches"],
+                    "launches_on": on["launches"], "expected_on": REMAT_STEP_LAUNCHES,
+                    **{f"{k}_{w}": remat[o][k] for o, w in ((False, "off"), (True, "on"))
+                       for k in ("ms", "peak_mib", "step_peak_over_resident_mib")}}
+    print(f"remat: one step off/on bit-equal {same}; ms {off['ms']:.2f} / {on['ms']:.2f}; "
+          f"peak {off['peak_mib']:.0f} / {on['peak_mib']:.0f} MiB (over the resident state "
+          f"{off['step_peak_over_resident_mib']:.0f} / {on['step_peak_over_resident_mib']:.0f})",
+          flush=True)
+    checks.record(all(same.values()) and off["launches"] == TRAIN_STEP_LAUNCHES
+                  and on["launches"] == REMAT_STEP_LAUNCHES,
+                  dict(phase="train_step_remat", **out["remat"]))
+
+    # 6. CANONICAL_CPU through the port's Trainer on the card
+    rec = conv.run_port("cuda", seed=42, root=str(work / "convergence"))
+    out["convergence"] = rec
+    print(f"CANONICAL_CPU on the card: val PSNR {rec['val_psnr_last']:.3f} dB (band "
+          f"{rec['band'][0]:.3f} .. {rec['band'][1]:.3f}), train L1 {rec['train_L1_first']:.4f} "
+          f"-> {rec['train_L1_last']:.4f}, {rec['wall_seconds']:.1f} s", flush=True)
+    checks.record(rec["in_band"] and rec["train_L1_last"] < rec["train_L1_first"],
+                  dict(phase="train_loop_convergence", **rec))
+    return counts, on["launches"], out
+
+
 # K1, K1's dgrad, K5 and K5's dgrad: the wgmma conv kernel in bf16 (the
 # rows of the summary line); the mma.sync loop it replaced stays as the
 # check-only conv3x3_packed_mma (and under K7a's routed shapes). K2 and K5's wgrad:
@@ -1943,9 +2197,12 @@ def main() -> int:
     )
     from unet_bssfp_tpu_torch.parallel.mesh import gather_batch, make_mesh, shard_batch
     from unet_bssfp_tpu_torch.predict import main as predict_main
+    from unet_bssfp_tpu_torch.train import checkpoint
+    from unet_bssfp_tpu_torch.train.loop import Trainer, train_model
     from unet_bssfp_tpu_torch.train.state import build_models, create_gan_state
     from unet_bssfp_tpu_torch.train.steps import make_predict_fn, make_train_step
-    from scripts import torch_port_pallas_probe, torch_port_pfold_probe
+    from unet_bssfp_tpu_torch.utils import flops
+    from scripts import torch_port_convergence, torch_port_pallas_probe, torch_port_pfold_probe
 
     t_start = time.perf_counter()
     smi = subprocess.run(
@@ -1980,7 +2237,7 @@ def main() -> int:
     block_counts = phase_mesh_block_backward(
         torch, K, checks, PackedTwoConv, (make_mesh, shard_batch, gather_batch))
     print(f"mesh path done at {time.perf_counter() - t_start:.1f}s", flush=True)
-    k8_digest = phase_scalar_maps(torch, K, chk, checks, ScalarMaps._fields)
+    phase_scalar_maps(torch, K, chk, checks, ScalarMaps._fields)
     tree = Path("perf_out") / "smoke_tree"
     try:
         synth_s = make_tree(make_synthetic_bids, tree)
@@ -2004,6 +2261,11 @@ def main() -> int:
              (sample_generator, uniform_patch_starts, extract_patches), create_gan_state,
              make_train_step), str(tree))
         print(f"data path done at {time.perf_counter() - t_start:.1f}s", flush=True)
+        loop_counts, remat_counts, loop_out = phase_loop(
+            torch, K, checks,
+            (Config, DoveDataModule, Trainer, train_model, checkpoint, create_gan_state,
+             make_train_step, flops, torch_port_convergence), str(tree))
+        print(f"training loop done at {time.perf_counter() - t_start:.1f}s", flush=True)
     finally:
         shutil.rmtree(tree, ignore_errors=True)
     elapsed = time.perf_counter() - t_start
@@ -2012,7 +2274,9 @@ def main() -> int:
                                     "eval": eval_counts, "mesh_serving": mesh_counts,
                                     "mesh_block_backward": block_counts,
                                     "pfold_probe": pf_counts, "pallas_probe": pa_counts,
-                                    "train_from_data": data_counts})
+                                    "train_from_data": data_counts,
+                                    "train_loop": loop_counts,
+                                    "train_step_remat": remat_counts})
     unlaunched = [k["name"] for k in kernels if k["launches"] == 0]
     checks.record(not unlaunched, dict(phase="every_kernel_launched_on_a_path",
                                        unlaunched=unlaunched))
@@ -2027,8 +2291,10 @@ def main() -> int:
                    "pfold_probe": {"launches": pf_counts, "rows": pf_rows},
                    "pallas_probe": {"launches": pa_counts, "rows": pa_rows},
                    "timing": timing, "train_timing": train_timing,
-                   "eval_timing": eval_timing, "k8_sha256": k8_digest,
+                   "eval_timing": eval_timing,
                    "train_from_data_launches": data_counts, "data_path": data_out,
+                   "train_loop_launches": loop_counts, "train_step_remat_launches": remat_counts,
+                   "train_loop": loop_out,
                    "kernels": kernels, "elapsed_s": elapsed}, f, indent=1)
     if checks.failures:
         print(f"chip_smoke: {len(checks.failures)} check(s) failed:", file=sys.stderr)

@@ -1119,3 +1119,116 @@ def test_gpu_packed_step_fed_from_data_launches_exactly(cuda, tmp_path):
         torch.cuda.synchronize()
         assert K.launches() == want, i
         assert all(math.isfinite(float(v)) for v in metrics.values())
+
+
+def _loop_config(tmp_path, **model):
+    """A small-width loop on 16³ patches of a 4-subject (32, 32, 32) tree:
+    bf16, packed (the card's default), top 2 of 2 epochs."""
+    import dataclasses
+
+    from unet_bssfp_tpu_torch.config import Config
+
+    cfg = Config()
+    return dataclasses.replace(
+        cfg, data=dataclasses.replace(cfg.data, batch_size=4, samples_per_vol=4, patch_size=16,
+                                      volume_shape=(32, 32, 32), val_split=0.25,
+                                      test_split=0.25, num_workers=2),
+        model=dataclasses.replace(cfg.model, features=(8, 16, 16, 32, 32, 8),
+                                  disc_features=(8, 16, 32), **model),
+        train=dataclasses.replace(cfg.train, max_epochs=1, checkpoint_top_k=2,
+                                  log_dir=str(tmp_path / "logs"),
+                                  checkpoint_dir=str(tmp_path / "ckpts")))
+
+
+@pytest.mark.gpu
+def test_gpu_trainer_fit_and_checkpoint_round_trip(cuda, tmp_path):
+    """One epoch of ``Trainer.fit`` on the card (its launches: every train
+    and eval step's, exactly); its ``state.pt``, saved from the card,
+    restores into a fresh state bit for bit (weights, BatchNorm buffers,
+    both AdamW states, step, the dropout generator), and both take the next
+    step alike."""
+    from unet_bssfp_tpu_torch.data.datamodule import DoveDataModule
+    from unet_bssfp_tpu_torch.train.checkpoint import load_checkpoint
+    from unet_bssfp_tpu_torch.train.loop import Trainer
+    from unet_bssfp_tpu_torch.train.steps import make_train_step
+
+    cfg = _loop_config(tmp_path)
+    dm = DoveDataModule(_tree(tmp_path, (32, 32, 32)), config=cfg.data)
+    trainer = Trainer(cfg, "pc-bssfp")
+    assert trainer.device.type == "cuda"
+    state = trainer.init_state()
+    K.reset_launches()
+    state, best = trainer.fit(dm, state)
+    torch.cuda.synchronize()
+    train_steps, eval_steps = 2, 1  # 2 subjects × 4 patches / 4; 1 × 4 / 4
+    want = dict.fromkeys(K.launches(), 0)
+    want.update(conv3x3_packed=8 * train_steps + 4 * eval_steps,
+                conv3x3_packed_dgrad=4 * train_steps, conv3x3_wgrad=4 * train_steps,
+                pack_hw=5 * train_steps + 2 * eval_steps, unpack_hw=4 * train_steps + eval_steps)
+    assert K.launches() == want
+    assert state.step == train_steps and best.endswith("0")
+
+    restored = load_checkpoint(best, trainer.init_state(seed=5))
+    assert restored.rng.device.type == "cuda"
+    for m in ("gen", "disc"):
+        a, b = getattr(state, m).state_dict(), getattr(restored, m).state_dict()
+        assert a.keys() == b.keys() and all(b[k].is_cuda and torch.equal(a[k], b[k]) for k in a)
+    for o in ("gen_opt", "disc_opt"):
+        a, b = getattr(state, o).state_dict()["state"], getattr(restored, o).state_dict()["state"]
+        assert a.keys() == b.keys()
+        assert all(torch.equal(a[i][k], b[i][k].to(a[i][k].device)) for i in a for k in a[i])
+    assert torch.equal(state.rng.get_state(), restored.rng.get_state())
+    assert restored.step == state.step
+    x, y = (torch.rand(4, 16, 16, 16, c, device=cuda) for c in (24, 6))
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        got = make_train_step(restored.gen, restored.disc, cfg.train)(restored, x, y)
+        ref = make_train_step(state.gen, state.disc, cfg.train)(state, x, y)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    assert {k: float(v) for k, v in got.items()} == {k: float(v) for k, v in ref.items()}
+
+
+@pytest.mark.gpu
+def test_gpu_remat_step_is_bit_equal_with_exact_launches(cuda):
+    """``ModelConfig.remat`` on the card: a packed bf16 step with dropout on
+    equals the step without remat bit for bit (every gradient, parameter,
+    BatchNorm buffer and the dropout generator), and recomputes the packed
+    conv_0 and upcat_1 blocks: 4 convs and 2 packs more."""
+    import dataclasses
+
+    from unet_bssfp_tpu_torch.train.state import create_gan_state
+    from unet_bssfp_tpu_torch.train.steps import make_train_step
+
+    cfg = _loop_config(Path("."))
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.rand(4, 32, 32, 32, 24, device=cuda, generator=g)
+    y = torch.rand(4, 32, 32, 32, 6, device=cuda, generator=g)
+    out = {}
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for remat in (False, True):
+            st = create_gan_state(0, "pc-bssfp", dataclasses.replace(cfg.model, remat=remat),
+                                  cfg.train, cuda)
+            K.reset_launches()
+            m = make_train_step(st.gen, st.disc, cfg.train)(st, x, y)
+            torch.cuda.synchronize()
+            out[remat] = (K.launches(), {k: float(v) for k, v in m.items()},
+                          {f"{n}.{k}": p.grad for n in ("gen", "disc")
+                           for k, p in getattr(st, n).named_parameters()},
+                          {f"{n}.{k}": v for n in ("gen", "disc")
+                           for k, v in getattr(st, n).state_dict().items()},
+                          st.rng.get_state())
+    finally:
+        torch.backends.cudnn.deterministic = det
+    (c0, m0, g0, s0, r0), (c1, m1, g1, s1, r1) = out[False], out[True]
+    want = dict.fromkeys(c0, 0)
+    want.update(conv3x3_packed=8, conv3x3_packed_dgrad=4, conv3x3_wgrad=4, pack_hw=5, unpack_hw=4)
+    assert c0 == want
+    assert c1 == dict(want, conv3x3_packed=12, pack_hw=7)
+    assert m0 == m1
+    assert g0.keys() == g1.keys() and all(torch.equal(g0[k], g1[k]) for k in g0)
+    assert s0.keys() == s1.keys() and all(torch.equal(s0[k], s1[k]) for k in s0)
+    assert torch.equal(r0, r1)

@@ -25,7 +25,8 @@ class Generator(nn.Module):
                  dropout: float = 0.05, unet_negative_slope: float = 0.1,
                  head_negative_slope: float = 0.2,
                  compute_dtype: Optional[torch.dtype] = None,
-                 use_fused: bool = False, packed: bool = False):
+                 use_fused: bool = False, packed: bool = False,
+                 remat: bool = False):
         super().__init__()
         self.modality = modality
         self.in_channels = MODALITY_CHANNELS[modality]
@@ -35,7 +36,7 @@ class Generator(nn.Module):
             negative_slope=head_negative_slope, compute_dtype=compute_dtype))
         self.unet = BasicUNet3D(
             unet_in_channels, out_channels, features, dropout,
-            unet_negative_slope, compute_dtype, use_fused, packed)
+            unet_negative_slope, compute_dtype, use_fused, packed, remat)
 
     def forward(self, x):
         """``x``: (B, D, H, W, C_in) or a ``parallel.mesh.Sharded`` of it."""

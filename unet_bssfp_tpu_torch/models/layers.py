@@ -25,11 +25,13 @@ raise.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from unet_bssfp_tpu_torch.ops.kernels import fused_instance_norm_leaky_relu
 from unet_bssfp_tpu_torch.parallel.mesh import Sharded, apply_local, local
@@ -256,6 +258,34 @@ def bind_dropout_generator(model: nn.Module,
     for m in model.modules():
         if isinstance(m, Dropout):
             m.generator = generator
+
+
+def remat(module: nn.Module, fn, *args):
+    """``fn(*args)`` (a block of ``module``) under
+    ``torch.utils.checkpoint``: its activations are dropped after the
+    forward and recomputed in the backward (the JAX package's ``nn.remat``).
+    ``checkpoint``'s own RNG stash covers only the global generators, not
+    the one bound to ``module``'s :class:`Dropout` s: so the recompute sets
+    that generator back to its state before the forward, draws the same
+    masks, and leaves it where it was found, as if nothing had been
+    recomputed."""
+    gens = list({id(m.generator): m.generator for m in module.modules()
+                 if isinstance(m, Dropout) and m.generator is not None}.values())
+    before = [g.get_state() for g in gens]
+
+    @contextlib.contextmanager
+    def replay():
+        now = [g.get_state() for g in gens]
+        for g, s in zip(gens, before):
+            g.set_state(s)
+        try:
+            yield
+        finally:
+            for g, s in zip(gens, now):
+                g.set_state(s)
+
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
+                      context_fn=lambda: (contextlib.nullcontext(), replay()))
 
 
 class ConvBlock(nn.Module):

@@ -12,7 +12,12 @@ Channel plumbing for features (f0..f4, f5):
 
 ``packed`` runs the two full-resolution stages (conv_0, upcat_1) on the
 packed layout through the hand-written kernels, where the input shape
-allows it (the JAX package's gate). The JAX package's ``folded`` and
+allows it (the JAX package's gate). ``remat`` recomputes each block's
+activations in the backward instead of keeping them (``layers.remat``):
+the blocks the JAX package wraps in ``nn.remat``, TwoConv, Down and UpCat,
+and in the packed case the packed conv_0 and upcat_1 and the pooled
+down_1. The pools before them, the head and the final 1³ conv stay
+outside, as there. The JAX package's ``folded`` and
 ``wpack_mid`` branches are TPU reformulations of the same convs with the
 same parameters and are not ported.
 
@@ -28,7 +33,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from unet_bssfp_tpu_torch.models.layers import Conv, Down, TwoConv, UpCat
+from unet_bssfp_tpu_torch.models.layers import Conv, Down, TwoConv, UpCat, remat
 from unet_bssfp_tpu_torch.models.packed_layers import (
     PackedFinalConv,
     PackedTwoConv,
@@ -55,13 +60,15 @@ class BasicUNet3D(nn.Module):
                  features: Sequence[int] = (32, 64, 128, 256, 512, 32),
                  dropout: float = 0.05, negative_slope: float = 0.1,
                  compute_dtype: Optional[torch.dtype] = None,
-                 use_fused: bool = False, packed: bool = False):
+                 use_fused: bool = False, packed: bool = False,
+                 remat: bool = False):
         super().__init__()
         f = tuple(features)
         if len(f) != 6:
             raise ValueError("BasicUNet3D needs 6 feature sizes")
         self.features = f
         self.packed = packed
+        self.remat = remat
         kw = dict(dropout=dropout, negative_slope=negative_slope,
                   compute_dtype=compute_dtype, use_fused=use_fused)
         two_conv, down_1, upcat_1, final = (
@@ -87,20 +94,29 @@ class BasicUNet3D(nn.Module):
                 f"volume {whole} on {x.mesh}: D={whole[1]} must be a multiple of "
                 f"16·n_space={16 * ns}, so that every level's shards pool locally")
         packed = self.packed and _can_pack(x, self.features[0])
+        block = self._block
         if packed:
             wdim = x.shape[3]
-            xk0 = self.conv_0.forward_packed(x)
-            x1 = self.down_1.forward_pooled(packed_max_pool2(xk0, wdim))
+            xk0 = block(self.conv_0, self.conv_0.forward_packed, x)
+            x1 = block(self.down_1, self.down_1.forward_pooled,
+                       packed_max_pool2(xk0, wdim))
         else:
-            x0 = self.conv_0(x)
-            x1 = self.down_1(x0)
-        x2 = self.down_2(x1)
-        x3 = self.down_3(x2)
-        x4 = self.down_4(x3)
-        u4 = self.upcat_4(x4, x3)
-        u3 = self.upcat_3(u4, x2)
-        u2 = self.upcat_2(u3, x1)
+            x0 = block(self.conv_0, self.conv_0, x)
+            x1 = block(self.down_1, self.down_1, x0)
+        x2 = block(self.down_2, self.down_2, x1)
+        x3 = block(self.down_3, self.down_3, x2)
+        x4 = block(self.down_4, self.down_4, x3)
+        u4 = block(self.upcat_4, self.upcat_4, x4, x3)
+        u3 = block(self.upcat_3, self.upcat_3, u4, x2)
+        u2 = block(self.upcat_2, self.upcat_2, u3, x1)
         if packed:
-            u1k = self.upcat_1.forward_packed(u2, xk0, wdim)
+            u1k = block(self.upcat_1, self.upcat_1.forward_packed, u2, xk0, wdim)
             return unpack_hw_auto(self.final_conv.forward_packed(u1k), wdim)
-        return self.final_conv(self.upcat_1(u2, x0))
+        return self.final_conv(block(self.upcat_1, self.upcat_1, u2, x0))
+
+    def _block(self, module: nn.Module, fn, *args):
+        """``fn(*args)``, recomputed in the backward under ``remat`` (where
+        gradients are taken: an eval or ``no_grad`` forward keeps nothing)."""
+        if self.remat and torch.is_grad_enabled():
+            return remat(module, fn, *args)
+        return fn(*args)

@@ -4,15 +4,12 @@ tensors to check them on (:func:`sample_dt_volume`), the per-voxel bound
 they obey (:func:`scalar_maps_tolerance`, :func:`compare_scalar_maps`), and
 how that bound carries through the eval chain's files
 (:func:`chain_bounds`, :func:`compare_chain_files`) into the ROI error
-table (:func:`table_cell_bounds`, :func:`compare_error_tables`); and a
-digest of the maps' bytes to hold two builds bit for bit
-(:func:`maps_digest`). The tests and ``chip_smoke.py`` use these; the eval
-path does not.
+table (:func:`table_cell_bounds`, :func:`compare_error_tables`). The tests
+and ``chip_smoke.py`` use these; the eval path does not.
 """
 
 from __future__ import annotations
 
-import hashlib
 import math
 from typing import Dict, List, Optional, Sequence
 
@@ -23,15 +20,6 @@ from unet_bssfp_tpu_torch.ops.eig3 import eigh3x3_from_lower6
 from unet_bssfp_tpu_torch.ops.error_maps import angular_error_map
 from unet_bssfp_tpu_torch.ops.kernels.scalar_maps import RAD2DEG, scalar_maps_plain
 from unet_bssfp_tpu_torch.ops.scalar_maps import ScalarMaps
-
-
-def maps_digest(maps: Sequence[torch.Tensor]) -> str:
-    """sha256 of the maps' bytes, field after field: equal digests mean
-    bit-identical maps."""
-    h = hashlib.sha256()
-    for f in maps:
-        h.update(f.contiguous().cpu().numpy().tobytes())
-    return h.hexdigest()
 
 
 def sample_dt_volume(shape: Sequence[int], seed: int) -> np.ndarray:

@@ -79,6 +79,7 @@ def build_models(modality: str, mcfg: ModelConfig,
         compute_dtype=dtype,
         use_fused=mcfg.use_pallas,
         packed=auto_packed(mcfg, dev, mesh),
+        remat=mcfg.remat,
     )
     if state_dict is not None:
         gen.load_state_dict(state_dict, strict=True)

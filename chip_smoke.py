@@ -153,13 +153,33 @@ Phases (any failure → nonzero exit, no ``ok`` line):
     ``CANONICAL_CPU`` regime (``scripts/torch_port_convergence.py``, from
     the JAX package's ``PRNGKey(42)`` weights) through the port's Trainer
     on the card, held to the band 6.487 ± 1.0 dB.
+14. Evaluation from a checkpoint, on phase 13's best step and phase 12's
+    tree (1 test subject at (96, 128, 128)), before both are deleted:
+    ``python -m unet_bssfp_tpu_torch.eval PRED BIDS --checkpoint
+    pc-bssfp=<best> --config <run>/config.json --rescale-args …`` in-process
+    on ``cuda`` with the counts reset before it (the
+    ``eval_from_checkpoint`` path: per test volume K1 4, K3a 2, K3b 1 and
+    K8 2, nothing else); ``test_metrics.csv`` with finite PSNR, SSIM, L1
+    and ``FID_random_features``, and a table with rows; its parts timed per
+    test volume (load, inference, FID, saves, ``eval_model`` in all, the
+    chain). With cuDNN deterministic: the written ``pred-0_…`` bit-equal to
+    ``predict_volume`` of the step's generator on the same volume, and
+    ``predict --checkpoint`` on the written ``input-0_…`` (no ``--config``;
+    ``--scalar-maps``) bit-equal to it (the ``predict_checkpoint`` path: K1
+    4, K3a 2, K3b 1, K8 1; 7 maps). The FID of those two files on the card
+    (TF32 off) within 1e-3 relative of the CPU's, its ms. One default GAN
+    step with ``with_perceptual: true`` (random features, bf16, no chunk)
+    on phase 13's last train batch: exactly ``TRAIN_STEP_LAUNCHES`` (the
+    ``train_step_perceptual`` path), a finite Perceptual term; its ms and
+    peak MiB beside the plain step's.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the ``kernels`` JSON (``launches_by_path``: the serving
 run's, one training step's, the eval chain's, the mesh serving run's, the
 sharded block backward's, the two probe paths', one data-fed training
-step's, the training loop's and one remat step's counts; ``launches``:
-their sum); details go to ``perf_out/chip_smoke.json``.
+step's, the training loop's, one remat step's, the evaluation from a
+checkpoint's, ``predict --checkpoint``'s and one perceptual step's counts;
+``launches``: their sum); details go to ``perf_out/chip_smoke.json``.
 """
 
 from __future__ import annotations
@@ -1805,18 +1825,11 @@ def _phase_data(torch, K, checks, pkg, tree, work):
     return counts, out
 
 
-def phase_loop(torch, K, checks, pkg, tree: str):
-    """Phase 13: the training loop on phase 12's tree (see the docstring)."""
-    work = Path("perf_out") / "loop_smoke"
-    shutil.rmtree(work, ignore_errors=True)
-    work.mkdir(parents=True)
-    try:
-        return _phase_loop(torch, K, checks, pkg, tree, work)
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
-
-
-def _phase_loop(torch, K, checks, pkg, tree, work):
+def phase_loop(torch, K, checks, pkg, tree: str, work: Path):
+    """Phase 13: the training loop on phase 12's tree (see the docstring),
+    its runs under ``work``, which the caller deletes after phase 14.
+    Returns the fit's launches, the remat step's, the records, and the run
+    phase 14 evaluates: the fit's best step and its last train batch."""
     (Config, DoveDataModule, Trainer, train_model, ckpt, create_gan_state, make_train_step,
      flops, conv) = pkg
     from torch.profiler import ProfilerActivity, profile
@@ -2050,7 +2063,230 @@ def _phase_loop(torch, K, checks, pkg, tree, work):
           f"-> {rec['train_L1_last']:.4f}, {rec['wall_seconds']:.1f} s", flush=True)
     checks.record(rec["in_band"] and rec["train_L1_last"] < rec["train_L1_first"],
                   dict(phase="train_loop_convergence", **rec))
-    return counts, on["launches"], out
+    return counts, on["launches"], out, {"best": best, "batch": (x, y)}
+
+
+def phase_eval_checkpoint(torch, K, checks, tree: str, run: dict, work: Path):
+    """Phase 14: evaluation from phase 13's best checkpoint on phase 12's tree
+    (see the docstring). Returns the launches of its three paths and the
+    records."""
+    import numpy as np
+
+    from unet_bssfp_tpu_torch.config import Config
+    from unet_bssfp_tpu_torch.data import nifti
+    from unet_bssfp_tpu_torch.data.datamodule import DoveDataModule
+    from unet_bssfp_tpu_torch.eval import evaluate, inference
+    from unet_bssfp_tpu_torch.eval.__main__ import main as eval_main
+    from unet_bssfp_tpu_torch.models.medicalnet import load_medicalnet
+    from unet_bssfp_tpu_torch.predict import main as predict_main
+    from unet_bssfp_tpu_torch.train.checkpoint import generator_state_dict
+    from unet_bssfp_tpu_torch.train.loop import build_perceptual_fn
+    from unet_bssfp_tpu_torch.train.state import build_models, create_gan_state
+    from unet_bssfp_tpu_torch.train.steps import (
+        make_medicalnet_fid_fn,
+        make_predict_fn,
+        make_train_step,
+    )
+
+    best, (x, y) = run["best"], run["batch"]
+    cfg_path = os.path.join(os.path.dirname(best), "config.json")
+    with open(cfg_path) as f:
+        cfg = Config.from_json(f.read())
+    pred_root, out = work / "eval_checkpoint", {}
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # the three predictions bit for bit
+    try:
+        # 1. the eval CLI from the checkpoint, in-process on cuda, its parts
+        # timed (each synchronised) through wrappers of what run_test calls
+        parts = {k: 0.0 for k in ("eval_model", "load", "inference", "fid", "saves", "chain")}
+
+        def timed(key, fn, sync=True):
+            def call(*a, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    if sync:
+                        torch.cuda.synchronize()
+                    parts[key] += time.perf_counter() - t0
+            return call
+
+        def timed_volumes(self, *a, **kw):
+            it = real["test_volumes"](self, *a, **kw)
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    item = next(it)
+                except StopIteration:
+                    return
+                torch.cuda.synchronize()
+                parts["load"] += time.perf_counter() - t0
+                yield item
+
+        def timed_fid_fn(*a, **kw):
+            fid_fn = real["make_medicalnet_fid_fn"](*a, **kw)
+            wrapped = timed("fid", fid_fn)
+            wrapped.label = fid_fn.label
+            return wrapped
+
+        real = {"test_volumes": DoveDataModule.test_volumes,
+                "predict_volume": inference.predict_volume,
+                "save_predictions": inference.save_predictions,
+                "make_medicalnet_fid_fn": evaluate.make_medicalnet_fid_fn,
+                "eval_model": evaluate.eval_model, "eval_dwi_tensors": evaluate.eval_dwi_tensors}
+        DoveDataModule.test_volumes = timed_volumes
+        inference.predict_volume = timed("inference", real["predict_volume"])
+        inference.save_predictions = timed("saves", real["save_predictions"], sync=False)
+        evaluate.make_medicalnet_fid_fn = timed_fid_fn
+        evaluate.eval_model = timed("eval_model", real["eval_model"])
+        evaluate.eval_dwi_tensors = timed("chain", real["eval_dwi_tensors"])
+        table_csv = work / "relative_errors_checkpoint.csv"
+        try:
+            torch.cuda.synchronize()
+            K.reset_launches()
+            t0 = time.perf_counter()
+            eval_main([str(pred_root), tree, "--checkpoint", f"{MODALITY}={best}",
+                       "--config", cfg_path, "--rescale-args", RESCALE_ARGS,
+                       "--out-csv", str(table_csv), "--device", "cuda"])
+            torch.cuda.synchronize()
+            cli_s = time.perf_counter() - t0
+            eval_counts = K.launches()
+        finally:
+            DoveDataModule.test_volumes = real["test_volumes"]
+            inference.predict_volume = real["predict_volume"]
+            inference.save_predictions = real["save_predictions"]
+            evaluate.make_medicalnet_fid_fn = real["make_medicalnet_fid_fn"]
+            evaluate.eval_model = real["eval_model"]
+            evaluate.eval_dwi_tensors = real["eval_dwi_tensors"]
+        dm = DoveDataModule(tree, config=cfg.data)
+        dm.prepare_data()
+        n_test = len(dm.test_samples)
+        expected = dict(dict.fromkeys(eval_counts, 0), conv3x3_packed=4 * n_test,
+                        pack_hw=2 * n_test, unpack_hw=n_test, scalar_maps=2 * n_test)
+        pred_dir = pred_root / MODALITY
+        with open(pred_dir / "test_metrics.csv") as f:
+            (metrics_row,) = list(csv.DictReader(f))
+        want_cols = ["modality", "test_metric_PSNR", "test_metric_SSIM", "test_metric_L1",
+                     "test_metric_FID_random_features"]
+        metrics_ok = (list(metrics_row) == want_cols and metrics_row["modality"] == MODALITY
+                      and all(math.isfinite(float(metrics_row[c])) for c in want_cols[1:]))
+        with open(table_csv) as f:
+            table = list(csv.reader(f))
+        out["eval"] = {"test_volumes": n_test, "cli_s": cli_s, "metrics": metrics_row,
+                       "table_rows": len(table) - 1, "launches": eval_counts,
+                       "expected": expected,
+                       "s_per_test_volume": {k: v / n_test for k, v in parts.items()}}
+        print(f"eval --checkpoint ({n_test} test volume(s)): launches {json.dumps(eval_counts)}; "
+              f"{cli_s:.2f} s in all; per volume " + ", ".join(
+                  f"{k} {v / n_test:.3f} s" for k, v in parts.items())
+              + f"; metrics {json.dumps(metrics_row)}; {len(table) - 1} table rows", flush=True)
+        checks.record(eval_counts == expected and metrics_ok and len(table) > 1,
+                      dict(phase="eval_from_checkpoint", **out["eval"]))
+
+        # 2. the written prediction against predict_volume of the same
+        # generator on the same test volume
+        gen, _ = build_models(MODALITY, cfg.model, "cuda", state_dict=generator_state_dict(best))
+        spec, vols = next(dm.test_volumes(keys=(MODALITY, "dwi-tensor"), device="cuda"))
+        direct = inference.predict_volume(make_predict_fn(gen), vols[MODALITY],
+                                          patch_size=cfg.data.patch_size,
+                                          out_channels=cfg.model.out_channels).float().cpu().numpy()
+        del gen, vols
+        name = next(fn for fn in sorted(os.listdir(pred_dir))
+                    if (evaluate.parse_pred_name(fn) or {}).get("kind") == "pred"
+                    and evaluate.parse_pred_name(fn)["idx"] == "0"
+                    and evaluate.parse_pred_name(fn)["deriv"] == "")
+        written, _ = nifti.load_volume(str(pred_dir / name))
+        same_direct = bool(np.array_equal(written, direct))
+
+        # 3. predict --checkpoint on the written input, no --config
+        inp = pred_dir / name.replace("pred-0_", "input-0_")
+        torch.cuda.synchronize()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        pred_path = predict_main([str(inp), "--checkpoint", best, "--out-dir",
+                                  str(work / "predict_checkpoint"), "--scalar-maps",
+                                  "--rescale-args", RESCALE_ARGS, "--device", "cuda"])
+        torch.cuda.synchronize()
+        predict_s = time.perf_counter() - t0
+        predict_counts = K.launches()
+        served, _ = nifti.load_volume(pred_path)
+        same_served = bool(np.array_equal(served, written))
+        n_maps = sum(fn.endswith(".nii.gz") for fn in os.listdir(work / "predict_checkpoint")) - 1
+        p_expected = dict(dict.fromkeys(predict_counts, 0), conv3x3_packed=4, pack_hw=2,
+                          unpack_hw=1, scalar_maps=1)
+        out["predict"] = {"launches": predict_counts, "expected": p_expected, "s": predict_s,
+                          "maps": n_maps, "bit_equal_to_eval": same_served,
+                          "eval_bit_equal_to_predict_volume": same_direct}
+        print(f"predict --checkpoint: launches {json.dumps(predict_counts)}; {predict_s:.2f} s; "
+              f"eval's pred bit-equal to predict_volume {same_direct}, predict's to eval's "
+              f"{same_served}; {n_maps} maps", flush=True)
+        checks.record(same_direct, dict(phase="eval_pred_vs_predict_volume",
+                                        file=name, bit_equal=same_direct))
+        checks.record(predict_counts == p_expected and same_served and n_maps == 7,
+                      dict(phase="predict_checkpoint", **out["predict"]))
+
+        # 4. the FID on the card (TF32 off) against the CPU's, on the two files
+        target, _ = nifti.load_volume(str(pred_dir / name.replace("pred-0_", "target-0_")))
+        pair = [torch.from_numpy(a)[None] for a in (written, target)]
+        fid_card = make_medicalnet_fid_fn(load_medicalnet(cfg.train.medicalnet_weights,
+                                                          device="cuda"))
+        card_pair = [a.to("cuda") for a in pair]
+        fid_ms = time_ms(torch, lambda: fid_card(*card_pair), 5)
+        got = float(fid_card(*card_pair))
+        t0 = time.perf_counter()
+        ref = float(make_medicalnet_fid_fn(load_medicalnet(cfg.train.medicalnet_weights))(*pair))
+        cpu_s = time.perf_counter() - t0
+        in_csv = float(metrics_row["test_metric_FID_random_features"])
+        rel = abs(got - ref) / max(abs(ref), 1e-30)
+        out["fid"] = {"card": got, "cpu": ref, "rel_diff": rel, "in_test_metrics_csv": in_csv,
+                      "card_ms": fid_ms, "cpu_s": cpu_s, "slabs": 2 * written.shape[-1],
+                      "shape": list(written.shape)}
+        print(f"FID of pred-0 against target-0: card {got!r}, CPU {ref!r} (relative "
+              f"{rel:.2e}); test_metrics.csv {in_csv!r}; {fid_ms:.2f} ms on the card, "
+              f"{cpu_s:.2f} s on the CPU", flush=True)
+        checks.record(rel <= 1e-3 and math.isfinite(got), dict(phase="fid_cuda_vs_cpu", **out["fid"]))
+        del fid_card, card_pair
+    finally:
+        torch.backends.cudnn.deterministic = det
+
+    # 5. one default step with the perceptual term (random features, bf16,
+    # perceptual_chunk unset) on phase 13's last train batch, its launches;
+    # then its ms and peak beside the plain step's
+    base = Config()
+    pcfg = dataclasses.replace(base, train=dataclasses.replace(base.train, with_perceptual=True))
+    steps = {}
+    for name, pf in (("perceptual", build_perceptual_fn(pcfg, "cuda")), ("plain", None)):
+        st = create_gan_state(SEED, MODALITY, pcfg.model, pcfg.train, "cuda")
+        step = make_train_step(st.gen, st.disc, pcfg.train, pf)
+        torch.cuda.synchronize()
+        K.reset_launches()
+        m = step(st, x, y)
+        torch.cuda.synchronize()
+        r = {"launches": K.launches(), "metrics": {k: float(v) for k, v in m.items()}}
+        step(st, x, y)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            step(st, x, y)
+        torch.cuda.synchronize()
+        r["ms"] = (time.perf_counter() - t0) * 1e3 / 5
+        r["peak_mib"] = torch.cuda.max_memory_allocated() / 2 ** 20
+        steps[name] = r
+        del st, step, m, pf
+        torch.cuda.empty_cache()
+    perc = steps["perceptual"]
+    term = perc["metrics"].get("train_gen_loss_recon_Perceptual", math.nan)
+    out["perceptual_step"] = {k: {"ms": v["ms"], "peak_mib": v["peak_mib"],
+                                  "launches": v["launches"]} for k, v in steps.items()}
+    out["perceptual_step"]["perceptual_term"] = term
+    print(f"perceptual step: {perc['ms']:.2f} ms, peak {perc['peak_mib']:.0f} MiB, term "
+          f"{term!r}; plain step {steps['plain']['ms']:.2f} ms, peak "
+          f"{steps['plain']['peak_mib']:.0f} MiB", flush=True)
+    checks.record(perc["launches"] == TRAIN_STEP_LAUNCHES and math.isfinite(term) and term > 0
+                  and all(math.isfinite(v) for v in perc["metrics"].values()),
+                  dict(phase="train_step_perceptual", **out["perceptual_step"]))
+    return eval_counts, predict_counts, perc["launches"], out
 
 
 # K1, K1's dgrad, K5 and K5's dgrad: the wgmma conv kernel in bf16 (the
@@ -2239,6 +2475,7 @@ def main() -> int:
     print(f"mesh path done at {time.perf_counter() - t_start:.1f}s", flush=True)
     phase_scalar_maps(torch, K, chk, checks, ScalarMaps._fields)
     tree = Path("perf_out") / "smoke_tree"
+    loop_work = Path("perf_out") / "loop_smoke"
     try:
         synth_s = make_tree(make_synthetic_bids, tree)
         print(f"synthetic tree ({len(DATA_SUBJECTS)} subjects at {VOLUME}, {nifti.codec()} "
@@ -2261,13 +2498,21 @@ def main() -> int:
              (sample_generator, uniform_patch_starts, extract_patches), create_gan_state,
              make_train_step), str(tree))
         print(f"data path done at {time.perf_counter() - t_start:.1f}s", flush=True)
-        loop_counts, remat_counts, loop_out = phase_loop(
+        shutil.rmtree(loop_work, ignore_errors=True)
+        loop_work.mkdir(parents=True)
+        loop_counts, remat_counts, loop_out, loop_run = phase_loop(
             torch, K, checks,
             (Config, DoveDataModule, Trainer, train_model, checkpoint, create_gan_state,
-             make_train_step, flops, torch_port_convergence), str(tree))
+             make_train_step, flops, torch_port_convergence), str(tree), loop_work)
         print(f"training loop done at {time.perf_counter() - t_start:.1f}s", flush=True)
+        ckpt_eval_counts, ckpt_predict_counts, perceptual_counts, ckpt_eval_out = \
+            phase_eval_checkpoint(torch, K, checks, str(tree), loop_run, loop_work)
+        del loop_run
+        print(f"evaluation from a checkpoint done at {time.perf_counter() - t_start:.1f}s",
+              flush=True)
     finally:
         shutil.rmtree(tree, ignore_errors=True)
+        shutil.rmtree(loop_work, ignore_errors=True)
     elapsed = time.perf_counter() - t_start
 
     kernels = summary(checks.rows, {"serving": counts, "train_step": train_counts,
@@ -2276,7 +2521,10 @@ def main() -> int:
                                     "pfold_probe": pf_counts, "pallas_probe": pa_counts,
                                     "train_from_data": data_counts,
                                     "train_loop": loop_counts,
-                                    "train_step_remat": remat_counts})
+                                    "train_step_remat": remat_counts,
+                                    "eval_from_checkpoint": ckpt_eval_counts,
+                                    "predict_checkpoint": ckpt_predict_counts,
+                                    "train_step_perceptual": perceptual_counts})
     unlaunched = [k["name"] for k in kernels if k["launches"] == 0]
     checks.record(not unlaunched, dict(phase="every_kernel_launched_on_a_path",
                                        unlaunched=unlaunched))
@@ -2295,6 +2543,10 @@ def main() -> int:
                    "train_from_data_launches": data_counts, "data_path": data_out,
                    "train_loop_launches": loop_counts, "train_step_remat_launches": remat_counts,
                    "train_loop": loop_out,
+                   "eval_from_checkpoint_launches": ckpt_eval_counts,
+                   "predict_checkpoint_launches": ckpt_predict_counts,
+                   "train_step_perceptual_launches": perceptual_counts,
+                   "eval_from_checkpoint": ckpt_eval_out,
                    "kernels": kernels, "elapsed_s": elapsed}, f, indent=1)
     if checks.failures:
         print(f"chip_smoke: {len(checks.failures)} check(s) failed:", file=sys.stderr)

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Run some phases of a checkout's ``chip_smoke.py`` on the card: the
 build, then the training data path (phase 12), the training loop (phase
-13), or both, on the smoke's 4-subject tree at (96, 128, 128).
+13) and the evaluation from its best checkpoint (phase 14, which needs
+phase 13), on the smoke's 4-subject tree at (96, 128, 128).
 
-  python scripts/torch_port_smoke_phases.py [--root DIR] [--phases data loop]
-      [--tree perf_out/smoke_tree_phases]
+  python scripts/torch_port_smoke_phases.py [--root DIR]
+      [--phases data loop checkpoint] [--tree perf_out/smoke_tree_phases]
 
 ``--root`` is the checkout whose ``chip_smoke.py`` and package run
 (default: this one), so a parent and a change compare in one job, in turns
@@ -12,7 +13,7 @@ build, then the training data path (phase 12), the training loop (phase
 written once (from the smoke's seeds) and kept for the next run; delete it
 after. Prints each phase's check rows as the smoke does and one summary
 line: the data-fed step's and loop iteration's medians (phase 12), the
-loop's numbers (phase 13). Needs a card.
+loop's numbers (phase 13), the evaluation's (phase 14). Needs a card.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import argparse
 import importlib.util
 import json
 import os
+import shutil
 import sys
 import time
 from pathlib import Path
@@ -29,7 +31,8 @@ from pathlib import Path
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
-    ap.add_argument("--phases", nargs="+", choices=("data", "loop"), default=["data", "loop"])
+    ap.add_argument("--phases", nargs="+", choices=("data", "loop", "checkpoint"),
+                    default=["data", "loop", "checkpoint"])
     ap.add_argument("--tree", default="perf_out/smoke_tree_phases")
     args = ap.parse_args()
     root = Path(args.root).resolve()
@@ -73,21 +76,40 @@ def main() -> int:
         summary["data"] = {k: out["train"][k] for k in (
             "ms_per_step_median", "ms_per_loop_iteration_median", "device_busy_share")}
         summary["data"]["phase_s"] = time.perf_counter() - t0
+    if "checkpoint" in args.phases and "loop" not in args.phases:
+        ap.error("the checkpoint phase evaluates the loop phase's run: add loop")
     if "loop" in args.phases:
         from scripts import torch_port_convergence
         from unet_bssfp_tpu_torch.train import checkpoint
         from unet_bssfp_tpu_torch.train.loop import Trainer, train_model
         from unet_bssfp_tpu_torch.utils import flops
 
-        t0 = time.perf_counter()
-        _, _, out = sm.phase_loop(torch, K, checks, (
-            Config, DoveDataModule, Trainer, train_model, checkpoint, create_gan_state,
-            make_train_step, flops, torch_port_convergence), str(tree))
-        summary["loop"] = {k: v for k, v in out["timing"].items() if not k.endswith("_all")}
-        summary["loop"]["remat"] = {k: v for k, v in out["remat"].items()
-                                    if k.endswith(("_off", "_on")) and "launches" not in k}
-        summary["loop"]["convergence_psnr"] = out["convergence"]["val_psnr_last"]
-        summary["loop"]["phase_s"] = time.perf_counter() - t0
+        work = tree.parent / "loop_smoke_phases"
+        shutil.rmtree(work, ignore_errors=True)
+        work.mkdir(parents=True)
+        try:
+            t0 = time.perf_counter()
+            _, _, out, run = sm.phase_loop(torch, K, checks, (
+                Config, DoveDataModule, Trainer, train_model, checkpoint, create_gan_state,
+                make_train_step, flops, torch_port_convergence), str(tree), work)
+            summary["loop"] = {k: v for k, v in out["timing"].items() if not k.endswith("_all")}
+            summary["loop"]["remat"] = {k: v for k, v in out["remat"].items()
+                                        if k.endswith(("_off", "_on")) and "launches" not in k}
+            summary["loop"]["convergence_psnr"] = out["convergence"]["val_psnr_last"]
+            summary["loop"]["phase_s"] = time.perf_counter() - t0
+            if "checkpoint" in args.phases:
+                t0 = time.perf_counter()
+                out = sm.phase_eval_checkpoint(torch, K, checks, str(tree), run, work)[-1]
+                summary["checkpoint"] = {
+                    "s_per_test_volume": out["eval"]["s_per_test_volume"],
+                    "fid": {k: out["fid"][k] for k in ("card_ms", "rel_diff")},
+                    "perceptual_step": {k: v for k, v in out["perceptual_step"].items()
+                                        if k != "perceptual_term"},
+                    "phase_s": time.perf_counter() - t0}
+                for v in summary["checkpoint"]["perceptual_step"].values():
+                    v.pop("launches")
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
     summary["failures"] = [r.get("phase", r.get("kernel")) for r in checks.failures]
     print(json.dumps(summary), flush=True)
     return 1 if checks.failures else 0

@@ -396,8 +396,8 @@ def test_eval_cli_on_empty_prediction_dir(tmp_path, capsys):
                  "--out-csv", str(out_csv), "--device", "cpu"]) == 0
     assert "Empty table" in capsys.readouterr().out
     assert not out_csv.exists()  # as the JAX table: nothing written when empty
-    with pytest.raises(SystemExit) as exc:
-        main([str(tmp_path / "preds"), str(tmp_path), "--checkpoint", "pc-bssfp=x"])
+    with pytest.raises(SystemExit) as exc:  # a spec without MODALITY=
+        main([str(tmp_path / "preds"), str(tmp_path), "--checkpoint", "pc-bssfp"])
     assert exc.value.code == 2
 
 

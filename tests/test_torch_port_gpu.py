@@ -1232,3 +1232,102 @@ def test_gpu_remat_step_is_bit_equal_with_exact_launches(cuda):
     assert g0.keys() == g1.keys() and all(torch.equal(g0[k], g1[k]) for k in g0)
     assert s0.keys() == s1.keys() and all(torch.equal(s0[k], s1[k]) for k in s0)
     assert torch.equal(r0, r1)
+
+
+# MedicalNet, its FID and the perceptual term on the card, against the CPU
+# (stock cuDNN convs; TF32 off): f32 sums in other orders.
+
+@pytest.mark.gpu
+def test_gpu_medicalnet_features_and_fid_match_cpu(cuda):
+    """Features of (2, 32, 40, 48, 3) within 1e-3 of max|ref|; the FID of one
+    volume a population (as ``run_test`` takes it: |mu_x − mu_y|² exactly)
+    within 1e-3 relative."""
+    from unet_bssfp_tpu_torch.models.medicalnet import init_medicalnet, medicalnet_features
+    from unet_bssfp_tpu_torch.train.steps import make_medicalnet_fid_fn
+
+    host, card = init_medicalnet(0), init_medicalnet(0, device=cuda)
+    g = torch.Generator().manual_seed(11)
+    x = torch.randn(2, 32, 40, 48, 3, generator=g)
+    with torch.no_grad():
+        ref = medicalnet_features(host, x)
+        got = medicalnet_features(card, x.to(cuda)).cpu()
+    assert got.shape == ref.shape == (2, 4, 5, 6, 3 * 512)
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-3 * float(ref.abs().max()))
+    y = torch.rand(1, 32, 40, 48, 6, generator=g)
+    y_hat = y + 0.2 * torch.randn(y.shape, generator=g)
+    ref_fid = float(make_medicalnet_fid_fn(host)(y_hat, y))
+    got_fid = float(make_medicalnet_fid_fn(card)(y_hat.to(cuda), y.to(cuda)))
+    assert ref_fid > 0 and got_fid == pytest.approx(ref_fid, rel=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_perceptual_distance_and_grad_match_cpu(cuda, dtype):
+    """The distance and its gradient with respect to ``pred`` on the card
+    against f32 on the CPU: f32 within 1e-3 relative (distance) and 1e-3
+    relative L2 (gradient); bf16 within 2e-2 and 0.3 (bf16 against f32 on
+    the CPU itself: 0.18–0.29 % and 0.110–0.113 over three seeds at this
+    shape). No gradient reaches the target."""
+    from unet_bssfp_tpu_torch.models.medicalnet import init_medicalnet, perceptual_distance
+
+    g = torch.Generator().manual_seed(5)
+    p = torch.rand(2, 32, 32, 32, 6, generator=g)
+    t = p + 0.3 * torch.rand(p.shape, generator=g)
+
+    def run(net, device):
+        pred = p.to(device, copy=True).requires_grad_(True)
+        target = t.to(device, copy=True).requires_grad_(True)
+        d = perceptual_distance(net, pred, target, chunk=4)
+        d.backward()
+        assert target.grad is None and d.dtype == torch.float32
+        return float(d.detach()), pred.grad.float().cpu()
+
+    d_ref, g_ref = run(init_medicalnet(0), "cpu")
+    d_got, g_got = run(init_medicalnet(0, dtype=dtype, device=cuda), cuda)
+    rel_d, rel_g = (1e-3, 1e-3) if dtype == torch.float32 else (2e-2, 0.3)
+    assert d_got == pytest.approx(d_ref, rel=rel_d)
+    assert torch.isfinite(g_got).all() and float(g_got.abs().sum()) > 0
+    assert float((g_got - g_ref).norm() / g_ref.norm()) <= rel_g
+
+
+@pytest.mark.gpu
+def test_gpu_checkpoint_saved_on_the_card_evaluates_on_card_and_cpu(cuda, tmp_path):
+    """A step saved from a state on the card (its dropout generator a CUDA
+    one) evaluates with ``eval_model`` on the card (K1/K3 f32) and on the
+    CPU (plain versions): the same files and metrics within f32 summation
+    order (PSNR 1e-3 dB, SSIM and L1 1e-4 relative, FID 1e-3 relative, the
+    files 1e-4 of max|ref|)."""
+    import dataclasses
+    import os
+
+    from unet_bssfp_tpu_torch.data.datamodule import DoveDataModule
+    from unet_bssfp_tpu_torch.data.nifti import load_volume
+    from unet_bssfp_tpu_torch.eval.evaluate import eval_model
+    from unet_bssfp_tpu_torch.train.checkpoint import CheckpointManager
+    from unet_bssfp_tpu_torch.train.state import create_gan_state
+
+    cfg = _loop_config(tmp_path, compute_dtype="float32")
+    cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, patch_size=32))
+    state = create_gan_state(0, "pc-bssfp", cfg.model, cfg.train, cuda)
+    assert state.rng.device.type == "cuda"
+    mgr = CheckpointManager(str(tmp_path / "ckpts" / "pc-bssfp-run"), config_json=cfg.to_json())
+    mgr.save(0, state, {"val_loss": 1.0})
+    dm = DoveDataModule(_tree(tmp_path, (32, 32, 32)), config=cfg.data)
+    dm.prepare_data()
+    K.reset_launches()
+    got = eval_model(dm, mgr.best_path(), "pc-bssfp", str(tmp_path / "card"))
+    torch.cuda.synchronize()
+    assert K.launches()["conv3x3_packed"] == 4 * len(dm.test_samples) > 0
+    ref = eval_model(dm, mgr.best_path(), "pc-bssfp", str(tmp_path / "host"), device="cpu")
+    assert list(got) == list(ref) == ["test_metric_PSNR", "test_metric_SSIM", "test_metric_L1",
+                                      "test_metric_FID_random_features"]
+    assert got["test_metric_PSNR"] == pytest.approx(ref["test_metric_PSNR"], abs=1e-3)
+    for k in ("test_metric_SSIM", "test_metric_L1"):
+        assert got[k] == pytest.approx(ref[k], rel=1e-4), k
+    assert got["test_metric_FID_random_features"] == pytest.approx(
+        ref["test_metric_FID_random_features"], rel=1e-3)
+    names = sorted(os.listdir(tmp_path / "card"))
+    assert names == sorted(os.listdir(tmp_path / "host")) and "test_metrics.csv" in names
+    for fn in (n for n in names if n.endswith(".nii.gz")):
+        a, b = (load_volume(str(tmp_path / d / fn))[0] for d in ("card", "host"))
+        assert abs(a - b).max() <= 1e-4 * abs(b).max(), fn

@@ -188,17 +188,37 @@ def test_cli_trains_each_modality_and_refuses_multistage(tmp_path, bids_root, ca
 
 
 def test_perceptual_tristate(tmp_path):
+    """Off where asked and where auto finds no Med3D weights (the JAX
+    package's bound 0.0 keeps auto off at any positive factor); an explicit
+    True builds the term into the Trainer (random features here)."""
     tcfg = _config(tmp_path).train
     assert not loop.resolve_with_perceptual(tcfg)
     assert not loop.resolve_with_perceptual(dataclasses.replace(tcfg, with_perceptual=None))
+    assert not loop.resolve_with_perceptual(dataclasses.replace(
+        tcfg, with_perceptual=None, perceptual_factor=0.0))
     assert loop.PERCEPTUAL_AUTO_MAX_FACTOR == 0.0
-    for bad in (dataclasses.replace(tcfg, with_perceptual=True),
-                dataclasses.replace(tcfg, with_perceptual=None, perceptual_factor=0.0)):
-        with pytest.raises(NotImplementedError, match="item 4"):
-            loop.resolve_with_perceptual(bad)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        Trainer(dataclasses.replace(_config(tmp_path), train=dataclasses.replace(
-            tcfg, with_perceptual=True)), "dwi-tensor", device="cpu")
+    assert loop.resolve_with_perceptual(dataclasses.replace(tcfg, with_perceptual=True))
+    trainer = Trainer(dataclasses.replace(_config(tmp_path), train=dataclasses.replace(
+        tcfg, with_perceptual=True)), "dwi-tensor", device="cpu")
+    assert trainer.perceptual_fn is not None
+    assert Trainer(_config(tmp_path), "dwi-tensor", device="cpu").perceptual_fn is None
+
+
+def test_trainer_with_perceptual_trains_an_epoch(bids_root, tmp_path):
+    """``with_perceptual: true`` (random features, f32): one epoch of
+    ``Trainer.fit`` logs a finite Perceptual term for train and val
+    (tests/test_loop.py:227-278 in the JAX package)."""
+    cfg = _config(tmp_path, max_epochs=1, with_perceptual=True)
+    trainer = Trainer(cfg, "dwi-tensor", device="cpu")
+    trainer.fit(DoveDataModule(bids_root, config=cfg.data))
+    trainer.logger.finish()
+    (row,) = _read_metrics(cfg.train.log_dir)
+    for key in ("train_gen_loss_recon_Perceptual", "val_gen_loss_recon_Perceptual"):
+        assert np.isfinite(float(row[key])) and float(row[key]) > 0, key
+    # the recon loss is the mean of L1 and the scaled term, times recon_factor
+    l1, perc = (float(row[f"train_gen_loss_recon_{k}"]) for k in ("L1", "Perceptual"))
+    assert float(row["train_gen_loss_recon"]) == pytest.approx(
+        (l1 + perc) / 2 * cfg.train.recon_factor, rel=1e-5)
 
 
 def test_epoch_seeds_differ_by_epoch_and_stream():

@@ -1,6 +1,9 @@
-"""Prediction post-processing and the ROI error table (counterpart of
-``unet_bssfp_tpu/eval/evaluate.py``).
+"""Checkpoint-driven evaluation, prediction post-processing and the ROI
+error table (counterpart of ``unet_bssfp_tpu/eval/evaluate.py``).
 
+``eval_model`` runs a checkpoint's generator over the test cohort
+(``run_test``) and writes ``test_metrics.csv``; ``gen_predictions`` does so
+for each modality and runs the chain below on each prediction directory.
 The chain a user runs over a directory of predictions: de-normalise each
 predicted and target DT (``*_denorm``), derive its 7 scalar maps (K8 on the
 card), write relative and angular error maps (``diff-``) with their
@@ -23,10 +26,13 @@ from typing import Dict, Iterable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from unet_bssfp_tpu_torch.config import Config
 from unet_bssfp_tpu_torch.data.bids import BIDSIndex
 from unet_bssfp_tpu_torch.data.nifti import load_volume, save_volume
 from unet_bssfp_tpu_torch.data.queue import parallel_map
 from unet_bssfp_tpu_torch.data.transforms import crop_or_pad
+from unet_bssfp_tpu_torch.eval.inference import run_test
+from unet_bssfp_tpu_torch.models.medicalnet import load_medicalnet, medicalnet_is_pretrained
 from unet_bssfp_tpu_torch.ops.error_maps import (
     angular_error_map,
     masked_probseg,
@@ -40,7 +46,12 @@ from unet_bssfp_tpu_torch.ops.scalar_maps import (
     invert_dwi_tensor_norm,
     load_rescale_args,
 )
-from unet_bssfp_tpu_torch.train.state import resolve_device
+from unet_bssfp_tpu_torch.train.checkpoint import (
+    generator_state_dict,
+    load_config_for_checkpoint,
+)
+from unet_bssfp_tpu_torch.train.state import build_models, resolve_device
+from unet_bssfp_tpu_torch.train.steps import make_medicalnet_fid_fn, make_predict_fn
 
 TENSOR_COLS = ("dxx", "dxy", "dxz", "dyy", "dyz", "dzz")
 ROI_NAMES = ("CSF", "GM", "WM")
@@ -343,3 +354,61 @@ def eval_dwi_tensors(pred_dir: str, dwi_rescale_args_path: Optional[str] = None,
         _alias_norm_as_denorm(pred_dir)
     calc_scalar_maps(pred_dir, num_workers, "denorm", device)
     calc_diff_maps(pred_dir, num_workers, device)
+
+
+# ---------------------------------------------------------------------------
+# checkpoint-driven evaluation
+# ---------------------------------------------------------------------------
+
+def eval_model(data, checkpoint_path: str, modality: str, pred_dir: str,
+               config: Optional[Config] = None, with_fid: bool = True,
+               device=None) -> Dict[str, float]:
+    """Test inference from a checkpoint (reference ``eval_model``,
+    ``src/eval.py:195-213``): the generator of ``modality`` built from
+    ``config`` (None: the ``config.json`` beside the checkpoint, else
+    ``Config()``) on ``device`` (default ``cuda``), loaded with the step's
+    generator weights and buffers alone (``generator_state_dict``, so a
+    checkpoint from any device evaluates on any device); ``run_test`` over
+    ``data``'s test volumes into ``pred_dir``, whole-volume where the model
+    was trained so; ``test_metrics.csv`` (``modality`` and the metric
+    means) written there. Returns the metrics.
+
+    ``with_fid``: the reference's MedicalNet FID of each stitched volume
+    (``src/model.py:235-257, 308-309``), ``test_metric_FID`` with the
+    pretrained Med3D weights of ``train.medicalnet_weights``, else
+    ``test_metric_FID_random_features``."""
+    dev = resolve_device(device)
+    if config is None:
+        saved = load_config_for_checkpoint(checkpoint_path)
+        config = Config.from_json(saved) if saved else Config()
+    gen, _ = build_models(modality, config.model, dev,
+                          state_dict=generator_state_dict(checkpoint_path))
+    fid_fn = None
+    if with_fid:
+        path = config.train.medicalnet_weights
+        fid_fn = make_medicalnet_fid_fn(load_medicalnet(path, device=dev),
+                                        pretrained=medicalnet_is_pretrained(path))
+    data.setup()
+    metrics = run_test(make_predict_fn(gen), data, modality, pred_dir,
+                       patch_size=config.data.patch_size,
+                       whole_volume=config.data.whole_volume, fid_fn=fid_fn, device=dev)
+    os.makedirs(pred_dir, exist_ok=True)
+    with open(os.path.join(pred_dir, "test_metrics.csv"), "w", newline="") as f:
+        writer = csv.DictWriter(f, fieldnames=["modality", *metrics])
+        writer.writeheader()
+        writer.writerow({"modality": modality, **metrics})
+    return metrics
+
+
+def gen_predictions(data, checkpoints: Dict[str, str], pred_base: str,
+                    dwi_rescale_args_path: Optional[str] = None,
+                    config: Optional[Config] = None, num_workers: int = 8,
+                    device=None) -> None:
+    """For each ``{modality: checkpoint}``: ``eval_model`` into
+    ``pred_base/<modality>``, then the chain (``eval_dwi_tensors``) on it
+    (reference ``gen_predictions``, ``src/eval.py:326-351``, with the paths
+    as arguments)."""
+    for modality, ckpt in checkpoints.items():
+        pred_dir = os.path.join(pred_base, modality)
+        eval_model(data, ckpt, modality, pred_dir, config, device=device)
+        eval_dwi_tensors(pred_dir, dwi_rescale_args_path, num_workers, device)

@@ -1,6 +1,6 @@
-"""Image-quality metrics on NDHWC volumes: PSNR, MAE, 3D SSIM and the
-whole-tensor z-normalisation (counterpart of ``unet_bssfp_tpu/ops/metrics.py``;
-its FID comes with the MedicalNet slice).
+"""Image-quality metrics on NDHWC volumes: PSNR, MAE, 3D SSIM, the
+whole-tensor z-normalisation and the Frechet distance of feature
+populations (counterpart of ``unet_bssfp_tpu/ops/metrics.py``).
 
 The SSIM window is applied as explicit shifted, weighted sums in the input's
 (at least f32) precision: no convolution library call, so no TF32 on the
@@ -32,6 +32,43 @@ def znorm(volume: torch.Tensor) -> torch.Tensor:
     """Whole-tensor z-normalisation (reference ``src/model.py:222-226``):
     the population standard deviation, as ``jnp.std`` takes it."""
     return (volume - torch.mean(volume)) / torch.std(volume, correction=0)
+
+
+def spatial_average(feats: torch.Tensor) -> torch.Tensor:
+    """Average ``(N, D, H, W, C)`` features over the spatial dims → ``(N, C)``
+    (reference ``src/model.py:228-230``)."""
+    return torch.mean(feats, dim=(1, 2, 3))
+
+
+def _cov(feats: torch.Tensor) -> torch.Tensor:
+    """Unbiased feature covariance, features as columns: feats (N, F)."""
+    x = feats - torch.mean(feats, dim=0, keepdim=True)
+    return (x.T @ x) / max(feats.shape[0] - 1, 1)
+
+
+def fid(feats_pred: torch.Tensor, feats_target: torch.Tensor) -> torch.Tensor:
+    """Frechet distance ``|mu_x - mu_y|² + tr(Sx + Sy - 2 (Sx Sy)^{1/2})``
+    between two feature populations ``(N, F)`` (MONAI ``FIDMetric``,
+    reference ``src/model.py:163,257``), in f32.
+
+    Through the N × N Gram reduction, as the JAX package takes it: with
+    centred features A, B, the nonzero eigenvalues of ``Sx Sy`` are those of
+    ``C^T C / (n-1)²`` with ``C = B A^T``, so ``tr (Sx Sy)^{1/2}`` is the sum
+    of the square roots of ``eigvalsh(C^T C)`` (clamped at 0) over ``n - 1``.
+    Exact where an F × F eigendecomposition of a rank-N covariance is not.
+    With N = 1 both covariances are 0 and the distance is ``|mu_x - mu_y|²``.
+    """
+    fx, fy = feats_pred.float(), feats_target.float()
+    denom = max(fx.shape[0] - 1, 1)
+    a = fx - torch.mean(fx, dim=0, keepdim=True)
+    b = fy - torch.mean(fy, dim=0, keepdim=True)
+    tr_sx = torch.sum(a * a) / denom
+    tr_sy = torch.sum(b * b) / denom
+    c = b @ a.T
+    tr_sqrt = torch.sum(torch.sqrt(torch.linalg.eigvalsh(c.T @ c).clamp(min=0.0))) / denom
+    diff = torch.mean(fx, dim=0) - torch.mean(fy, dim=0)
+    # mathematically >= 0; clamp away f32 cancellation
+    return torch.clamp(diff @ diff + tr_sx + tr_sy - 2.0 * tr_sqrt, min=0.0)
 
 
 def _gaussian_kernel1d(win_size: int, sigma: float, dtype, device) -> torch.Tensor:

@@ -2,13 +2,16 @@
 scalar maps) out (the counterpart of ``src/predict.py``).
 
 Usage:
-  python -m unet_bssfp_tpu_torch.predict INPUT.nii.gz --weights W.pt \
+  python -m unet_bssfp_tpu_torch.predict INPUT.nii.gz (--weights W.pt | --checkpoint CKPT) \
       [--modality pc-bssfp] [--out-dir preds] [--config cfg.json] \
       [--patch | --whole-volume] [--device cuda] [--mesh DATA,SPACE] \
       [--scalar-maps [--rescale-args rescale_args_dwi.txt]]
 
 ``--weights`` takes the port's ``.pt`` or an ``.npz`` of ``/``-joined Flax
-paths (``weights.py``). Runs on CUDA unless ``--device cpu``.
+paths (``weights.py``); ``--checkpoint`` a training step (its directory or
+its ``state.pt``), whose generator alone is loaded, and whose run's
+``config.json`` is the config where ``--config`` is absent. Runs on CUDA
+unless ``--device cpu``.
 
 ``--mesh 1,2`` splits the work over a (data, space) mesh: the whole volume's
 d over ``space``, or each patch batch over ``data`` and each patch's d over
@@ -38,6 +41,7 @@ from unet_bssfp_tpu_torch.ops.scalar_maps import (
     load_rescale_args,
 )
 from unet_bssfp_tpu_torch.parallel.mesh import Mesh, make_mesh
+from unet_bssfp_tpu_torch.train.checkpoint import generator_state_dict, load_config_for_checkpoint
 from unet_bssfp_tpu_torch.train.state import build_models, resolve_device
 from unet_bssfp_tpu_torch.train.steps import make_predict_fn
 
@@ -67,8 +71,11 @@ def parse_mesh(text: Optional[str], device: torch.device) -> Optional[Mesh]:
 def main(argv: Optional[Sequence[str]] = None) -> str:
     parser = argparse.ArgumentParser(description="bSSFP/T1w → DT inference")
     parser.add_argument("input", help="preprocessed input NIfTI")
-    parser.add_argument("--weights", required=True,
-                        help="port .pt weights or a Flax-path .npz")
+    source = parser.add_mutually_exclusive_group(required=True)
+    source.add_argument("--weights", help="port .pt weights or a Flax-path .npz")
+    source.add_argument("--checkpoint",
+                        help="a training step (directory or state.pt); its run's config.json "
+                             "is the config unless --config is given")
     parser.add_argument("--modality", default="pc-bssfp")
     parser.add_argument("--out-dir", default=".")
     parser.add_argument("--config", default=None, help="JSON config path")
@@ -87,11 +94,13 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
                       help="force whole-volume inference")
     args = parser.parse_args(argv)
 
+    saved = None
     if args.config:
         with open(args.config) as f:
-            config = Config.from_json(f.read())
-    else:
-        config = Config()
+            saved = f.read()
+    elif args.checkpoint:
+        saved = load_config_for_checkpoint(args.checkpoint)
+    config = Config.from_json(saved) if saved else Config()
     device = resolve_device(args.device)
     mesh = parse_mesh(args.mesh, device)
     if mesh is not None:
@@ -115,8 +124,9 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
     else:
         whole_volume = config.data.whole_volume
 
-    gen, _ = build_models(args.modality, config.model, device,
-                          state_dict=weights.load(args.weights), mesh=mesh)
+    state_dict = (weights.load(args.weights) if args.weights
+                  else generator_state_dict(args.checkpoint))
+    gen, _ = build_models(args.modality, config.model, device, state_dict=state_dict, mesh=mesh)
     predict_fn = make_predict_fn(gen, mesh)
     t0 = time.perf_counter()
     pred = predict_volume(predict_fn, vol, patch_size=config.data.patch_size,

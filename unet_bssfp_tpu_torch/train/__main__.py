@@ -46,7 +46,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
 
     if args.multistage:
         raise NotImplementedError(
-            "--multistage: the multi-stage regime is not ported yet (ROADMAP.md §1 item 4)")
+            "--multistage: the multi-stage regime is not ported yet (ROADMAP.md §1 item 4b)")
     device = resolve_device(args.device)
     config = Config()
     if args.config:

@@ -160,6 +160,20 @@ def load_config_for_checkpoint(path: str) -> Optional[str]:
     return None
 
 
+def _state_file(path: str) -> str:
+    return os.path.join(path, STATE_FILE) if os.path.isdir(path) else path
+
+
+def generator_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """The generator's weights and BatchNorm buffers of a step (its directory
+    or its ``state.pt``), read on the host: what evaluation and serving load,
+    strictly (``build_models(..., state_dict=)``), into a generator on any
+    device. Nothing else of the file is used, so a checkpoint saved on the
+    card evaluates on the CPU and the reverse (the dropout generator's state,
+    which :func:`load_checkpoint` restores, is device-specific)."""
+    return torch.load(_state_file(path), map_location="cpu", weights_only=True)["gen"]
+
+
 def load_checkpoint(path: str, state: GANTrainState) -> GANTrainState:
     """Load a step (its directory or its ``state.pt``) into ``state``, in
     place, and return it. Tensors land on the state's devices; every model
@@ -167,9 +181,9 @@ def load_checkpoint(path: str, state: GANTrainState) -> GANTrainState:
     the saved state where it was saved from a generator of the same device
     type, or is seeded where the file holds a seed (a converted checkpoint,
     ``scripts/torch_port_convert_checkpoint.py``); a state of another
-    device type's generator raises."""
-    if os.path.isdir(path):
-        path = os.path.join(path, STATE_FILE)
+    device type's generator raises (to evaluate or serve a step elsewhere,
+    load the generator alone: :func:`generator_state_dict`)."""
+    path = _state_file(path)
     # read on the host; load_state_dict copies each tensor to the device of
     # the entry it fills (AdamW keeps its step counts on the host, as fresh)
     payload = torch.load(path, map_location="cpu", weights_only=True)

@@ -22,6 +22,11 @@ import numpy as np
 import torch
 
 from unet_bssfp_tpu_torch.config import Config
+from unet_bssfp_tpu_torch.models.medicalnet import (
+    load_medicalnet,
+    medicalnet_is_pretrained,
+    perceptual_distance,
+)
 from unet_bssfp_tpu_torch.train.checkpoint import (
     CheckpointManager,
     find_latest_checkpoint,
@@ -34,38 +39,63 @@ from unet_bssfp_tpu_torch.utils.debug import enable_nan_checks
 from unet_bssfp_tpu_torch.utils.profiling import trace
 
 #: Highest ``perceptual_factor`` at which ``with_perceptual=None`` (auto)
-#: may turn the perceptual term on: the JAX package's bound, 0.0, because
-#: no factor has a non-degrading convergence record behind it.
+#: may turn the perceptual term on: the JAX package's bound, 0.0. The
+#: reference's 1e3 with non-pretrained features collapsed training, and a
+#: structural fingerprint cannot tell the published Med3D file from any
+#: same-shaped one, so auto enables the term only at factors with a
+#: non-degrading convergence record behind them: none yet. An explicit
+#: ``with_perceptual=True`` forces it on at any factor.
 PERCEPTUAL_AUTO_MAX_FACTOR = 0.0
 #: Steps of the first epoch that ``debug=True`` traces.
 DEBUG_TRACE_STEPS = 5
-_PERCEPTUAL_MISSING = (
-    "the MedicalNet perceptual term is not ported yet (ROADMAP.md §1 item 4): "
-    "set train.with_perceptual to false or leave it unset (auto)")
 
 
 def resolve_with_perceptual(tcfg) -> bool:
-    """The ``with_perceptual`` tri-state. None (auto) resolves off, with the
-    JAX package's warning, wherever ``perceptual_factor`` exceeds
-    :data:`PERCEPTUAL_AUTO_MAX_FACTOR`; False is off. An explicit True, and
-    an auto at or below the bound (which needs the Med3D weights'
-    fingerprint check), raise: the term is not ported."""
-    if tcfg.with_perceptual is False:
-        return False
-    if tcfg.with_perceptual is None and tcfg.perceptual_factor > PERCEPTUAL_AUTO_MAX_FACTOR:
-        logging.getLogger(__name__).warning(
-            "with_perceptual=None (auto): perceptual_factor=%g exceeds the validated "
-            "auto bound %g (the full objective at 1e3 with non-pretrained features "
-            "collapsed training). Training with the L1+BCE objective; the perceptual "
-            "term itself is not ported yet.",
+    """The ``with_perceptual`` tri-state: an explicit True or False wins;
+    None (auto) is on iff a converted Med3D checkpoint passes the pinned
+    fingerprint AND ``perceptual_factor`` is at most
+    :data:`PERCEPTUAL_AUTO_MAX_FACTOR`, and otherwise off with the JAX
+    package's warning."""
+    if tcfg.with_perceptual is not None:
+        return tcfg.with_perceptual
+    log = logging.getLogger(__name__)
+    if medicalnet_is_pretrained(tcfg.medicalnet_weights):
+        if tcfg.perceptual_factor <= PERCEPTUAL_AUTO_MAX_FACTOR:
+            return True
+        log.warning(
+            "with_perceptual=None (auto): converted Med3D weights resolve but "
+            "perceptual_factor=%g exceeds the validated auto bound %g (the full objective "
+            "at 1e3 with non-pretrained features collapsed training). Training with the "
+            "L1+BCE objective; set with_perceptual=true to force the term on at this factor.",
             tcfg.perceptual_factor, PERCEPTUAL_AUTO_MAX_FACTOR)
         return False
-    raise NotImplementedError(_PERCEPTUAL_MISSING)
+    log.warning(
+        "with_perceptual=None (auto) and no converted Med3D weights found: training with "
+        "the L1+BCE objective. The reference's perceptual term needs pretrained features; "
+        "the random-feature term at perceptual_factor=1e3 hurts voxel fidelity. Set "
+        "with_perceptual=true to force it on.")
+    return False
 
 
-def build_perceptual_fn(config: Config):
-    """The MedicalNet perceptual distance: not ported yet."""
-    raise NotImplementedError(_PERCEPTUAL_MISSING)
+def build_perceptual_fn(config: Config, device=None):
+    """The MedicalNet perceptual distance (reference ``PerceptualL1Loss``,
+    ``src/model.py:123-138``) as ``fn(y_hat, y)``: the converted Med3D
+    weights where ``train.medicalnet_weights`` resolves to them, else random
+    features; the net in ``train.perceptual_dtype`` or else
+    ``model.compute_dtype``, on ``device`` (default ``cuda``), its slabs in
+    groups of ``train.perceptual_chunk``."""
+    name = config.train.perceptual_dtype or config.model.compute_dtype
+    dtype = getattr(torch, name, None)
+    if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
+        raise ValueError(f"perceptual dtype {name!r} is not a torch floating-point dtype")
+    net = load_medicalnet(config.train.medicalnet_weights, dtype=dtype,
+                          device=resolve_device(device))
+    chunk = config.train.perceptual_chunk
+
+    def perceptual_fn(y_hat: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        return perceptual_distance(net, y_hat, y, chunk=chunk)
+
+    return perceptual_fn
 
 
 def epoch_seeds(seed: int, epoch: int) -> Tuple[int, int]:
@@ -96,7 +126,7 @@ class Trainer:
         self.modality = modality
         self.device = resolve_device(device)
         if perceptual_fn is None and resolve_with_perceptual(config.train):
-            perceptual_fn = build_perceptual_fn(config)
+            perceptual_fn = build_perceptual_fn(config, self.device)
         self.perceptual_fn = perceptual_fn
         self.debug = debug
         run_name = _run_name(config, modality)

@@ -26,8 +26,9 @@ import torch
 from torch import nn
 
 from unet_bssfp_tpu_torch.config import TrainConfig
+from unet_bssfp_tpu_torch.models.medicalnet import medicalnet_features
 from unet_bssfp_tpu_torch.ops.losses import bce_with_logits, l1_loss
-from unet_bssfp_tpu_torch.ops.metrics import mae, psnr, ssim3d
+from unet_bssfp_tpu_torch.ops.metrics import fid, mae, psnr, spatial_average, ssim3d, znorm
 from unet_bssfp_tpu_torch.parallel.mesh import Mesh, gather_batch, replicas, shard_batch
 from unet_bssfp_tpu_torch.train.state import GANTrainState
 
@@ -103,12 +104,15 @@ def make_train_step(gen: nn.Module, disc: nn.Module, tcfg: TrainConfig,
 
 
 def make_eval_step(gen: nn.Module, disc: nn.Module, tcfg: TrainConfig,
-                   perceptual_fn: Optional[PerceptualFn] = None
+                   perceptual_fn: Optional[PerceptualFn] = None,
+                   with_metrics: bool = True, fid_fn: Optional[PerceptualFn] = None
                    ) -> Callable[[GANTrainState, torch.Tensor, torch.Tensor],
                                  Tuple[Dict[str, torch.Tensor], torch.Tensor]]:
-    """Validation step: eval-mode generator loss and PSNR/SSIM/L1 →
-    ``(metrics, y_hat)``. (The reference's MedicalNet FID comes with the
-    MedicalNet slice.)"""
+    """Validation step (reference ``validation_step``, ``src/model.py:283-289``):
+    eval-mode generator loss and, with ``with_metrics``, PSNR/SSIM/L1 and
+    the FID where ``fid_fn`` is given (``val_metric_{fid_fn.label}``, the
+    reference's MedicalNet FID, ``src/model.py:158-163``; build one with
+    :func:`make_medicalnet_fid_fn`) → ``(metrics, y_hat)``."""
 
     def step(state: GANTrainState, x: torch.Tensor, y: torch.Tensor):
         if state.gen is not gen or state.disc is not disc:
@@ -128,12 +132,32 @@ def make_eval_step(gen: nn.Module, disc: nn.Module, tcfg: TrainConfig,
             }
             for name, val in terms.items():
                 metrics[f"val_gen_loss_recon_{name}"] = val
-            metrics["val_metric_PSNR"] = torch.mean(psnr(y_hat32, y32))
-            metrics["val_metric_SSIM"] = torch.mean(ssim3d(y_hat32, y32))
-            metrics["val_metric_L1"] = torch.mean(mae(y_hat32, y32))
+            if with_metrics:
+                metrics["val_metric_PSNR"] = torch.mean(psnr(y_hat32, y32))
+                metrics["val_metric_SSIM"] = torch.mean(ssim3d(y_hat32, y32))
+                metrics["val_metric_L1"] = torch.mean(mae(y_hat32, y32))
+                if fid_fn is not None:
+                    label = getattr(fid_fn, "label", "FID")
+                    metrics[f"val_metric_{label}"] = fid_fn(y_hat32, y32)
         return metrics, y_hat
 
     return step
+
+
+def make_medicalnet_fid_fn(net: nn.Module, pretrained: bool = False) -> PerceptualFn:
+    """The reference's FID (``compute_fid_medicalnet``, ``src/model.py:235-257``):
+    whole-tensor z-norm → each channel's MedicalNet features → spatial
+    average → Frechet distance, without gradients. ``.label`` is ``"FID"``
+    with ``pretrained`` (pass ``medicalnet_is_pretrained(path)``), else
+    ``"FID_random_features"``, so a random-feature value is never mixed with
+    the reference-comparable metric."""
+    def fid_fn(y_hat: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        with torch.no_grad():
+            return fid(spatial_average(medicalnet_features(net, znorm(y_hat))),
+                       spatial_average(medicalnet_features(net, znorm(y))))
+
+    fid_fn.label = "FID" if pretrained else "FID_random_features"
+    return fid_fn
 
 
 def make_predict_fn(gen: nn.Module, mesh: Optional[Mesh] = None

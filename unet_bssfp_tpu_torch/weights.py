@@ -1,6 +1,7 @@
 """Weights: Flax variables → the port's ``state_dict`` (generator and
 discriminator alike: the module paths are the same in both packages), a JAX
-``GANTrainState`` → both modules, the port's own ``.pt`` files, Flax's
+``GANTrainState`` → both modules, the MedicalNet feature extractor's
+variables → its ``state_dict``, the port's own ``.pt`` files, Flax's
 initialisation, and seeded random weights.
 
 Flax trees are nested dicts of numpy arrays, as
@@ -19,6 +20,7 @@ leaf names map as:
 
 from __future__ import annotations
 
+import re
 from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
@@ -100,6 +102,22 @@ def state_from_flax(gen: nn.Module, disc: nn.Module, state: Mapping) -> None:
     for module, prefix in ((gen, "gen"), (disc, "disc")):
         sd = from_flax(state[f"{prefix}_params"], state[f"{prefix}_batch_stats"])
         module.load_state_dict(sd, strict=True)
+
+
+def medicalnet_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX package's MedicalNet variables (``{"params", "batch_stats"}``,
+    numpy trees) → the port's ``MedicalNetResNet10`` ``state_dict``: the
+    inverse of ``unet_bssfp_tpu/models/medicalnet.py:load_torch_state_dict``.
+    Leaves map as :func:`from_flax` maps them; the module paths
+    ``layer{i}_0`` → ``layer{i}.0`` and ``downsample_conv`` /
+    ``downsample_bn`` → ``downsample.0`` / ``downsample.1`` (Med3D's keys)."""
+    out = {}
+    for key, v in from_flax(variables["params"], variables.get("batch_stats")).items():
+        key = re.sub(r"^(layer\d)_0\.", r"\1.0.", key)
+        key = key.replace("downsample_conv.", "downsample.0.").replace("downsample_bn.",
+                                                                      "downsample.1.")
+        out[key] = v
+    return out
 
 
 def _fan_in(key: str, t: torch.Tensor) -> int:

@@ -172,14 +172,35 @@ Phases (any failure → nonzero exit, no ``ok`` line):
     on phase 13's last train batch: exactly ``TRAIN_STEP_LAUNCHES`` (the
     ``train_step_perceptual`` path), a finite Perceptual term; its ms and
     peak MiB beside the plain step's.
+15. The multi-stage regime (``train/multistage.py``), on phase 12's tree
+    with the default config (bf16, ``packed``, the thesis widths 48 … 768,
+    24; batch 8 × 64³), the runs cut to 1 epoch a stage and top-k 2. First
+    K1 (with the N-24 form at 144 → 24), its dgrad (two N tiles of 72 at
+    24 → 144) and K2 (two co tiles at Cout 48) at the MultiInputUNet's four
+    full-resolution convs (24 → 48, 48 → 48, 144 → 24, 24 → 24), bf16,
+    under K1's and K2's bounds, each rerun bit for bit, timed beside their
+    bounds and library calls. Then ``run_multistage`` on pc-bssfp (PRETRAIN
+    on dwi-tensor, TRANSFER, FINE_TUNE) with the counts reset before it (the
+    ``multistage_run`` path: each stage's train steps ×
+    ``MULTISTAGE_STAGE_LAUNCHES`` + its val steps × ``EVAL_STEP_LAUNCHES``,
+    ``*_mma_routed`` 0): every stage's ``metrics.csv`` finite, its
+    checkpoint on disk, TRANSFER's backbone bit-equal to PRETRAIN's. Then
+    each stage's step on one resident batch with the counts reset (the
+    ``multistage_{stage}_step`` paths: K1 4, K1's dgrad 4, K2 4 — 0 in
+    TRANSFER, whose backbone stays bit for bit —, K3a 3, K3b 3): ms per step
+    (median of 10) and peak MiB beside the same step on cuDNN, the epoch's
+    seconds. Last, one f32 FINE_TUNE step through the kernels held per leaf
+    to the same step on plain PyTorch/cuDNN (5e-2 relative L2, as the GAN
+    step's check).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the ``kernels`` JSON (``launches_by_path``: the serving
 run's, one training step's, the eval chain's, the mesh serving run's, the
 sharded block backward's, the two probe paths', one data-fed training
 step's, the training loop's, one remat step's, the evaluation from a
-checkpoint's, ``predict --checkpoint``'s and one perceptual step's counts;
-``launches``: their sum); details go to ``perf_out/chip_smoke.json``.
+checkpoint's, ``predict --checkpoint``'s, one perceptual step's, the
+multi-stage run's and each of its stages' one step's counts; ``launches``:
+their sum); details go to ``perf_out/chip_smoke.json``.
 """
 
 from __future__ import annotations
@@ -232,6 +253,23 @@ REMAT_STEP_LAUNCHES = dict(TRAIN_STEP_LAUNCHES, conv3x3_packed=8 + 4, pack_hw=5 
 # Phase 13: the fit's epochs and the checkpoints it keeps. 3 epochs made
 # the phase take 64-68 s (cold loads ≈ 7 s an epoch); cut to 2.
 LOOP_EPOCHS, LOOP_TOP_K = 2, 2
+# Phase 15: the multi-stage regime. Its MultiInputUNet at the thesis widths
+# runs the two full-resolution stages packed: conv_0 24 → 48 → 48 and
+# upcat_1 (48 + 96 =) 144 → 24 → 24 (Cin, Cout). One supervised step: the
+# forward's 4 packed convs, 2 packs (the head's output, the upsample) and 1
+# unpack; back, every conv's dgrad and, where its weights train, its weight
+# gradient, the unpack's pack and the packs' unpacks. TRANSFER trains the
+# head alone: no weight gradient of the backbone. An eval step is the GAN
+# eval step's: 4 convs, 2 packs, 1 unpack. The run: 1 epoch a stage (cut
+# from 50), top-k 2 (cut from 10).
+MULTISTAGE_CONVS = ((24, 48), (48, 48), (144, 24), (24, 24))
+MULTISTAGE_STEP_LAUNCHES = dict(dict.fromkeys(TRAIN_STEP_LAUNCHES, 0), conv3x3_packed=4,
+                                conv3x3_packed_dgrad=4, conv3x3_wgrad=4, pack_hw=3,
+                                unpack_hw=3)
+MULTISTAGE_STAGE_LAUNCHES = {"pretrain": MULTISTAGE_STEP_LAUNCHES,
+                             "transfer": dict(MULTISTAGE_STEP_LAUNCHES, conv3x3_wgrad=0),
+                             "finetune": MULTISTAGE_STEP_LAUNCHES}
+MULTISTAGE_EPOCHS, MULTISTAGE_TOP_K = 1, 2
 # The mesh serving runs: (mesh shape, whole volume?). One generator forward
 # has 4 packed convs, 2 packs and 1 unpack; every shard runs them (the 8
 # patches of a volume are one batch). A mesh with a space split sends the
@@ -340,7 +378,7 @@ def phase_build(torch, K, _build, native):
 
 
 def check_conv(torch, F, K, checks, b, d, h, w, cin, cout, dtype, halo=False, fold=False,
-               wguard=0, mma=False):
+               wguard=0, mma=False, rerun=False):
     """K1, or with ``halo`` K5 on an input of d + 2 slices whose two halo
     slices are random like the rest (so an off-by-one in d shows), and K5 on
     a zero halo against K1 on the body. With ``fold``: K7a (or its halo
@@ -349,7 +387,8 @@ def check_conv(torch, F, K, checks, b, d, h, w, cin, cout, dtype, halo=False, fo
     fold plan takes the shape, else the ``mma.sync`` loop through
     ``conv3x3_packed_mma``; f32: K1's (K5's) FMA kernel). ``wguard``: K1W,
     ``w`` then the row width with its guard columns (zero in the input).
-    ``mma``: the check-only entry point ``conv3x3_packed_mma`` itself."""
+    ``mma``: the check-only entry point ``conv3x3_packed_mma`` itself.
+    ``rerun``: a second launch must be bit for bit the first."""
     dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(cin * 1000 + d)
     xk = torch.randn(b, d + 2 * halo, cin, h * w, device="cuda", generator=g).to(dt)
@@ -377,6 +416,8 @@ def check_conv(torch, F, K, checks, b, d, h, w, cin, cout, dtype, halo=False, fo
                  "bit_equal_to_packed_kernel": bool(torch.equal(got, _to_folded(packed, w))),
                  "bit_identical_rerun": bool(torch.equal(got, kern(xin, wt, bias, dim)))}
         del packed
+    if rerun:
+        extra["bit_identical_rerun"] = bool(torch.equal(got, kern(xin, wt, bias, dim, *args)))
     got = got.float()
     ref = plain(xin, wt, bias, dim, *args).float()
     if halo and not fold:
@@ -557,13 +598,14 @@ def check_wgrad(torch, K, checks, b, d, h, w, cin, cout, dtype, halo=False, fold
         bound_ms=bms, bound_by=by, library_ms=time_ms(torch, lib, iters), **extra))
 
 
-def check_dgrad(torch, K, checks, b, d, h, w, cin, cout, dtype, halo=False, fold=False):
+def check_dgrad(torch, K, checks, b, d, h, w, cin, cout, dtype, halo=False, fold=False,
+                rerun=False):
     """K1's dgrad launch for the forward conv cin → cout: dy (cout) → dx
     (cin); with ``halo`` K5's: dy of d slices → dxp of d + 2; with ``fold``
     K7a's on the same dy folded, and bit for bit the dgrad of the kernel its
     shape routes to (bf16: K1's (K5's) wgmma dgrad where the fold plan takes
     it, else ``conv3x3_packed_mma`` on the flipped weights; f32: K1's (K5's)
-    FMA kernel)."""
+    FMA kernel). ``rerun``: a second launch must be bit for bit the first."""
     dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(cin * 11 + d)
     dy = torch.randn(b, d, cout, h * w, device="cuda", generator=g).to(dt)
@@ -592,6 +634,8 @@ def check_dgrad(torch, K, checks, b, d, h, w, cin, cout, dtype, halo=False, fold
                  "bit_equal_to_packed_kernel": bool(torch.equal(got, _to_folded(packed, w))),
                  "bit_identical_rerun": bool(torch.equal(got, kern(dyin, wt, dim)))}
         del packed
+    if rerun:
+        extra["bit_identical_rerun"] = bool(torch.equal(got, kern(dyin, wt, dim)))
     got = got.float()
     ref = plain().float()
     err = (got - ref).abs()
@@ -2289,6 +2333,168 @@ def phase_eval_checkpoint(torch, K, checks, tree: str, run: dict, work: Path):
     return eval_counts, predict_counts, perc["launches"], out
 
 
+def phase_multistage(torch, F, K, checks, pkg, tree: str, work: Path):
+    """Phase 15: the multi-stage regime on phase 12's tree (see the
+    docstring), its runs under ``work``. Returns the run's launches, each
+    stage's one step's, and the records."""
+    Config, DoveDataModule, ms, weights, TrainingState = pkg
+    b, p = TRAIN_BATCH, TRAIN_PATCH
+    # 1. K1, its dgrad and K2 at the four convs: the N-24 forward (144 → 24),
+    # the dgrad on two N tiles (24 → 144), K2 on two co tiles (Cout 48)
+    for cin, cout in MULTISTAGE_CONVS:
+        check_conv(torch, F, K, checks, b, p, p, p, cin, cout, "bfloat16", rerun=True)
+        check_dgrad(torch, K, checks, b, p, p, p, cin, cout, "bfloat16", rerun=True)
+        check_wgrad(torch, K, checks, b, p, p, p, cin, cout, "bfloat16")
+        torch.cuda.empty_cache()
+    out = {}
+
+    # 2. run_multistage on the card, the counts reset just before it
+    base = Config()
+    cfg = dataclasses.replace(
+        base, data=dataclasses.replace(base.data, val_split=0.25, test_split=0.25),
+        train=dataclasses.replace(base.train, max_epochs=MULTISTAGE_EPOCHS,
+                                  checkpoint_top_k=MULTISTAGE_TOP_K,
+                                  log_dir=str(work / "logs"), checkpoint_dir=str(work / "ckpts")))
+    dm = DoveDataModule(tree, config=cfg.data)
+    dm.prepare_data()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    states, row = ms.run_multistage(dm, MODALITY, cfg, device="cuda")
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    run_counts = K.launches()
+    val_steps = -(-len(dm.val_samples) * cfg.data.samples_per_vol // cfg.data.batch_size)
+    expected = dict.fromkeys(run_counts, 0)
+    rows, files = {}, {}
+    for stage, st in states.items():
+        for k, v in MULTISTAGE_STAGE_LAUNCHES[stage.value].items():
+            expected[k] += st.step * v
+        for k, v in EVAL_STEP_LAUNCHES.items():
+            expected[k] += val_steps * v
+        name = f"multistage-{MODALITY}-{stage.value}"
+        with open(work / "logs" / name / "metrics.csv") as f:
+            rows[stage.value] = list(csv.DictReader(f))
+        files[stage.value] = sorted(os.listdir(work / "ckpts" / name))
+    finite = all(math.isfinite(float(v)) for rs in rows.values() for r in rs
+                 for k, v in r.items() if k != "epoch")
+    saved = all(os.path.isfile(work / "ckpts" / f"multistage-{MODALITY}-{s}" / "0" /
+                               "state.pt") for s in rows)
+    pre = states[TrainingState.PRETRAIN].net.state_dict()
+    kept = all(torch.equal(v, pre[k]) for k, v in
+               states[TrainingState.TRANSFER].net.state_dict().items() if k.startswith("unet."))
+    out["run"] = {"seconds": run_s, "launches": run_counts, "expected": expected,
+                  "train_steps": {s.value: st.step for s, st in states.items()},
+                  "val_steps_per_stage": val_steps,
+                  "epoch_seconds": {s.value: st.epoch_seconds for s, st in states.items()},
+                  "rows": rows, "files": files, "last_row": row}
+    print(f"run_multistage ({MODALITY}, 1 epoch a stage): {run_s:.1f} s; epoch seconds "
+          f"{json.dumps(out['run']['epoch_seconds'])}; launches exact "
+          f"{run_counts == expected}; files {json.dumps(files)}", flush=True)
+    checks.record(run_counts == expected and finite and saved and kept and
+                  len(rows) == 3, dict(phase="multistage_run", launches=run_counts,
+                                       expected=expected, finite=finite, saved=saved,
+                                       transfer_backbone_bit_equal=kept))
+
+    # 3. each stage's step on one resident batch: exact launches (counts
+    # reset just before it), TRANSFER's backbone bit-equal, ms per step
+    # (median of 10) and peak MiB beside the same stage on cuDNN
+    step_counts = {}
+    for stage, st in states.items():
+        modality = st.net.modality
+        keys = tuple(dict.fromkeys((modality, "dwi-tensor")))
+        batch = next(iter(dm.train_batches(SEED, keys=keys, device="cuda")))
+        x, y = batch[modality], batch["dwi-tensor_orig"]
+        del batch
+        step = ms.make_supervised_train_step(st.net, cfg.train)
+        step(st, x, y)  # warm-up
+        torch.cuda.synchronize()
+        before = {k: v.clone() for k, v in st.net.state_dict().items() if k.startswith("unet.")}
+        K.reset_launches()
+        step(st, x, y)
+        torch.cuda.synchronize()
+        counts = K.launches()
+        step_counts[stage.value] = counts
+        frozen = all(torch.equal(v, before[k]) for k, v in st.net.state_dict().items()
+                     if k.startswith("unet."))
+        del before
+        want = MULTISTAGE_STAGE_LAUNCHES[stage.value]
+        checks.record(counts == want and frozen == (stage == TrainingState.TRANSFER),
+                      dict(phase="multistage_step_launches", stage=stage.value,
+                           launches=counts, expected=want, backbone_unchanged=frozen))
+        timing = {}
+        for key, packed in (("packed", True), ("cudnn", False)):
+            if packed:
+                net, state = st.net, st
+            else:
+                sd = st.net.state_dict()
+                net = ms.build_multi_input_unet(
+                    modality, dataclasses.replace(cfg.model, packed=False), "cuda")
+                state = ms.create_supervised_state(SEED, net, cfg.train, stage, state_dict=sd)
+                del sd
+            fn = ms.make_supervised_train_step(net, cfg.train)
+            ts, peak, metrics = time_steps(torch, fn, state, x, y)
+            timing[key] = {"ms_per_step_median": statistics.median(ts), "ms_all": ts,
+                           "peak_mib": peak, "last_metrics": metrics[-1]}
+            checks.record(all(math.isfinite(v) for m in metrics for v in m.values()),
+                          dict(phase="multistage_step_losses_finite", stage=stage.value,
+                               mode=key, last_metrics=metrics[-1]))
+            del net, state, fn
+        timing["epoch_seconds"] = st.epoch_seconds
+        out[stage.value] = timing
+        print(f"multistage {stage.value} step (bf16, 8 × 64³): packed "
+              f"{timing['packed']['ms_per_step_median']:.3f} ms, cuDNN "
+              f"{timing['cudnn']['ms_per_step_median']:.3f} ms; peak "
+              f"{timing['packed']['peak_mib']:.0f} / {timing['cudnn']['peak_mib']:.0f} MiB; "
+              f"epoch {st.epoch_seconds[0]:.2f} s; launches {json.dumps(counts)}", flush=True)
+        del x, y, step
+        torch.cuda.empty_cache()
+    del states
+    torch.cuda.empty_cache()
+
+    # 4. one f32 step (FINE_TUNE: every leaf trains), batch 2 × 64³, dropout
+    # 0, through the kernels (packed) and on plain PyTorch/cuDNN (TF32 off)
+    # from the same seeded random weights (PReLU slopes 0.25 ± N(0, 0.1²))
+    g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    x = torch.randn((2,) + (p,) * 3 + (24,), device="cuda", generator=g)
+    y = 10.0 + torch.rand((2,) + (p,) * 3 + (6,), device="cuda", generator=g)  # L1 sign fixed
+    grads, losses, sd = {}, {}, None
+    for key, packed in (("plain", False), ("kernels", True)):
+        mcfg = dataclasses.replace(cfg.model, compute_dtype="float32", dropout=0.0,
+                                   packed=packed)
+        net = ms.build_multi_input_unet(MODALITY, mcfg, "cuda")
+        sd = sd or weights.random_state_dict(net, SEED)
+        state = ms.create_supervised_state(SEED, net, cfg.train, TrainingState.FINE_TUNE,
+                                           state_dict=sd)
+        losses[key] = float(ms.make_supervised_train_step(net, cfg.train)(state, x, y)[
+            "train_loss"])
+        grads[key] = {n: q.grad.detach().clone() for n, q in net.named_parameters()}
+        del net, state
+    ref, got = grads["plain"], grads["kernels"]
+    scale = max(float(v.abs().max()) for v in ref.values())
+    bad, leaves = [], []
+    for name, r in ref.items():
+        if name.endswith((".conv.bias", "conv_in.bias", "conv_mid.bias", "conv_out.bias")):
+            # a conv bias before an InstanceNorm: true gradient 0, as in the
+            # GAN step's check
+            err, tol = float((got[name] - r).abs().max()), 1e-4 * scale
+        else:
+            err, tol = rel_l2(got[name], r), 5e-2  # the GAN step's check's bound
+            leaves.append((name, err))
+        if not err <= tol:
+            bad.append((name, err, tol))
+    worst = max(leaves, key=lambda t: t[1])
+    loss_rel = abs(losses["kernels"] - losses["plain"]) / abs(losses["plain"])
+    out["f32_grad_check"] = {"leaves": len(ref), "worst_leaf": worst, "loss_rel_err": loss_rel,
+                             "failures": bad}
+    print(f"multistage f32 grad check: {len(ref)} leaves; worst rel L2 {worst[1]:.2e} at "
+          f"{worst[0]}; loss rel err {loss_rel:.2e}; failures {bad}", flush=True)
+    checks.record(not bad and loss_rel <= 1e-5 and got.keys() == ref.keys(),
+                  dict(phase="multistage_f32_grad_check", **out["f32_grad_check"]))
+    del grads, got, ref
+    torch.cuda.empty_cache()
+    return run_counts, step_counts, out
+
+
 # K1, K1's dgrad, K5 and K5's dgrad: the wgmma conv kernel in bf16 (the
 # rows of the summary line); the mma.sync loop it replaced stays as the
 # check-only conv3x3_packed_mma (and under K7a's routed shapes). K2 and K5's wgrad:
@@ -2420,6 +2626,7 @@ def main() -> int:
     from unet_bssfp_tpu_torch.data.synthetic import make_synthetic_bids
     from unet_bssfp_tpu_torch.eval import evaluate
     from unet_bssfp_tpu_torch.eval.inference import predict_volume
+    from unet_bssfp_tpu_torch.models.multi_input_unet import TrainingState
     from unet_bssfp_tpu_torch.models.packed_layers import PackedTwoConv
     from unet_bssfp_tpu_torch.ops import kernels as K
     from unet_bssfp_tpu_torch.ops import losses
@@ -2434,6 +2641,7 @@ def main() -> int:
     from unet_bssfp_tpu_torch.parallel.mesh import gather_batch, make_mesh, shard_batch
     from unet_bssfp_tpu_torch.predict import main as predict_main
     from unet_bssfp_tpu_torch.train import checkpoint
+    from unet_bssfp_tpu_torch.train import multistage
     from unet_bssfp_tpu_torch.train.loop import Trainer, train_model
     from unet_bssfp_tpu_torch.train.state import build_models, create_gan_state
     from unet_bssfp_tpu_torch.train.steps import make_predict_fn, make_train_step
@@ -2476,6 +2684,7 @@ def main() -> int:
     phase_scalar_maps(torch, K, chk, checks, ScalarMaps._fields)
     tree = Path("perf_out") / "smoke_tree"
     loop_work = Path("perf_out") / "loop_smoke"
+    ms_work = Path("perf_out") / "multistage_smoke"
     try:
         synth_s = make_tree(make_synthetic_bids, tree)
         print(f"synthetic tree ({len(DATA_SUBJECTS)} subjects at {VOLUME}, {nifti.codec()} "
@@ -2510,9 +2719,16 @@ def main() -> int:
         del loop_run
         print(f"evaluation from a checkpoint done at {time.perf_counter() - t_start:.1f}s",
               flush=True)
+        shutil.rmtree(ms_work, ignore_errors=True)
+        ms_work.mkdir(parents=True)
+        ms_counts, ms_step_counts, ms_out = phase_multistage(
+            torch, F, K, checks, (Config, DoveDataModule, multistage, weights, TrainingState),
+            str(tree), ms_work)
+        print(f"multi-stage regime done at {time.perf_counter() - t_start:.1f}s", flush=True)
     finally:
         shutil.rmtree(tree, ignore_errors=True)
         shutil.rmtree(loop_work, ignore_errors=True)
+        shutil.rmtree(ms_work, ignore_errors=True)
     elapsed = time.perf_counter() - t_start
 
     kernels = summary(checks.rows, {"serving": counts, "train_step": train_counts,
@@ -2524,7 +2740,10 @@ def main() -> int:
                                     "train_step_remat": remat_counts,
                                     "eval_from_checkpoint": ckpt_eval_counts,
                                     "predict_checkpoint": ckpt_predict_counts,
-                                    "train_step_perceptual": perceptual_counts})
+                                    "train_step_perceptual": perceptual_counts,
+                                    "multistage_run": ms_counts,
+                                    **{f"multistage_{s}_step": c
+                                       for s, c in ms_step_counts.items()}})
     unlaunched = [k["name"] for k in kernels if k["launches"] == 0]
     checks.record(not unlaunched, dict(phase="every_kernel_launched_on_a_path",
                                        unlaunched=unlaunched))
@@ -2547,6 +2766,8 @@ def main() -> int:
                    "predict_checkpoint_launches": ckpt_predict_counts,
                    "train_step_perceptual_launches": perceptual_counts,
                    "eval_from_checkpoint": ckpt_eval_out,
+                   "multistage_run_launches": ms_counts,
+                   "multistage_step_launches": ms_step_counts, "multistage": ms_out,
                    "kernels": kernels, "elapsed_s": elapsed}, f, indent=1)
     if checks.failures:
         print(f"chip_smoke: {len(checks.failures)} check(s) failed:", file=sys.stderr)

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Run some phases of a checkout's ``chip_smoke.py`` on the card: the
 build, then the training data path (phase 12), the training loop (phase
-13) and the evaluation from its best checkpoint (phase 14, which needs
-phase 13), on the smoke's 4-subject tree at (96, 128, 128).
+13), the evaluation from its best checkpoint (phase 14, which needs
+phase 13) and the multi-stage regime (phase 15), on the smoke's 4-subject
+tree at (96, 128, 128).
 
   python scripts/torch_port_smoke_phases.py [--root DIR]
-      [--phases data loop checkpoint] [--tree perf_out/smoke_tree_phases]
+      [--phases data loop checkpoint multistage] [--tree perf_out/smoke_tree_phases]
 
 ``--root`` is the checkout whose ``chip_smoke.py`` and package run
 (default: this one), so a parent and a change compare in one job, in turns
@@ -13,7 +14,8 @@ phase 13), on the smoke's 4-subject tree at (96, 128, 128).
 written once (from the smoke's seeds) and kept for the next run; delete it
 after. Prints each phase's check rows as the smoke does and one summary
 line: the data-fed step's and loop iteration's medians (phase 12), the
-loop's numbers (phase 13), the evaluation's (phase 14). Needs a card.
+loop's numbers (phase 13), the evaluation's (phase 14), the multi-stage
+run's and steps' (phase 15). Needs a card.
 """
 
 from __future__ import annotations
@@ -31,8 +33,9 @@ from pathlib import Path
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
-    ap.add_argument("--phases", nargs="+", choices=("data", "loop", "checkpoint"),
-                    default=["data", "loop", "checkpoint"])
+    ap.add_argument("--phases", nargs="+",
+                    choices=("data", "loop", "checkpoint", "multistage"),
+                    default=["data", "loop", "checkpoint", "multistage"])
     ap.add_argument("--tree", default="perf_out/smoke_tree_phases")
     args = ap.parse_args()
     root = Path(args.root).resolve()
@@ -108,6 +111,32 @@ def main() -> int:
                     "phase_s": time.perf_counter() - t0}
                 for v in summary["checkpoint"]["perceptual_step"].values():
                     v.pop("launches")
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+    if "multistage" in args.phases:
+        import torch.nn.functional as F
+
+        from unet_bssfp_tpu_torch import weights
+        from unet_bssfp_tpu_torch.models.multi_input_unet import TrainingState
+        from unet_bssfp_tpu_torch.train import multistage
+
+        work = tree.parent / "multistage_smoke_phases"
+        shutil.rmtree(work, ignore_errors=True)
+        work.mkdir(parents=True)
+        try:
+            t0 = time.perf_counter()
+            _, _, out = sm.phase_multistage(
+                torch, F, K, checks,
+                (Config, DoveDataModule, multistage, weights, TrainingState), str(tree), work)
+            stages = ("pretrain", "transfer", "finetune")
+            summary["multistage"] = {
+                "run_s": out["run"]["seconds"], "epoch_seconds": out["run"]["epoch_seconds"],
+                "ms_per_step": {s: {k: out[s][k]["ms_per_step_median"]
+                                    for k in ("packed", "cudnn")} for s in stages},
+                "peak_mib": {s: {k: out[s][k]["peak_mib"] for k in ("packed", "cudnn")}
+                             for s in stages},
+                "f32_worst_leaf": out["f32_grad_check"]["worst_leaf"],
+                "phase_s": time.perf_counter() - t0}
         finally:
             shutil.rmtree(work, ignore_errors=True)
     summary["failures"] = [r.get("phase", r.get("kernel")) for r in checks.failures]

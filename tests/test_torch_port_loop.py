@@ -183,8 +183,16 @@ def test_cli_trains_each_modality_and_refuses_multistage(tmp_path, bids_root, ca
     out = capsys.readouterr().out
     for m in ("dwi-tensor", "t1w"):
         assert f"Best checkpoint for {m}: {tmp_path / 'ckpts'}" in out
-    with pytest.raises(NotImplementedError, match="item 4"):
-        train_main([bids_root, "--multistage", "--device", "cpu"])
+    # --multistage takes the pretrain → transfer → finetune regime instead
+    cfg = _config(tmp_path)
+    cfg_path.write_text(dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, multistage_features=(4, 8, 8, 16, 16, 4))).to_json())
+    train_main([bids_root, "--multistage", "--modalities", "dwi-tensor", "--config",
+                str(cfg_path), "--max-epochs", "1", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "Multi-stage dwi-tensor final metrics" in out and "Best checkpoint" not in out
+    assert {d for d in os.listdir(tmp_path / "ckpts") if d.startswith("multistage-")} == {
+        f"multistage-dwi-tensor-{s}" for s in ("pretrain", "transfer", "finetune")}
 
 
 def test_perceptual_tristate(tmp_path):

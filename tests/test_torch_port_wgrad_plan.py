@@ -85,8 +85,9 @@ def test_row_chunks_write_each_output_once(cin):
 
 
 @pytest.mark.parametrize("shape,reason", [
-    ((1, 4, 0, 32, 40, 8, 64), "Cout > 32"),
-    ((1, 4, 0, 32, 64, 8, 64), "Cout > 32"),
+    # folded (K7b) only: the packed layout takes Cout in tiles of 32
+    ((1, 4, 0, 32, 40, 8, 64, G.SMS, True), "Cout > 32"),
+    ((1, 4, 0, 32, 64, 8, 256, G.SMS, True), "Cout > 32"),
     ((1, 4, 0, 32, 32, 64, 66), "the wguard width W + 2"),
     ((1, 4, 1, 24, 32, 9, 35), "W % 8"),
     ((1, 4, 2, 24, 32, 8, 64), "no such d geometry")])

@@ -18,6 +18,9 @@
 // (Cin + Cout) * 2 bytes, 370-650 per byte at the generator's stages
 // (24/32/96 -> 32 and their dgrads 32 -> 24/32/96): above the bf16 ridge
 // (~295), bound by operations. At 96 -> 32, B 8 x 64^3: 348 GFLOP, 0.352 ms.
+// The multi-stage backbone's full-resolution convs (24 -> 48, 48 -> 48,
+// 144 -> 24, 24 -> 24 and their dgrads) sit at 324-648 per byte: bound by
+// operations too, 0.132 / 0.264 / 0.396 / 0.066 ms at B 8 x 64^3.
 //
 // The kernel, its design, its launch checks and its tensor maps live in
 // conv3x3_wgmma.cuh, which probe.cu also compiles (K9b's MODE instances);
@@ -36,23 +39,30 @@ int launch_n(int n, int rows, const Launch& L, cudaStream_t s) {
   return launch<96, 1, FOLD, MODE_FULL>(L, s);
 }
 
+// N 24 and the N-72 tiles: packed only (prepare() refuses them folded).
+int launch_packed(int n, int rows, const Launch& L, cudaStream_t s) {
+  if (n == 24) return launch<24, 1, false, MODE_FULL>(L, s);
+  if (n == 72) return launch<72, 1, false, MODE_FULL, true>(L, s);
+  return launch_n<false>(n, rows, L, s);
+}
+
 }  // namespace
 
 extern "C" {
 
 // The operands and the plan's numbers (n, cin_pad, rows, stages, seg_len,
-// segments: from wgmma_plan) as prepare() in conv3x3_wgmma.cuh takes them.
-// Returns 0, a cudaError_t, or one of the ERR_ codes there.
+// segments, n_tiles: from wgmma_plan) as prepare() in conv3x3_wgmma.cuh
+// takes them. Returns 0, a cudaError_t, or one of the ERR_ codes there.
 int conv3x3_wgmma_bf16(const void* x, const void* wimg, const void* bias, void* y, int B,
                        int din, int dout, int shift, int cin, int cout, int h, int wdim,
                        int wguard, int lanes_map, int fold, int n, int cin_pad, int rows,
-                       int stages, int seg_len, int segments, void* stream) {
+                       int stages, int seg_len, int segments, int n_tiles, void* stream) {
   Launch L;
   const int rc = prepare(L, x, wimg, bias, y, B, din, dout, shift, cin, cout, h, wdim, wguard,
-                         lanes_map, fold, n, cin_pad, rows, stages, seg_len, segments);
+                         lanes_map, fold, n, cin_pad, rows, stages, seg_len, segments, n_tiles);
   if (rc != 0) return rc;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return fold ? launch_n<true>(n, rows, L, s) : launch_n<false>(n, rows, L, s);
+  return fold ? launch_n<true>(n, rows, L, s) : launch_packed(n, rows, L, s);
 }
 
 // The shared memory a launch of this plan takes (the plan's own number is

@@ -6,7 +6,18 @@
 // Design.
 // - GEMM view: M = 64 output pixels of one h row (w0 .. w0+63), N = Cout
 //   padded to 32/64/96 (one wgmma covers every output channel, so the dgrad
-//   reads each dy tile once), K = 16 input channels per wgmma.
+//   reads each dy tile once), K = 16 input channels per wgmma. Two more N:
+//   24, for Cout <= 24 where N 32's weights would not fit (the multi-stage
+//   backbone's upcat_1 conv 144 -> 24: 186,624 B of weights beside a
+//   2-stage ring, 232,360 B in all); and N tiles of 72 for Cout > 96 (its
+//   dgrad 24 -> 144: two tiles), a grid dimension: the block of tile nt
+//   holds only output channels 72nt .. 72nt + 71 of the weights and writes
+//   only that channel range of the one output, at the full channel stride
+//   (no second tensor, no cat). The tiles of one column are neighbouring
+//   blocks, so the second reads the input tile from L2. Each output element
+//   still has one fixed order of sums. Only the N-72 instance is TILED: in
+//   the others the tile's offset is the constant 0, so their code (and
+//   registers: two more live ones cost 2-8 % of K1's time) is as before.
 // - A block owns a column: one batch, ROWS = 2*RW output h rows, one 64-wide
 //   w tile, and a segment of output d slices, which it WALKS: step j loads
 //   input slice j once (all channels, 16 per ring stage) and applies all three
@@ -55,14 +66,15 @@
 //   shared memory; each thread then stores 16 bytes (8 pixels of one channel)
 //   along w (2-byte stores under the lanes map, whose rows are not 16-byte
 //   aligned).
-// - Sizes (wgmma_plan): N 32: RW 2 (4 rows), stages of 15,360 B; N 64/96:
-//   RW 1 (2 rows), stages of 10,240 B; the deepest ring up to 4 that fits
+// - Sizes (wgmma_plan): N 32: RW 2 (4 rows), stages of 15,360 B; N 24/64/
+//   72/96: RW 1 (2 rows), stages of 10,240 B; the deepest ring up to 4 that fits
 //   beside two transposed tiles and the weight (96 -> 32: 2 stages, 232,104
 //   B in all). 256 threads, one block per SM. Registers: the accumulators
 //   take 3 * RW * N / 2 per thread (96 at N 32 RW 2, 144 at N 96); in all
 //   (-Xptxas -v, nvcc 12.9 for sm_90a) 190 at N 32 RW 2, 126 at N 32 RW 1,
 //   175 at N 64, 228 at N 96, none spilled (FOLD, nvcc 12.8: 196 / 110 /
-//   171 / 238, none spilled). The walk
+//   171 / 238, none spilled; N 24 113 and the TILED N 72 194, nvcc 12.8,
+//   none spilled). The walk
 //   is unrolled by three so that each output's accumulator is fixed at
 //   compile time, and every tap runs even for an output outside the block's
 //   d segment (never stored): a register copy or a branch among the products
@@ -167,7 +179,8 @@ struct Params {
   const float* bias;  // (Cout,) f32
   __nv_bfloat16* y;   // (B, Dout, Cout, H*wdim)
   int din, dout, shift, cin, cout, h, wdim, wdata, lanes_map;
-  int chunks, stages, seg_len, segments, tiles_h, tiles_w, wbytes;
+  int chunks, stages, seg_len, segments, tiles_h, tiles_w, wbytes;  // wbytes: one N tile's
+  int n_tiles;
 };
 
 __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
@@ -215,11 +228,15 @@ __device__ __forceinline__ int row_skew(const Params& p, int hh, int w0) {
 }
 
 // One complete output slice of this warpgroup's RW rows: + bias, bf16, guard
-// columns zero, through the staging tile, 16 channels at a time.
-template <int N, int RW, bool FOLD>
+// columns zero, through the staging tile, 16 channels at a time (N 24: the
+// second pass holds 8); TILED: the block's N tile is output channels co0 ..
+// co0 + cout_t - 1, at y's full channel stride p.cout.
+template <int N, int RW, bool FOLD, bool TILED>
 __device__ __forceinline__ void store_slice(const float (&acc)[RW][N / 2], const Params& p,
                                            uint16_t* stg, int wg, int b, int d, int h0,
                                            int w0) {
+  const int co0 = TILED ? static_cast<int>(blockIdx.x % p.n_tiles) * N : 0;
+  const int cout_t = TILED ? min(N, p.cout - co0) : p.cout;
   const int tid = threadIdx.x % 128;
   const int warp = tid / 32, lane = tid % 32, gid = lane / 4, tig = lane % 4;
   const long long hw = static_cast<long long>(p.h) * p.wdim;
@@ -228,15 +245,17 @@ __device__ __forceinline__ void store_slice(const float (&acc)[RW][N / 2], const
   for (int r = 0; r < RW; ++r) {
     const int hh = h0 + wg * RW + r;
 #pragma unroll
-    for (int pass = 0; pass < N / 16; ++pass) {
+    for (int pass = 0; pass < (N + 15) / 16; ++pass) {
 #pragma unroll
       for (int jj = 0; jj < 2; ++jj) {
+        if (2 * pass + jj >= N / 8) continue;  // N 24: the last pass's second 8 columns
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int px = warp * 16 + gid + 8 * (i >> 1);
           const int chl = jj * 8 + 2 * tig + (i & 1);
           const int co = pass * 16 + chl;
-          float v = acc[r][4 * (2 * pass + jj) + i] + (co < p.cout ? __ldg(&p.bias[co]) : 0.f);
+          float v = acc[r][4 * (2 * pass + jj) + i] +
+                    (co < cout_t ? __ldg(&p.bias[co0 + co]) : 0.f);
           if (w0 + px >= p.wdata) v = 0.f;  // guard columns (and past the row)
           stg[chl * EPI_STRIDE + px] = __bfloat16_as_ushort(__float2bfloat16_rn(v));
         }
@@ -247,7 +266,7 @@ __device__ __forceinline__ void store_slice(const float (&acc)[RW][N / 2], const
       if (FOLD) {
         // 8 consecutive w4 of phase ph: pixels w0 + 32g + 4k + ph
         const int ph = seg >> 1, g = seg & 1, w4 = w0 / 4 + 8 * g, w4dim = p.wdim / 4;
-        if (hh < p.h && co < p.cout && w4 < w4dim) {
+        if (hh < p.h && co < cout_t && w4 < w4dim) {
           const uint16_t* src = stg + chl * EPI_STRIDE + 32 * g + ph;
           uint4 v;
           v.x = src[0] | (static_cast<uint32_t>(src[4]) << 16);
@@ -255,13 +274,13 @@ __device__ __forceinline__ void store_slice(const float (&acc)[RW][N / 2], const
           v.z = src[16] | (static_cast<uint32_t>(src[20]) << 16);
           v.w = src[24] | (static_cast<uint32_t>(src[28]) << 16);
           uint16_t* dst = out + ((static_cast<long long>(b) * p.dout + d) * 4 * p.cout +
-                                 ph * p.cout + co) * (hw / 4) +
+                                 ph * p.cout + co0 + co) * (hw / 4) +
                           static_cast<long long>(hh) * w4dim + w4;
           *reinterpret_cast<uint4*>(dst) = v;
         }
-      } else if (hh < p.h && co < p.cout && ww < p.wdim) {
+      } else if (hh < p.h && co < cout_t && ww < p.wdim) {
         const uint16_t* src = stg + chl * EPI_STRIDE + seg * 8;
-        uint16_t* dst = out + ((static_cast<long long>(b) * p.dout + d) * p.cout + co) * hw +
+        uint16_t* dst = out + ((static_cast<long long>(b) * p.dout + d) * p.cout + co0 + co) * hw +
                         static_cast<long long>(hh) * p.wdim + ww;
         if (!p.lanes_map) {
           *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
@@ -376,7 +395,7 @@ __device__ __forceinline__ void xpose_stage(const Block& k, uint32_t rs, uint32_
 // into the three outputs it feeds, e = j + 1 - kd held in accumulator
 // (ROT - kd) mod 3, ROT = the step's index mod 3; then output j - 1, complete,
 // is stored and its accumulator zeroed for output j + 2.
-template <int N, int RW, bool FOLD, int MODE, int ROT>
+template <int N, int RW, bool FOLD, int MODE, int ROT, bool TILED>
 __device__ __forceinline__ void step(float (&acc)[3][RW][N / 2], const Params& p,
                                      const Block& k, Pipe& pipe, Loader& ld, int j) {
   constexpr int ROWS = CONSUMERS * RW;
@@ -435,7 +454,7 @@ __device__ __forceinline__ void step(float (&acc)[3][RW][N / 2], const Params& p
   constexpr int DONE = (ROT + 1) % 3;  // output j - 1's accumulator (kd = 2)
   const int e = j - 1;
   if (e >= k.e_lo && e <= k.e_hi)
-    store_slice<N, RW, FOLD>(acc[DONE], p, k.stg, wg, k.b, e - p.shift, k.h0, k.w0);
+    store_slice<N, RW, FOLD, TILED>(acc[DONE], p, k.stg, wg, k.b, e - p.shift, k.h0, k.w0);
   __syncwarp();
 #pragma unroll
   for (int r = 0; r < RW; ++r) {
@@ -445,7 +464,7 @@ __device__ __forceinline__ void step(float (&acc)[3][RW][N / 2], const Params& p
   }
 }
 
-template <int N, int RW, bool FOLD, int MODE>
+template <int N, int RW, bool FOLD, int MODE, bool TILED>
 __global__ void __launch_bounds__(THREADS, 1)
 conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap tmap,
                      const __grid_constant__ CUtensorMap side, const Params p) {
@@ -462,7 +481,9 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap tmap,
   const uint32_t bars = epi + CONSUMERS * EPI_BYTES;
   const uint32_t wbar = bars + 8 * MAX_STAGES;
 
-  int blk = blockIdx.x;  // (b, segment, w tile, h tile), h tile fastest
+  int blk = blockIdx.x;  // (b, segment, w tile, h tile[, N tile]), the fastest last
+  const int nt = TILED ? blk % p.n_tiles : 0;
+  if (TILED) blk /= p.n_tiles;
   const int ht = blk % p.tiles_h;
   blk /= p.tiles_h;
   const int wt = blk % p.tiles_w;
@@ -502,7 +523,8 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap tmap,
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     mbar_expect_tx(wbar, p.wbytes);
     for (int off = 0; off < p.wbytes; off += WCHUNK)
-      bulk_load(wsm + off, p.w + off, min(WCHUNK, p.wbytes - off), wbar);
+      bulk_load(wsm + off, p.w + static_cast<long long>(nt) * p.wbytes + off,
+                min(WCHUNK, p.wbytes - off), wbar);
     if constexpr (MODE == MODE_FIXED) {
       Loader first = {0, 0};
       load_stage<ROWS, FOLD>(p, blk_ctx, first, 0);
@@ -536,9 +558,9 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap tmap,
   // three steps per trip, so that which accumulator holds which output is
   // known at compile time (no register copies between steps)
   for (int j = e_lo - 1; j <= e_hi + 1; j += 3) {
-    step<N, RW, FOLD, MODE, 0>(acc, p, blk_ctx, pipe, ld, j);
-    if (j + 1 <= e_hi + 1) step<N, RW, FOLD, MODE, 1>(acc, p, blk_ctx, pipe, ld, j + 1);
-    if (j + 2 <= e_hi + 1) step<N, RW, FOLD, MODE, 2>(acc, p, blk_ctx, pipe, ld, j + 2);
+    step<N, RW, FOLD, MODE, 0, TILED>(acc, p, blk_ctx, pipe, ld, j);
+    if (j + 1 <= e_hi + 1) step<N, RW, FOLD, MODE, 1, TILED>(acc, p, blk_ctx, pipe, ld, j + 1);
+    if (j + 2 <= e_hi + 1) step<N, RW, FOLD, MODE, 2, TILED>(acc, p, blk_ctx, pipe, ld, j + 2);
   }
 }
 
@@ -569,17 +591,21 @@ struct Launch {
 // Check a plan (the numbers of conv_wgmma.py:wgmma_plan) and encode its
 // launch into L. x: (B, Din, Cin, H*wdim) bf16, contiguous, 16-byte aligned
 // (fold: the folded (B, Din, 4*Cin, H*wdim/4), wdim = W); wimg: the weight
-// image of conv_wgmma.py:weight_image (27 * cin_pad * n bf16); bias: (Cout,)
-// f32; y: (B, Dout, Cout, H*wdim) bf16 (fold: folded). Returns 0 or one of
-// the ERR_ codes.
+// image of conv_wgmma.py:weight_image (n_tiles * 27 * cin_pad * n bf16);
+// bias: (Cout,) f32; y: (B, Dout, Cout, H*wdim) bf16 (fold: folded). Returns
+// 0 or one of the ERR_ codes.
 int prepare(Launch& L, const void* x, const void* wimg, const void* bias, void* y, int B,
             int din, int dout, int shift, int cin, int cout, int h, int wdim, int wguard,
             int lanes_map, int fold, int n, int cin_pad, int rows, int stages, int seg_len,
-            int segments) {
+            int segments, int n_tiles) {
   const int chunks = cin_pad / CK;
   const int wbytes = 27 * cin_pad * n * 2;
   const int smem = smem_bytes(rows, stages, wbytes);
-  const bool ok = (n == 32 || n == 64 || n == 96) && cout >= 1 && cout <= n &&
+  // N 24 (rows 2), 32, 64, 96 in one tile; N 72 in n_tiles >= 1; none folded but 32-96
+  const bool n_ok = n == 72 ? n_tiles >= 1 && !fold
+                            : n_tiles == 1 && (n == 24 ? rows == 2 && !fold
+                                                       : n == 32 || n == 64 || n == 96);
+  const bool ok = n_ok && cout > (n_tiles - 1) * n && cout <= n_tiles * n &&
                   cin >= 1 && cin_pad % CK == 0 && cin_pad >= cin && cin_pad < cin + CK &&
                   (rows == 2 || (rows == 4 && n == 32)) && stages >= 2 &&
                   stages <= MAX_STAGES && smem <= SMEM_LIMIT && seg_len >= 1 &&
@@ -659,16 +685,17 @@ int prepare(Launch& L, const void* x, const void* wimg, const void* bias, void* 
   p.tiles_h = (h + rows - 1) / rows;
   p.tiles_w = (wdim + TILE_W - 1) / TILE_W;
   p.wbytes = wbytes;
-  const long long grid = static_cast<long long>(B) * segments * p.tiles_w * p.tiles_h;
+  p.n_tiles = n_tiles;
+  const long long grid = static_cast<long long>(B) * segments * p.tiles_w * p.tiles_h * n_tiles;
   if (grid < 1 || grid > 0x7fffffff) return ERR_PLAN;
   L.grid = static_cast<int>(grid);
   L.smem = smem;
   return 0;
 }
 
-template <int N, int RW, bool FOLD, int MODE>
+template <int N, int RW, bool FOLD, int MODE, bool TILED = false>
 int launch(const Launch& L, cudaStream_t stream) {
-  auto kernel = conv3x3_wgmma_kernel<N, RW, FOLD, MODE>;
+  auto kernel = conv3x3_wgmma_kernel<N, RW, FOLD, MODE, TILED>;
   cudaError_t rc =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.smem);
   if (rc != cudaSuccess) return static_cast<int>(rc);

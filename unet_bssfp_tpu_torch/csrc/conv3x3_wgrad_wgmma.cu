@@ -70,6 +70,14 @@
 //   run builds all four rows after an extra barrier). No branch and no
 //   register copy among the products (on the conv kernel either makes
 //   ptxas serialise the wgmma pipeline). 222,272 B of shared memory.
+// - Cout > 32 (the multi-stage backbone's 24 -> 48 and 48 -> 48): tiles of
+//   32 output channels, a third grid dimension. Tile t's dy box starts at
+//   channel 32t of the one dy map (no copy of dy, no second map): TMA's zero
+//   fill stands for the channels past Cout, as it does for Cout < 32, and
+//   the block writes dW's channels 32t .. 32t + 31 of its split's slice of
+//   the workspace. The split sum is unchanged, so every dW element keeps
+//   one fixed order of sums and reruns are bit for bit. x is read once per
+//   tile (from L2 where the tiles' blocks run together).
 // - Bytes pulled from L2 per call, 96 -> 32 at B 8 x 64^3: x 3 x 0.40 GB
 //   (each slice is a row of three kd), dy 5 chunks x 0.13 GB (an item
 //   loads only its two new dy rows, a run's first item four) = 0.67 GB;
@@ -237,8 +245,9 @@ __device__ __forceinline__ void load_item(const Params& p, const CUtensorMap* xm
   for (int r = 0; r < ROWS; ++r)
     tma_load_5d(dst + r * X_ROW_BYTES, xmap, bar, w0, blockIdx.x * p.cpk, t.d - 1 + p.halo,
                 h0 + r, t.b);
-  if (!follows) tma_load_5d(dst + X_BYTES, dymap, bar, w0 - 8, h0 - 1, 0, t.d, t.b);
-  tma_load_5d(dst + X_BYTES + DY_HALF, dymap, bar, w0 - 8, h0 + 1, 0, t.d, t.b);
+  const int co0 = blockIdx.z * COUT_T;  // the block's co tile
+  if (!follows) tma_load_5d(dst + X_BYTES, dymap, bar, w0 - 8, h0 - 1, co0, t.d, t.b);
+  tma_load_5d(dst + X_BYTES + DY_HALF, dymap, bar, w0 - 8, h0 + 1, co0, t.d, t.b);
 }
 
 // Elements 1..8 of the 16 that a then b hold (one bf16 step up), and
@@ -444,7 +453,7 @@ conv3x3_wgrad_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
       const int m = wq * 16 + lane / 4 + 8 * (e >> 1);
       const int col = 8 * j + 2 * (lane % 4) + (e & 1);
       const int kd = m / p.cpk, ci = blockIdx.x * p.cpk + m % p.cpk;
-      const int kw = col / COUT_T, co = col % COUT_T;
+      const int kw = col / COUT_T, co = (FOLD ? 0 : blockIdx.z * COUT_T) + col % COUT_T;
       if (kd < 3 && ci < p.cin && co < p.cout)
         out[(kd * 9 + kh * 3 + kw) * ncc + static_cast<long long>(ci) * p.cout + co] =
             sum[4 * j + e];
@@ -484,17 +493,20 @@ extern "C" {
 // x: (B, D + 2*halo, Cin, H*wdim), dy: (B, D, Cout, H*wdim), bf16,
 // contiguous, 16-byte aligned (fold: both folded, (B, ., 4*C, H*wdim/4),
 // wdim = W); part: f32 (splits, 27 * Cin * Cout); out: f32 (3, 3, 3, Cin,
-// Cout). The plan's numbers (cpk, chunks, stages, splits, per) come from
-// wgrad_plan and are checked here. Returns 0, a cudaError_t, or one of the
-// ERR_ codes above.
+// Cout). The plan's numbers (cpk, chunks, stages, splits, per, co_tiles)
+// come from wgrad_plan and are checked here. Returns 0, a cudaError_t, or
+// one of the ERR_ codes above.
 int conv3x3_wgrad_wgmma_bf16(const void* x, const void* dy, void* part, void* out, int B, int D,
                              int halo, int fold, int cin, int cout, int h, int wdim, int cpk,
-                             int chunks, int stages, int splits, long long per, void* stream) {
+                             int chunks, int stages, int splits, long long per, int co_tiles,
+                             void* stream) {
   const int tiles_h = (h + ROWS - 1) / ROWS, tiles_w = (wdim + TILE_W - 1) / TILE_W;
   const long long items = static_cast<long long>(B) * D * tiles_h * tiles_w;
   const int smem = smem_bytes(stages);
-  const bool ok = B >= 1 && D >= 1 && (halo == 0 || halo == 1) && cin >= 1 && cout >= 1 &&
-                  cout <= COUT_T && h >= 1 && wdim >= 1 && wdim % 8 == 0 && cpk >= 1 &&
+  const bool ok = B >= 1 && D >= 1 && (halo == 0 || halo == 1) && cin >= 1 &&
+                  co_tiles >= 1 && co_tiles <= 65535 && (!fold || co_tiles == 1) &&
+                  cout > (co_tiles - 1) * COUT_T && cout <= co_tiles * COUT_T && h >= 1 &&
+                  wdim >= 1 && wdim % 8 == 0 && cpk >= 1 &&
                   cpk <= MAX_CPK && chunks == (cin + cpk - 1) / cpk && stages >= 2 &&
                   stages <= MAX_STAGES && smem <= SMEM_LIMIT && splits >= 1 && splits <= 65535 &&
                   per >= 1 && items <= 0x7fffffff && (splits - 1) * per < items &&
@@ -565,7 +577,7 @@ int conv3x3_wgrad_wgmma_bf16(const void* x, const void* dy, void* part, void* ou
   auto kernel = fold ? conv3x3_wgrad_wgmma_kernel<true> : conv3x3_wgrad_wgmma_kernel<false>;
   cudaError_t rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (rc != cudaSuccess) return static_cast<int>(rc);
-  kernel<<<dim3(chunks, splits), THREADS + 32, smem, s>>>(xmap, dymap, dyside, p);
+  kernel<<<dim3(chunks, splits, co_tiles), THREADS + 32, smem, s>>>(xmap, dymap, dyside, p);
   rc = cudaGetLastError();
   if (rc != cudaSuccess) return static_cast<int>(rc);
   const long long nout = 27LL * cin * cout;

@@ -77,7 +77,7 @@ int conv3x3_probe_wgmma(const void* x, const void* wimg, const void* bias, void*
                         int stages, int seg_len, int segments, int mode, void* stream) {
   Launch L;
   const int rc = prepare(L, x, wimg, bias, y, B, d, d, 0, cin, cout, h, wdim, 0, 0, 0, n,
-                         cin_pad, rows, stages, seg_len, segments);
+                         cin_pad, rows, stages, seg_len, segments, 1);
   if (rc != 0) return rc;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n == 32 && rows == 4) return launch_mode<32, 2>(mode, L, s);

@@ -315,18 +315,26 @@ class ConvNormAct(nn.Module):
     """Conv3d(k3, p1) → InstanceNorm(affine) → Dropout → LeakyReLU.
     ``use_fused`` folds norm and activation into the fused kernel and drops
     out after the activation (the two commute: LeakyReLU is positively
-    homogeneous and the dropout mask non-negative)."""
+    homogeneous and the dropout mask non-negative). ``prelu`` (the
+    multi-stage backbone's activation): a learnable slope per channel,
+    parameter ``prelu_slope`` initialised at ``negative_slope``, applied
+    after the dropout as ``where(y >= 0, y, slope·y)``; the fused kernel
+    takes a static slope, so ``prelu`` runs the norm unfused."""
 
     def __init__(self, cin: int, features: int, dropout: float = 0.0,
                  negative_slope: float = 0.1,
                  compute_dtype: Optional[torch.dtype] = None,
-                 use_fused: bool = False):
+                 use_fused: bool = False, prelu: bool = False):
         super().__init__()
+        use_fused = use_fused and not prelu
         self.conv = Conv(cin, features, 3, 1, 1, compute_dtype)
         self.norm = InstanceNorm(
             features, compute_dtype=compute_dtype,
             fused_slope=negative_slope if use_fused else None)
         self.drop = Dropout(dropout)
+        if prelu:
+            self.prelu_slope = nn.Parameter(torch.full((features,), float(negative_slope)))
+        self.prelu = prelu
         self.use_fused = use_fused
         self.negative_slope = negative_slope
         self.compute_dtype = compute_dtype
@@ -341,7 +349,16 @@ class ConvNormAct(nn.Module):
         x = self.drop(x)
         if self.use_fused:
             return x
-        return F.leaky_relu(x, self.negative_slope)
+        return self._act(x, channel_dim=-1)
+
+    def _act(self, x: torch.Tensor, channel_dim: int) -> torch.Tensor:
+        """LeakyReLU, or with ``prelu`` the learnable slope of the channels
+        on ``channel_dim``, in ``x``'s dtype."""
+        if not self.prelu:
+            return F.leaky_relu(x, self.negative_slope)
+        shape = [1] * x.ndim
+        shape[channel_dim] = -1
+        return torch.where(x >= 0, x, self.prelu_slope.to(x.dtype).reshape(shape) * x)
 
 
 class TwoConv(nn.Module):
@@ -352,12 +369,12 @@ class TwoConv(nn.Module):
     def __init__(self, cin: int, features: int, dropout: float = 0.0,
                  negative_slope: float = 0.1,
                  compute_dtype: Optional[torch.dtype] = None,
-                 use_fused: bool = False):
+                 use_fused: bool = False, prelu: bool = False):
         super().__init__()
         self.conv_0 = self.block(cin, features, dropout, negative_slope,
-                                 compute_dtype, use_fused)
+                                 compute_dtype, use_fused, prelu)
         self.conv_1 = self.block(features, features, dropout, negative_slope,
-                                 compute_dtype, use_fused)
+                                 compute_dtype, use_fused, prelu)
 
     def forward(self, x):
         return self.conv_1(self.conv_0(x))
@@ -382,10 +399,10 @@ class Down(nn.Module):
     def __init__(self, cin: int, features: int, dropout: float = 0.0,
                  negative_slope: float = 0.1,
                  compute_dtype: Optional[torch.dtype] = None,
-                 use_fused: bool = False):
+                 use_fused: bool = False, prelu: bool = False):
         super().__init__()
         self.convs = self.convs_cls(cin, features, dropout, negative_slope,
-                                    compute_dtype, use_fused)
+                                    compute_dtype, use_fused, prelu)
 
     def forward(self, x):
         return self.convs(max_pool2(x))
@@ -401,12 +418,12 @@ class UpCat(nn.Module):
                  up_features: int, dropout: float = 0.0,
                  negative_slope: float = 0.1,
                  compute_dtype: Optional[torch.dtype] = None,
-                 use_fused: bool = False):
+                 use_fused: bool = False, prelu: bool = False):
         super().__init__()
         self.upsample = ConvTranspose(cin, up_features, compute_dtype)
         self.convs = self.convs_cls(skip_channels + up_features, features,
                                     dropout, negative_slope, compute_dtype,
-                                    use_fused)
+                                    use_fused, prelu)
 
     def forward(self, x, skip):
         return self.convs(apply_local(pad_cat, self.upsample(x), skip))

@@ -19,7 +19,6 @@ the rest is local to each shard.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from unet_bssfp_tpu_torch.models.layers import (
     Conv,
@@ -37,7 +36,9 @@ from unet_bssfp_tpu_torch.parallel.mesh import Sharded, apply_local, local
 
 class PackedConvNormAct(ConvNormAct):
     """ConvNormAct on a packed (B, D, C, H·W) tensor; ``wdim`` = W. The norm
-    takes f32 moments over (d, lanes), as the plain path does."""
+    takes f32 moments over (d, lanes), as the plain path does; the dropout
+    and the activation (LeakyReLU, or with ``prelu`` the learnable slope on
+    channel dim 2) run on its f32 result, then the cast."""
 
     def forward_packed(self, xk, wdim: int):
         dtype = self.compute_dtype or xk.dtype
@@ -52,7 +53,7 @@ class PackedConvNormAct(ConvNormAct):
         return apply_local(lambda t: local(self, t.device)._drop_act_packed(t), y)
 
     def _drop_act_packed(self, y: torch.Tensor) -> torch.Tensor:
-        y = F.leaky_relu(self.drop(y), self.negative_slope)
+        y = self._act(self.drop(y), channel_dim=2)
         return y.to(self.compute_dtype or y.dtype)
 
 

@@ -12,7 +12,10 @@ Channel plumbing for features (f0..f4, f5):
 
 ``packed`` runs the two full-resolution stages (conv_0, upcat_1) on the
 packed layout through the hand-written kernels, where the input shape
-allows it (the JAX package's gate). ``remat`` recomputes each block's
+allows it (the JAX package's gate). ``prelu`` gives every conv block a
+learnable slope per channel instead of the fixed LeakyReLU (the multi-stage
+backbone, ``models.multi_input_unet.PReLUUNet``); it keeps ``packed`` and
+turns ``use_fused`` off. ``remat`` recomputes each block's
 activations in the backward instead of keeping them (``layers.remat``):
 the blocks the JAX package wraps in ``nn.remat``, TwoConv, Down and UpCat,
 and in the packed case the packed conv_0 and upcat_1 and the pooled
@@ -61,7 +64,7 @@ class BasicUNet3D(nn.Module):
                  dropout: float = 0.05, negative_slope: float = 0.1,
                  compute_dtype: Optional[torch.dtype] = None,
                  use_fused: bool = False, packed: bool = False,
-                 remat: bool = False):
+                 remat: bool = False, prelu: bool = False):
         super().__init__()
         f = tuple(features)
         if len(f) != 6:
@@ -70,7 +73,7 @@ class BasicUNet3D(nn.Module):
         self.packed = packed
         self.remat = remat
         kw = dict(dropout=dropout, negative_slope=negative_slope,
-                  compute_dtype=compute_dtype, use_fused=use_fused)
+                  compute_dtype=compute_dtype, use_fused=use_fused, prelu=prelu)
         two_conv, down_1, upcat_1, final = (
             (PackedTwoConv, PooledConvs, PackedUpCat, PackedFinalConv)
             if packed else (TwoConv, Down, UpCat, Conv))

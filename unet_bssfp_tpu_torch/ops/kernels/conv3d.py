@@ -23,9 +23,12 @@ dtype and shape:
 
 - bf16 → ``csrc/conv3x3_wgmma.cu`` (TMA ring, ``wgmma``, resident weights;
   :mod:`.conv_wgmma` plans the launch), wherever
-  :func:`.conv_wgmma.wgmma_plan` takes the shape: Cout ≤ 96, W a multiple
-  of 8 or guard columns present, the weight resident beside a 2-stage ring.
-  Every shape of the serving, training and mesh paths is taken. Any other
+  :func:`.conv_wgmma.wgmma_plan` takes the shape: W a multiple of 8 or
+  guard columns present, the weight (of one N tile: Cout > 96 is cut into
+  N tiles, the multi-stage dgrad 24 → 144 into two of 72) resident beside
+  a 2-stage ring (N 24 where Cout ≤ 24 and N 32's does not fit: the
+  multi-stage 144 → 24). Every shape of the serving, training, multi-stage
+  and mesh paths is taken. Any other
   bf16 shape runs the ``mma.sync`` loop of ``csrc/conv3x3_packed.cu``,
   and each such launch adds one to
   ``conv3x3_packed_mma_routed.launches`` besides the wrapper's own count;
@@ -35,9 +38,10 @@ Which CUDA kernel runs a weight gradient (K2, K5's), the same way:
 
 - bf16 → ``csrc/conv3x3_wgrad_wgmma.cu`` (TMA ring, dy's shifted copies in
   shared memory, ``wgmma``; :mod:`.wgrad_wgmma` plans the launch), wherever
-  :func:`wgrad_plan` takes the shape: Cout ≤ 32 and W a multiple of 8.
-  Every shape of the training step and the mesh backward is taken. Any
-  other bf16 shape (the ``wguard`` width 66, Cout 40) runs the ``mma.sync``
+  :func:`wgrad_plan` takes the shape: W a multiple of 8 (Cout in tiles of
+  32: the multi-stage Cout 48 takes two). Every shape of the training and
+  multi-stage steps and the mesh backward is taken. Any other bf16 shape
+  (the ``wguard`` width 66, W 35) runs the ``mma.sync``
   loop of ``csrc/conv3x3_wgrad.cu``, and each such launch adds one to
   ``conv3x3_wgrad_mma_routed.launches`` besides the wrapper's own count;
 - f32 → the FMA kernel of ``conv3x3_wgrad.cu``.

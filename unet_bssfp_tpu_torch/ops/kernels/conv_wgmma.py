@@ -29,6 +29,8 @@ TILE_W = 64          # output w columns per tile (one wgmma M)
 PX = TILE_W + 16     # pixels per loaded row: w0 - 8 .. w0 + 71
 CK = 16              # input channels per ring stage (one wgmma K)
 N_PADS = (32, 64, 96)  # wgmma N: Cout padded up to one of these
+N_NARROW = 24        # N for Cout <= 24 where N 32's weights do not fit
+TILE_N = 72          # N of each tile where Cout > 96 is cut into N tiles
 CONSUMERS = 2        # consumer warpgroups per block
 ROW_BYTES = CK * PX * 2  # one (h row, 16 channels) box
 EPI_BYTES = 16 * 72 * 2
@@ -62,7 +64,12 @@ class WgmmaPlan:
     are numbered (b, segment, w tile, h tile) with the h tile fastest.
     ``fold``: the operands are phase-major w-folded, (B, D, 4·C, H·W/4);
     ``wdim`` is then the unfolded W, and every other number is the packed
-    plan's at that shape."""
+    plan's at that shape. ``n_tiles``: Cout is cut into that many tiles of
+    ``n`` channels (the last one ragged), one block per tile and column, each
+    with its tile's weights resident and writing its channel range of the
+    one output; blocks are numbered (b, segment, w tile, h tile, N tile)
+    with the N tile fastest, so the tiles of one column read the same input
+    tile from L2 at about the same time."""
     b: int
     din: int
     dout: int
@@ -80,6 +87,7 @@ class WgmmaPlan:
     seg_len: int
     segments: int
     fold: bool = False
+    n_tiles: int = 1
 
     @property
     def tiles_h(self) -> int:
@@ -91,10 +99,11 @@ class WgmmaPlan:
 
     @property
     def grid(self) -> int:
-        return self.b * self.segments * self.tiles_w * self.tiles_h
+        return self.b * self.segments * self.tiles_w * self.tiles_h * self.n_tiles
 
     @property
     def weight_bytes(self) -> int:
+        """The weights one block holds: its N tile's."""
         return 27 * self.cin_pad * self.n * 2
 
     @property
@@ -114,47 +123,64 @@ def smem_bytes(rows: int, stages: int, weight_bytes: int) -> int:
             + CONSUMERS * EPI_BYTES + BAR_BYTES)
 
 
+def _ring(n: int, wbytes: int) -> Optional[Tuple[int, int]]:
+    """(rows, stages) for N ``n`` and ``wbytes`` of resident weights: 4
+    output rows where N is 32 and a ring of 2 stages fits, else 2; the
+    deepest ring up to 4 that fits; ``None`` where not even 2 stages do."""
+    for rows in ((4, 2) if n == 32 else (2,)):
+        free = SMEM_LIMIT - smem_bytes(rows, 0, wbytes)
+        stages = min(MAX_STAGES, free // ((rows + 2) * ROW_BYTES))
+        if stages >= 2:
+            return rows, stages
+    return None
+
+
 def wgmma_plan(b: int, din: int, dout: int, shift: int, cin: int, cout: int,
                h: int, wdim: int, wguard: int = 0, sms: int = SMS,
                fold: bool = False) -> Optional[WgmmaPlan]:
     """The plan of one bf16 launch, or ``None`` where the wgmma kernel does
     not take the shape (static, by shape alone):
 
-    - ``Cout > 96`` (the accumulators of three rolling output slices at
-      N = 128 exceed the registers);
     - ``wdim % 8 != 0`` without guard columns (a TMA row stride must be a
       multiple of 16 bytes, and the flattened-lanes map needs zero guards to
       stand for the w padding);
-    - a weight too large to stay in shared memory beside a 2-stage ring;
+    - a weight (one N tile's) too large to stay in shared memory beside a
+      2-stage ring;
     - with ``fold`` (W = ``wdim``), W/4 not a multiple of 8 (the folded
-      map's row stride is W/4 elements) or guard columns.
+      map's row stride is W/4 elements), guard columns or Cout > 96.
 
+    N: Cout padded up to 32, 64 or 96; where Cout ≤ 24 and N 32's weights
+    do not fit, 24 (27·Cin_pad·24·2 bytes: the upcat_1 conv 144 → 24 of the
+    multi-stage backbone). Cout > 96 (the accumulators of three rolling
+    output slices at N = 128 exceed the registers) is cut into
+    ``ceil(Cout / 72)`` N tiles of 72 (the dgrad 24 → 144: two; the kernel
+    compiles its tile offsets into the N-72 instance alone).
     Tiles: 4 output rows (2 per consumer warpgroup) where N is 32 and a
-    ring of 2 stages fits, else 2; the deepest ring up to 4 that fits. d segments: the count that takes the fewest block-steps per SM
-    (waves of blocks over ``sms`` SMs × steps per block)."""
+    ring of 2 stages fits, else 2; the deepest ring up to 4 that fits. d
+    segments: the count that takes the fewest block-steps per SM (waves of
+    blocks over ``sms`` SMs × steps per block)."""
     if min(b, din, dout, cin, cout, h, wdim) < 1 or not 0 <= wguard < wdim:
         return None
     if fold and (wdim % 32 or wguard):
         return None
+    n_tiles = 1
     n = next((p for p in N_PADS if p >= cout), None)
     if n is None:
-        return None
+        if fold:
+            return None
+        n, n_tiles = TILE_N, -(-cout // TILE_N)
     lanes_map = wdim % 8 != 0
     if lanes_map and (wguard < 1 or (h * wdim) % 8):
         return None
     cin_pad = -(-cin // CK) * CK
-    wbytes = 27 * cin_pad * n * 2
-    choice = None
-    for rows in ((4, 2) if n == 32 else (2,)):
-        free = SMEM_LIMIT - smem_bytes(rows, 0, wbytes)
-        stages = min(MAX_STAGES, free // ((rows + 2) * ROW_BYTES))
-        if stages >= 2:
-            choice = rows, stages
-            break
+    choice = _ring(n, 27 * cin_pad * n * 2)
+    if choice is None and n == 32 and cout <= N_NARROW and not fold:
+        n = N_NARROW
+        choice = _ring(n, 27 * cin_pad * n * 2)
     if choice is None:
         return None
     rows, stages = choice
-    columns = b * -(-h // rows) * -(-wdim // TILE_W)
+    columns = b * -(-h // rows) * -(-wdim // TILE_W) * n_tiles
     # one block per SM: a block's time is its steps (seg_len + 2 input
     # slices), the call's time its waves of blocks times that
     segments = min(range(1, dout + 1), key=lambda s: (
@@ -162,7 +188,7 @@ def wgmma_plan(b: int, din: int, dout: int, shift: int, cin: int, cout: int,
     seg_len = -(-dout // segments)
     segments = -(-dout // seg_len)
     return WgmmaPlan(b, din, dout, shift, cin, cout, h, wdim, wguard, lanes_map,
-                     n, cin_pad, rows, stages, seg_len, segments, fold)
+                     n, cin_pad, rows, stages, seg_len, segments, fold, n_tiles)
 
 
 def fold_maps(plan: WgmmaPlan) -> Dict[str, TensorMap]:
@@ -215,7 +241,9 @@ def fold_store(seg: int, k: int) -> Tuple[int, int, int]:
 
 def block_outputs(plan: WgmmaPlan, block: int) -> Tuple[int, range, range, range]:
     """The output voxels block ``block`` writes, as the kernel decodes its
-    index: (b, d range, h range, w range)."""
+    index: (b, d range, h range, w range), for the channels of
+    :func:`block_channels`."""
+    block //= plan.n_tiles
     ht = block % plan.tiles_h
     block //= plan.tiles_h
     wt = block % plan.tiles_w
@@ -229,16 +257,23 @@ def block_outputs(plan: WgmmaPlan, block: int) -> Tuple[int, range, range, range
             range(w0, min(w0 + TILE_W, plan.wdim)))
 
 
-def weight_image(w: torch.Tensor, n: int, cin_pad: int) -> torch.Tensor:
+def block_channels(plan: WgmmaPlan, block: int) -> range:
+    """The output channels block ``block`` writes: its N tile's."""
+    co0 = block % plan.n_tiles * plan.n
+    return range(co0, min(co0 + plan.n, plan.cout))
+
+
+def weight_image(w: torch.Tensor, n: int, cin_pad: int, n_tiles: int = 1) -> torch.Tensor:
     """``w`` (3, 3, 3, Cin, Cout) as the kernel's shared memory holds it,
-    bf16, flat: block ``(t, c)`` for tap t = 9·kd + 3·kh + kw and channel
-    chunk c (16 input channels) at ``(t·cin_pad/16 + c)·16·n``; inside a
-    block element ``((ng·2 + kg)·8 + r)·8 + k8`` is
-    ``w[t][16c + 8kg + k8][8ng + r]`` (zero past Cin and Cout): the wgmma B
-    operand, K-major, 8 × 8 core matrices."""
+    bf16, flat: N tile ``nt`` (output channels ``nt·n`` on) at
+    ``nt·27·cin_pad·n``; inside it block ``(t, c)`` for tap t = 9·kd + 3·kh
+    + kw and channel chunk c (16 input channels) at ``(t·cin_pad/16 +
+    c)·16·n``; inside a block element ``((ng·2 + kg)·8 + r)·8 + k8`` is
+    ``w[t][16c + 8kg + k8][nt·n + 8ng + r]`` (zero past Cin and Cout): the
+    wgmma B operand, K-major, 8 × 8 core matrices."""
     cin, cout = w.shape[3], w.shape[4]
-    wp = F.pad(w.detach().to(torch.bfloat16), (0, n - cout, 0, cin_pad - cin))
-    img = wp.reshape(27, cin_pad // CK, 2, 8, n // 8, 8).permute(0, 1, 4, 2, 5, 3)
+    wp = F.pad(w.detach().to(torch.bfloat16), (0, n_tiles * n - cout, 0, cin_pad - cin))
+    img = wp.reshape(27, cin_pad // CK, 2, 8, n_tiles, n // 8, 8).permute(4, 0, 1, 5, 2, 6, 3)
     return img.contiguous().reshape(-1)
 
 
@@ -251,7 +286,7 @@ def launch(plan: WgmmaPlan, xk: torch.Tensor, w: torch.Tensor, bias: torch.Tenso
                          f"{xk.dtype} on {xk.device}")
     if xk.data_ptr() % 16:
         raise ValueError(f"{what}: input not 16-byte aligned")
-    img = weight_image(w, plan.n, plan.cin_pad)
+    img = weight_image(w, plan.n, plan.cin_pad, plan.n_tiles)
     bk = bias.detach().float().contiguous()
     f = 4 if plan.fold else 1
     y = torch.empty((plan.b, plan.dout, f * plan.cout, plan.h * plan.wdim // f),
@@ -263,7 +298,7 @@ def launch(plan: WgmmaPlan, xk: torch.Tensor, w: torch.Tensor, bias: torch.Tenso
             xk.data_ptr(), img.data_ptr(), bk.data_ptr(), y.data_ptr(), plan.b,
             plan.din, plan.dout, plan.shift, plan.cin, plan.cout, plan.h, plan.wdim,
             plan.wguard, int(plan.lanes_map), int(plan.fold), plan.n, plan.cin_pad,
-            plan.rows, plan.stages, plan.seg_len, plan.segments, stream)
+            plan.rows, plan.stages, plan.seg_len, plan.segments, plan.n_tiles, stream)
     _build.check(lib, rc, what)
     return y
 
@@ -275,7 +310,7 @@ def device_sms(device: torch.device) -> int:
 def _lib() -> ctypes.CDLL:
     lib = _build.load("conv3x3_wgmma")
     if not getattr(lib, "_typed", False):
-        lib.conv3x3_wgmma_bf16.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 17
+        lib.conv3x3_wgmma_bf16.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 18
                                            + [ctypes.c_void_p])
         lib.conv3x3_wgmma_bf16.restype = ctypes.c_int
         lib.conv3x3_wgmma_smem.argtypes = [ctypes.c_int] * 4

@@ -117,7 +117,7 @@ def probe_plan(xk: torch.Tensor, cout: int, wdim: int) -> conv_wgmma.WgmmaPlan:
     """K1's wgmma plan for the SAME conv of ``xk`` to ``cout`` channels;
     raises where the wgmma kernel or the probe library does not take it."""
     plan = conv_plan(xk, cout, wdim)
-    if plan is None or (plan.n, plan.rows) not in PAIRS:
+    if plan is None or (plan.n, plan.rows) not in PAIRS or plan.n_tiles > 1:
         raise ValueError(f"conv3x3_probe: {tuple(xk.shape)} → {cout} channels (W {wdim}) "
                          f"has no wgmma plan in {PAIRS} (plan: {plan})")
     return plan

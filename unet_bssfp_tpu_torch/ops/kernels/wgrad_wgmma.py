@@ -31,7 +31,7 @@ ROWS = 2             # h rows per item
 TILE_W = 64          # w columns per item (128 B of bf16: one swizzle span)
 PX = TILE_W + 16     # raw dy pixels per row: w0 - 8 .. w0 + 71
 M = 64               # x rows (kd, ci) per block: one wgmma M
-COUT_MAX = 32        # dy's columns (kw, co) are N = 3 · 32 = 96
+COUT_MAX = 32        # dy's columns (kw, co) are N = 3 · 32 = 96: one co tile
 N = 3 * COUT_MAX
 MAX_CPK = M // 3     # channels per row chunk: 3 kd x 21 rows fill M
 X_BYTES = ROWS * M * 128
@@ -58,7 +58,10 @@ class WgradPlan:
     """One launch. ``d`` is dy's slice count, ``halo`` 1 where x carries one
     more slice per side; Cin in ``chunks`` of ``cpk`` channels, one block
     each per split, whose rows (kd, j) are ci = chunk·cpk + j; split ``s``
-    owns items [s·per, (s+1)·per); grid (chunks, splits). ``fold``: both
+    owns items [s·per, (s+1)·per); Cout in ``co_tiles`` tiles of 32
+    channels, tile t reading dy's channels 32·t .. 32·t + 31 (the TMA box's
+    channel start; past Cout TMA's zero fill) and writing dW's; grid
+    (chunks, splits, co_tiles). ``fold``: both
     operands are phase-major w-folded, (B, ., 4·C, H·W/4), ``wdim`` is the
     unfolded W, and an item's 128 pixels are summed phase-major
     (:func:`fold_k`); every number is the packed plan's at that shape."""
@@ -75,6 +78,7 @@ class WgradPlan:
     splits: int
     per: int
     fold: bool = False
+    co_tiles: int = 1
 
     @property
     def tiles_h(self) -> int:
@@ -89,8 +93,8 @@ class WgradPlan:
         return self.b * self.d * self.tiles_h * self.tiles_w
 
     @property
-    def grid(self) -> Tuple[int, int]:
-        return self.chunks, self.splits
+    def grid(self) -> Tuple[int, int, int]:
+        return self.chunks, self.splits, self.co_tiles
 
     @property
     def smem(self) -> int:
@@ -109,31 +113,33 @@ def wgrad_plan(b: int, d: int, halo: int, cin: int, cout: int, h: int, wdim: int
     """The plan of one bf16 launch, or ``None`` where the wgmma kernel does
     not take the shape (static, by shape alone):
 
-    - ``Cout > 32`` (dy's (kw, co) columns are one wgmma N of 96);
     - ``wdim % 8 != 0`` (a TMA row stride must be a multiple of 16 bytes;
       the ``wguard`` width 66 is one);
     - 2³¹ items or more (the kernel counts them in 32 bits);
     - with ``fold`` (W = ``wdim``), W/4 not a multiple of 16 (x's folded map
       runs over the flattened lanes h·W/4 + w4, so a tile's 16 w4 must end
-      inside their row).
+      inside their row), or Cout > 32.
 
     Rows: Cin in the fewest chunks of at most 21 channels (3 kd × 21 rows
-    fill one wgmma M of 64), as even as can be. Ring: the deepest up to 4
-    that fits. Splits: one wave of one block per SM
-    (``sms // chunks``), at most one per item."""
+    fill one wgmma M of 64), as even as can be. Cout: tiles of 32 (dy's
+    (kw, co) columns are one wgmma N of 96; the multi-stage backbone's Cout
+    48 takes two). Ring: the deepest up to 4 that fits. Splits: one wave of
+    one block per SM (``sms // (chunks · co_tiles)``), at most one per
+    item."""
     if min(b, d, cin, cout, h, wdim) < 1 or halo not in (0, 1):
         return None
-    if cout > COUT_MAX or wdim % 8 or (fold and wdim % (4 * 16)):
+    if wdim % 8 or (fold and (wdim % (4 * 16) or cout > COUT_MAX)):
         return None
+    co_tiles = -(-cout // COUT_MAX)
     chunks = -(-cin // MAX_CPK)
     cpk = -(-cin // chunks)
     stages = max(s for s in range(MAX_STAGES + 1) if smem_bytes(s) <= SMEM_LIMIT)
     if stages < 2:
         return None
-    plan = WgradPlan(b, d, halo, cin, cout, h, wdim, cpk, chunks, stages, 1, 1, fold)
-    if plan.items >= 2 ** 31:
+    plan = WgradPlan(b, d, halo, cin, cout, h, wdim, cpk, chunks, stages, 1, 1, fold, co_tiles)
+    if plan.items >= 2 ** 31 or co_tiles > 65535:
         return None
-    splits = max(1, min(plan.items, sms // chunks, 65535))
+    splits = max(1, min(plan.items, sms // (chunks * co_tiles), 65535))
     per = -(-plan.items // splits)
     return dataclasses.replace(plan, splits=-(-plan.items // per), per=per)
 
@@ -151,6 +157,11 @@ def item_tile(plan: WgradPlan, item: int) -> Tuple[int, int, int, int]:
     tiles = plan.tiles_h * plan.tiles_w
     bd, t = divmod(item, tiles)
     return bd // plan.d, bd % plan.d, (t % plan.tiles_h) * ROWS, (t // plan.tiles_h) * TILE_W
+
+
+def tile_channels(plan: WgradPlan, tile: int) -> range:
+    """The output channels co tile ``tile`` reads from dy and writes to dW."""
+    return range(tile * COUT_MAX, min((tile + 1) * COUT_MAX, plan.cout))
 
 
 def chunk_rows(plan: WgradPlan, chunk: int) -> List[Tuple[int, int]]:
@@ -233,22 +244,29 @@ def fold_copy_source(kw: int, k: int) -> Tuple[str, int, int]:
 def wgrad_gemm_plain(xk: torch.Tensor, dy: torch.Tensor, wdim: int, halo: int) -> torch.Tensor:
     """The kernel's GEMM view in plain PyTorch, f32 (f64 for f64 operands):
     for every dy slice, the x row stack (kd, ci) (x slices d-1, d, d+1,
-    or d, d+1, d+2 with ``halo``; zero outside) and dy's shifted copies
-    (dy row, kw, co_pad) with copy[kh][kw](h, w) = dy(h - kh + 1, w - kw + 1),
-    contracted over the pixels, rows by (kh, kw, co) columns → dW (3, 3, 3,
-    Cin, Cout)."""
+    or d, d+1, d+2 with ``halo``; zero outside) and, per co tile, dy's
+    shifted copies (dy row, kw, co_pad) of the tile's 32 channels (zero past
+    Cout) with copy[kh][kw](h, w) = dy(h - kh + 1, w - kw + 1), contracted
+    over the pixels, rows by (kh, kw, co) columns → the tile's channels of
+    dW (3, 3, 3, Cin, Cout)."""
     acc = torch.promote_types(xk.dtype, torch.float32)
     b, dx, cin, hw = xk.shape
     d, cout = dy.shape[1], dy.shape[2]
     h = hw // wdim
+    tiles = -(-cout // COUT_MAX)
     x = xk.to(acc) if halo else F.pad(xk.to(acc), (0, 0, 0, 0, 1, 1))
     rows = torch.stack([x[:, kd:kd + d] for kd in range(3)], 2)  # (b, d, kd, ci, hw)
-    g = F.pad(dy.to(acc).reshape(b, d, cout, h, wdim), (1, 1, 1, 1, 0, COUT_MAX - cout))
-    copies = torch.stack([torch.stack([g[..., 2 - kh:2 - kh + h, 2 - kw:2 - kw + wdim]
-                                       for kw in range(3)], 2) for kh in range(3)], 2)
-    # (b, d, kh, kw, co_pad, h, w): copy (kh, kw) pairs x pixel p with dy(p - shift)
-    dw = torch.einsum("bdkcp,bdhwop->khwco", rows, copies.reshape(b, d, 3, 3, COUT_MAX, hw))
-    return dw[:, :, :, :cin, :cout]
+    g = F.pad(dy.to(acc).reshape(b, d, cout, h, wdim),
+              (1, 1, 1, 1, 0, tiles * COUT_MAX - cout))
+    out = []
+    for t in range(tiles):  # the box of tile t: dy's channels 32t .. 32t + 31
+        gt = g[:, :, t * COUT_MAX:(t + 1) * COUT_MAX]
+        copies = torch.stack([torch.stack([gt[..., 2 - kh:2 - kh + h, 2 - kw:2 - kw + wdim]
+                                           for kw in range(3)], 2) for kh in range(3)], 2)
+        # (b, d, kh, kw, co_pad, h, w): copy (kh, kw) pairs x pixel p with dy(p - shift)
+        out.append(torch.einsum("bdkcp,bdhwop->khwco", rows,
+                                copies.reshape(b, d, 3, 3, COUT_MAX, hw)))
+    return torch.cat(out, -1)[:, :, :, :cin, :cout]
 
 
 def launch(plan: WgradPlan, xk: torch.Tensor, dy: torch.Tensor, what: str) -> torch.Tensor:
@@ -269,7 +287,7 @@ def launch(plan: WgradPlan, xk: torch.Tensor, dy: torch.Tensor, what: str) -> to
         rc = lib.conv3x3_wgrad_wgmma_bf16(
             xk.data_ptr(), dy.data_ptr(), part.data_ptr(), dw.data_ptr(), plan.b, plan.d,
             plan.halo, int(plan.fold), plan.cin, plan.cout, plan.h, plan.wdim, plan.cpk,
-            plan.chunks, plan.stages, plan.splits, plan.per, stream)
+            plan.chunks, plan.stages, plan.splits, plan.per, plan.co_tiles, stream)
     _build.check(lib, rc, what)
     return dw
 
@@ -278,7 +296,8 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("conv3x3_wgrad_wgmma")
     if not getattr(lib, "_typed", False):
         lib.conv3x3_wgrad_wgmma_bf16.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + [ctypes.c_longlong, ctypes.c_void_p])
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12
+            + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
         lib.conv3x3_wgrad_wgmma_bf16.restype = ctypes.c_int
         lib.conv3x3_wgrad_wgmma_smem.argtypes = [ctypes.c_int]
         lib.conv3x3_wgrad_wgmma_smem.restype = ctypes.c_int

@@ -4,11 +4,14 @@ and checkpointed under ``train.checkpoint_dir``.
 
   python -m unet_bssfp_tpu_torch.train BIDS_DIR [--modalities pc-bssfp ...]
       [--config cfg.json] [--ckpt PATH|auto] [--debug] [--max-epochs N]
-      [--whole-volume] [--device cuda]
+      [--multistage] [--whole-volume] [--device cuda]
 
 Runs on CUDA unless ``--device cpu``; asking for CUDA where there is none
 raises. ``--ckpt auto`` resumes each modality from the newest whole
-checkpoint of its newest run. ``--multistage`` is not ported yet.
+checkpoint of its newest run. ``--multistage`` runs the pretrain →
+transfer → finetune regime (``train/multistage.py``) for each modality
+instead of the GAN, ``--max-epochs`` applying to every stage, each stage
+checkpointed under ``multistage-{modality}-{stage}``.
 """
 
 from __future__ import annotations
@@ -22,7 +25,9 @@ from typing import Optional, Sequence
 
 from unet_bssfp_tpu_torch.config import MODALITIES, Config
 from unet_bssfp_tpu_torch.data.datamodule import DoveDataModule
+from unet_bssfp_tpu_torch.models.multi_input_unet import TrainingState
 from unet_bssfp_tpu_torch.train.loop import train_model
+from unet_bssfp_tpu_torch.train.multistage import run_multistage
 from unet_bssfp_tpu_torch.train.state import resolve_device
 
 
@@ -38,15 +43,13 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                         help="autograd anomaly mode, and a trace of the first steps")
     parser.add_argument("--max-epochs", type=int, default=None)
     parser.add_argument("--multistage", action="store_true",
-                        help="the pretrain → transfer → finetune regime (not ported yet)")
+                        help="the pretrain → transfer → finetune regime (MultiInputUNet) "
+                             "instead of the GAN")
     parser.add_argument("--whole-volume", action="store_true",
                         help="train on whole (96, 128, 128) volumes instead of 64³ patches")
     parser.add_argument("--device", default="cuda", help="cuda (default), cuda:N or cpu")
     args = parser.parse_args(argv)
 
-    if args.multistage:
-        raise NotImplementedError(
-            "--multistage: the multi-stage regime is not ported yet (ROADMAP.md §1 item 4b)")
     device = resolve_device(args.device)
     config = Config()
     if args.config:
@@ -64,6 +67,12 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     data = DoveDataModule(args.data_dir, config=config.data)
     data.prepare_data()
     for modality in args.modalities:
+        if args.multistage:
+            epochs = dict.fromkeys(TrainingState, args.max_epochs) if args.max_epochs else None
+            _, row = run_multistage(data, modality, config, epochs_per_stage=epochs,
+                                    device=device)
+            print(f"Multi-stage {modality} final metrics: {row}")
+            continue
         best = train_model(data, modality, ckpt_path=args.ckpt, debug=args.debug,
                            config=config, max_epochs=args.max_epochs, device=device)
         print(f"Best checkpoint for {modality}: {best}")

@@ -5,7 +5,10 @@ The tree keeps the JAX package's shape: ``checkpoint_dir/{modality}-{stamp}/``
 holds ``config.json`` and one directory per saved epoch, ``{epoch}/state.pt``.
 A step's file holds the whole :class:`~unet_bssfp_tpu_torch.train.state.GANTrainState`:
 both models' ``state_dict`` s (parameters and BatchNorm buffers), both AdamW
-``state_dict`` s, ``step`` and the dropout generator's state. It is written
+``state_dict`` s, ``step`` and the dropout generator's state; or, for a
+multi-stage run (``train/multistage.py``), the whole ``SupervisedState``:
+``kind`` ``"supervised"``, the stage, the net's and its AdamW's
+``state_dict`` s, ``step`` and the generator's state. It is written
 to a temporary name, flushed to disk and renamed into place, so a step
 directory holds a ``state.pt`` only once the whole file is there: a crash
 mid-save never becomes ``find_latest_checkpoint``'s pick.
@@ -48,11 +51,15 @@ class CheckpointManager:
         self.top_k = top_k
         self._kept: List[Tuple[int, float]] = []  # (step, value), by step
 
-    def save(self, step: int, state: GANTrainState, metrics: Dict[str, float]) -> None:
+    def save(self, step: int, state, metrics: Dict[str, float]) -> None:
+        """Write ``state`` (a ``GANTrainState`` or a ``SupervisedState``) as
+        step ``step``, then retire what falls out of the top k."""
         value = float(metrics.get(self.monitor, math.inf if self.mode == "min" else -math.inf))
         step_dir = os.path.join(self.directory, str(step))
         os.makedirs(step_dir, exist_ok=True)
-        atomic_save(state_payload(state), os.path.join(step_dir, STATE_FILE))
+        payload = (state_payload(state) if isinstance(state, GANTrainState)
+                   else supervised_payload(state))
+        atomic_save(payload, os.path.join(step_dir, STATE_FILE))
         self._kept.append((step, value))
         retired = self._retired()
         for gone in retired:
@@ -96,13 +103,14 @@ class CheckpointManager:
         step = self.best_step
         return None if step is None else os.path.join(self.directory, str(step))
 
-    def restore(self, state: GANTrainState, step: Optional[int] = None) -> GANTrainState:
-        """Load ``step`` (default: the best) into ``state``."""
+    def restore(self, state, step: Optional[int] = None):
+        """Load ``step`` (default: the best) into ``state`` (either kind)."""
         if step is None:
             step = self.best_step
         if step is None:
             raise FileNotFoundError(f"no checkpoint saved under {self.directory}")
-        return load_checkpoint(os.path.join(self.directory, str(step)), state)
+        load = load_checkpoint if isinstance(state, GANTrainState) else load_supervised_checkpoint
+        return load(os.path.join(self.directory, str(step)), state)
 
 
 def state_payload(state: GANTrainState) -> dict:
@@ -110,6 +118,13 @@ def state_payload(state: GANTrainState) -> dict:
     return {"step": int(state.step),
             "gen": state.gen.state_dict(), "disc": state.disc.state_dict(),
             "gen_opt": state.gen_opt.state_dict(), "disc_opt": state.disc_opt.state_dict(),
+            "rng": {"device_type": state.rng.device.type, "state": state.rng.get_state()}}
+
+
+def supervised_payload(state) -> dict:
+    """What a multi-stage step's file holds (``SupervisedState``)."""
+    return {"kind": "supervised", "stage": state.stage.value, "step": int(state.step),
+            "net": state.net.state_dict(), "opt": state.opt.state_dict(),
             "rng": {"device_type": state.rng.device.type, "state": state.rng.get_state()}}
 
 
@@ -191,14 +206,36 @@ def load_checkpoint(path: str, state: GANTrainState) -> GANTrainState:
     state.disc.load_state_dict(payload["disc"], strict=True)
     state.gen_opt.load_state_dict(payload["gen_opt"])
     state.disc_opt.load_state_dict(payload["disc_opt"])
-    rng = payload["rng"]
-    if "seed" in rng:
-        state.rng.manual_seed(int(rng["seed"]))
-    elif rng["device_type"] == state.rng.device.type:
-        state.rng.set_state(rng["state"])
-    else:
-        raise ValueError(
-            f"{path}: its dropout generator state is a {rng['device_type']} "
-            f"generator's; the state's generator is on {state.rng.device.type}")
+    _restore_rng(state.rng, payload["rng"], path)
     state.step = int(payload["step"])
     return state
+
+
+def load_supervised_checkpoint(path: str, state):
+    """Load a multi-stage step (its directory or its ``state.pt``) into the
+    ``SupervisedState`` ``state`` of the same stage, in place, and return
+    it: the net and its AdamW strictly, the step, the dropout generator (as
+    :func:`load_checkpoint` restores it)."""
+    path = _state_file(path)
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    if payload.get("kind") != "supervised" or payload["stage"] != state.stage.value:
+        raise ValueError(f"{path}: not a {state.stage.value} stage's multi-stage checkpoint")
+    state.net.load_state_dict(payload["net"], strict=True)
+    state.opt.load_state_dict(payload["opt"])
+    _restore_rng(state.rng, payload["rng"], path)
+    state.step = int(payload["step"])
+    return state
+
+
+def _restore_rng(gen: torch.Generator, saved: dict, path: str) -> None:
+    """The dropout generator from a checkpoint: the saved state where it is
+    a generator's of the same device type, a seed where the file holds one;
+    another device type's state raises."""
+    if "seed" in saved:
+        gen.manual_seed(int(saved["seed"]))
+    elif saved["device_type"] == gen.device.type:
+        gen.set_state(saved["state"])
+    else:
+        raise ValueError(
+            f"{path}: its dropout generator state is a {saved['device_type']} "
+            f"generator's; the state's generator is on {gen.device.type}")

@@ -15,6 +15,7 @@ leaf names map as:
                             (lax.conv_transpose does not flip, torch does)
   scale                   → weight
   bias                    → bias
+  prelu_slope             → prelu_slope (the multi-stage backbone's PReLU)
   mean / var (batch_stats)→ running_mean / running_var
 """
 
@@ -27,7 +28,8 @@ import numpy as np
 import torch
 from torch import nn
 
-_PARAM_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias"}
+_PARAM_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias",
+                 "prelu_slope": "prelu_slope"}
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
 
 
@@ -132,12 +134,16 @@ def init_state_dict(model: nn.Module, seed: int) -> Dict[str, torch.Tensor]:
     """Flax's initialisation of ``model``: conv kernels ``lecun_normal``
     (normal of variance 1/fan_in, truncated at two standard deviations),
     biases and norm shifts 0, norm scales 1, BatchNorm running mean 0 and
-    variance 1; from a CPU ``torch.Generator`` seeded with ``seed``."""
+    variance 1, PReLU slopes at their block's ``negative_slope``; from a CPU
+    ``torch.Generator`` seeded with ``seed``."""
     g = torch.Generator().manual_seed(seed)
     out = {}
     for key, t in model.state_dict().items():
         leaf = key.rsplit(".", 1)[-1]
-        if t.ndim == 5:
+        if leaf == "prelu_slope":
+            slope = model.get_submodule(key.rpartition(".")[0]).negative_slope
+            out[key] = torch.full(t.shape, float(slope))
+        elif t.ndim == 5:
             std = (1.0 / _fan_in(key, t)) ** 0.5 / .87962566103423978
             w = torch.empty(t.shape, dtype=torch.float32)
             out[key] = nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=g)
@@ -151,7 +157,8 @@ def init_state_dict(model: nn.Module, seed: int) -> Dict[str, torch.Tensor]:
 def random_state_dict(model: nn.Module, seed: int) -> Dict[str, torch.Tensor]:
     """Seeded random weights for ``model``: conv kernels N(0, 1/fan_in),
     biases and norm shifts N(0, 0.1²), norm scales 1 + N(0, 0.1²), BatchNorm
-    running means N(0, 0.1²) and variances 1 + |N(0, 0.1²)|."""
+    running means N(0, 0.1²) and variances 1 + |N(0, 0.1²)|, PReLU slopes
+    ``negative_slope`` + N(0, 0.1²)."""
     g = torch.Generator().manual_seed(seed)
     out = {}
     for key, t in model.state_dict().items():
@@ -163,6 +170,9 @@ def random_state_dict(model: nn.Module, seed: int) -> Dict[str, torch.Tensor]:
             out[key] = 1.0 + 0.1 * z.abs()
         elif leaf == "weight":
             out[key] = 1.0 + 0.1 * z
+        elif leaf == "prelu_slope":
+            slope = model.get_submodule(key.rpartition(".")[0]).negative_slope
+            out[key] = slope + 0.1 * z
         else:
             out[key] = 0.1 * z
     return out

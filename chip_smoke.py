@@ -192,6 +192,31 @@ Phases (any failure → nonzero exit, no ``ok`` line):
     seconds. Last, one f32 FINE_TUNE step through the kernels held per leaf
     to the same step on plain PyTorch/cuDNN (5e-2 relative L2, as the GAN
     step's check).
+16. The sharded training step (``make_train_step(mesh=…)``) on (data,
+    space) meshes whose positions all lie on ``cuda:0``: (2, 1), (2, 2) and
+    (1, 2), the default config (bf16, ``packed``, full width, batch 8 ×
+    64³) with dropout 0 (a mesh draws its masks per shard). In f32 through
+    the kernels each mesh's step against the unsharded step from the same
+    weights and batch: the losses within 1e-4 relative (the discriminator
+    loss, which sees the updated generator, 1e-2), every generator-phase
+    gradient within 5e-2 relative L2 (a conv bias before a norm: 1e-4 of
+    the largest); after one train-mode forward of G and D, every BatchNorm
+    statistic within 1e-5·max|ref|. In bf16 each mesh's first step with the
+    counts reset just before it (the ``sharded_train_step`` path: every
+    shard launches ``TRAIN_STEP_LAUNCHES``, in the halo forms K5, K5-dgrad
+    and K5-wgrad on a space split, ``sharded_launches``), its losses no
+    further from f32 than 3× the unsharded bf16 step's distance + 2^-8,
+    then ms per step (median of 10 after 3), peak MiB and the device's busy
+    share over 3 profiled steps beside the unsharded step; ``ddp_parity`` on (2, 1) likewise, its losses and
+    statistics other than the global mode's. One f32 eval step on (2, 2)
+    (``sharded_eval_step``): exact launches, metrics within 1e-5 relative
+    of the unsharded step's. ``Trainer(mesh=(2, 2))`` fits one epoch on
+    phase 12's tree (``sharded_trainer_fit``: train steps × the (2, 2)
+    step's launches + eval steps × the (2, 2) eval step's); its checkpoint
+    loads into an unsharded state bit for bit. One supervised step of each
+    multi-stage stage on (2, 2) at the thesis widths
+    (``sharded_multistage_step``: K5-wgrad 0 in TRANSFER, whose backbone
+    stays bit for bit), timed.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the ``kernels`` JSON (``launches_by_path``: the serving
@@ -199,7 +224,8 @@ run's, one training step's, the eval chain's, the mesh serving run's, the
 sharded block backward's, the two probe paths', one data-fed training
 step's, the training loop's, one remat step's, the evaluation from a
 checkpoint's, ``predict --checkpoint``'s, one perceptual step's, the
-multi-stage run's and each of its stages' one step's counts; ``launches``:
+multi-stage run's and each of its stages' one step's counts, and phase
+16's: the sharded steps', eval step's, fit's and supervised steps'; ``launches``:
 their sum); details go to ``perf_out/chip_smoke.json``.
 """
 
@@ -282,6 +308,27 @@ def mesh_launches(shape):
     out = dict.fromkeys(TRAIN_STEP_LAUNCHES, 0)
     out["conv3x3_packed_halo" if shape[1] > 1 else "conv3x3_packed"] = 4 * n
     out["pack_hw"], out["unpack_hw"] = 2 * n, n
+    return out
+
+
+# Phase 16: the sharded training step on (data, space) meshes on cuda:0.
+# Every shard launches what the unsharded step launches; on a space split
+# K5, its dgrad and its wgrad take the places of K1, K1's dgrad and K2.
+SHARDED_MESHES = ((2, 1), (2, 2), (1, 2))
+SHARDED_DDP, SHARDED_EVAL, SHARDED_FIT = (2, 1), (2, 2), (2, 2)
+HALO_FORMS = {"conv3x3_packed": "conv3x3_packed_halo",
+              "conv3x3_packed_dgrad": "conv3x3_packed_halo_dgrad",
+              "conv3x3_wgrad": "conv3x3_wgrad_halo"}
+
+
+def sharded_launches(shape, per_step=None):
+    """One step's launches on a mesh of ``shape``: ``per_step`` (default
+    ``TRAIN_STEP_LAUNCHES``) once per position, in the halo forms where the
+    mesh splits d."""
+    n = shape[0] * shape[1]
+    out = dict.fromkeys(TRAIN_STEP_LAUNCHES, 0)
+    for k, v in (per_step or TRAIN_STEP_LAUNCHES).items():
+        out[HALO_FORMS.get(k, k) if shape[1] > 1 else k] += n * v
     return out
 
 
@@ -2495,6 +2542,266 @@ def phase_multistage(torch, F, K, checks, pkg, tree: str, work: Path):
     return run_counts, step_counts, out
 
 
+def phase_sharded(torch, K, checks, pkg, tree: str, work: Path):
+    """Phase 16: the sharded training step on meshes whose positions all lie
+    on cuda:0 (see the docstring). Returns each path's launch counts and
+    the records."""
+    (Config, create_gan_state, make_train_step, make_eval_step, mesh_pkg, Trainer,
+     DoveDataModule, ckpt, ms, TrainingState) = pkg
+    from torch.profiler import ProfilerActivity, profile
+
+    make_mesh, shard_batch, gather_batch = mesh_pkg
+    base = Config()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    x = torch.rand((TRAIN_BATCH,) + (TRAIN_PATCH,) * 3 + (24,), device="cuda", generator=g)
+    y = torch.rand((TRAIN_BATCH,) + (TRAIN_PATCH,) * 3 + (6,), device="cuda", generator=g)
+    meshes = {s: make_mesh(["cuda:0"], ("data", "space"), s) for s in SHARDED_MESHES}
+    label = lambda s: "unsharded" if s is None else f"{s[0]}x{s[1]}"  # noqa: E731
+    out, paths = {}, {}
+
+    def state_on(shape, **over):
+        mcfg = dataclasses.replace(base.model, dropout=0.0, **over)
+        mesh = None if shape is None else meshes[shape]
+        return create_gan_state(SEED, MODALITY, mcfg, base.train, "cuda", mesh=mesh), mesh
+
+    # 1. f32 through the kernels (packed, TF32 off), dropout 0: one step on
+    # each mesh against the unsharded step from the same weights and batch
+    f32 = {}
+    for shape in (None,) + SHARDED_MESHES:
+        st, mesh = state_on(shape, compute_dtype="float32", packed=True)
+        m = make_train_step(st.gen, st.disc, base.train, mesh=mesh)(st, x, y)
+        f32[shape] = ({k: float(v) for k, v in m.items()},
+                      {n: p.grad.detach().clone() for n, p in st.gen.named_parameters()})
+        del st
+        torch.cuda.empty_cache()
+    ref_m, ref_g = f32[None]
+    scale = max(float(v.abs().max()) for v in ref_g.values())
+    rows = {}
+    for shape in SHARDED_MESHES:
+        got_m, got_g = f32[shape]
+        loss_rel = {k: abs(got_m[k] - r) / abs(r) for k, r in ref_m.items()}
+        bad = [k for k, e in loss_rel.items()
+               if not e <= (1e-2 if k == "train_discr_loss" else 1e-4)]
+        for name, r in ref_g.items():
+            if name.endswith(".conv.bias"):  # true gradient 0: against the largest
+                err, tol = float((got_g[name] - r).abs().max()) / scale, 1e-4
+            else:
+                err, tol = rel_l2(got_g[name], r), 5e-2
+            if not err <= tol:
+                bad.append((name, err, tol))
+        worst = max(((n, rel_l2(got_g[n], r)) for n, r in ref_g.items()
+                     if not n.endswith(".conv.bias")), key=lambda t: t[1])
+        rows[label(shape)] = {"loss_rel_err": loss_rel, "worst_leaf": worst, "failures": bad}
+        print(f"sharded f32 step {label(shape)} vs unsharded: losses "
+              f"{json.dumps(loss_rel)}; worst leaf {worst}; failures {bad}", flush=True)
+    checks.record(all(not r["failures"] for r in rows.values()),
+                  dict(phase="sharded_step_f32_vs_unsharded", meshes=rows))
+    # the BatchNorm running statistics after one train-mode forward of G and
+    # D: updated once, with the global batch's moments
+    stats = {}
+    for shape in (None,) + SHARDED_MESHES:
+        st, mesh = state_on(shape, compute_dtype="float32", packed=True)
+        st.gen.train()
+        st.disc.train()
+        with torch.no_grad():
+            xs, ys = (v if mesh is None else shard_batch(mesh, v) for v in (x, y))
+            st.disc(xs, st.gen(xs))
+            st.disc(xs, ys)
+        stats[shape] = {f"{k}.{n}": b.clone() for k, mod in (("gen", st.gen), ("disc", st.disc))
+                        for n, b in mod.named_buffers()}
+        del st
+    stat_err = {label(s): max(float((stats[s][k] - r).abs().max()) / float(r.abs().max())
+                              for k, r in stats[None].items()) for s in SHARDED_MESHES}
+    checks.record(all(e <= 1e-5 for e in stat_err.values()),
+                  dict(phase="sharded_batchnorm_stats", rel_max_err=stat_err, tol=1e-5))
+    del f32, stats
+    torch.cuda.empty_cache()
+
+    # 2. bf16 (the default config, dropout 0): each mesh's first step with the
+    # counts reset just before it, its losses against the unsharded bf16
+    # step's distance from f32 (3× + 2^-8, phase 5's rule), then ms per step
+    # (median of 10 after 3 warm-ups) and peak MiB beside the unsharded step
+    counts_by_mesh, timing, first = {}, {}, {}
+    for shape in (None,) + SHARDED_MESHES + ("ddp",):
+        ddp = shape == "ddp"
+        st, mesh = state_on(SHARDED_DDP if ddp else shape)
+        step = make_train_step(st.gen, st.disc, base.train, mesh=mesh, ddp_parity=ddp)
+        key = f"ddp_{label(SHARDED_DDP)}" if ddp else label(shape)
+        torch.cuda.synchronize()
+        K.reset_launches()
+        m = step(st, x, y)
+        torch.cuda.synchronize()
+        counts = K.launches()
+        first[key] = {k: float(v) for k, v in m.items()}
+        if shape in ("ddp", SHARDED_DDP):  # the statistics after the first step
+            first[key + "_stats"] = {n: b.float().clone() for n, b in st.disc.named_buffers()}
+        if shape is not None:
+            want = sharded_launches(SHARDED_DDP if ddp else shape)
+            counts_by_mesh[key] = counts
+            checks.record(counts == want, dict(phase="sharded_step_launches", mesh=key,
+                                               launches=counts, expected=want))
+        ts, peak, metrics = time_steps(torch, step, st, x, y)
+        # the device's busy share over 3 profiled steps, and its ops a step
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(3):
+                step(st, x, y)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        busy, _ = busy_share(prof, wall)
+        ops = sum(getattr(e.device_type, "name", "") == "CUDA" for e in prof.events()) / 3
+        finite = all(math.isfinite(v) for mm in metrics + [first[key]] for v in mm.values())
+        med = statistics.median(ts)
+        timing[key] = {"ms_per_step_median": med, "ms_all": ts, "peak_mib": peak,
+                       "patches_per_s": TRAIN_BATCH * 1e3 / med, "device_busy_share": busy,
+                       "device_ops_per_step": ops, "profiled_ms_per_step": wall * 1e3 / 3}
+        print(f"sharded train step {key} (bf16, 8 × 64³, dropout 0): {med:.3f} ms/step "
+              f"median (runs {', '.join(f'{t:.2f}' for t in ts)}); peak {peak:.0f} MiB; "
+              f"busy {'none' if busy is None else f'{busy:.3f}'} of {wall * 1e3 / 3:.1f} ms "
+              f"profiled, {ops:.0f} device ops "
+              f"a step; first losses {json.dumps(first[key])}", flush=True)
+        checks.record(finite, dict(phase="sharded_step_losses_finite", mesh=key))
+        del st, step
+        torch.cuda.empty_cache()
+    bf16_rows = {}
+    for key in [label(s) for s in SHARDED_MESHES]:
+        row = {}
+        for k, r in ref_m.items():
+            got, flat = first[key][k], first["unsharded"][k]
+            row[k] = (abs(got - r) / abs(r), 3 * abs(flat - r) / abs(r) + 2 ** -8)
+        bf16_rows[key] = row
+    checks.record(all(e <= tol for row in bf16_rows.values() for e, tol in row.values()),
+                  dict(phase="sharded_step_bf16_losses", meshes=bf16_rows))
+    ddp_key = f"ddp_{label(SHARDED_DDP)}"
+    stats_differ = any(not torch.allclose(first[ddp_key + "_stats"][n], b, rtol=1e-3, atol=1e-4)
+                       for n, b in first[label(SHARDED_DDP) + "_stats"].items())
+    checks.record(first[ddp_key]["train_discr_loss"] != first[label(SHARDED_DDP)]["train_discr_loss"]
+                  and stats_differ,
+                  dict(phase="sharded_ddp_parity_differs_from_global",
+                       ddp=first[ddp_key], glob=first[label(SHARDED_DDP)],
+                       disc_stats_differ=stats_differ))
+    out["steps"] = {"timing": timing, "first_losses": {k: v for k, v in first.items()
+                                                       if not k.endswith("stats")},
+                    "f32": rows, "bf16": bf16_rows, "bn_stats_rel_err": stat_err}
+    paths["sharded_train_step"] = {k: sum(c[k] for c in counts_by_mesh.values())
+                                   for k in TRAIN_STEP_LAUNCHES}
+
+    # 3. one sharded eval step (f32) on (2, 2): its launches, its metrics
+    # against the unsharded eval step's
+    evals = {}
+    for shape in (None, SHARDED_EVAL):
+        st, mesh = state_on(shape, compute_dtype="float32", packed=True)
+        fn = make_eval_step(st.gen, st.disc, base.train, mesh=mesh)
+        torch.cuda.synchronize()
+        K.reset_launches()
+        m, y_hat = fn(st, x, y)
+        torch.cuda.synchronize()
+        evals[shape] = ({k: float(v) for k, v in m.items()}, K.launches(), tuple(y_hat.shape))
+        del st, fn, y_hat
+    (ref_e, _, _), (got_e, ecounts, eshape) = evals[None], evals[SHARDED_EVAL]
+    erel = {k: abs(got_e[k] - r) / max(abs(r), 1e-30) for k, r in ref_e.items()}
+    ewant = sharded_launches(SHARDED_EVAL, EVAL_STEP_LAUNCHES)
+    paths["sharded_eval_step"] = ecounts
+    checks.record(ecounts == ewant and all(e <= 1e-5 for e in erel.values())
+                  and eshape == tuple(y.shape),
+                  dict(phase="sharded_eval_step", mesh=label(SHARDED_EVAL), launches=ecounts,
+                       expected=ewant, rel_err=erel))
+    out["eval"] = {"rel_err": erel}
+    torch.cuda.empty_cache()
+
+    # 4. Trainer(mesh=(2, 2)).fit for one epoch on phase 12's tree, the
+    # counts reset just before it; its checkpoint loads into an unsharded state
+    cfg = dataclasses.replace(
+        base, data=dataclasses.replace(base.data, val_split=0.25, test_split=0.25),
+        train=dataclasses.replace(base.train, max_epochs=1, log_dir=str(work / "logs"),
+                                  checkpoint_dir=str(work / "ckpts")))
+    dm = DoveDataModule(tree, config=cfg.data)
+    dm.prepare_data()
+    fit_mesh = make_mesh(["cuda:0"], ("data", "space"), SHARDED_FIT)
+    trainer = Trainer(cfg, MODALITY, mesh=fit_mesh)
+    calls = {"train": 0, "eval": 0}
+    train_step, eval_step = trainer.train_step, trainer.eval_step
+
+    def counted(kind, fn):
+        def call(*a):
+            calls[kind] += 1
+            return fn(*a)
+        return call
+
+    trainer.train_step, trainer.eval_step = counted("train", train_step), counted("eval", eval_step)
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    state, best = trainer.fit(dm)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fcounts = K.launches()
+    trainer.logger.finish()
+    step_want, eval_want = (sharded_launches(SHARDED_FIT, p)
+                            for p in (TRAIN_STEP_LAUNCHES, EVAL_STEP_LAUNCHES))
+    fwant = {k: calls["train"] * step_want[k] + calls["eval"] * eval_want[k] for k in fcounts}
+    plain = create_gan_state(SEED + 9, MODALITY, cfg.model, cfg.train, "cuda")
+    ckpt.load_checkpoint(best, plain)
+    same = all(torch.equal(a, b) for mod, twin in ((state.gen, plain.gen), (state.disc, plain.disc))
+               for a, b in zip(mod.state_dict().values(), twin.state_dict().values()))
+    with open(os.path.join(trainer.logger.log_dir, "metrics.csv")) as f:
+        fit_rows = list(csv.DictReader(f))
+    finite = len(fit_rows) == 1 and all(math.isfinite(float(v)) for v in fit_rows[0].values())
+    paths["sharded_trainer_fit"] = fcounts
+    out["fit"] = {"seconds": fit_s, "calls": calls, "row": fit_rows[0] if fit_rows else None,
+                  "epoch_seconds": float(fit_rows[0]["epoch_seconds"]) if fit_rows else None}
+    print(f"Trainer(mesh={label(SHARDED_FIT)}).fit, 1 epoch: {fit_s:.1f} s, {calls}; "
+          f"checkpoint loads unsharded bit for bit {same}", flush=True)
+    checks.record(fcounts == fwant and same and finite and calls["train"] > 0,
+                  dict(phase="sharded_trainer_fit", launches=fcounts, expected=fwant,
+                       checkpoint_loads_unsharded=same, finite=finite, **out["fit"]))
+    del state, plain, trainer
+    torch.cuda.empty_cache()
+
+    # 5. one supervised step of each multi-stage stage on (2, 2), thesis
+    # widths, bf16: exact launches (K5-wgrad 0 in TRANSFER, whose backbone
+    # stays bit for bit), finite losses, ms (median of 3 after 1)
+    ms_mesh = make_mesh(["cuda:0"], ("data", "space"), SHARDED_EVAL)
+    ms_counts, ms_rows = {}, {}
+    total = dict.fromkeys(TRAIN_STEP_LAUNCHES, 0)
+    for i, stage in enumerate(TrainingState):
+        modality = "dwi-tensor" if stage == TrainingState.PRETRAIN else MODALITY
+        xs = torch.rand((TRAIN_BATCH,) + (TRAIN_PATCH,) * 3 + (6 if i == 0 else 24,),
+                        device="cuda", generator=g)
+        net = ms.build_multi_input_unet(modality, base.model, mesh=ms_mesh)
+        st = ms.create_supervised_state(SEED + i, net, base.train, stage)
+        fn = ms.make_supervised_train_step(net, base.train, mesh=ms_mesh)
+        before = {k: v.clone() for k, v in net.state_dict().items() if k.startswith("unet.")}
+        torch.cuda.synchronize()
+        K.reset_launches()
+        m = fn(st, xs, y)
+        torch.cuda.synchronize()
+        counts = K.launches()
+        frozen = all(torch.equal(v, before[k]) for k, v in net.state_dict().items()
+                     if k.startswith("unet."))
+        want = sharded_launches(SHARDED_EVAL, MULTISTAGE_STAGE_LAUNCHES[stage.value])
+        ts, peak, metrics = time_steps(torch, fn, st, xs, y, warmup=1, timed=3)
+        finite = all(math.isfinite(v) for mm in metrics + [{k: float(v) for k, v in m.items()}]
+                     for v in mm.values())
+        ms_counts[stage.value] = counts
+        ms_rows[stage.value] = {"ms_per_step_median": statistics.median(ts), "ms_all": ts,
+                                "peak_mib": peak}
+        for k in total:
+            total[k] += counts[k]
+        print(f"sharded multistage {stage.value} step ({label(SHARDED_EVAL)}, bf16, 8 × 64³): "
+              f"{statistics.median(ts):.3f} ms; peak {peak:.0f} MiB; launches "
+              f"{json.dumps(counts)}", flush=True)
+        checks.record(counts == want and finite
+                      and frozen == (stage == TrainingState.TRANSFER),
+                      dict(phase="sharded_multistage_step", stage=stage.value, launches=counts,
+                           expected=want, backbone_unchanged=frozen, finite=finite))
+        del net, st, fn, before, xs
+        torch.cuda.empty_cache()
+    paths["sharded_multistage_step"] = total
+    out["multistage"] = ms_rows
+    return paths, out
+
+
 # K1, K1's dgrad, K5 and K5's dgrad: the wgmma conv kernel in bf16 (the
 # rows of the summary line); the mma.sync loop it replaced stays as the
 # check-only conv3x3_packed_mma (and under K7a's routed shapes). K2 and K5's wgrad:
@@ -2644,7 +2951,7 @@ def main() -> int:
     from unet_bssfp_tpu_torch.train import multistage
     from unet_bssfp_tpu_torch.train.loop import Trainer, train_model
     from unet_bssfp_tpu_torch.train.state import build_models, create_gan_state
-    from unet_bssfp_tpu_torch.train.steps import make_predict_fn, make_train_step
+    from unet_bssfp_tpu_torch.train.steps import make_eval_step, make_predict_fn, make_train_step
     from unet_bssfp_tpu_torch.utils import flops
     from scripts import torch_port_convergence, torch_port_pallas_probe, torch_port_pfold_probe
 
@@ -2685,6 +2992,7 @@ def main() -> int:
     tree = Path("perf_out") / "smoke_tree"
     loop_work = Path("perf_out") / "loop_smoke"
     ms_work = Path("perf_out") / "multistage_smoke"
+    sharded_work = Path("perf_out") / "sharded_smoke"
     try:
         synth_s = make_tree(make_synthetic_bids, tree)
         print(f"synthetic tree ({len(DATA_SUBJECTS)} subjects at {VOLUME}, {nifti.codec()} "
@@ -2725,10 +3033,19 @@ def main() -> int:
             torch, F, K, checks, (Config, DoveDataModule, multistage, weights, TrainingState),
             str(tree), ms_work)
         print(f"multi-stage regime done at {time.perf_counter() - t_start:.1f}s", flush=True)
+        shutil.rmtree(sharded_work, ignore_errors=True)
+        sharded_work.mkdir(parents=True)
+        sharded_counts, sharded_out = phase_sharded(
+            torch, K, checks,
+            (Config, create_gan_state, make_train_step, make_eval_step,
+             (make_mesh, shard_batch, gather_batch), Trainer, DoveDataModule, checkpoint,
+             multistage, TrainingState), str(tree), sharded_work)
+        print(f"sharded training done at {time.perf_counter() - t_start:.1f}s", flush=True)
     finally:
         shutil.rmtree(tree, ignore_errors=True)
         shutil.rmtree(loop_work, ignore_errors=True)
         shutil.rmtree(ms_work, ignore_errors=True)
+        shutil.rmtree(sharded_work, ignore_errors=True)
     elapsed = time.perf_counter() - t_start
 
     kernels = summary(checks.rows, {"serving": counts, "train_step": train_counts,
@@ -2743,7 +3060,8 @@ def main() -> int:
                                     "train_step_perceptual": perceptual_counts,
                                     "multistage_run": ms_counts,
                                     **{f"multistage_{s}_step": c
-                                       for s, c in ms_step_counts.items()}})
+                                       for s, c in ms_step_counts.items()},
+                                    **sharded_counts})
     unlaunched = [k["name"] for k in kernels if k["launches"] == 0]
     checks.record(not unlaunched, dict(phase="every_kernel_launched_on_a_path",
                                        unlaunched=unlaunched))
@@ -2768,6 +3086,7 @@ def main() -> int:
                    "eval_from_checkpoint": ckpt_eval_out,
                    "multistage_run_launches": ms_counts,
                    "multistage_step_launches": ms_step_counts, "multistage": ms_out,
+                   "sharded_launches": sharded_counts, "sharded": sharded_out,
                    "kernels": kernels, "elapsed_s": elapsed}, f, indent=1)
     if checks.failures:
         print(f"chip_smoke: {len(checks.failures)} check(s) failed:", file=sys.stderr)

@@ -2,11 +2,12 @@
 """Run some phases of a checkout's ``chip_smoke.py`` on the card: the
 build, then the training data path (phase 12), the training loop (phase
 13), the evaluation from its best checkpoint (phase 14, which needs
-phase 13) and the multi-stage regime (phase 15), on the smoke's 4-subject
-tree at (96, 128, 128).
+phase 13), the multi-stage regime (phase 15) and the sharded training step
+(phase 16), on the smoke's 4-subject tree at (96, 128, 128).
 
   python scripts/torch_port_smoke_phases.py [--root DIR]
-      [--phases data loop checkpoint multistage] [--tree perf_out/smoke_tree_phases]
+      [--phases data loop checkpoint multistage sharded]
+      [--tree perf_out/smoke_tree_phases]
 
 ``--root`` is the checkout whose ``chip_smoke.py`` and package run
 (default: this one), so a parent and a change compare in one job, in turns
@@ -15,7 +16,8 @@ written once (from the smoke's seeds) and kept for the next run; delete it
 after. Prints each phase's check rows as the smoke does and one summary
 line: the data-fed step's and loop iteration's medians (phase 12), the
 loop's numbers (phase 13), the evaluation's (phase 14), the multi-stage
-run's and steps' (phase 15). Needs a card.
+run's and steps' (phase 15), each mesh's step ms and peak MiB beside the
+unsharded step's (phase 16). Needs a card.
 """
 
 from __future__ import annotations
@@ -34,8 +36,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--phases", nargs="+",
-                    choices=("data", "loop", "checkpoint", "multistage"),
-                    default=["data", "loop", "checkpoint", "multistage"])
+                    choices=("data", "loop", "checkpoint", "multistage", "sharded"),
+                    default=["data", "loop", "checkpoint", "multistage", "sharded"])
     ap.add_argument("--tree", default="perf_out/smoke_tree_phases")
     args = ap.parse_args()
     root = Path(args.root).resolve()
@@ -136,6 +138,35 @@ def main() -> int:
                 "peak_mib": {s: {k: out[s][k]["peak_mib"] for k in ("packed", "cudnn")}
                              for s in stages},
                 "f32_worst_leaf": out["f32_grad_check"]["worst_leaf"],
+                "phase_s": time.perf_counter() - t0}
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+    if "sharded" in args.phases:
+        from unet_bssfp_tpu_torch.models.multi_input_unet import TrainingState
+        from unet_bssfp_tpu_torch.parallel.mesh import gather_batch, make_mesh, shard_batch
+        from unet_bssfp_tpu_torch.train import checkpoint, multistage
+        from unet_bssfp_tpu_torch.train.loop import Trainer
+        from unet_bssfp_tpu_torch.train.steps import make_eval_step
+
+        work = tree.parent / "sharded_smoke_phases"
+        shutil.rmtree(work, ignore_errors=True)
+        work.mkdir(parents=True)
+        try:
+            t0 = time.perf_counter()
+            _, out = sm.phase_sharded(
+                torch, K, checks,
+                (Config, create_gan_state, make_train_step, make_eval_step,
+                 (make_mesh, shard_batch, gather_batch), Trainer, DoveDataModule, checkpoint,
+                 multistage, TrainingState), str(tree), work)
+            summary["sharded"] = {
+                "ms_per_step": {k: v["ms_per_step_median"]
+                                for k, v in out["steps"]["timing"].items()},
+                "peak_mib": {k: v["peak_mib"] for k, v in out["steps"]["timing"].items()},
+                "busy_share": {k: v["device_busy_share"]
+                               for k, v in out["steps"]["timing"].items()},
+                "fit_s": out["fit"]["seconds"],
+                "multistage_ms": {k: v["ms_per_step_median"]
+                                  for k, v in out["multistage"].items()},
                 "phase_s": time.perf_counter() - t0}
         finally:
             shutil.rmtree(work, ignore_errors=True)

@@ -1420,3 +1420,100 @@ def test_gpu_checkpoint_saved_on_the_card_evaluates_on_card_and_cpu(cuda, tmp_pa
     for fn in (n for n in names if n.endswith(".nii.gz")):
         a, b = (load_volume(str(tmp_path / d / fn))[0] for d in ("card", "host"))
         assert abs(a - b).max() <= 1e-4 * abs(b).max(), fn
+
+
+# The sharded training step (train/steps.py with mesh=; every position on
+# cuda:0): the K5 forms' plans at the shards of a batch of 8 × 64³, and a
+# full-width step on (2, 2) with exact launches and f32 parity.
+GAN_FULL_RES_CONVS = ((24, 32), (32, 32), (96, 32), (32, 32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mesh_shape", [(2, 1), (2, 2), (8, 1)])
+def test_gpu_sharded_step_shapes_take_the_wgmma_plans(cuda, mesh_shape):
+    """The shards of a batch of 8 × 64³ on ``mesh_shape``: the forward, its
+    dgrad and its weight gradient at the generator's full-resolution convs,
+    in their halo forms (K5, K5-dgrad, K5-wgrad) on a space split, against
+    the plain versions under K1's, K1-dgrad's and K2's bounds, each one
+    launch on a wgmma plan, none routed to the mma.sync loops."""
+    b, d = 8 // mesh_shape[0], 64 // mesh_shape[1]
+    halo = int(mesh_shape[1] > 1)
+    g = torch.Generator(device="cuda").manual_seed(b * d)
+    for cin, cout in GAN_FULL_RES_CONVS:
+        x = torch.randn(b, d + 2 * halo, cin, 4096, device=cuda, generator=g).bfloat16()
+        w = torch.randn(3, 3, 3, cin, cout, device=cuda, generator=g) / (27 * cin) ** 0.5
+        bias = torch.randn(cout, device=cuda, generator=g)
+        dy = torch.randn(b, d, cout, 4096, device=cuda, generator=g).bfloat16()
+        assert K.conv_plan(x, cout, 64, -2 * halo) is not None
+        assert K.conv_plan(dy, cin, 64, 2 * halo) is not None
+        assert K.wgrad_plan(x, dy, 64) is not None
+        fwd, dgrad, wgrad = ((K.conv3x3_packed_halo, K.conv3x3_packed_halo_dgrad,
+                              K.conv3x3_wgrad_halo) if halo else
+                             (K.conv3x3_packed, K.conv3x3_packed_dgrad, K.conv3x3_wgrad))
+        plains = ((K.conv3x3_packed_halo_plain, K.conv3x3_packed_halo_dgrad_plain,
+                   K.conv3x3_wgrad_halo_plain) if halo else
+                  (K.conv3x3_packed_plain, None, K.conv3x3_wgrad_plain))
+        K.reset_launches()
+        y = fwd(x, w, bias, 64)
+        dx = dgrad(dy, w, 64)
+        dw = wgrad(x, dy, 64)
+        counts = {k: v for k, v in K.launches().items() if v}
+        assert counts == {fwd.__name__: 1, dgrad.__name__: 1, wgrad.__name__: 1}
+        torch.testing.assert_close(y.float(), plains[0](x, w, bias, 64).float(),
+                                   rtol=2 ** -7, atol=1e-2)
+        ref_dx = (plains[1](dy, w, 64) if halo else
+                  K.conv3x3_packed_plain(dy, w.flip(0, 1, 2).transpose(3, 4),
+                                         torch.zeros(cin, device=cuda), 64))
+        _close(dx, ref_dx, 2 ** -7, 1e-4)
+        chain = K.conv3x3_wgrad_chain(x, dy, 64)
+        _close(dw, plains[2](x, dy, 64), 0.0, 16 * math.sqrt(chain) * 2 ** -24)
+        del x, dy, y, dx, dw
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.gpu
+def test_gpu_sharded_train_step_on_2x2_launches_exactly_and_matches_unsharded(cuda):
+    """The default generator and discriminator (full width, ``packed``,
+    dropout 0) on a (2, 2) mesh on cuda:0, batch 4 × 64³: in bf16 each of
+    the 4 shards launches the unsharded step's kernels in their halo forms
+    (K5 8, K5-dgrad 4, K5-wgrad 4, K3a 5, K3b 4), nothing routed; in f32
+    the losses within 1e-4 relative of the unsharded step's (the
+    discriminator loss 1e-2) and every generator-phase gradient within 5e-2
+    relative L2 (a conv bias before a norm: 1e-4 of the largest)."""
+    import dataclasses
+
+    from unet_bssfp_tpu_torch.config import Config
+    from unet_bssfp_tpu_torch.parallel.mesh import make_mesh
+    from unet_bssfp_tpu_torch.train.state import create_gan_state
+    from unet_bssfp_tpu_torch.train.steps import make_train_step
+
+    cfg = Config()
+    mesh = make_mesh(["cuda:0"], ("data", "space"), (2, 2))
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.rand(4, 64, 64, 64, 24, device=cuda, generator=g)
+    y = torch.rand(4, 64, 64, 64, 6, device=cuda, generator=g)
+
+    def run(m, **over):
+        mcfg = dataclasses.replace(cfg.model, dropout=0.0, **over)
+        st = create_gan_state(0, "pc-bssfp", mcfg, cfg.train, cuda, mesh=m)
+        K.reset_launches()
+        metrics = make_train_step(st.gen, st.disc, cfg.train, mesh=m)(st, x, y)
+        torch.cuda.synchronize()
+        grads = {n: p.grad.detach().float().clone() for n, p in st.gen.named_parameters()}
+        return {k: float(v) for k, v in metrics.items()}, grads, K.launches()
+
+    metrics, _, counts = run(mesh)
+    assert {k: v for k, v in counts.items() if v} == {
+        "conv3x3_packed_halo": 32, "conv3x3_packed_halo_dgrad": 16,
+        "conv3x3_wgrad_halo": 16, "pack_hw": 20, "unpack_hw": 16}
+    assert all(math.isfinite(v) for v in metrics.values())
+    got_m, got_g, _ = run(mesh, compute_dtype="float32", packed=True)
+    ref_m, ref_g, _ = run(None, compute_dtype="float32", packed=True)
+    for k, r in ref_m.items():
+        assert abs(got_m[k] - r) <= (1e-2 if k == "train_discr_loss" else 1e-4) * abs(r), k
+    scale = max(float(v.abs().max()) for v in ref_g.values())
+    for name, r in ref_g.items():
+        if name.endswith(".conv.bias"):
+            assert float((got_g[name] - r).abs().max()) <= 1e-4 * scale, name
+        else:
+            assert float((got_g[name] - r).norm() / r.norm()) <= 5e-2, name

@@ -332,19 +332,36 @@ def test_mesh_refuses_d_not_a_multiple_of_16_n_space(generators):
 
 
 def test_mesh_refuses_use_pallas_and_sharded_training_parts():
+    """use_pallas on a mesh of two positions still raises. Train-mode
+    BatchNorm and the discriminator's k4 s2 conv, which raised before the
+    sharded training step existed, now run on a space split and equal the
+    unsharded modules (tests/test_torch_port_sharded_step.py holds them in
+    float64)."""
     mesh = make_mesh(["cpu"], ("data", "space"), (1, 2))
     mcfg = ModelConfig(features=(4, 8, 8, 16, 16, 4), use_pallas=True)
     with pytest.raises(ValueError, match="use_pallas"):
         build_models("pc-bssfp", mcfg, mesh=mesh)
     one = make_mesh(["cpu"], ("data", "space"), (1, 1))
     build_models("pc-bssfp", mcfg, mesh=one)  # one position: nothing is split
-    gen, _ = build_models("pc-bssfp", ModelConfig(features=(4, 8, 8, 16, 16, 4)), mesh=mesh)
-    xs = shard_batch(mesh, torch.zeros(2, 32, 16, 16, 24))
+    gen, _ = build_models("pc-bssfp", ModelConfig(features=(4, 8, 8, 16, 16, 4), dropout=0.0,
+                                                compute_dtype="float32"),
+                          mesh=mesh)
+    x = torch.rand(2, 32, 16, 16, 24)
+    flat = copy.deepcopy(gen).train()
     gen.train()
-    with pytest.raises(NotImplementedError, match="BatchNorm"):
-        gen(xs)
-    with pytest.raises(NotImplementedError, match="space split"):
-        ConvBlock(24, 8).eval()(xs)  # the discriminator's k4 s2 conv
+    got = gather_batch(gen(shard_batch(mesh, x)))
+    want = flat(x)
+    # f32, other summation orders in the norms' moments: within the mesh
+    # serving bound, 1e-5 of the largest output
+    np.testing.assert_allclose(got.detach().numpy(), want.detach().numpy(), rtol=0,
+                               atol=1e-5 * float(want.abs().max()))
+    for name, buf in flat.named_buffers():  # the head's BatchNorm, updated once
+        np.testing.assert_allclose(dict(gen.named_buffers())[name].numpy(), buf.numpy(),
+                                   rtol=1e-6, atol=1e-7, err_msg=name)
+    block = ConvBlock(24, 8).eval()  # the discriminator's k4 s2 conv
+    np.testing.assert_allclose(
+        gather_batch(block(shard_batch(mesh, x))).detach().numpy(),
+        block(x).detach().numpy(), rtol=0, atol=1e-6)
 
 
 def test_auto_packed_gate_is_mesh_aware():

@@ -11,6 +11,8 @@ deviate from its float64 ones by up to 2e-2 of a leaf's largest entry
 comparison could only hold the port to 5e-2; against float64 it is held to
 1e-4."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -23,6 +25,7 @@ from unet_bssfp_tpu.train.state import build_models as jax_build_models
 from unet_bssfp_tpu_torch import weights
 from unet_bssfp_tpu_torch.config import TrainConfig
 from unet_bssfp_tpu_torch.ops.losses import bce_with_logits, l1_loss
+from unet_bssfp_tpu_torch.parallel.mesh import gather_batch, make_mesh, shard_batch
 from unet_bssfp_tpu_torch.train.state import build_models
 from test_torch_port_models import random_variables
 from test_torch_port_train_models import DISC_FEATURES, FEATURES, PATCH, _cfgs
@@ -30,12 +33,14 @@ from test_torch_port_train_models import DISC_FEATURES, FEATURES, PATCH, _cfgs
 torch.set_num_threads(1)
 
 
-@pytest.mark.parametrize("packed", [False, True])
-def test_generator_phase_gradients_match_jax(packed):
-    _, cfg = _cfgs(packed=packed)
-    rf = TrainConfig().recon_factor
+@functools.lru_cache(maxsize=None)
+def jax_reference(packed):
+    """The batch, the weights and ``jax.grad`` of the JAX package's
+    generator loss in float64 (one compile per ``packed``, shared by the
+    unsharded and the sharded test)."""
     rng = np.random.default_rng(4)
     x = rng.standard_normal((2, PATCH, PATCH, PATCH, 24)).astype(np.float32)
+    rf = TrainConfig().recon_factor
     with jax.enable_x64(True):
         jcfg = JaxModelConfig(features=FEATURES, disc_features=DISC_FEATURES,
                               compute_dtype="float64", dropout=0.0, folded=False,
@@ -64,19 +69,34 @@ def test_generator_phase_gradients_match_jax(packed):
         ref_loss, ref_grads = jax.jit(jax.value_and_grad(jax_loss))(f64(gvars["params"]))
         ref = {k: v.numpy() for k, v in
                weights.from_flax(jax.tree.map(np.asarray, ref_grads)).items()}
+    return x, y, gvars, dvars, float(ref_loss), ref
 
-    gen, disc = build_models("pc-bssfp", cfg, "cpu")
+
+def check_port_gradients(packed, mesh=None):
+    """The port's generator-phase backward on the reference's weights and
+    batch, f32, unsharded or on ``mesh`` (G and D on the shards, the loss on
+    the gathered outputs), against ``jax_reference``."""
+    x, y, gvars, dvars, ref_loss, ref = jax_reference(packed)
+    _, cfg = _cfgs(packed=packed)
+    rf = TrainConfig().recon_factor
+    gen, disc = build_models("pc-bssfp", cfg, "cpu", mesh=mesh)
     gen.load_state_dict(weights.from_flax(gvars["params"], gvars["batch_stats"]))
     disc.load_state_dict(weights.from_flax(dvars["params"], dvars["batch_stats"]))
     gen.train()
     disc.train()
     disc.requires_grad_(False)
-    y_hat = gen(torch.from_numpy(x))
-    logits = disc(torch.from_numpy(x), y_hat)
+    xt = torch.from_numpy(x)
+    if mesh is None:
+        y_hat = gen(xt)
+        logits = disc(xt, y_hat)
+    else:
+        xs = shard_batch(mesh, xt)
+        y_hat = gen(xs)
+        logits, y_hat = gather_batch(disc(xs, y_hat)), gather_batch(y_hat)
     loss = (bce_with_logits(logits, torch.ones_like(logits))
             + l1_loss(y_hat, torch.from_numpy(y)) * rf)
     loss.backward()
-    np.testing.assert_allclose(float(loss.detach()), float(ref_loss), rtol=1e-5)
+    np.testing.assert_allclose(float(loss.detach()), ref_loss, rtol=1e-5)
     assert all(p.grad is None for p in disc.parameters())
 
     named = dict(gen.named_parameters())
@@ -93,3 +113,17 @@ def test_generator_phase_gradients_match_jax(packed):
         else:
             np.testing.assert_allclose(p.grad.numpy(), ref[name], rtol=0,
                                        atol=1e-4 * np.abs(ref[name]).max(), err_msg=name)
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_generator_phase_gradients_match_jax(packed):
+    check_port_gradients(packed)
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_sharded_generator_phase_gradients_match_jax(packed):
+    """The same backward on a (data, space) = (2, 2) mesh of CPU positions
+    (B 1, D 16 a shard: the head's and the discriminator's BatchNorm take
+    the global batch's moments, every conv its d halo), held to the same
+    bounds against the JAX package's float64 gradients."""
+    check_port_gradients(packed, make_mesh(["cpu"] * 4, ("data", "space"), (2, 2)))

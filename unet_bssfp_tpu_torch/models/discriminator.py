@@ -7,6 +7,12 @@ BatchNorm, named after its modality group (``d1_head6``/``d1_head24``,
 ``final`` conv to one channel of patch logits (2³ on 64³ patches). Plain
 PyTorch/cuDNN: the JAX package leaves these convs to XLA (its opt-in
 ``disc_folded`` layout is not ported).
+
+Both inputs may be ``parallel.mesh.Sharded`` volumes of one mesh: the
+concat is local, each k4 s2 conv exchanges one d slice with its ``space``
+neighbours and needs an even local D, so a ``space`` axis of n needs the
+volume's D / 2^len(features) ≥ n (64³ with the default five blocks: n ≤ 2;
+the JAX package's XLA reshards instead).
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ from torch import nn
 
 from unet_bssfp_tpu_torch.config import HEAD_GROUPS, MODALITY_CHANNELS
 from unet_bssfp_tpu_torch.models.layers import Conv, ConvBlock
+from unet_bssfp_tpu_torch.parallel.mesh import Sharded, apply_local
 
 
 class Discriminator(nn.Module):
@@ -37,12 +44,17 @@ class Discriminator(nn.Module):
                                                compute_dtype=compute_dtype))
         self.final = Conv(self.features[-1], 1, 1, compute_dtype=compute_dtype)
 
-    def forward(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    def forward(self, x, y):
+        """``x``, ``y``: (B, D, H, W, C) tensors, or ``Sharded`` ones."""
         min_dim = 2 ** len(self.features)
-        if not all(s >= min_dim for s in x.shape[1:4]):
-            raise ValueError(f"patch {tuple(x.shape[1:4])} too small for "
+        patch = tuple(x.shape[1:4])
+        if isinstance(x, Sharded):  # the whole volume's D
+            patch = (patch[0] * x.mesh.size("space"),) + patch[1:]
+        if not all(s >= min_dim for s in patch):
+            raise ValueError(f"patch {patch} too small for "
                              f"{len(self.features)} stride-2 blocks (needs >= {min_dim})")
-        h = getattr(self, self.first_name)(torch.cat([x, y], dim=-1))
+        h = getattr(self, self.first_name)(
+            apply_local(lambda a, b: torch.cat([a, b], dim=-1), x, y))
         for i in range(2, len(self.features) + 1):
             h = getattr(self, f"d{i}")(h)
         return self.final(h)

@@ -17,15 +17,20 @@ over a mesh's ``data`` and ``space`` axes) and returns one. Under a
 device's replica of the module (1³ and k2s2 convs, eval-mode BatchNorm,
 pools, concat, activations); a 3³ conv first takes one d slice from each
 ``space`` neighbour (``halo_d``) and then pads only (h, w); InstanceNorm
-sums its shards' moments over ``space`` (``all_sum``). In the JAX package
-XLA inserts these exchanges from the sharding annotations. Train-mode
-BatchNorm and strided 4³ convs (the discriminator) are not sharded yet and
-raise.
+sums its shards' moments over ``space`` (``all_sum``); the
+discriminator's k4 s2 p1 conv takes one d slice from each neighbour too and
+pads (h, w) only. Train-mode BatchNorm takes its moments over the global
+batch, every shard's combined over both mesh axes (or, inside
+:func:`row_moments`, over each data row's ``space`` shards: the
+``ddp_parity`` mode), and updates its running statistics once per forward.
+In the JAX package XLA inserts these exchanges from the sharding
+annotations.
 """
 
 from __future__ import annotations
 
 import contextlib
+import contextvars
 from typing import Optional
 
 import torch
@@ -34,7 +39,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from unet_bssfp_tpu_torch.ops.kernels import fused_instance_norm_leaky_relu
-from unet_bssfp_tpu_torch.parallel.mesh import Sharded, apply_local, local
+from unet_bssfp_tpu_torch.parallel.mesh import AXES, Sharded, apply_local, local, replicas
 
 
 def to_ncdhw(x: torch.Tensor) -> torch.Tensor:
@@ -87,14 +92,23 @@ def instance_norm(x, norm: "InstanceNorm", dims, channel_dim: int):
 
     if not isinstance(x, Sharded) or x.mesh.size("space") == 1:
         return apply_local(affine, x)
-    n = x.mesh.size("space")
+    xf, mean, var = _chan_moments(x, dims, "space", x.mesh.size("space"))
+    return xf.map(affine, mean, var)
+
+
+def _chan_moments(x: Sharded, dims, axes, n: int):
+    """The f32 mean and biased variance over ``dims`` of the union of ``n``
+    equal-sized shards, each shard's own moments combined exactly (Chan et
+    al.) by two ``all_sum`` s over ``axes``: ``mean = Σ mean_i / n``,
+    ``var = Σ (var_i + (mean_i - mean)²) / n``. Returns ``(x in f32, mean,
+    var)``, the moments as sharded values of equal bits at every member."""
     xf = x.map(_f32)
     stats = xf.map(lambda t: torch.stack(torch.var_mean(
         t, dim=dims, correction=0, keepdim=True)))  # [var_i, mean_i]
-    mean = stats.map(lambda s: s[1]).all_sum("space").map(lambda m: m / n)
+    mean = stats.map(lambda s: s[1]).all_sum(axes).map(lambda m: m / n)
     var = stats.map(lambda s, m: s[0] + (s[1] - m) ** 2, mean
-                    ).all_sum("space").map(lambda v: v / n)
-    return xf.map(affine, mean, var)
+                    ).all_sum(axes).map(lambda v: v / n)
+    return xf, mean, var
 
 
 def _on_shards(module: nn.Module, x: Sharded, method: str = "forward") -> Sharded:
@@ -118,11 +132,21 @@ class Conv(nn.Conv3d):
         local_windows = self.kernel_size == self.stride and self.padding == (0, 0, 0)
         if local_windows or x.mesh.size("space") == 1:
             return _on_shards(self, x)
-        if (self.kernel_size, self.stride, self.padding) != (
-                (3, 3, 3), (1, 1, 1), (1, 1, 1)):
+        geometry = (self.kernel_size, self.stride, self.padding)
+        if geometry == ((4, 4, 4), (2, 2, 2), (1, 1, 1)):
+            # output slice o reads input slices 2o-1 .. 2o+2: a shard of even
+            # D covers its D/2 outputs with one neighbour slice a side
+            if x.shape[1] % 2:
+                nd, ns = x.mesh.size("data"), x.mesh.size("space")
+                whole = (x.shape[0] * nd, x.shape[1] * ns) + tuple(x.shape[2:])
+                raise ValueError(
+                    f"k4 s2 conv of volume {whole} on {x.mesh}: the local D "
+                    f"{x.shape[1]} is odd, a stride-2 window would span two shards")
+        elif geometry != ((3, 3, 3), (1, 1, 1), (1, 1, 1)):
             raise NotImplementedError(
                 f"Conv k{self.kernel_size} s{self.stride} p{self.padding} under a "
-                f"space split of d: only 3³ SAME and non-overlapping convs are sharded")
+                f"space split of d: only 3³ SAME, k4 s2 p1 and non-overlapping "
+                f"convs are sharded")
         return _on_shards(self, x.halo_d(), "_conv_halo")
 
     def _conv(self, x: torch.Tensor, padding) -> torch.Tensor:
@@ -132,7 +156,8 @@ class Conv(nn.Conv3d):
         return to_ndhwc(y)
 
     def _conv_halo(self, xp: torch.Tensor) -> torch.Tensor:
-        """The 3³ conv on a shard that carries its d halo: pad (h, w) only."""
+        """The conv (3³ or k4 s2, both p1) on a shard that carries its d
+        halo: pad (h, w) only."""
         return self._conv(xp, (0, 1, 1))
 
 
@@ -185,13 +210,36 @@ class InstanceNorm(nn.Module):
             self.epsilon).to(dtype)
 
 
+_ROW_MOMENTS = contextvars.ContextVar("row_moments", default=False)
+
+
+@contextlib.contextmanager
+def row_moments():
+    """Inside it, train-mode :class:`BatchNorm` on a sharded batch takes its
+    moments per data row (over that row's ``space`` shards), as each device
+    of the JAX package's ``ddp_parity`` ``shard_map`` does, and updates its
+    running statistics with the mean over rows of each row's update (the
+    ``pmean`` of ``batch_stats``)."""
+    token = _ROW_MOMENTS.set(True)
+    try:
+        yield
+    finally:
+        _ROW_MOMENTS.reset(token)
+
+
 class BatchNorm(nn.Module):
     """Flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)``: f32 math, result in
     ``compute_dtype``. Train mode normalises with the batch's mean and biased
     variance over every axis but the channel (last) one, and updates the
     running statistics as ``0.9·running + 0.1·batch`` with that same biased
     variance (``F.batch_norm`` would store the unbiased one). Eval mode uses
-    the running statistics."""
+    the running statistics.
+
+    On a sharded batch, eval mode is local to each shard; train mode takes
+    the moments of the global batch, every shard's combined exactly over
+    both mesh axes (as the JAX package's ``jit`` takes them over its sharded
+    batch), or per data row inside :func:`row_moments`, and updates the
+    running statistics once (on every replica), not once per shard."""
 
     momentum = 0.9
 
@@ -207,24 +255,44 @@ class BatchNorm(nn.Module):
 
     def forward(self, x):
         if isinstance(x, Sharded):
-            if self.training:
-                raise NotImplementedError(
-                    "train-mode BatchNorm on a sharded batch (moments over the "
-                    "global batch) is not ported yet")
-            return _on_shards(self, x)
-        dtype = self.compute_dtype or x.dtype
-        xf = x.float()
+            if not self.training:
+                return _on_shards(self, x)
+            return self._forward_sharded(x)
+        xf = _f32(x)
         if self.training:
             var, mean = torch.var_mean(xf, dim=tuple(range(x.ndim - 1)),
                                        correction=0)
-            with torch.no_grad():
-                self.running_mean.mul_(self.momentum).add_(mean, alpha=1 - self.momentum)
-                self.running_var.mul_(self.momentum).add_(var, alpha=1 - self.momentum)
+            self._update(mean, var)
         else:
-            mean, var = self.running_mean.float(), self.running_var.float()
-        mul = torch.rsqrt(var + self.epsilon) * self.weight.float()
-        y = (xf - mean) * mul + self.bias.float()
-        return y.to(dtype)
+            mean, var = _f32(self.running_mean), _f32(self.running_var)
+        return self._normalise(xf, mean, var, x.dtype)
+
+    def _normalise(self, xf, mean, var, dtype):
+        mul = torch.rsqrt(var + self.epsilon) * _f32(self.weight)
+        y = (xf - mean) * mul + _f32(self.bias)
+        return y.to(self.compute_dtype or dtype)
+
+    def _update(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        """The running statistics' update from one forward's moments, on
+        every replica of the module (the moments copied to its device)."""
+        with torch.no_grad():
+            for mod in replicas(self):
+                m, v = mean.to(mod.running_mean.device), var.to(mod.running_var.device)
+                mod.running_mean.mul_(self.momentum).add_(m, alpha=1 - self.momentum)
+                mod.running_var.mul_(self.momentum).add_(v, alpha=1 - self.momentum)
+
+    def _forward_sharded(self, x: Sharded) -> Sharded:
+        mesh, per_row = x.mesh, _ROW_MOMENTS.get()
+        axes, n = ("space", mesh.size("space")) if per_row else (AXES, mesh.positions)
+        xf, mean, var = _chan_moments(x, tuple(range(len(x.shape) - 1)), axes, n)
+        # one update: with the global moments, or with the mean over data
+        # rows of each row's (the mean of the rows' updates)
+        rows = range(mesh.size("data")) if per_row else (0,)
+        dev = mean.parts[0][0].device
+        self._update(*(sum(m.parts[i][0].detach().to(dev) for i in rows).flatten() / len(rows)
+                       for m in (mean, var)))
+        return xf.map(lambda t, m, v: local(self, t.device)._normalise(t, m, v, x.dtype),
+                      mean, var)
 
 
 class Dropout(nn.Module):

@@ -14,8 +14,9 @@ the mesh):
 - :meth:`Sharded.map`: a local op on every shard;
 - :meth:`Sharded.halo_d`: every shard gets its ``space`` neighbours' edge d
   slices, zeros at the volume's two ends (the SAME pad of a 3³ conv);
-- :meth:`Sharded.all_sum`: the sum of a small tensor over one mesh axis, in
-  a fixed order, so every position holds the same bits.
+- :meth:`Sharded.all_sum`: the sum of a small tensor over one mesh axis,
+  or over both (the whole mesh), in a fixed order, so every position holds
+  the same bits.
 
 All three are plain tensor ops (slice, copy, cat, add), so autograd runs
 through them: the backward of the halo exchange is the reverse exchange,
@@ -23,6 +24,9 @@ with the neighbours' edge gradients added.
 
 Parameters are replicated once per distinct device (:func:`replicate`),
 not once per position; :func:`local` picks a module's replica on a device.
+Training takes a mesh whose positions all lie on one device
+(:func:`training_device`): its shards share the modules' parameters, so
+autograd sums their gradients, and one optimizer step follows.
 """
 
 from __future__ import annotations
@@ -52,6 +56,12 @@ def as_device(d: Union[str, torch.device]) -> torch.device:
     if idx >= n:
         raise ValueError(f"unknown device {d!r}: {n} CUDA device(s) visible")
     return torch.device("cuda", idx)
+
+
+def same_device(a: Union[str, torch.device], b: Union[str, torch.device]) -> bool:
+    """Whether ``a`` and ``b`` name one device (``cuda`` is ``cuda:0``)."""
+    a, b = torch.device(a), torch.device(b)
+    return a.type == b.type and (a.index or 0) == (b.index or 0)
 
 
 class Mesh:
@@ -178,18 +188,21 @@ class Sharded:
         return Sharded(self.mesh, [[one(row, j) for j in range(len(row))]
                                    for row in self.parts])
 
-    def all_sum(self, axis: str = "space") -> "Sharded":
+    def all_sum(self, axis: Union[str, Tuple[str, ...]] = "space") -> "Sharded":
         """Every position gets the sum of its group's shards along ``axis``
-        (for ``space``: the positions of its data row), added in position
+        (for ``space``: the positions of its data row; for ``AXES``, both
+        axes: every position of the mesh, row by row), added in position
         order on every member, so all hold the same bits. Meant for small
         tensors (moments): every shard is copied to every member."""
         nd, ns = self.mesh.size("data"), self.mesh.size("space")
-        if axis not in AXES:
-            raise ValueError(f"unknown mesh axis {axis!r}; expected one of {AXES}")
+        axes = (axis,) if isinstance(axis, str) else tuple(axis)
+        if not axes or any(a not in AXES for a in axes):
+            raise ValueError(f"unknown mesh axis {axis!r}; expected one of {AXES} or both")
 
         def one(i, j):
-            group = (self.parts[i] if axis == "space"
-                     else [self.parts[k][j] for k in range(nd)])
+            rows = range(nd) if "data" in axes else (i,)
+            cols = range(ns) if "space" in axes else (j,)
+            group = [self.parts[k][m] for k in rows for m in cols]
             dev = self.parts[i][j].device
             total = group[0].to(dev)
             for t in group[1:]:
@@ -230,9 +243,28 @@ def gather_batch(x: Sharded, device: Union[str, torch.device, None] = None
                  ) -> torch.Tensor:
     """The inverse of :func:`shard_batch`: one tensor on ``device`` (default:
     the mesh's first device)."""
+    return torch.cat(gather_rows(x, device), dim=0)
+
+
+def gather_rows(x: Sharded, device: Union[str, torch.device, None] = None
+                ) -> Tuple[torch.Tensor, ...]:
+    """One tensor per ``data`` row of ``x`` (its ``space`` shards joined on
+    d), each on ``device`` (default: the mesh's first device)."""
     dev = torch.device(device) if device is not None else x.mesh.devices[0][0]
-    return torch.cat([torch.cat([t.to(dev) for t in row], dim=1)
-                      for row in x.parts], dim=0)
+    return tuple(torch.cat([t.to(dev) for t in row], dim=1) for row in x.parts)
+
+
+def training_device(mesh: Mesh, what: str = "training") -> torch.device:
+    """The one device every position of ``mesh`` lies on. A mesh over
+    several distinct devices raises ``NotImplementedError``: training there
+    needs the replicas' gradients reduced and their weights and BatchNorm
+    buffers re-broadcast after each step, which the port does not do
+    (serving on such a mesh works)."""
+    if len(mesh.distinct) > 1:
+        raise NotImplementedError(
+            f"{what} on {mesh}: a training mesh must lie on one device; across "
+            f"{len(mesh.distinct)} devices the replicas' gradients would need a reduce")
+    return mesh.distinct[0]
 
 
 def replicate(module: nn.Module, mesh: Mesh) -> Dict[torch.device, nn.Module]:

@@ -5,8 +5,10 @@ The reference's Lightning orchestration (``src/train.py:15-77``): at most
 50 epochs, early stopping on ``val_gen_loss_recon`` (patience 10), top-10
 checkpoints by ``val_loss``, CSV/W&B metric logging, wall-time prints and
 resume from a checkpoint, driving the GAN step on one device (``cuda``
-unless the caller passes another). The sharded training step is not ported
-yet, so no mesh is taken.
+unless the caller passes another) or on a mesh whose positions lie on one
+device (``mesh=``): every batch is trimmed to a multiple of the mesh's
+positions and split over it, as the JAX loop's ``batch_divisor`` and
+``shard_batch`` do.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from unet_bssfp_tpu_torch.models.medicalnet import (
     medicalnet_is_pretrained,
     perceptual_distance,
 )
+from unet_bssfp_tpu_torch.parallel.mesh import Mesh, same_device, training_device
 from unet_bssfp_tpu_torch.train.checkpoint import (
     CheckpointManager,
     find_latest_checkpoint,
@@ -120,10 +123,21 @@ def _run_name(config: Config, modality: str) -> str:
 
 
 class Trainer:
+    """The loop of one modality's GAN. ``mesh``: train on its positions
+    (all on one device, the Trainer's; a ``device`` other than it raises, a
+    mesh over several devices raises ``NotImplementedError``)."""
+
     def __init__(self, config: Config, modality: str, device=None,
-                 perceptual_fn=None, debug: bool = False):
+                 mesh: Optional[Mesh] = None, perceptual_fn=None, debug: bool = False):
         self.config = config
         self.modality = modality
+        if mesh is not None:
+            first = training_device(mesh, "Trainer")
+            if device is not None and not same_device(device, first):
+                raise ValueError(f"device {device} is not the device of {mesh}")
+            device = first
+        self.mesh = mesh
+        self.batch_divisor = mesh.positions if mesh is not None else 1
         self.device = resolve_device(device)
         if perceptual_fn is None and resolve_with_perceptual(config.train):
             perceptual_fn = build_perceptual_fn(config, self.device)
@@ -143,21 +157,23 @@ class Trainer:
     def init_state(self, seed: Optional[int] = None) -> GANTrainState:
         return create_gan_state(self.config.train.seed if seed is None else seed,
                                 self.modality, self.config.model, self.config.train,
-                                self.device)
+                                self.device, mesh=self.mesh)
 
     def train_step(self, state: GANTrainState, x: torch.Tensor, y: torch.Tensor
                    ) -> Dict[str, torch.Tensor]:
         """One GAN step on ``state``'s models (``steps.make_train_step``)."""
         return make_train_step(state.gen, state.disc, self.config.train, self.perceptual_fn,
+                               mesh=self.mesh,
                                reuse_fake=self.config.train.reuse_fake)(state, x, y)
 
     def eval_step(self, state: GANTrainState, x: torch.Tensor, y: torch.Tensor):
         """``(metrics, y_hat)`` of ``state``'s models (``steps.make_eval_step``)."""
         return make_eval_step(state.gen, state.disc, self.config.train,
-                              self.perceptual_fn)(state, x, y)
+                              self.perceptual_fn, mesh=self.mesh)(state, x, y)
 
     def _val_pass(self, data, state, seed, keys, augment: bool, prefix: str) -> None:
-        for batch in data.val_batches(seed, keys=keys, augment=augment, device=self.device):
+        for batch in data.val_batches(seed, keys=keys, batch_divisor=self.batch_divisor,
+                                      augment=augment, device=self.device):
             metrics, _ = self.eval_step(state, batch[self.modality], batch["dwi-tensor_orig"])
             self.logger.log_step({k.replace("val_", prefix, 1): v for k, v in metrics.items()})
 
@@ -187,7 +203,8 @@ class Trainer:
                     tracing.enter_context(trace(os.path.join(cfg.train.log_dir, "trace")))
                 with tracing:
                     for i, batch in enumerate(data.train_batches(
-                            train_seed, keys=keys, device=self.device)):
+                            train_seed, keys=keys, batch_divisor=self.batch_divisor,
+                            device=self.device)):
                         self.logger.log_step(self.train_step(
                             state, batch[self.modality], batch["dwi-tensor_orig"]))
                         if i + 1 == DEBUG_TRACE_STEPS:

@@ -13,8 +13,10 @@ three stages:
   conv's backward then launches no weight gradient for them);
 - FINE_TUNE: every parameter trained at ``finetune_lr``.
 
-On one device (``cuda`` unless the caller passes another); the sharded step
-is not ported. The port draws its own numbers: weights and the dropout
+On one device (``cuda`` unless the caller passes another), or on a mesh
+whose positions lie on one device (``mesh=``): the batch split over it as
+the GAN step splits it, the loss terms (SSIM's window too) taken on the
+gathered output. The port draws its own numbers: weights and the dropout
 generator from per-stage seeds, the epochs' streams from ``epoch_seeds(seed
 + 17, epoch)`` where the JAX package splits ``PRNGKey(seed + 17)``.
 """
@@ -39,10 +41,12 @@ from unet_bssfp_tpu_torch.models.multi_input_unet import (
 )
 from unet_bssfp_tpu_torch.ops.losses import l1_loss, ssim_loss
 from unet_bssfp_tpu_torch.ops.metrics import mae, psnr, ssim3d
+from unet_bssfp_tpu_torch.parallel.mesh import Mesh, replicate, same_device, training_device
 from unet_bssfp_tpu_torch.train.checkpoint import CheckpointManager
 from unet_bssfp_tpu_torch.train.logging import EarlyStopping, MetricLogger
 from unet_bssfp_tpu_torch.train.loop import build_perceptual_fn, epoch_seeds, resolve_with_perceptual
-from unet_bssfp_tpu_torch.train.state import _DTYPES, auto_packed, resolve_device
+from unet_bssfp_tpu_torch.train.state import _DTYPES, auto_packed, mesh_device, resolve_device
+from unet_bssfp_tpu_torch.train.steps import check_training_mesh, gather_whole, shard_inputs
 
 PerceptualFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 STAGES = (TrainingState.PRETRAIN, TrainingState.TRANSFER, TrainingState.FINE_TUNE)
@@ -64,23 +68,26 @@ class SupervisedState:
 
 
 def build_multi_input_unet(modality: str, mcfg: ModelConfig, device=None,
-                           state_dict: Optional[Mapping[str, torch.Tensor]] = None
-                           ) -> MultiInputUNet:
-    """The net for ``modality`` on ``device`` (default ``cuda``):
-    ``multistage_features`` (default the thesis's), ``compute_dtype``,
-    ``use_pallas`` and ``packed`` through ``auto_packed``; ``state_dict``
-    loaded strictly where given."""
+                           state_dict: Optional[Mapping[str, torch.Tensor]] = None,
+                           mesh: Optional[Mesh] = None) -> MultiInputUNet:
+    """The net for ``modality`` on ``device`` (default ``cuda``), or on a
+    ``mesh``'s first device with a replica on each other one (as
+    ``build_models``): ``multistage_features`` (default the thesis's),
+    ``compute_dtype``, ``use_pallas`` and ``packed`` through
+    ``auto_packed``; ``state_dict`` loaded strictly where given."""
     if mcfg.compute_dtype not in _DTYPES:
         raise ValueError(f"compute_dtype {mcfg.compute_dtype!r} not in {tuple(_DTYPES)}")
-    dev = resolve_device(device)
+    dev = mesh_device(mcfg, device, mesh)
     kw = {}
     if mcfg.multistage_features is not None:
         kw["features"] = tuple(mcfg.multistage_features)
     net = MultiInputUNet(modality=modality, out_channels=mcfg.out_channels,
                          dropout=mcfg.dropout, compute_dtype=_DTYPES[mcfg.compute_dtype],
-                         use_fused=mcfg.use_pallas, packed=auto_packed(mcfg, dev), **kw)
+                         use_fused=mcfg.use_pallas, packed=auto_packed(mcfg, dev, mesh), **kw)
     if state_dict is not None:
         net.load_state_dict(state_dict, strict=True)
+    if mesh is not None:
+        replicate(net, mesh)
     return net.to(dev)
 
 
@@ -129,19 +136,24 @@ def _loss_terms(y_hat: torch.Tensor, y: torch.Tensor, tcfg: TrainConfig,
 
 
 def make_supervised_train_step(net: MultiInputUNet, tcfg: TrainConfig,
-                               perceptual_fn: Optional[PerceptualFn] = None
+                               perceptual_fn: Optional[PerceptualFn] = None,
+                               mesh: Optional[Mesh] = None
                                ) -> Callable[[SupervisedState, torch.Tensor, torch.Tensor],
                                              Dict[str, torch.Tensor]]:
     """``step(state, x, y) -> metrics``: one AdamW step of the state's
     stage on ``L1 + (1 − SSIM) [+ perceptual·factor]``; metrics
-    ``train_loss`` and ``train_loss_{L1,SSIM[,Perceptual]}`` (0-d tensors)."""
+    ``train_loss`` and ``train_loss_{L1,SSIM[,Perceptual]}`` (0-d tensors).
+    With a ``mesh`` (one device's, ``training_device``) the net runs on the
+    shards and the terms on the gathered output."""
+    check_training_mesh(mesh, net, what="make_supervised_train_step")
 
     def step(state: SupervisedState, x: torch.Tensor, y: torch.Tensor
              ) -> Dict[str, torch.Tensor]:
         if state.net is not net:
             raise ValueError("the state does not hold this step's net")
+        x, = shard_inputs(mesh, x)
         net.train()
-        terms = _loss_terms(net(x), y, tcfg, perceptual_fn)
+        terms = _loss_terms(*gather_whole(net(x), y), tcfg, perceptual_fn)
         loss = sum(terms.values())
         state.opt.zero_grad(set_to_none=True)
         loss.backward()
@@ -156,17 +168,20 @@ def make_supervised_train_step(net: MultiInputUNet, tcfg: TrainConfig,
 
 
 def make_supervised_eval_step(net: MultiInputUNet, tcfg: TrainConfig,
-                              perceptual_fn: Optional[PerceptualFn] = None):
+                              perceptual_fn: Optional[PerceptualFn] = None,
+                              mesh: Optional[Mesh] = None):
     """``step(state, x, y) -> (metrics, y_hat)`` in eval mode without
     gradients: ``val_loss``, ``val_loss_{L1,SSIM[,Perceptual]}`` and
-    ``val_metric_{PSNR,SSIM,L1}``."""
+    ``val_metric_{PSNR,SSIM,L1}``; with a ``mesh`` as the train step."""
+    check_training_mesh(mesh, net, what="make_supervised_eval_step")
 
     def step(state: SupervisedState, x: torch.Tensor, y: torch.Tensor):
         if state.net is not net:
             raise ValueError("the state does not hold this step's net")
+        x, = shard_inputs(mesh, x)
         net.eval()
         with torch.no_grad():
-            y_hat = net(x)
+            y_hat, y = gather_whole(net(x), y)
             terms = _loss_terms(y_hat, y, tcfg, perceptual_fn)
             acc = torch.promote_types(y_hat.dtype, torch.float32)
             y_hat32, y32 = y_hat.to(acc), y.to(acc)
@@ -195,7 +210,7 @@ def transfer_params(pretrained: Mapping[str, torch.Tensor], target_net: MultiInp
 def run_multistage(data, target_modality: str, config: Optional[Config] = None,
                    perceptual_fn: Optional[PerceptualFn] = None,
                    epochs_per_stage: Optional[Dict[TrainingState, int]] = None,
-                   device=None, pretrain_data=None
+                   device=None, pretrain_data=None, mesh: Optional[Mesh] = None
                    ) -> Tuple[Dict[TrainingState, SupervisedState], Dict[str, float]]:
     """The three stages for one target modality on ``device`` (default
     ``cuda``): PRETRAIN on ``dwi-tensor`` (on ``pretrain_data`` where given:
@@ -203,10 +218,18 @@ def run_multistage(data, target_modality: str, config: Optional[Config] = None,
     ``target_modality``, each for ``epochs_per_stage[stage]`` epochs
     (default ``train.max_epochs``) with its own ``MetricLogger``,
     ``CheckpointManager`` (``multistage-{modality}-{stage}``, monitor
-    ``val_loss``, top-k) and early stopping on ``val_loss``. Returns the
-    stages' final states and the last epoch's row."""
+    ``val_loss``, top-k) and early stopping on ``val_loss``. ``mesh`` (its
+    positions on one device; a ``device`` other than it raises): every
+    stage's steps on it, batches trimmed to a multiple of its positions.
+    Returns the stages' final states and the last epoch's row."""
     config = config or Config()
     tcfg = config.train
+    divisor = 1
+    if mesh is not None:
+        first = training_device(mesh, "run_multistage")
+        if device is not None and not same_device(device, first):
+            raise ValueError(f"device {device} is not the device of {mesh}")
+        device, divisor = first, mesh.positions
     dev = resolve_device(device)
     if perceptual_fn is None and resolve_with_perceptual(tcfg):
         perceptual_fn = build_perceptual_fn(config, dev)
@@ -219,13 +242,13 @@ def run_multistage(data, target_modality: str, config: Optional[Config] = None,
         modality = "dwi-tensor" if pretrain else target_modality
         stage_data = pretrain_data if pretrain and pretrain_data is not None else data
         stage_data.setup()
-        net = build_multi_input_unet(modality, config.model, dev)
+        net = build_multi_input_unet(modality, config.model, dev, mesh=mesh)
         seed = tcfg.seed + 3 * index  # weights from seed, dropout from seed + 2
         if stage == TrainingState.TRANSFER and params is not None:
             params = transfer_params(params, net, seed)
         state = create_supervised_state(seed, net, tcfg, stage, state_dict=params)
-        train_step = make_supervised_train_step(net, tcfg, perceptual_fn)
-        eval_step = make_supervised_eval_step(net, tcfg, perceptual_fn)
+        train_step = make_supervised_train_step(net, tcfg, perceptual_fn, mesh)
+        eval_step = make_supervised_eval_step(net, tcfg, perceptual_fn, mesh)
         name = f"multistage-{target_modality}-{stage.value}"
         logger = MetricLogger(os.path.join(tcfg.log_dir, name))
         ckpt = CheckpointManager(os.path.join(tcfg.checkpoint_dir, name), monitor="val_loss",
@@ -237,10 +260,12 @@ def run_multistage(data, target_modality: str, config: Optional[Config] = None,
             train_seed, val_seed = epoch_seeds(tcfg.seed + 17, epoch)
             # logged sorted by name: the JAX package's jitted steps return
             # their metrics so, which orders its metrics.csv's columns
-            for batch in stage_data.train_batches(train_seed, keys=keys, device=dev):
+            for batch in stage_data.train_batches(train_seed, keys=keys,
+                                                  batch_divisor=divisor, device=dev):
                 metrics = train_step(state, batch[modality], batch["dwi-tensor_orig"])
                 logger.log_step(dict(sorted(metrics.items())))
-            for batch in stage_data.val_batches(val_seed, keys=keys, device=dev):
+            for batch in stage_data.val_batches(val_seed, keys=keys,
+                                                batch_divisor=divisor, device=dev):
                 metrics, _ = eval_step(state, batch[modality], batch["dwi-tensor_orig"])
                 logger.log_step(dict(sorted(metrics.items())))
             if dev.type == "cuda":

@@ -13,7 +13,7 @@ from unet_bssfp_tpu_torch.config import MODALITIES, ModelConfig, TrainConfig
 from unet_bssfp_tpu_torch.models.discriminator import Discriminator
 from unet_bssfp_tpu_torch.models.generator import Generator
 from unet_bssfp_tpu_torch.models.layers import bind_dropout_generator
-from unet_bssfp_tpu_torch.parallel.mesh import Mesh, as_device, replicate
+from unet_bssfp_tpu_torch.parallel.mesh import Mesh, replicate, same_device
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -41,6 +41,23 @@ def auto_packed(mcfg: ModelConfig, device: Union[str, torch.device, None],
     return all(d.type == "cuda" for d in devices)
 
 
+def mesh_device(mcfg: ModelConfig, device: Union[str, torch.device, None],
+                mesh: Optional[Mesh]) -> torch.device:
+    """The device a model is built on: ``device`` (default ``cuda``), or with
+    a ``mesh`` its first device (a ``device`` other than it raises, and so
+    does ``use_pallas`` on a mesh of more than one position: the fused norm
+    kernel takes one whole volume and has no sharded route)."""
+    if mesh is not None:
+        if device is not None and not same_device(device, mesh.devices[0][0]):
+            raise ValueError(f"device {device} is not the first device of {mesh}")
+        if mcfg.use_pallas and mesh.positions > 1:
+            raise ValueError(
+                f"use_pallas on {mesh}: the fused InstanceNorm+LeakyReLU kernel "
+                f"has no sharded route")
+        device = mesh.devices[0][0]
+    return resolve_device(device)
+
+
 def build_models(modality: str, mcfg: ModelConfig,
                  device: Union[str, torch.device, None] = None,
                  state_dict: Optional[dict] = None,
@@ -48,7 +65,7 @@ def build_models(modality: str, mcfg: ModelConfig,
                  ) -> Tuple[Generator, Discriminator]:
     """``(gen, disc)`` for ``modality`` on ``device`` (default ``cuda``),
     with the generator's ``state_dict`` loaded strictly when given. With a
-    ``mesh`` the models live on its first device and the generator gets one
+    ``mesh`` both models live on its first device and each gets one
     replica on every other distinct device of the mesh (not one per
     position), made after the weights are loaded, so all share them bit
     for bit. ``use_pallas`` on a mesh of more than one position raises: the
@@ -58,15 +75,7 @@ def build_models(modality: str, mcfg: ModelConfig,
             f"unknown modality {modality!r}; expected one of {MODALITIES}")
     if mcfg.compute_dtype not in _DTYPES:
         raise ValueError(f"compute_dtype {mcfg.compute_dtype!r} not in {tuple(_DTYPES)}")
-    if mesh is not None:
-        if device is not None and as_device(device) != mesh.devices[0][0]:
-            raise ValueError(f"device {device} is not the first device of {mesh}")
-        if mcfg.use_pallas and mesh.positions > 1:
-            raise ValueError(
-                f"use_pallas on {mesh}: the fused InstanceNorm+LeakyReLU kernel "
-                f"has no sharded route")
-        device = mesh.devices[0][0]
-    dev = resolve_device(device)
+    dev = mesh_device(mcfg, device, mesh)
     dtype = _DTYPES[mcfg.compute_dtype]
     gen = Generator(
         modality=modality,
@@ -92,6 +101,7 @@ def build_models(modality: str, mcfg: ModelConfig,
     )
     if mesh is not None:
         replicate(gen, mesh)
+        replicate(disc, mesh)
     return gen.to(dev), disc.to(dev)
 
 
@@ -120,15 +130,20 @@ class GANTrainState:
 
 def create_gan_state(seed: int, modality: str, mcfg: ModelConfig,
                      tcfg: TrainConfig,
-                     device: Union[str, torch.device, None] = None
-                     ) -> GANTrainState:
+                     device: Union[str, torch.device, None] = None,
+                     mesh: Optional[Mesh] = None) -> GANTrainState:
     """Both models with Flax's initialisation drawn from ``seed``, their
     AdamW optimizers, and a dropout generator on ``device`` seeded from
-    ``seed``; everything repeats for a repeated seed."""
-    gen, disc = build_models(modality, mcfg, device)
+    ``seed``; everything repeats for a repeated seed. With a ``mesh`` the
+    models are built as :func:`build_models` builds them there (on its
+    first device, replicated after the weights are drawn)."""
+    gen, disc = build_models(modality, mcfg, device, mesh=mesh)
     dev = next(gen.parameters()).device
     gen.load_state_dict(weights.init_state_dict(gen, seed))
     disc.load_state_dict(weights.init_state_dict(disc, seed + 1))
+    if mesh is not None and len(mesh.distinct) > 1:  # the replicas take the draw
+        replicate(gen, mesh)
+        replicate(disc, mesh)
     rng = torch.Generator(device=dev).manual_seed(seed + 2)
     bind_dropout_generator(gen, rng)
     return GANTrainState(step=0, rng=rng, gen=gen, disc=disc,

@@ -15,24 +15,102 @@ The train step keeps the reference's update order and semantics
 BatchNorm statistics update on every train-mode forward (G twice, D three
 times per step). The parameters live in the modules, so the step updates
 ``state`` in place and returns only the metrics (as 0-d tensors: reading
-them is the caller's synchronisation). The losses are taken in f32.
+them is the caller's synchronisation). The losses are taken in f32 (f64
+for f64 operands).
+
+On a mesh (``mesh=``; its positions on one device, ``training_device``)
+the batch is split over ``data`` and the volume's d over ``space``, G and
+D run on the shards (d halos, norm moments over the mesh), and the losses
+and metrics are taken on the gathered outputs, as the JAX package's ``jit``
+takes them over its sharded batch; every shard uses the same
+``Parameter`` s, so autograd sums their gradients and one AdamW step
+follows. ``ddp_parity`` takes BatchNorm's moments per data row
+(``layers.row_moments``) and the loss as the mean over data rows of each
+row's loss: the JAX package's ``shard_map`` with its ``pmean`` of the
+gradients, metrics and ``batch_stats``.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+import contextlib
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 from torch import nn
 
 from unet_bssfp_tpu_torch.config import TrainConfig
+from unet_bssfp_tpu_torch.models.layers import row_moments
 from unet_bssfp_tpu_torch.models.medicalnet import medicalnet_features
 from unet_bssfp_tpu_torch.ops.losses import bce_with_logits, l1_loss
 from unet_bssfp_tpu_torch.ops.metrics import fid, mae, psnr, spatial_average, ssim3d, znorm
-from unet_bssfp_tpu_torch.parallel.mesh import Mesh, gather_batch, replicas, shard_batch
+from unet_bssfp_tpu_torch.parallel.mesh import (
+    Mesh,
+    Sharded,
+    apply_local,
+    gather_batch,
+    gather_rows,
+    replicas,
+    shard_batch,
+    training_device,
+)
 from unet_bssfp_tpu_torch.train.state import GANTrainState
 
 PerceptualFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+Batch = Union[torch.Tensor, Sharded]
+
+
+def _acc(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in f32 (f64 stays f64): the losses' precision."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
+def check_training_mesh(mesh: Optional[Mesh], *modules: nn.Module, what: str) -> None:
+    """``mesh`` must lie on one device (``training_device``), the one that
+    holds ``modules``."""
+    if mesh is None:
+        return
+    dev = training_device(mesh, what)
+    for m in modules:
+        have = next(m.parameters()).device
+        if have != dev:
+            raise ValueError(f"{what}: {type(m).__name__} lies on {have}, not on the "
+                             f"device of {mesh}; build it with mesh=")
+
+
+def shard_inputs(mesh: Optional[Mesh], *values: Batch) -> Tuple[Batch, ...]:
+    """Each value split over ``mesh`` (``shard_batch``), or kept where it is
+    already split over that mesh; without a mesh the values as they are."""
+    if mesh is None:
+        if any(isinstance(v, Sharded) for v in values):
+            raise ValueError("a sharded batch needs the step built with its mesh")
+        return values
+    out = []
+    for v in values:
+        if isinstance(v, Sharded):
+            if v.mesh.devices != mesh.devices:
+                raise ValueError(f"a batch sharded over {v.mesh} given to a step on {mesh}")
+            out.append(v)
+        else:
+            out.append(shard_batch(mesh, v))
+    return tuple(out)
+
+
+def gather_whole(*values: Batch) -> Tuple[torch.Tensor, ...]:
+    """Each value whole: a sharded one gathered (``gather_batch``)."""
+    return tuple(gather_batch(v) if isinstance(v, Sharded) else v for v in values)
+
+
+def over_batch(fn: Callable[..., Dict[str, torch.Tensor]], *values: Batch,
+               per_row: bool = False) -> Dict[str, torch.Tensor]:
+    """``fn`` (a dict of 0-d losses) of the whole batch: of tensors as
+    given, of sharded values gathered (autograd runs through the gather);
+    with ``per_row``, the mean over data rows of ``fn`` of each row."""
+    if not isinstance(values[0], Sharded):
+        return fn(*values)
+    if not per_row:
+        return fn(*gather_whole(*values))
+    outs = [fn(*row) for row in zip(*(gather_rows(v) for v in values))]
+    return {k: sum(o[k] for o in outs) / len(outs) for k in outs[0]}
 
 
 def _recon_loss(y_hat: torch.Tensor, y: torch.Tensor, tcfg: TrainConfig,
@@ -49,55 +127,70 @@ def _recon_loss(y_hat: torch.Tensor, y: torch.Tensor, tcfg: TrainConfig,
 
 def make_train_step(gen: nn.Module, disc: nn.Module, tcfg: TrainConfig,
                     perceptual_fn: Optional[PerceptualFn] = None,
-                    reuse_fake: bool = False
-                    ) -> Callable[[GANTrainState, torch.Tensor, torch.Tensor],
-                                  Dict[str, torch.Tensor]]:
+                    mesh: Optional[Mesh] = None, reuse_fake: bool = False,
+                    ddp_parity: bool = False
+                    ) -> Callable[[GANTrainState, Batch, Batch], Dict[str, torch.Tensor]]:
     """``step(state, x, y) -> metrics`` for the state that holds ``gen`` and
     ``disc``. ``x``: input patches (B, p, p, p, C_in); ``y``: the DT target
-    (B, p, p, p, 6)."""
+    (B, p, p, p, 6); with a ``mesh`` either may also come split over it.
+    ``ddp_parity`` (needs a mesh): BatchNorm moments and the loss per data
+    row (the module's docstring)."""
+    if ddp_parity and mesh is None:
+        raise ValueError("ddp_parity requires a mesh")
+    check_training_mesh(mesh, gen, disc, what="make_train_step")
+    moments = row_moments if ddp_parity else contextlib.nullcontext
 
-    def step(state: GANTrainState, x: torch.Tensor,
-             y: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def gen_losses(logits, y_hat, y):
+        logits = _acc(logits)
+        adv = bce_with_logits(logits, torch.ones_like(logits))
+        recon, terms = _recon_loss(_acc(y_hat), _acc(y), tcfg, perceptual_fn)
+        return {"loss": adv + recon, "adv": adv, "recon": recon,
+                **{f"term_{k}": v for k, v in terms.items()}}
+
+    def disc_losses(logits_real, logits_hat):
+        logits_real, logits_hat = _acc(logits_real), _acc(logits_hat)
+        return {"loss": (bce_with_logits(logits_real, torch.ones_like(logits_real))
+                         + bce_with_logits(logits_hat, torch.zeros_like(logits_hat))) / 2.0}
+
+    def step(state: GANTrainState, x: Batch, y: Batch) -> Dict[str, torch.Tensor]:
         if state.gen is not gen or state.disc is not disc:
             raise ValueError("the state does not hold this step's models")
+        x, y = shard_inputs(mesh, x, y)
         gen.train()
         disc.train()
+        with moments():
+            # ---- generator phase (discriminator gradients off) --------
+            disc.requires_grad_(False)
+            y_hat = gen(x)
+            g = over_batch(gen_losses, disc(x, y_hat), y_hat, y, per_row=ddp_parity)
+            state.gen_opt.zero_grad(set_to_none=True)
+            g["loss"].backward()
+            state.gen_opt.step()
+            disc.requires_grad_(True)
 
-        # ---- generator phase (discriminator gradients off) ------------
-        disc.requires_grad_(False)
-        y_hat = gen(x)
-        logits = disc(x, y_hat).float()
-        adv = bce_with_logits(logits, torch.ones_like(logits))
-        recon, terms = _recon_loss(y_hat.float(), y.float(), tcfg, perceptual_fn)
-        gen_loss = adv + recon
-        state.gen_opt.zero_grad(set_to_none=True)
-        gen_loss.backward()
-        state.gen_opt.step()
-        disc.requires_grad_(True)
-
-        # ---- discriminator phase (detached fake) -----------------------
-        if reuse_fake:
-            y_hat2 = y_hat.detach()
-        else:
-            with torch.no_grad():
-                y_hat2 = gen(x)  # the updated generator, train mode
-        logits_hat = disc(x, y_hat2).float()
-        logits_real = disc(x, y).float()
-        disc_loss = (bce_with_logits(logits_real, torch.ones_like(logits_real))
-                     + bce_with_logits(logits_hat, torch.zeros_like(logits_hat))) / 2.0
-        state.disc_opt.zero_grad(set_to_none=True)
-        disc_loss.backward()
-        state.disc_opt.step()
+            # ---- discriminator phase (detached fake) -------------------
+            if reuse_fake:
+                y_hat2 = apply_local(torch.Tensor.detach, y_hat)
+            else:
+                with torch.no_grad():
+                    y_hat2 = gen(x)  # the updated generator, train mode
+            logits_hat = disc(x, y_hat2)
+            logits_real = disc(x, y)
+            d = over_batch(disc_losses, logits_real, logits_hat, per_row=ddp_parity)
+            state.disc_opt.zero_grad(set_to_none=True)
+            d["loss"].backward()
+            state.disc_opt.step()
         state.step += 1
 
         metrics = {
-            "train_gen_loss": gen_loss.detach(),
-            "train_gen_loss_adversarial": adv.detach(),
-            "train_gen_loss_recon": recon.detach(),
-            "train_discr_loss": disc_loss.detach(),
+            "train_gen_loss": g["loss"].detach(),
+            "train_gen_loss_adversarial": g["adv"].detach(),
+            "train_gen_loss_recon": g["recon"].detach(),
+            "train_discr_loss": d["loss"].detach(),
         }
-        for name, val in terms.items():
-            metrics[f"train_gen_loss_recon_{name}"] = val.detach()
+        for name, val in g.items():
+            if name.startswith("term_"):
+                metrics[f"train_gen_loss_recon_{name[5:]}"] = val.detach()
         return metrics
 
     return step
@@ -105,25 +198,32 @@ def make_train_step(gen: nn.Module, disc: nn.Module, tcfg: TrainConfig,
 
 def make_eval_step(gen: nn.Module, disc: nn.Module, tcfg: TrainConfig,
                    perceptual_fn: Optional[PerceptualFn] = None,
+                   mesh: Optional[Mesh] = None,
                    with_metrics: bool = True, fid_fn: Optional[PerceptualFn] = None
-                   ) -> Callable[[GANTrainState, torch.Tensor, torch.Tensor],
+                   ) -> Callable[[GANTrainState, Batch, Batch],
                                  Tuple[Dict[str, torch.Tensor], torch.Tensor]]:
     """Validation step (reference ``validation_step``, ``src/model.py:283-289``):
     eval-mode generator loss and, with ``with_metrics``, PSNR/SSIM/L1 and
     the FID where ``fid_fn`` is given (``val_metric_{fid_fn.label}``, the
     reference's MedicalNet FID, ``src/model.py:158-163``; build one with
-    :func:`make_medicalnet_fid_fn`) → ``(metrics, y_hat)``."""
+    :func:`make_medicalnet_fid_fn`) → ``(metrics, y_hat)``. With a ``mesh``
+    G and D run on the shards and everything after them on the gathered
+    outputs (``y_hat`` whole, on the mesh's device)."""
+    check_training_mesh(mesh, gen, disc, what="make_eval_step")
 
-    def step(state: GANTrainState, x: torch.Tensor, y: torch.Tensor):
+    def step(state: GANTrainState, x: Batch, y: Batch):
         if state.gen is not gen or state.disc is not disc:
             raise ValueError("the state does not hold this step's models")
+        x, = shard_inputs(mesh, x)
         gen.eval()
         disc.eval()
         with torch.no_grad():
             y_hat = gen(x)
-            logits = disc(x, y_hat).float()
+            logits = disc(x, y_hat)
+            y_hat, logits, y = gather_whole(y_hat, logits, y)
+            logits = _acc(logits)
             adv = bce_with_logits(logits, torch.ones_like(logits))
-            y_hat32, y32 = y_hat.float(), y.float()
+            y_hat32, y32 = _acc(y_hat), _acc(y)
             recon, terms = _recon_loss(y_hat32, y32, tcfg, perceptual_fn)
             metrics = {
                 "val_loss": adv + recon,

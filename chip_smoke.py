@@ -217,6 +217,28 @@ Phases (any failure → nonzero exit, no ``ok`` line):
     multi-stage stage on (2, 2) at the thesis widths
     (``sharded_multistage_step``: K5-wgrad 0 in TRANSFER, whose backbone
     stays bit for bit), timed.
+17. The serving artifact and the public surface, on phase 12's tree and
+    phase 14's outputs. ``export_generator`` of the full-width generator
+    (seeded random weights) at (1, 96, 128, 128, 24) on the card, bf16 (the
+    default config) and f32, saved and loaded (seconds, MB); ``predict
+    --exported --scalar-maps`` of the bf16 artifact on subject 01's input
+    with the counts reset just before it (the ``predict_exported`` path: K8
+    once and nothing else, the artifact holding ATen ops only; 7 maps); its
+    prediction against ``predict_volume`` (whole volume, packed) of the same
+    weights: in f32 within 1e-3·max|ref|, in bf16 no further from the f32
+    output than 3× the packed bf16 output's distance + 2^-8; ms per volume
+    of each, bf16 and f32 (median of 5 rounds in turns after a warm-up).
+    ``bSSFPToDWITensorModel(...).init(SEED)`` takes 3 steps on resident 8 ×
+    64³ batches (``surface_gan_step``: each exactly ``TRAIN_STEP_LAUNCHES``),
+    its losses bit for bit ``make_train_step``'s on a state of the same seed
+    (cuDNN deterministic), then ms per step. ``MultiInputUNetModel``:
+    PRETRAIN step → TRANSFER to pc-bSSFP, step → FINE_TUNE, step
+    (``surface_multistage_{stage}_step``: each
+    ``MULTISTAGE_STAGE_LAUNCHES``; the backbone bit for bit over the
+    TRANSFER step; FINE_TUNE at ``finetune_lr``), each timed. Last the
+    plots CLI on phase 14's ``relative_errors`` table and
+    ``test_metrics.csv``, which must write its 11 files (where pandas or
+    matplotlib is not installed, a line says that it did not run).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the ``kernels`` JSON (``launches_by_path``: the serving
@@ -225,8 +247,10 @@ sharded block backward's, the two probe paths', one data-fed training
 step's, the training loop's, one remat step's, the evaluation from a
 checkpoint's, ``predict --checkpoint``'s, one perceptual step's, the
 multi-stage run's and each of its stages' one step's counts, and phase
-16's: the sharded steps', eval step's, fit's and supervised steps'; ``launches``:
-their sum); details go to ``perf_out/chip_smoke.json``.
+16's: the sharded steps', eval step's, fit's and supervised steps', and phase
+17's: ``predict --exported``'s, the GAN wrapper's 3 steps' and the
+multi-stage wrapper's steps'; ``launches``: their sum); details go to
+``perf_out/chip_smoke.json``.
 """
 
 from __future__ import annotations
@@ -2802,6 +2826,235 @@ def phase_sharded(torch, K, checks, pkg, tree: str, work: Path):
     return paths, out
 
 
+# Phase 17: the serving artifact and the public surface. The artifact is
+# frozen at the whole volume, batch 1; the wrapper GAN takes 3 steps; the
+# plots' files from the evaluation's table and test_metrics.csv.
+SURFACE_SHAPE = (1,) + VOLUME + (24,)
+SURFACE_GAN_STEPS = 3
+PLOT_FILES = ("test_psnr.pdf", "sample_stats.csv", "stats.pdf", "diag_tensor_errs.pdf",
+              "offdiag_tensor_errs.pdf", "fa_errs.pdf", "md_errs.pdf", "ad_errs.pdf",
+              "rd_errs.pdf", "azimuth_errs.pdf", "inclination_errs.pdf")
+
+
+def phase_surface(torch, K, checks, pkg, tree: str, work: Path, table_csv, log_dir):
+    """Phase 17: the serving artifact (``export_generator`` on the card,
+    ``predict --exported --scalar-maps``), the two wrappers' steps and the
+    plots CLI (see the docstring). ``table_csv`` None leaves the plots out.
+    Returns each path's launch counts and the records."""
+    import importlib.util
+
+    (Config, build_models, make_predict_fn, make_train_step, create_gan_state, weights,
+     predict_volume, nifti, export, predict_main, model, TrainingState) = pkg
+    cfg = Config()
+    probe, _ = build_models(MODALITY, cfg.model, "cuda")
+    sd = weights.random_state_dict(probe, SEED)
+    del probe
+    out, paths = {}, {}
+
+    # 1. the artifact, bf16 (the default config) and f32, exported on the
+    # card at the whole volume, saved and loaded
+    arts = {}
+    for dtype in ("bfloat16", "float32"):
+        mcfg = dataclasses.replace(cfg.model, compute_dtype=dtype)
+        t0 = time.perf_counter()
+        program, meta = export.export_generator(MODALITY, mcfg, sd, SURFACE_SHAPE,
+                                                device="cuda")
+        export_s = time.perf_counter() - t0
+        path = work / f"generator_{dtype}.ubt"
+        t0 = time.perf_counter()
+        export.save_exported(program, meta, str(path))
+        save_s = time.perf_counter() - t0
+        del program
+        t0 = time.perf_counter()
+        call, meta = export.load_exported(str(path), "cuda")
+        load_s = time.perf_counter() - t0
+        arts[dtype] = {"path": str(path), "call": call}
+        out[f"export_{dtype}"] = {"export_s": export_s, "save_s": save_s, "load_s": load_s,
+                                  "mb": os.path.getsize(path) / 1e6, "meta": meta}
+        print(f"export_generator {dtype} {list(SURFACE_SHAPE)} on the card: {export_s:.2f} s; "
+              f"save {save_s:.2f} s, {os.path.getsize(path) / 1e6:.1f} MB; load "
+              f"{load_s:.2f} s", flush=True)
+
+    # 2. predict --exported --scalar-maps on subject 01's input, the counts
+    # reset just before it: K8 once and no other kernel (the artifact holds
+    # ATen ops only)
+    pre = Path(tree) / "derivatives" / "preproc-dove" / "sub-01" / "ses-1" / "dwi"
+    inp = str(pre / "sub-01_ses-1_desc-normflatbet_bssfp.nii.gz")
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    pred_path = predict_main([inp, "--exported", arts["bfloat16"]["path"], "--device", "cuda",
+                              "--out-dir", str(work / "predict"), "--scalar-maps",
+                              "--rescale-args", RESCALE_ARGS])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    pcounts = K.launches()
+    paths["predict_exported"] = pcounts
+    pwant = dict(dict.fromkeys(pcounts, 0), scalar_maps=1)
+    maps = [f for f in os.listdir(work / "predict") if not f.endswith("_pred-dt.nii.gz")]
+    checks.record(pcounts == pwant and len(maps) == 7,
+                  dict(phase="predict_exported_launches", launches=pcounts, expected=pwant,
+                       map_files=len(maps), seconds=cli_s))
+
+    # the prediction against predict_volume (whole volume, packed) on the
+    # same volume: in f32 within serving's 1e-3·max|ref|; in bf16 no further
+    # from the f32 packed output than 3× the packed bf16 output's distance
+    # + 2^-8 (phase 5's rule)
+    data, _ = nifti.load_volume(inp)
+    vol = torch.from_numpy(data).to("cuda")
+    fns = {}
+    for dtype in ("bfloat16", "float32"):
+        gen, _ = build_models(MODALITY, dataclasses.replace(cfg.model, compute_dtype=dtype),
+                              "cuda", state_dict=sd)
+        fns[dtype] = make_predict_fn(gen)
+    ref = {d: predict_volume(f, vol, whole_volume=True).float() for d, f in fns.items()}
+    got_b = torch.from_numpy(nifti.load_volume(pred_path)[0]).to("cuda")
+    got_f = arts["float32"]["call"](vol[None])[0]
+    scale = float(ref["float32"].abs().max())
+    err = {"f32_exported_vs_packed": float((got_f - ref["float32"]).abs().max()) / scale,
+           "bf16_exported_vs_f32_packed": float((got_b - ref["float32"]).abs().max()) / scale,
+           "bf16_packed_vs_f32_packed": float((ref["bfloat16"] - ref["float32"]).abs().max())
+           / scale,
+           "bf16_exported_vs_bf16_packed": float((got_b - ref["bfloat16"]).abs().max())
+           / float(ref["bfloat16"].abs().max())}
+    bf16_tol = 3 * err["bf16_packed_vs_f32_packed"] + 2 ** -8
+    ok = (err["f32_exported_vs_packed"] <= 1e-3
+          and err["bf16_exported_vs_f32_packed"] <= bf16_tol
+          and tuple(got_b.shape) == VOLUME + (6,) and bool(torch.isfinite(got_b).all()))
+    out["agreement"] = dict(err, bf16_tol=bf16_tol, f32_tol=1e-3)
+    print(f"predict --exported vs predict_volume (whole, packed): {json.dumps(err)}; "
+          f"bf16 bound {bf16_tol:.3e}", flush=True)
+    checks.record(ok, dict(phase="predict_exported_vs_packed", **out["agreement"]))
+
+    # ms per volume, bf16 and f32: the artifact beside predict_volume (whole,
+    # packed), one warm-up each, then 5 rounds in turns
+    ways = {}
+    for dtype in ("bfloat16", "float32"):
+        call, fn = arts[dtype]["call"], fns[dtype]
+        ways[f"exported_{dtype}"] = lambda call=call: call(vol[None])
+        ways[f"packed_{dtype}"] = lambda fn=fn: predict_volume(fn, vol, whole_volume=True)
+    ts = {k: [] for k in ways}
+    for f in ways.values():
+        f()
+    torch.cuda.synchronize()
+    for _ in range(5):
+        for k, f in ways.items():
+            t0 = time.perf_counter()
+            f()
+            torch.cuda.synchronize()
+            ts[k].append((time.perf_counter() - t0) * 1e3)
+    out["ms_per_volume"] = {k: {"median": statistics.median(v), "all": v} for k, v in ts.items()}
+    print("ms/volume (whole volume, 5 rounds in turns): " + ", ".join(
+        f"{k} {statistics.median(v):.3f}" for k, v in ts.items()), flush=True)
+    del arts, fns, ref, got_b, got_f, ways
+    torch.cuda.empty_cache()
+
+    # 3. bSSFPToDWITensorModel on the card: 3 steps, each launching exactly
+    # TRAIN_STEP_LAUNCHES, its losses bit for bit make_train_step's on a
+    # state drawn from the same seed (cuDNN deterministic); then ms per step
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    batches = [(torch.rand((TRAIN_BATCH,) + (TRAIN_PATCH,) * 3 + (24,), device="cuda",
+                           generator=g),
+                torch.rand((TRAIN_BATCH,) + (TRAIN_PATCH,) * 3 + (6,), device="cuda",
+                           generator=g)) for _ in range(SURFACE_GAN_STEPS)]
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        wrapper = model.bSSFPToDWITensorModel(MODALITY, config=cfg)
+        wrapper.init(SEED)
+        twin = create_gan_state(SEED, MODALITY, cfg.model, cfg.train, "cuda")
+        twin_step = make_train_step(twin.gen, twin.disc, cfg.train)
+        step_counts, same, losses = [], [], []
+        for x, y in batches:
+            torch.cuda.synchronize()
+            K.reset_launches()
+            m = wrapper.train_step(wrapper.state, x, y)
+            torch.cuda.synchronize()
+            step_counts.append(K.launches())
+            r = twin_step(twin, x, y)
+            losses.append({k: float(v) for k, v in m.items()})
+            same.append(m.keys() == r.keys() and all(float(m[k]) == float(r[k]) for k in m))
+    finally:
+        torch.backends.cudnn.deterministic = det
+    paths["surface_gan_step"] = {k: sum(c[k] for c in step_counts) for k in step_counts[0]}
+    exact = all(c == TRAIN_STEP_LAUNCHES for c in step_counts)
+    ts, peak, metrics = time_steps(torch, wrapper.train_step, wrapper.state, *batches[0])
+    finite = all(math.isfinite(v) for mm in metrics + losses for v in mm.values())
+    out["gan_wrapper"] = {"ms_per_step_median": statistics.median(ts), "ms_all": ts,
+                          "peak_mib": peak, "losses": losses, "bit_equal": same}
+    print(f"bSSFPToDWITensorModel: {SURFACE_GAN_STEPS} steps, launches exact {exact}, losses "
+          f"bit-equal to make_train_step's {same}; {statistics.median(ts):.3f} ms/step median "
+          f"(bf16, 8 × 64³), peak {peak:.0f} MiB", flush=True)
+    checks.record(exact and all(same) and finite,
+                  dict(phase="surface_gan_step", launches=step_counts[0],
+                       expected=TRAIN_STEP_LAUNCHES, bit_equal=same, finite=finite))
+    del wrapper, twin, twin_step, batches
+    torch.cuda.empty_cache()
+
+    # 4. MultiInputUNetModel on the card: PRETRAIN step → TRANSFER to
+    # pc-bSSFP, step → FINE_TUNE, step; each step's launches the supervised
+    # step's, the backbone bit for bit over the TRANSFER step; ms per step
+    mw = model.MultiInputUNetModel(config=cfg)
+    y = torch.rand((TRAIN_BATCH,) + (TRAIN_PATCH,) * 3 + (6,), device="cuda", generator=g)
+    stage_rows = {}
+    for stage in (TrainingState.PRETRAIN, TrainingState.TRANSFER, TrainingState.FINE_TUNE):
+        if stage != TrainingState.PRETRAIN:
+            mw.change_training_state(stage, MODALITY)
+        cin = 6 if stage == TrainingState.PRETRAIN else 24
+        x = torch.rand((TRAIN_BATCH,) + (TRAIN_PATCH,) * 3 + (cin,), device="cuda",
+                       generator=g)
+        before = {k: v.clone() for k, v in mw.params.items() if k.startswith("unet.")}
+        torch.cuda.synchronize()
+        K.reset_launches()
+        m = mw.step(x, y)
+        torch.cuda.synchronize()
+        counts = K.launches()
+        paths[f"surface_multistage_{stage.value}_step"] = counts
+        frozen = all(torch.equal(v, before[k]) for k, v in mw.params.items()
+                     if k.startswith("unet."))
+        want = MULTISTAGE_STAGE_LAUNCHES[stage.value]
+        lr = [grp["lr"] for grp in mw.sup_state.opt.param_groups]
+        ts, peak, metrics = time_steps(torch, mw.train_step, mw.sup_state, x, y,
+                                       warmup=1, timed=3)
+        finite = all(math.isfinite(v) for mm in metrics + [{k: float(v) for k, v in m.items()}]
+                     for v in mm.values())
+        stage_rows[stage.value] = {"ms_per_step_median": statistics.median(ts), "ms_all": ts,
+                                   "peak_mib": peak, "lr": lr}
+        print(f"MultiInputUNetModel {stage.value} ({mw.modality}): launches "
+              f"{json.dumps(counts)}; backbone unchanged {frozen}; lr {lr}; "
+              f"{statistics.median(ts):.3f} ms/step", flush=True)
+        want_lr = [cfg.train.finetune_lr if stage == TrainingState.FINE_TUNE else cfg.train.lr]
+        checks.record(counts == want and frozen == (stage == TrainingState.TRANSFER)
+                      and finite and lr == want_lr,
+                      dict(phase="surface_multistage_step", stage=stage.value, launches=counts,
+                           expected=want, backbone_unchanged=frozen, lr=lr))
+        del before, x
+    out["multistage_wrapper"] = stage_rows
+    del mw, y
+    torch.cuda.empty_cache()
+
+    # 5. the plots CLI on the evaluation's table and test_metrics.csv (host
+    # work on pandas and matplotlib)
+    if table_csv is None:
+        print("plot_metrics_errors: no evaluation table in this run; not run", flush=True)
+    elif not all(importlib.util.find_spec(m) for m in ("pandas", "matplotlib")):
+        out["plots"] = "not run: pandas or matplotlib is not installed on this machine"
+        print(f"plot_metrics_errors: {out['plots']}", flush=True)
+    else:
+        from unet_bssfp_tpu_torch.plot_metrics_errors import main as plots_main
+
+        t0 = time.perf_counter()
+        plots_main([str(table_csv), "--log-dirs", str(log_dir), "--out-dir",
+                    str(work / "plots")])
+        plots_s = time.perf_counter() - t0
+        files = sorted(os.listdir(work / "plots"))
+        out["plots"] = {"seconds": plots_s, "files": files}
+        print(f"plot_metrics_errors: {plots_s:.2f} s, {len(files)} files", flush=True)
+        checks.record(set(PLOT_FILES) <= set(files),
+                      dict(phase="surface_plots", files=files, expected=sorted(PLOT_FILES)))
+    return paths, out
+
+
 # K1, K1's dgrad, K5 and K5's dgrad: the wgmma conv kernel in bf16 (the
 # rows of the summary line); the mma.sync loop it replaced stays as the
 # check-only conv3x3_packed_mma (and under K7a's routed shapes). K2 and K5's wgrad:
@@ -2925,13 +3178,13 @@ def main() -> int:
         return 2
     import torch.nn.functional as F
 
-    from unet_bssfp_tpu_torch import native, weights
+    from unet_bssfp_tpu_torch import model, native, weights
     from unet_bssfp_tpu_torch.config import Config
     from unet_bssfp_tpu_torch.data import augment, nifti
     from unet_bssfp_tpu_torch.data.datamodule import DoveDataModule, sample_generator
     from unet_bssfp_tpu_torch.data.sampler import extract_patches, uniform_patch_starts
     from unet_bssfp_tpu_torch.data.synthetic import make_synthetic_bids
-    from unet_bssfp_tpu_torch.eval import evaluate
+    from unet_bssfp_tpu_torch.eval import evaluate, export
     from unet_bssfp_tpu_torch.eval.inference import predict_volume
     from unet_bssfp_tpu_torch.models.multi_input_unet import TrainingState
     from unet_bssfp_tpu_torch.models.packed_layers import PackedTwoConv
@@ -2993,6 +3246,7 @@ def main() -> int:
     loop_work = Path("perf_out") / "loop_smoke"
     ms_work = Path("perf_out") / "multistage_smoke"
     sharded_work = Path("perf_out") / "sharded_smoke"
+    surface_work = Path("perf_out") / "surface_smoke"
     try:
         synth_s = make_tree(make_synthetic_bids, tree)
         print(f"synthetic tree ({len(DATA_SUBJECTS)} subjects at {VOLUME}, {nifti.codec()} "
@@ -3041,11 +3295,25 @@ def main() -> int:
              (make_mesh, shard_batch, gather_batch), Trainer, DoveDataModule, checkpoint,
              multistage, TrainingState), str(tree), sharded_work)
         print(f"sharded training done at {time.perf_counter() - t_start:.1f}s", flush=True)
+        shutil.rmtree(surface_work, ignore_errors=True)
+        surface_work.mkdir(parents=True)
+        t_phase = time.perf_counter()
+        surface_counts, surface_out = phase_surface(
+            torch, K, checks,
+            (Config, build_models, make_predict_fn, make_train_step, create_gan_state, weights,
+             predict_volume, nifti, export, predict_main, model, TrainingState), str(tree),
+            surface_work, loop_work / "relative_errors_checkpoint.csv",
+            loop_work / "eval_checkpoint")
+        surface_out["phase_s"] = time.perf_counter() - t_phase
+        print(f"serving artifact and public surface done at "
+              f"{time.perf_counter() - t_start:.1f}s (phase {surface_out['phase_s']:.1f}s)",
+              flush=True)
     finally:
         shutil.rmtree(tree, ignore_errors=True)
         shutil.rmtree(loop_work, ignore_errors=True)
         shutil.rmtree(ms_work, ignore_errors=True)
         shutil.rmtree(sharded_work, ignore_errors=True)
+        shutil.rmtree(surface_work, ignore_errors=True)
     elapsed = time.perf_counter() - t_start
 
     kernels = summary(checks.rows, {"serving": counts, "train_step": train_counts,
@@ -3061,7 +3329,7 @@ def main() -> int:
                                     "multistage_run": ms_counts,
                                     **{f"multistage_{s}_step": c
                                        for s, c in ms_step_counts.items()},
-                                    **sharded_counts})
+                                    **sharded_counts, **surface_counts})
     unlaunched = [k["name"] for k in kernels if k["launches"] == 0]
     checks.record(not unlaunched, dict(phase="every_kernel_launched_on_a_path",
                                        unlaunched=unlaunched))
@@ -3087,6 +3355,7 @@ def main() -> int:
                    "multistage_run_launches": ms_counts,
                    "multistage_step_launches": ms_step_counts, "multistage": ms_out,
                    "sharded_launches": sharded_counts, "sharded": sharded_out,
+                   "surface_launches": surface_counts, "surface": surface_out,
                    "kernels": kernels, "elapsed_s": elapsed}, f, indent=1)
     if checks.failures:
         print(f"chip_smoke: {len(checks.failures)} check(s) failed:", file=sys.stderr)

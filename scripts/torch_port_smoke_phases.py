@@ -3,10 +3,12 @@
 build, then the training data path (phase 12), the training loop (phase
 13), the evaluation from its best checkpoint (phase 14, which needs
 phase 13), the multi-stage regime (phase 15) and the sharded training step
-(phase 16), on the smoke's 4-subject tree at (96, 128, 128).
+(phase 16) and the serving artifact with the public surface (phase 17,
+without its plots, which read phase 14's table), on the smoke's 4-subject
+tree at (96, 128, 128).
 
   python scripts/torch_port_smoke_phases.py [--root DIR]
-      [--phases data loop checkpoint multistage sharded]
+      [--phases data loop checkpoint multistage sharded surface]
       [--tree perf_out/smoke_tree_phases]
 
 ``--root`` is the checkout whose ``chip_smoke.py`` and package run
@@ -17,7 +19,9 @@ after. Prints each phase's check rows as the smoke does and one summary
 line: the data-fed step's and loop iteration's medians (phase 12), the
 loop's numbers (phase 13), the evaluation's (phase 14), the multi-stage
 run's and steps' (phase 15), each mesh's step ms and peak MiB beside the
-unsharded step's (phase 16). Needs a card.
+unsharded step's (phase 16), the export's seconds, the ms per volume of the
+artifact and of ``predict_volume`` and the wrappers' ms per step (phase
+17). Needs a card.
 """
 
 from __future__ import annotations
@@ -36,8 +40,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--phases", nargs="+",
-                    choices=("data", "loop", "checkpoint", "multistage", "sharded"),
-                    default=["data", "loop", "checkpoint", "multistage", "sharded"])
+                    choices=("data", "loop", "checkpoint", "multistage", "sharded", "surface"),
+                    default=["data", "loop", "checkpoint", "multistage", "sharded", "surface"])
     ap.add_argument("--tree", default="perf_out/smoke_tree_phases")
     args = ap.parse_args()
     root = Path(args.root).resolve()
@@ -167,6 +171,34 @@ def main() -> int:
                 "fit_s": out["fit"]["seconds"],
                 "multistage_ms": {k: v["ms_per_step_median"]
                                   for k, v in out["multistage"].items()},
+                "phase_s": time.perf_counter() - t0}
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+    if "surface" in args.phases:
+        from unet_bssfp_tpu_torch import model, weights
+        from unet_bssfp_tpu_torch.eval import export
+        from unet_bssfp_tpu_torch.eval.inference import predict_volume
+        from unet_bssfp_tpu_torch.models.multi_input_unet import TrainingState
+        from unet_bssfp_tpu_torch.predict import main as predict_main
+        from unet_bssfp_tpu_torch.train.state import build_models
+        from unet_bssfp_tpu_torch.train.steps import make_predict_fn
+
+        work = tree.parent / "surface_smoke_phases"
+        shutil.rmtree(work, ignore_errors=True)
+        work.mkdir(parents=True)
+        try:
+            t0 = time.perf_counter()
+            _, out = sm.phase_surface(
+                torch, K, checks,
+                (Config, build_models, make_predict_fn, make_train_step, create_gan_state,
+                 weights, predict_volume, nifti, export, predict_main, model, TrainingState),
+                str(tree), work, None, None)
+            summary["surface"] = {
+                "export_s": {d: out[f"export_{d}"]["export_s"] for d in ("bfloat16", "float32")},
+                "ms_per_volume": {k: v["median"] for k, v in out["ms_per_volume"].items()},
+                "gan_wrapper_ms": out["gan_wrapper"]["ms_per_step_median"],
+                "multistage_wrapper_ms": {k: v["ms_per_step_median"]
+                                          for k, v in out["multistage_wrapper"].items()},
                 "phase_s": time.perf_counter() - t0}
         finally:
             shutil.rmtree(work, ignore_errors=True)

@@ -1517,3 +1517,102 @@ def test_gpu_sharded_train_step_on_2x2_launches_exactly_and_matches_unsharded(cu
             assert float((got_g[name] - r).abs().max()) <= 1e-4 * scale, name
         else:
             assert float((got_g[name] - r).norm() / r.norm()) <= 5e-2, name
+
+
+# The serving artifact and the public surface (slice 16).
+
+@pytest.mark.gpu
+def test_gpu_exported_artifact_matches_the_packed_generator(cuda, tmp_path):
+    """An artifact of the full-width generator exported on the card (f32,
+    whole 32³ volume) against the packed generator's ``predict_volume`` on
+    the same weights, within serving's 1e-3·max|ref|; calling it launches no
+    hand-written kernel (ATen ops only)."""
+    import dataclasses
+
+    from unet_bssfp_tpu_torch import weights
+    from unet_bssfp_tpu_torch.config import Config
+    from unet_bssfp_tpu_torch.eval import export
+    from unet_bssfp_tpu_torch.eval.inference import predict_volume
+    from unet_bssfp_tpu_torch.train.state import build_models
+    from unet_bssfp_tpu_torch.train.steps import make_predict_fn
+
+    mcfg = dataclasses.replace(Config().model, compute_dtype="float32")
+    gen, _ = build_models("pc-bssfp", mcfg, cuda)
+    assert gen.unet.packed
+    gen.load_state_dict(weights.random_state_dict(gen, 0))
+    program, meta = export.export_generator("pc-bssfp", mcfg, gen.state_dict(),
+                                            (1, 32, 32, 32, 24))
+    assert meta["device"] == "cuda"
+    path = str(tmp_path / "g.ubt")
+    export.save_exported(program, meta, path)
+    call, _ = export.load_exported(path)
+    vol = torch.randn(32, 32, 32, 24, device=cuda, generator=torch.Generator(
+        device="cuda").manual_seed(1))
+    ref = predict_volume(make_predict_fn(gen), vol, whole_volume=True).float()
+    K.reset_launches()
+    got = call(vol[None])[0]
+    torch.cuda.synchronize()
+    assert not any(K.launches().values())
+    assert got.is_cuda and got.dtype == torch.float32 and got.shape == ref.shape
+    assert float((got - ref).abs().max()) <= 1e-3 * float(ref.abs().max())
+
+
+@pytest.mark.gpu
+def test_gpu_an_artifact_exported_on_the_cpu_does_not_run_on_the_card(cuda, tmp_path):
+    """A program traced on the CPU asserts the CPU in its graph: moved to
+    the card with ``.to("cuda")`` it raises on a card input, so
+    ``load_exported`` refuses a CPU artifact for the card (and says to
+    re-export on the serving device)."""
+    import io
+
+    from unet_bssfp_tpu_torch.config import ModelConfig
+    from unet_bssfp_tpu_torch.eval import export
+
+    mcfg = ModelConfig(features=(8, 8, 16, 16, 32, 8), compute_dtype="float32")
+    program, meta = export.export_generator("pc-bssfp", mcfg, None, (1, 16, 16, 16, 24),
+                                            device="cpu")
+    path = str(tmp_path / "cpu.ubt")
+    export.save_exported(program, meta, path)
+    with pytest.raises(ValueError, match="re-export on the serving device"):
+        export.load_exported(path, "cuda")
+    moved = torch.export.load(io.BytesIO(export.read_exported(path)[1])).module().to(cuda)
+    with pytest.raises(Exception):
+        with torch.inference_mode():
+            moved(torch.zeros(1, 16, 16, 16, 24, device=cuda))
+
+
+@pytest.mark.gpu
+def test_gpu_gan_wrapper_step_launches_and_losses_as_make_train_step(cuda):
+    """``bSSFPToDWITensorModel`` on the card (its default device): a step
+    launches what ``make_train_step`` launches (K1 8, K1-dgrad 4, K2 4, K3a
+    5, K3b 4) and its losses are bit for bit those of ``make_train_step`` on
+    a state drawn from the same seed (cuDNN deterministic)."""
+    from unet_bssfp_tpu_torch.model import bSSFPToDWITensorModel
+    from unet_bssfp_tpu_torch.train.state import create_gan_state
+    from unet_bssfp_tpu_torch.train.steps import make_train_step
+
+    cfg = _loop_config(Path("."))
+    g = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.rand(4, 32, 32, 32, 24, device=cuda, generator=g)
+    y = torch.rand(4, 32, 32, 32, 6, device=cuda, generator=g)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        wrapper = bSSFPToDWITensorModel("pc-bssfp", config=cfg, with_perceptual=False)
+        wrapper.init(0)
+        assert wrapper.device.type == "cuda" and wrapper.gen.unet.packed
+        K.reset_launches()
+        got = wrapper.train_step(wrapper.state, x, y)
+        torch.cuda.synchronize()
+        counts = K.launches()
+        twin = create_gan_state(0, "pc-bssfp", cfg.model, wrapper.config.train, cuda)
+        K.reset_launches()
+        ref = make_train_step(twin.gen, twin.disc, wrapper.config.train)(twin, x, y)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = det
+    assert counts == K.launches()
+    assert {k: v for k, v in counts.items() if v} == {
+        "conv3x3_packed": 8, "conv3x3_packed_dgrad": 4, "conv3x3_wgrad": 4, "pack_hw": 5,
+        "unpack_hw": 4}
+    assert {k: float(v) for k, v in got.items()} == {k: float(v) for k, v in ref.items()}

@@ -9,6 +9,7 @@ from unet_bssfp_tpu_torch.eval.evaluate import (
     eval_model,
     gen_predictions,
     invert_dwi_tensor_norm_files,
+    run_concurrently,
 )
 from unet_bssfp_tpu_torch.eval.inference import predict_volume, run_test
 
@@ -22,4 +23,5 @@ __all__ = [
     "calc_diff_maps",
     "calc_error_table",
     "invert_dwi_tensor_norm_files",
+    "run_concurrently",
 ]

@@ -66,6 +66,14 @@ _NAME_RE = re.compile(
 )
 
 
+def run_concurrently(func, arglist, n_concurrent: int = 8) -> list:
+    """``[func(a) for a in arglist]`` over ``n_concurrent`` host threads, in
+    order (reference ``run_concurrently``, ``src/eval.py:23-36``, a process
+    pool there): the per-voxel math runs on the device, the host work is
+    I/O."""
+    return parallel_map(func, arglist, num_workers=n_concurrent)
+
+
 def parse_pred_name(path: str) -> Optional[Dict[str, str]]:
     m = _NAME_RE.search(os.path.basename(path))
     if not m:

@@ -3,7 +3,7 @@ regime."""
 
 from unet_bssfp_tpu_torch.train.state import GANTrainState, create_gan_state
 from unet_bssfp_tpu_torch.train.steps import make_eval_step, make_predict_fn, make_train_step
-from unet_bssfp_tpu_torch.train.loop import Trainer, train_model
+from unet_bssfp_tpu_torch.train.loop import Trainer, build_trainer_args, train_model
 from unet_bssfp_tpu_torch.train.multistage import (
     SupervisedState,
     build_multi_input_unet,
@@ -23,6 +23,7 @@ __all__ = [
     "make_predict_fn",
     "train_model",
     "Trainer",
+    "build_trainer_args",
     "SupervisedState",
     "build_multi_input_unet",
     "create_supervised_state",

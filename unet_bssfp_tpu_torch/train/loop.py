@@ -236,6 +236,13 @@ class Trainer:
         return state, self.ckpt.best_path()
 
 
+def build_trainer_args(debug: bool, modality: str, config: Optional[Config] = None) -> dict:
+    """The keyword set :class:`Trainer` takes (reference
+    ``build_trainer_args``, ``src/train.py:15-43``): ``config`` (default
+    ``Config()``), ``modality`` and ``debug``."""
+    return {"config": config or Config(), "modality": modality, "debug": debug}
+
+
 def train_model(data, modality: str, ckpt_path: Optional[str] = None, debug: bool = False,
                 config: Optional[Config] = None, max_epochs: Optional[int] = None,
                 device=None) -> Optional[str]:

@@ -62,10 +62,11 @@ Phases (any failure → nonzero exit, no ``ok`` line):
    patch-stitched) predicts each subject's DT; ``eval_dwi_tensors`` (with
    ``constants/rescale_args_dwi.txt``) and ``calc_error_table`` run on the
    card with the launch counts reset before them (K8: 2 subjects × pred and
-   target), then once more with one worker and the NIfTI I/O timed (its
-   share of the chain recorded beside the codec in use), and on
-   the CPU (plain versions); every file of the card's chain and its table
-   against the CPU's, at the maps' bound carried through the chain.
+   target), then once more on subject 01's pair with one worker and the
+   NIfTI I/O timed (its share of the chain recorded beside the codec in
+   use), and on the CPU (plain versions); every file of the card's chain
+   and its table against the CPU's, at the maps' bound carried through the
+   chain.
 8. ``predict --scalar-maps --rescale-args`` once on the card: 1 K8 launch,
    7 map files, held against the plain maps of the written prediction.
 9. Halo kernels (with phase 4): K5 (``conv3x3_packed_halo``), its input
@@ -239,22 +240,50 @@ Phases (any failure → nonzero exit, no ``ok`` line):
     plots CLI on phase 14's ``relative_errors`` table and
     ``test_metrics.csv``, which must write its 11 files (where pandas or
     matplotlib is not installed, a line says that it did not run).
+18. The wguard layout (``UNET_BSSFP_WGUARD=1``, set for this phase alone
+    and put back after it, also on a failure): 2 zero guard columns a
+    w-row at 64² (row width 66) and at 128² (130). First K1W (the wgmma
+    kernel's flattened-lanes map) and its dgrad at every guarded shape of
+    the paths below: the GAN step's 24/32/96 → 32 and their dgrads, the
+    multi-stage step's 24 → 48, 48 → 48, 144 → 24 (N 24), 24 → 24 and their
+    dgrads (24 → 144 on two N-72 tiles) at width 66, whole-volume serving's
+    24/32/96 → 32 at width 130; then K2W, the guarded weight gradient as K2
+    on the guard-stripped operands, at 24/32/96 → 32, beside the
+    ``mma.sync`` loop it replaces at 96 → 32. Each under K1's or K2's bound
+    against its plain version, rerun bit for bit, timed beside its bound,
+    the library call and the unguarded kernel on the unguarded tensor. Then
+    with the counts reset before each: ``predict_volume`` of the (96, 128,
+    128, 24) volume patch-stitched and whole (``wguard_serving_patch``,
+    ``_whole``: K1 4, K3a 2, K3b 1), f32 within 1e-3·max|ref| of
+    PyTorch/cuDNN, bf16 no further from f32 than 3× the unguarded bf16 +
+    2^-8, ms per volume (median of 5 in turns with the variable unset); a
+    GAN step (``wguard_train_step``: ``TRAIN_STEP_LAUNCHES``) and a FINE_TUNE
+    step at the thesis widths (``wguard_finetune_step``), each with its ms
+    and peak MiB (median of 5 after 2) beside the unguarded step; phase 5's
+    f32 backward check, guarded; one GAN step on (1, 2), dropout 0
+    (``wguard_sharded_step``: ``sharded_launches``; in f32 phase 16's
+    bounds against the unguarded unsharded step). No path sends a conv or a
+    weight gradient to an ``mma.sync`` loop.
 
-The last line of standard output is ``{"ok": true, "device": {...}}``; the
-line before it is the ``kernels`` JSON (``launches_by_path``: the serving
-run's, one training step's, the eval chain's, the mesh serving run's, the
-sharded block backward's, the two probe paths', one data-fed training
-step's, the training loop's, one remat step's, the evaluation from a
-checkpoint's, ``predict --checkpoint``'s, one perceptual step's, the
-multi-stage run's and each of its stages' one step's counts, and phase
-16's: the sharded steps', eval step's, fit's and supervised steps', and phase
-17's: ``predict --exported``'s, the GAN wrapper's 3 steps' and the
-multi-stage wrapper's steps'; ``launches``: their sum); details go to
-``perf_out/chip_smoke.json``.
+Each phase's seconds go to a line of their own, ``{"phase": "seconds",
+"name": ..., "s": ...}``, as it ends, and their sum to one more before the
+``kernels`` line. The last line of standard output is ``{"ok": true,
+"device": {...}}``; the line before it is the ``kernels`` JSON
+(``launches_by_path``: the serving run's, one training step's, the eval
+chain's, the mesh serving run's, the sharded block backward's, the two
+probe paths', one data-fed training step's, the training loop's, one remat
+step's, the evaluation from a checkpoint's, ``predict --checkpoint``'s, one
+perceptual step's, the multi-stage run's and each of its stages' one step's
+counts, and phase 16's: the sharded steps', eval step's, fit's and
+supervised steps', phase 17's: ``predict --exported``'s, the GAN wrapper's 3
+steps' and the multi-stage wrapper's steps', and phase 18's: the guarded
+serving runs', GAN step's, FINE_TUNE step's and (1, 2) step's;
+``launches``: their sum); details go to ``perf_out/chip_smoke.json``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import csv
 import dataclasses
 import json
@@ -431,6 +460,22 @@ class Checks:
             self.failures.append(row)
 
 
+class PhaseClock:
+    """Each phase's seconds: ``lap(name)`` prints the seconds since the last
+    lap (or the start) as ``{"phase": "seconds", "name": ..., "s": ...}`` on
+    a line of its own and keeps them."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+        self.laps = {}
+
+    def lap(self, name: str) -> None:
+        now = time.perf_counter()
+        self.laps[name] = now - self.t
+        self.t = now
+        print(json.dumps({"phase": "seconds", "name": name, "s": self.laps[name]}), flush=True)
+
+
 def phase_build(torch, K, _build, native):
     t0 = time.perf_counter()
     shutil.rmtree(_build.BUILD_DIR, ignore_errors=True)
@@ -459,7 +504,9 @@ def check_conv(torch, F, K, checks, b, d, h, w, cin, cout, dtype, halo=False, fo
     ``conv3x3_packed_mma``; f32: K1's (K5's) FMA kernel). ``wguard``: K1W,
     ``w`` then the row width with its guard columns (zero in the input).
     ``mma``: the check-only entry point ``conv3x3_packed_mma`` itself.
-    ``rerun``: a second launch must be bit for bit the first."""
+    ``rerun``: a second launch must be bit for bit the first. With
+    ``wguard`` the library call and K1 beside it (``unguarded_ms``) take the
+    same volume without its guard columns."""
     dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(cin * 1000 + d)
     xk = torch.randn(b, d + 2 * halo, cin, h * w, device="cuda", generator=g).to(dt)
@@ -506,7 +553,9 @@ def check_conv(torch, F, K, checks, b, d, h, w, cin, cout, dtype, halo=False, fo
     rtol = 1e-5 if dtype == "float32" else 2 ** -7
     atol = 1e-4 * scale
     ok = bool((err <= atol + rtol * ref.abs()).all()) and all(extra.values())
-    xn = xk.reshape(b, d + 2 * halo, cin, h, w).permute(0, 2, 1, 3, 4)
+    wd = w - wguard
+    xu = K.strip_guards(xk, w, wguard)
+    xn = xu.reshape(b, d + 2 * halo, cin, h, wd).permute(0, 2, 1, 3, 4)
     wl = wt.to(dt).permute(4, 3, 0, 1, 2).contiguous()
     bl = bias.to(dt)
     pad = (0, 1, 1) if halo else 1
@@ -514,14 +563,20 @@ def check_conv(torch, F, K, checks, b, d, h, w, cin, cout, dtype, halo=False, fo
     ms = time_ms(torch, lambda: kern(xin, wt, bias, dim, *args), iters)
     plain_ms = time_ms(torch, lambda: plain(xin, wt, bias, dim, *args), iters)
     lib_ms = time_ms(torch, lambda: F.conv3d(xn, wl, bl, padding=pad), iters)
+    info = {}
+    if wguard:
+        info["unguarded_ms"] = time_ms(torch, lambda: kern(xu, wt, bias, wd), iters)
+        info["lanes_map"] = K.conv_plan(xk, cout, w, -2 * halo, wguard).lanes_map
     nbytes = (xk.numel() * xk.element_size() + wt.numel() * 4 + cout * 4
               + b * d * cout * h * w * xk.element_size())
-    bms, by = bound(nbytes, 2 * 27 * cin * cout * b * d * h * w, dtype)
+    # the bytes at the guarded width (the layout moves the guard columns),
+    # the products at the data width (a guard output is 0 by definition)
+    bms, by = bound(nbytes, 2 * 27 * cin * cout * b * d * h * wd, dtype)
     checks.record(ok, dict(
         kernel=kern.__name__, shape=list(xin.shape), cout=cout,
         dtype=dtype, max_abs_err=float(err.max()), ref_max_abs=scale,
         rtol=rtol, atol=atol, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-        bound_by=by, library_ms=lib_ms, **extra))
+        bound_by=by, library_ms=lib_ms, **extra, **info))
 
 
 def pfold_route(K, xf, cout, w4, dt, what):
@@ -670,26 +725,30 @@ def check_wgrad(torch, K, checks, b, d, h, w, cin, cout, dtype, halo=False, fold
 
 
 def check_dgrad(torch, K, checks, b, d, h, w, cin, cout, dtype, halo=False, fold=False,
-                rerun=False):
+                rerun=False, wguard=0):
     """K1's dgrad launch for the forward conv cin → cout: dy (cout) → dx
     (cin); with ``halo`` K5's: dy of d slices → dxp of d + 2; with ``fold``
     K7a's on the same dy folded, and bit for bit the dgrad of the kernel its
     shape routes to (bf16: K1's (K5's) wgmma dgrad where the fold plan takes
     it, else ``conv3x3_packed_mma`` on the flipped weights; f32: K1's (K5's)
-    FMA kernel). ``rerun``: a second launch must be bit for bit the first."""
+    FMA kernel). ``rerun``: a second launch must be bit for bit the first.
+    ``wguard``: K1W's dgrad, ``w`` the row width with its guard columns
+    (zero in dy, as the conv's backward leaves them), the library call and
+    K1's dgrad beside it (``unguarded_ms``) on dy without them."""
     dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(cin * 11 + d)
     dy = torch.randn(b, d, cout, h * w, device="cuda", generator=g).to(dt)
+    dy = K.guard_mask(dy, w, wguard).contiguous()
     wt = torch.randn(3, 3, 3, cin, cout, device="cuda", generator=g) / (27 * cout) ** 0.5
     wflip = wt.flip(0, 1, 2).transpose(3, 4)
     zero = torch.zeros(cin, device="cuda")
-    dyin, dim, extra = dy, w, {}
+    dyin, dim, extra, args = dy, w, {}, ((wguard,) if wguard else ())
     if halo:
         kern = K.conv3x3_packed_halo_dgrad
-        plain = lambda: K.conv3x3_packed_halo_dgrad_plain(dy, wt, w)  # noqa: E731
+        plain = lambda: K.conv3x3_packed_halo_dgrad_plain(dy, wt, w, wguard)  # noqa: E731
     else:
         kern = K.conv3x3_packed_dgrad
-        plain = lambda: K.conv3x3_packed_plain(dy, wflip, zero, w)  # noqa: E731
+        plain = lambda: K.conv3x3_packed_plain(dy, wflip, zero, w, wguard)  # noqa: E731
     if fold:
         from unet_bssfp_tpu_torch.ops.kernels.pfold import _to_folded
         dyin, dim = _to_folded(dy, w), w // 4
@@ -699,14 +758,14 @@ def check_dgrad(torch, K, checks, b, d, h, w, cin, cout, dtype, halo=False, fold
         kern = K.conv3x3_pfold_halo_dgrad if halo else K.conv3x3_pfold_dgrad
         pfn = K.conv3x3_pfold_halo_dgrad_plain if halo else K.conv3x3_pfold_dgrad_plain
         plain = lambda: pfn(dyin, wt, dim)  # noqa: E731
-    got = kern(dyin, wt, dim)
+    got = kern(dyin, wt, dim, *args)
     if fold:
         extra = {"route": route,
                  "bit_equal_to_packed_kernel": bool(torch.equal(got, _to_folded(packed, w))),
                  "bit_identical_rerun": bool(torch.equal(got, kern(dyin, wt, dim)))}
         del packed
     if rerun:
-        extra["bit_identical_rerun"] = bool(torch.equal(got, kern(dyin, wt, dim)))
+        extra["bit_identical_rerun"] = bool(torch.equal(got, kern(dyin, wt, dim, *args)))
     got = got.float()
     ref = plain().float()
     err = (got - ref).abs()
@@ -718,23 +777,30 @@ def check_dgrad(torch, K, checks, b, d, h, w, cin, cout, dtype, halo=False, fold
     ok = bool((err <= atol + rtol * ref.abs()).all()) and all(extra.values())
     f = 4 if fold else 1
     ok = ok and tuple(got.shape) == (b, d + 2 * halo, f * cin, h * w // f)
-    dyn = dy.reshape(b, d, cout, h, w).permute(0, 2, 1, 3, 4).contiguous()
-    xn = torch.empty(b, cin, d + 2 * halo, h, w, device="cuda", dtype=dt)
+    wd = w - wguard
+    dyu = K.strip_guards(dy, w, wguard)
+    dyn = dyu.reshape(b, d, cout, h, wd).permute(0, 2, 1, 3, 4).contiguous()
+    xn = torch.empty(b, cin, d + 2 * halo, h, wd, device="cuda", dtype=dt)
     wn = wt.to(dt).permute(4, 3, 0, 1, 2).contiguous()
     iters = 5
     lib = lambda: torch.ops.aten.convolution_backward(  # noqa: E731
         dyn, xn, wn, None, [1, 1, 1], [0 if halo else 1, 1, 1], [1, 1, 1], False,
         [0, 0, 0], 1, [True, False, False])
+    info = {}
+    if wguard:
+        info["unguarded_ms"] = time_ms(torch, lambda: kern(dyu, wt, wd), iters)
+        info["lanes_map"] = K.conv_plan(dy, cin, w, 2 * halo, wguard).lanes_map
     nbytes = ((dy.numel() + got.numel()) * dy.element_size()
               + 27 * cin * cout * dy.element_size())
-    # halo: every one of the 3·d (kd, dy slice) products is real, as forward
-    bms, by = bound(nbytes, 2 * 27 * cin * cout * b * d * h * w, dtype)
+    # halo: every one of the 3·d (kd, dy slice) products is real, as forward;
+    # wguard: the bytes at the guarded width, the products at the data width
+    bms, by = bound(nbytes, 2 * 27 * cin * cout * b * d * h * wd, dtype)
     checks.record(ok, dict(
         kernel=kern.__name__, shape=list(dyin.shape), cout=cin,
         dtype=dtype, max_abs_err=float(err.max()), ref_max_abs=scale, rtol=rtol,
-        atol=atol, ms=time_ms(torch, lambda: kern(dyin, wt, dim), iters),
+        atol=atol, ms=time_ms(torch, lambda: kern(dyin, wt, dim, *args), iters),
         plain_ms=time_ms(torch, plain, iters), bound_ms=bms, bound_by=by,
-        library_ms=time_ms(torch, lib, iters), **extra))
+        library_ms=time_ms(torch, lib, iters), **extra, **info))
 
 
 def phase_train_kernels(torch, K, checks):
@@ -898,6 +964,27 @@ def time_steps(torch, step, state, x, y, warmup=3, timed=10):
     return ts, torch.cuda.max_memory_allocated() / 2 ** 20, metrics
 
 
+def f32_step_failures(ref_m, ref_g, got_m, got_g):
+    """One f32 training step against a reference step from the same weights
+    and batch: each loss within 1e-4 relative (D's 1e-2), each generator
+    gradient leaf within 5e-2 relative L2, a conv bias (true gradient 0)
+    within 1e-4 of the largest reference gradient. Returns the losses'
+    relative errors, the worst non-bias leaf and the failures."""
+    gmax = max(float(v.abs().max()) for v in ref_g.values())
+    loss_rel = {k: abs(got_m[k] - r) / abs(r) for k, r in ref_m.items()}
+    bad = [k for k, e in loss_rel.items() if not e <= (1e-2 if k == "train_discr_loss" else 1e-4)]
+    for name, r in ref_g.items():
+        if name.endswith(".conv.bias"):
+            err, tol = float((got_g[name] - r).abs().max()) / gmax, 1e-4
+        else:
+            err, tol = rel_l2(got_g[name], r), 5e-2
+        if not err <= tol:
+            bad.append((name, err, tol))
+    worst = max(((n, rel_l2(got_g[n], r)) for n, r in ref_g.items()
+                 if not n.endswith(".conv.bias")), key=lambda t: t[1])
+    return loss_rel, worst, bad
+
+
 def rel_l2(a, b) -> float:
     return float((a.double() - b.double()).norm() / b.double().norm().clamp_min(1e-300))
 
@@ -1014,10 +1101,11 @@ def phase_train(torch, K, checks, pkg):
     return counts, out
 
 
-def phase_train_grad_check(torch, checks, pkg):
+def phase_train_grad_check(torch, checks, pkg, phase="train_f32_grad_check"):
     """One generator-phase backward (BCE(D(x, G(x)), 1) + L1·rf), batch
     2 × 64³, dropout 0, from the same weights and batch: the kernels (f32,
-    packed, use_pallas) against plain PyTorch/cuDNN in f32, both TF32 off."""
+    packed, use_pallas) against plain PyTorch/cuDNN in f32, both TF32 off;
+    recorded as ``phase``."""
     Config, build_models, weights, losses = pkg
     cfg = Config()
     rf = cfg.train.recon_factor
@@ -1068,11 +1156,11 @@ def phase_train_grad_check(torch, checks, pkg):
             bad.append((name, err, tol))
     worst = max(rows, key=lambda t: t[1])
     loss_rel = abs(loss_vals["kernels"] - loss_vals["plain"]) / abs(loss_vals["plain"])
-    print(f"f32 grad check: {len(ref)} leaves; worst kernels-vs-plain rel L2 "
+    print(f"{phase}: {len(ref)} leaves; worst kernels-vs-plain rel L2 "
           f"{worst[1]:.2e} at {worst[0]}; loss rel err {loss_rel:.2e}; "
           f"failures {bad}", flush=True)
     checks.record(not bad and loss_rel <= 1e-5 and got.keys() == ref.keys(),
-                  dict(phase="train_f32_grad_check", leaves=len(ref),
+                  dict(phase=phase, leaves=len(ref),
                        worst_leaf=worst, loss_rel_err=loss_rel, failures=bad))
 
 
@@ -1266,8 +1354,11 @@ def _phase_eval(torch, K, checks, pkg, work, bids, synth_s):
     predict_s = time.perf_counter() - t0
     del gen, fn
     torch.cuda.empty_cache()
-    for k in ("card_1worker", "host"):
-        shutil.copytree(roots["card"], roots[k])
+    shutil.copytree(roots["card"], roots["host"])
+    # the one-worker run times the chain on subject 01's pair alone: its
+    # NIfTI I/O share is a share per volume
+    shutil.copytree(roots["card"], roots["card_1worker"], ignore=lambda _, names: [
+        n for n in names if n.endswith(".nii.gz") and "-0_" not in n])
 
     def chain(key, device, workers):
         root = roots[key]
@@ -1340,12 +1431,14 @@ def _phase_eval(torch, K, checks, pkg, work, bids, synth_s):
     timing = {"synthetic_tree_s": synth_s, "synthetic_tree_subjects": len(DATA_SUBJECTS),
               "predict_2_volumes_s": predict_s,
               "chain_s_8_workers": wall, "chain_s_1_worker": wall_1,
+              "chain_1_worker_volumes": 2,
               "chain_1_worker_nifti_io_s": io[0], "chain_1_worker_rest_s": wall_1 - io[0],
               "chain_1_worker_nifti_io_share": io[0] / wall_1, "nifti_codec": nifti.codec(),
               "cpu_chain_s_8_workers": cpu_wall, "volumes": nvol,
               "s_per_volume_8_workers": wall / nvol}
     print(f"eval chain (2 subjects × pred+target at {VOLUME}): {wall:.2f} s with 8 "
-          f"workers ({wall / nvol:.2f} s per volume); 1 worker {wall_1:.2f} s, of which "
+          f"workers ({wall / nvol:.2f} s per volume); 1 worker on subject 01's pair "
+          f"{wall_1:.2f} s, of which "
           f"NIfTI I/O {io[0]:.2f} s ({100 * io[0] / wall_1:.1f} %, {nifti.codec()} codec); "
           f"CPU chain {cpu_wall:.2f} s; synthetic tree of {len(DATA_SUBJECTS)} subjects "
           f"{synth_s:.1f} s; card vs CPU table: largest relative difference {worst}, "
@@ -2598,23 +2691,10 @@ def phase_sharded(torch, K, checks, pkg, tree: str, work: Path):
                       {n: p.grad.detach().clone() for n, p in st.gen.named_parameters()})
         del st
         torch.cuda.empty_cache()
-    ref_m, ref_g = f32[None]
-    scale = max(float(v.abs().max()) for v in ref_g.values())
+    ref_m = f32[None][0]
     rows = {}
     for shape in SHARDED_MESHES:
-        got_m, got_g = f32[shape]
-        loss_rel = {k: abs(got_m[k] - r) / abs(r) for k, r in ref_m.items()}
-        bad = [k for k, e in loss_rel.items()
-               if not e <= (1e-2 if k == "train_discr_loss" else 1e-4)]
-        for name, r in ref_g.items():
-            if name.endswith(".conv.bias"):  # true gradient 0: against the largest
-                err, tol = float((got_g[name] - r).abs().max()) / scale, 1e-4
-            else:
-                err, tol = rel_l2(got_g[name], r), 5e-2
-            if not err <= tol:
-                bad.append((name, err, tol))
-        worst = max(((n, rel_l2(got_g[n], r)) for n, r in ref_g.items()
-                     if not n.endswith(".conv.bias")), key=lambda t: t[1])
+        loss_rel, worst, bad = f32_step_failures(*f32[None], *f32[shape])
         rows[label(shape)] = {"loss_rel_err": loss_rel, "worst_leaf": worst, "failures": bad}
         print(f"sharded f32 step {label(shape)} vs unsharded: losses "
               f"{json.dumps(loss_rel)}; worst leaf {worst}; failures {bad}", flush=True)
@@ -3140,6 +3220,286 @@ SUMMARY_SHAPE = {
 }
 
 
+# Phase 18: the wguard layout, switched on by UNET_BSSFP_WGUARD=1 for the
+# phase alone. guard_cols gives 2 guard columns a row at 64² (row width 66)
+# and at 128² (130). The guarded paths launch what their unguarded twins
+# launch: a served volume K1 4, K3a 2, K3b 1 (EVAL_STEP_LAUNCHES); a GAN step
+# TRAIN_STEP_LAUNCHES; a FINE_TUNE step the stage's; a step on (1, 2) its
+# sharded_launches.
+WGUARD_VAR = "UNET_BSSFP_WGUARD"
+WGUARD_CONVS = ((24, 32), (32, 32), (96, 32))  # conv_0.conv_0, *.conv_1, upcat_1.conv_0
+WGUARD_MESH = (1, 2)
+WGUARD_TIMED = dict(warmup=2, timed=5)
+
+
+@contextlib.contextmanager
+def wguard_env(on: bool):
+    """``UNET_BSSFP_WGUARD`` set to "1" (``on``) or unset inside, and put back
+    as it was after, also when the body raises."""
+    before = os.environ.get(WGUARD_VAR)
+    if on:
+        os.environ[WGUARD_VAR] = "1"
+    else:
+        os.environ.pop(WGUARD_VAR, None)
+    try:
+        yield
+    finally:
+        if before is None:
+            os.environ.pop(WGUARD_VAR, None)
+        else:
+            os.environ[WGUARD_VAR] = before
+
+
+def check_k2w(torch, K, checks, b, d, h, w, g, cin, cout, loop=False):
+    """K2W, the guarded conv's weight gradient as its backward runs it: x
+    and dy (B, D, ·, H·(W+g)), guard columns zero, stripped to W and K2 at W
+    (``K.strip_guards`` then ``K.conv3x3_wgrad``), against the plain weight
+    gradient of the guarded conv on the whole rows, under K2's bound at the
+    launch's chain; a rerun bit for bit; one ``conv3x3_wgrad`` launch and no
+    routed one. Timed (the strips included) beside its bound, the plain
+    version, ``convolution_backward``'s dW and K2 on the unguarded tensors.
+    ``loop``: also the ``mma.sync`` loop K2 took at the guarded width before
+    (``conv3x3_wgrad_mma`` at W+g), held to its own chain's bound, timed."""
+    dt = torch.bfloat16
+    wd = w + g
+    gen = torch.Generator(device="cuda").manual_seed(cin * 13 + d)
+    xk = K.guard_mask(torch.randn(b, d, cin, h * wd, device="cuda", generator=gen).to(dt),
+                      wd, g).contiguous()
+    dy = K.guard_mask(torch.randn(b, d, cout, h * wd, device="cuda", generator=gen).to(dt),
+                      wd, g).contiguous()
+    xs, dys = K.strip_guards(xk, wd, g), K.strip_guards(dy, wd, g)
+
+    def route():
+        return K.conv3x3_wgrad(K.strip_guards(xk, wd, g), K.strip_guards(dy, wd, g), w)
+
+    before = K.launches()
+    got = route()
+    after = K.launches()
+    one = (after["conv3x3_wgrad"] - before["conv3x3_wgrad"] == 1
+           and after["conv3x3_wgrad_mma_routed"] == before["conv3x3_wgrad_mma_routed"])
+    ref = K.conv3x3_wgrad_plain(xk, dy, wd)
+    scale = float(ref.abs().max())
+    chain = K.conv3x3_wgrad_chain(xs, dys, w)
+    atol = 16 * math.sqrt(chain) * 2 ** -24 * scale
+    err = float((got - ref).abs().max())
+    repeats = bool(torch.equal(got, route()))
+    info = {}
+    iters = 5
+    if loop:
+        lp = K.conv3x3_wgrad_mma(xk, dy, wd)
+        loop_chain = K.conv3x3_wgrad_mma_chain(xk, dy, wd)
+        info = {"loop_max_abs_err": float((lp - ref).abs().max()),
+                "loop_atol": 16 * math.sqrt(loop_chain) * 2 ** -24 * scale,
+                "loop_ms": time_ms(torch, lambda: K.conv3x3_wgrad_mma(xk, dy, wd), iters)}
+        del lp
+    xn = xs.reshape(b, d, cin, h, w).permute(0, 2, 1, 3, 4).contiguous()
+    dyn = dys.reshape(b, d, cout, h, w).permute(0, 2, 1, 3, 4).contiguous()
+    wn = torch.zeros(cout, cin, 3, 3, 3, device="cuda", dtype=dt)
+    lib = lambda: torch.ops.aten.convolution_backward(  # noqa: E731
+        dyn, xn, wn, None, [1, 1, 1], [1, 1, 1], [1, 1, 1], False, [0, 0, 0], 1,
+        [False, True, False])
+    nbytes = (xk.numel() + dy.numel()) * xk.element_size() + 27 * cin * cout * 4
+    bms, by = bound(nbytes, 2 * 27 * cin * cout * b * d * h * w, "bfloat16")
+    ok = (err <= atol and repeats and one
+          and info.get("loop_max_abs_err", 0.0) <= info.get("loop_atol", 0.0))
+    checks.record(ok, dict(
+        kernel="conv3x3_wgrad", route="k2w_strip", shape=list(xk.shape), cout=cout,
+        wguard=g, dtype="bfloat16", max_abs_err=err, ref_max_abs=scale, rtol=0.0, atol=atol,
+        chain=chain, bit_identical_rerun=repeats, one_launch_not_routed=one,
+        ms=time_ms(torch, route, iters),
+        plain_ms=time_ms(torch, lambda: K.conv3x3_wgrad_plain(xk, dy, wd), iters),
+        bound_ms=bms, bound_by=by, library_ms=time_ms(torch, lib, iters),
+        unguarded_ms=time_ms(torch, lambda: K.conv3x3_wgrad(xs, dys, w), iters), **info))
+
+
+def phase_wguard(torch, F, K, checks, pkg):
+    """Phase 18: the wguard layout on every path the packed layout runs (see
+    the docstring), ``UNET_BSSFP_WGUARD=1`` set for its duration only.
+    Returns the guarded paths' launch counts and the records."""
+    (Config, build_models, make_predict_fn, weights, predict_volume, create_gan_state,
+     make_train_step, ms, TrainingState, mesh_pkg, losses, guard_cols) = pkg
+    make_mesh, shard_batch, gather_batch = mesh_pkg
+    b, p = TRAIN_BATCH, TRAIN_PATCH
+    with wguard_env(True):
+        g64, g128 = guard_cols(p, p), guard_cols(VOLUME[1], VOLUME[2])
+    paths, out = {}, {"guard_cols": {"64": g64, "128": g128}}
+
+    # 1. K1W and its dgrad at every guarded shape of the paths below (their
+    # first launches at N 64, 96, 24 and on N-72 tiles), K2W at the GAN
+    # step's, the loop it replaces beside the heaviest
+    for cin, cout in WGUARD_CONVS + MULTISTAGE_CONVS:
+        check_conv(torch, F, K, checks, b, p, p, p + g64, cin, cout, "bfloat16",
+                   wguard=g64, rerun=True)
+        check_dgrad(torch, K, checks, b, p, p, p + g64, cin, cout, "bfloat16",
+                    wguard=g64, rerun=True)
+    for cin, cout in WGUARD_CONVS:
+        check_conv(torch, F, K, checks, 1, VOLUME[0], VOLUME[1], VOLUME[2] + g128, cin, cout,
+                   "bfloat16", wguard=g128, rerun=True)
+        check_k2w(torch, K, checks, b, p, p, p, g64, cin, cout, loop=cin == 96)
+    torch.cuda.empty_cache()
+
+    # 2. serving one volume, patch-stitched and whole, guarded and not, with
+    # the counts reset before each guarded run
+    cfg = Config()
+    mcfg, tcfg = cfg.model, cfg.train
+    probe, _ = build_models(MODALITY, mcfg, "cuda")
+    sd = weights.random_state_dict(probe, SEED)
+    del probe
+
+    def model(**over):
+        gen, _ = build_models(MODALITY, dataclasses.replace(mcfg, **over), "cuda",
+                              state_dict=sd)
+        return make_predict_fn(gen)
+
+    vol = torch.randn(VOLUME + (24,), generator=torch.Generator().manual_seed(SEED)).to("cuda")
+    fn = model()
+    outs, ts = {}, {}
+    for mode in ("patch", "whole"):
+        for on in (True, False):
+            with wguard_env(on):
+                run_volume(torch, predict_volume, fn, vol, mode == "whole")  # warm-up
+                K.reset_launches()
+                outs[(mode, on)] = run_volume(torch, predict_volume, fn, vol, mode == "whole")
+                counts = K.launches()
+            ts[(mode, on)] = []
+            if on:
+                paths[f"wguard_serving_{mode}"] = counts
+                checks.record(counts == EVAL_STEP_LAUNCHES,
+                              dict(phase="wguard_serving_launches", mode=mode, launches=counts,
+                                   expected=EVAL_STEP_LAUNCHES))
+    for _ in range(5):  # in turns, guarded beside unguarded
+        for mode, on in ts:
+            with wguard_env(on):
+                t0 = time.perf_counter()
+                run_volume(torch, predict_volume, fn, vol, mode == "whole")
+                ts[(mode, on)].append((time.perf_counter() - t0) * 1e3)
+    del fn
+    f32_kern, f32_plain = model(compute_dtype="float32"), model(compute_dtype="float32",
+                                                                packed=False)
+    serving = {}
+    for mode in ("patch", "whole"):
+        with wguard_env(True):
+            got = run_volume(torch, predict_volume, f32_kern, vol, mode == "whole").float()
+        ref = run_volume(torch, predict_volume, f32_plain, vol, mode == "whole").float()
+        scale = float(ref.abs().max())
+        rel = float((got - ref).abs().max()) / scale
+        dist = {on: float((outs[(mode, on)].float() - ref).abs().max()) / scale
+                for on in (True, False)}
+        row = {"f32_vs_plain": rel, "bf16_vs_f32": dist[True],
+               "unguarded_bf16_vs_f32": dist[False],
+               "bf16_vs_unguarded_bf16": float((outs[(mode, True)].float()
+                                                - outs[(mode, False)].float()).abs().max()) / scale,
+               "ms_per_volume_median": statistics.median(ts[(mode, True)]),
+               "ms_all": ts[(mode, True)],
+               "unguarded_ms_per_volume_median": statistics.median(ts[(mode, False)]),
+               "unguarded_ms_all": ts[(mode, False)]}
+        serving[mode] = row
+        print(f"wguard serving {mode}: {row['ms_per_volume_median']:.3f} ms a volume against "
+              f"{row['unguarded_ms_per_volume_median']:.3f} unguarded (bf16, median of 5 in "
+              f"turns); f32 vs cuDNN {rel:.2e}; bf16 vs f32 {dist[True]:.2e} (unguarded "
+              f"{dist[False]:.2e})", flush=True)
+        checks.record(rel <= 1e-3 and dist[True] <= 3 * dist[False] + 2 ** -8
+                      and bool(torch.isfinite(got).all()) and tuple(got.shape) == VOLUME + (6,),
+                      dict(phase="wguard_serving_outputs", mode=mode, **row))
+    out["serving"] = serving
+    del f32_kern, f32_plain, outs, vol, got, ref
+    torch.cuda.empty_cache()
+
+    # 3. the GAN step (the default config): its launches, ms and peak MiB
+    # guarded beside unguarded on one state; then the f32 backward check
+    gx = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.rand((b,) + (p,) * 3 + (24,), device="cuda", generator=gx)
+    y = torch.rand((b,) + (p,) * 3 + (6,), device="cuda", generator=gx)
+
+    def launches_and_times(path, step, state, want, what):
+        with wguard_env(True):
+            step(state, x, y)  # warm-up
+            torch.cuda.synchronize()
+            K.reset_launches()
+            m = step(state, x, y)
+            torch.cuda.synchronize()
+            counts = K.launches()
+        paths[path] = counts
+        timing = {}
+        for on in (True, False):
+            with wguard_env(on):
+                t, peak, metrics = time_steps(torch, step, state, x, y, **WGUARD_TIMED)
+            timing["guarded" if on else "unguarded"] = {
+                "ms_per_step_median": statistics.median(t), "ms_all": t, "peak_mib": peak}
+        finite = all(math.isfinite(float(v)) for v in m.values())
+        print(f"wguard {what} (bf16, 8 × 64³): {timing['guarded']['ms_per_step_median']:.3f} "
+              f"ms, peak {timing['guarded']['peak_mib']:.0f} MiB, against "
+              f"{timing['unguarded']['ms_per_step_median']:.3f} ms, "
+              f"{timing['unguarded']['peak_mib']:.0f} MiB unguarded (median of 5 after 2); "
+              f"launches exact {counts == want}", flush=True)
+        checks.record(counts == want and finite,
+                      dict(phase=f"wguard_{what}", launches=counts, expected=want,
+                           finite=finite, timing=timing))
+        return timing
+
+    state = create_gan_state(SEED, MODALITY, mcfg, tcfg, "cuda")
+    step = make_train_step(state.gen, state.disc, tcfg)
+    out["train_step"] = launches_and_times("wguard_train_step", step, state,
+                                           TRAIN_STEP_LAUNCHES, "train_step")
+    del state, step
+    torch.cuda.empty_cache()
+    with wguard_env(True):
+        phase_train_grad_check(torch, checks, (Config, build_models, weights, losses),
+                               phase="wguard_train_f32_grad_check")
+    torch.cuda.empty_cache()
+
+    # 4. one FINE_TUNE supervised step at the thesis widths (PReLU)
+    net = ms.build_multi_input_unet(MODALITY, mcfg, "cuda")
+    st = ms.create_supervised_state(SEED, net, tcfg, TrainingState.FINE_TUNE)
+    out["finetune_step"] = launches_and_times(
+        "wguard_finetune_step", ms.make_supervised_train_step(net, tcfg), st,
+        MULTISTAGE_STAGE_LAUNCHES["finetune"], "finetune_step")
+    del net, st
+    torch.cuda.empty_cache()
+
+    # 5. one GAN step on (1, 2), dropout 0: in f32 against the unguarded
+    # unsharded step from the same weights and batch (phase 16's bounds);
+    # in bf16 its launches
+    mesh = make_mesh(["cuda:0"], ("data", "space"), WGUARD_MESH)
+    f32 = {}
+    for sharded in (False, True):
+        with wguard_env(sharded):
+            st = create_gan_state(SEED, MODALITY, dataclasses.replace(
+                mcfg, dropout=0.0, compute_dtype="float32"), tcfg, "cuda",
+                mesh=mesh if sharded else None)
+            m = make_train_step(st.gen, st.disc, tcfg, mesh=mesh if sharded else None)(st, x, y)
+            f32[sharded] = ({k: float(v) for k, v in m.items()},
+                            {n: q.grad.detach().clone() for n, q in st.gen.named_parameters()})
+        del st
+    torch.cuda.empty_cache()
+    loss_rel, worst, bad = f32_step_failures(*f32[False], *f32[True])
+    del f32
+    with wguard_env(True):
+        st = create_gan_state(SEED, MODALITY, dataclasses.replace(mcfg, dropout=0.0), tcfg,
+                              "cuda", mesh=mesh)
+        step = make_train_step(st.gen, st.disc, tcfg, mesh=mesh)
+        torch.cuda.synchronize()
+        K.reset_launches()
+        m = step(st, x, y)
+        torch.cuda.synchronize()
+        counts = K.launches()
+    del st, step
+    want = sharded_launches(WGUARD_MESH)
+    paths["wguard_sharded_step"] = counts
+    finite = all(math.isfinite(float(v)) for v in m.values())
+    out["sharded_step"] = {"f32_loss_rel_err": loss_rel, "f32_worst_leaf": worst,
+                           "failures": bad}
+    print(f"wguard sharded step {WGUARD_MESH}: f32 vs unguarded unsharded losses "
+          f"{json.dumps(loss_rel)}; worst leaf {worst}; failures {bad}; bf16 launches exact "
+          f"{counts == want}", flush=True)
+    checks.record(not bad and counts == want and finite,
+                  dict(phase="wguard_sharded_step", mesh=list(WGUARD_MESH), launches=counts,
+                       expected=want, finite=finite, **out["sharded_step"]))
+    del x, y
+    torch.cuda.empty_cache()
+    return paths, out
+
+
 def summary(rows, by_path):
     """``by_path``: each main path's launch counts, read from its own run
     with the counters reset just before it (the serving run, one training
@@ -3187,7 +3547,7 @@ def main() -> int:
     from unet_bssfp_tpu_torch.eval import evaluate, export
     from unet_bssfp_tpu_torch.eval.inference import predict_volume
     from unet_bssfp_tpu_torch.models.multi_input_unet import TrainingState
-    from unet_bssfp_tpu_torch.models.packed_layers import PackedTwoConv
+    from unet_bssfp_tpu_torch.models.packed_layers import PackedTwoConv, guard_cols
     from unet_bssfp_tpu_torch.ops import kernels as K
     from unet_bssfp_tpu_torch.ops import losses
     from unet_bssfp_tpu_torch.ops import scalar_maps_check as chk
@@ -3209,6 +3569,7 @@ def main() -> int:
     from scripts import torch_port_convergence, torch_port_pallas_probe, torch_port_pfold_probe
 
     t_start = time.perf_counter()
+    clock = PhaseClock()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
@@ -3221,27 +3582,35 @@ def main() -> int:
 
     checks = Checks()
     build = phase_build(torch, K, _build, native)
+    clock.lap("1_build")
     phase_kernels(torch, F, K, checks)
+    clock.lap("2_kernels")
     print(f"kernel checks done at {time.perf_counter() - t_start:.1f}s", flush=True)
     counts, timing = phase_main_path(
         torch, K, checks,
         (Config, build_models, make_predict_fn, weights, predict_volume))
     print(f"serving path done at {time.perf_counter() - t_start:.1f}s", flush=True)
+    clock.lap("3_serving")
     phase_train_kernels(torch, K, checks)
+    clock.lap("4_train_kernels")
     phase_halo_kernels(torch, F, K, checks)
+    clock.lap("9_halo_kernels")
     print(f"training and halo kernel checks done at {time.perf_counter() - t_start:.1f}s",
           flush=True)
     train_counts, train_timing = phase_train(
         torch, K, checks, (Config, create_gan_state, make_train_step))
     phase_train_grad_check(torch, checks, (Config, build_models, weights, losses))
     print(f"training path done at {time.perf_counter() - t_start:.1f}s", flush=True)
+    clock.lap("5_train")
     mesh_counts, mesh_timing = phase_mesh_serving(
         torch, K, checks,
         (Config, build_models, make_predict_fn, predict_volume, make_mesh), weights)
     block_counts = phase_mesh_block_backward(
         torch, K, checks, PackedTwoConv, (make_mesh, shard_batch, gather_batch))
     print(f"mesh path done at {time.perf_counter() - t_start:.1f}s", flush=True)
+    clock.lap("10_mesh")
     phase_scalar_maps(torch, K, chk, checks, ScalarMaps._fields)
+    clock.lap("6_scalar_maps")
     tree = Path("perf_out") / "smoke_tree"
     loop_work = Path("perf_out") / "loop_smoke"
     ms_work = Path("perf_out") / "multistage_smoke"
@@ -3251,24 +3620,28 @@ def main() -> int:
         synth_s = make_tree(make_synthetic_bids, tree)
         print(f"synthetic tree ({len(DATA_SUBJECTS)} subjects at {VOLUME}, {nifti.codec()} "
               f"codec): {synth_s:.1f}s", flush=True)
+        clock.lap("7_synthetic_tree")
         eval_counts, eval_timing = phase_eval(
             torch, K, checks,
             (Config, build_models, make_predict_fn, weights, predict_volume, nifti,
              evaluate, predict_main, compute_scalar_maps, invert_dwi_tensor_norm,
              load_rescale_args, chk), str(tree), synth_s)
         print(f"eval path done at {time.perf_counter() - t_start:.1f}s", flush=True)
+        clock.lap("7_8_eval")
         phase_pfold_kernels(torch, F, K, checks)
         phase_probe_kernels(torch, F, K, checks)
         pf_counts, pa_counts, pf_rows, pa_rows = phase_probe_paths(
             torch, K, checks, torch_port_pfold_probe, torch_port_pallas_probe)
         print(f"pfold and probe kernels and paths done at {time.perf_counter() - t_start:.1f}s",
               flush=True)
+        clock.lap("11_pfold_probe")
         data_counts, data_out = phase_data(
             torch, K, checks,
             (Config, DoveDataModule, augment, nifti, native,
              (sample_generator, uniform_patch_starts, extract_patches), create_gan_state,
              make_train_step), str(tree))
         print(f"data path done at {time.perf_counter() - t_start:.1f}s", flush=True)
+        clock.lap("12_data")
         shutil.rmtree(loop_work, ignore_errors=True)
         loop_work.mkdir(parents=True)
         loop_counts, remat_counts, loop_out, loop_run = phase_loop(
@@ -3276,17 +3649,20 @@ def main() -> int:
             (Config, DoveDataModule, Trainer, train_model, checkpoint, create_gan_state,
              make_train_step, flops, torch_port_convergence), str(tree), loop_work)
         print(f"training loop done at {time.perf_counter() - t_start:.1f}s", flush=True)
+        clock.lap("13_loop")
         ckpt_eval_counts, ckpt_predict_counts, perceptual_counts, ckpt_eval_out = \
             phase_eval_checkpoint(torch, K, checks, str(tree), loop_run, loop_work)
         del loop_run
         print(f"evaluation from a checkpoint done at {time.perf_counter() - t_start:.1f}s",
               flush=True)
+        clock.lap("14_eval_checkpoint")
         shutil.rmtree(ms_work, ignore_errors=True)
         ms_work.mkdir(parents=True)
         ms_counts, ms_step_counts, ms_out = phase_multistage(
             torch, F, K, checks, (Config, DoveDataModule, multistage, weights, TrainingState),
             str(tree), ms_work)
         print(f"multi-stage regime done at {time.perf_counter() - t_start:.1f}s", flush=True)
+        clock.lap("15_multistage")
         shutil.rmtree(sharded_work, ignore_errors=True)
         sharded_work.mkdir(parents=True)
         sharded_counts, sharded_out = phase_sharded(
@@ -3295,6 +3671,7 @@ def main() -> int:
              (make_mesh, shard_batch, gather_batch), Trainer, DoveDataModule, checkpoint,
              multistage, TrainingState), str(tree), sharded_work)
         print(f"sharded training done at {time.perf_counter() - t_start:.1f}s", flush=True)
+        clock.lap("16_sharded")
         shutil.rmtree(surface_work, ignore_errors=True)
         surface_work.mkdir(parents=True)
         t_phase = time.perf_counter()
@@ -3314,6 +3691,14 @@ def main() -> int:
         shutil.rmtree(ms_work, ignore_errors=True)
         shutil.rmtree(sharded_work, ignore_errors=True)
         shutil.rmtree(surface_work, ignore_errors=True)
+    clock.lap("17_surface")
+    wguard_counts, wguard_out = phase_wguard(
+        torch, F, K, checks,
+        (Config, build_models, make_predict_fn, weights, predict_volume, create_gan_state,
+         make_train_step, multistage, TrainingState, (make_mesh, shard_batch, gather_batch),
+         losses, guard_cols))
+    print(f"wguard layout done at {time.perf_counter() - t_start:.1f}s", flush=True)
+    clock.lap("18_wguard")
     elapsed = time.perf_counter() - t_start
 
     kernels = summary(checks.rows, {"serving": counts, "train_step": train_counts,
@@ -3329,7 +3714,7 @@ def main() -> int:
                                     "multistage_run": ms_counts,
                                     **{f"multistage_{s}_step": c
                                        for s, c in ms_step_counts.items()},
-                                    **sharded_counts, **surface_counts})
+                                    **sharded_counts, **surface_counts, **wguard_counts})
     unlaunched = [k["name"] for k in kernels if k["launches"] == 0]
     checks.record(not unlaunched, dict(phase="every_kernel_launched_on_a_path",
                                        unlaunched=unlaunched))
@@ -3356,13 +3741,17 @@ def main() -> int:
                    "multistage_step_launches": ms_step_counts, "multistage": ms_out,
                    "sharded_launches": sharded_counts, "sharded": sharded_out,
                    "surface_launches": surface_counts, "surface": surface_out,
-                   "kernels": kernels, "elapsed_s": elapsed}, f, indent=1)
+                   "wguard_launches": wguard_counts, "wguard": wguard_out,
+                   "phase_seconds": clock.laps, "kernels": kernels, "elapsed_s": elapsed},
+                  f, indent=1)
     if checks.failures:
         print(f"chip_smoke: {len(checks.failures)} check(s) failed:", file=sys.stderr)
         for row in checks.failures:
             print(json.dumps(row), file=sys.stderr)
         return 1
     print(f"elapsed {elapsed:.1f}s", flush=True)
+    print(json.dumps({"phase": "seconds", "name": "sum", "s": sum(clock.laps.values())}),
+          flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

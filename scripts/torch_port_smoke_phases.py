@@ -5,10 +5,11 @@ build, then the training data path (phase 12), the training loop (phase
 phase 13), the multi-stage regime (phase 15) and the sharded training step
 (phase 16) and the serving artifact with the public surface (phase 17,
 without its plots, which read phase 14's table), on the smoke's 4-subject
-tree at (96, 128, 128).
+tree at (96, 128, 128); and the wguard layout (phase 18), which needs no
+tree.
 
   python scripts/torch_port_smoke_phases.py [--root DIR]
-      [--phases data loop checkpoint multistage sharded surface]
+      [--phases data loop checkpoint multistage sharded surface wguard]
       [--tree perf_out/smoke_tree_phases]
 
 ``--root`` is the checkout whose ``chip_smoke.py`` and package run
@@ -21,7 +22,8 @@ loop's numbers (phase 13), the evaluation's (phase 14), the multi-stage
 run's and steps' (phase 15), each mesh's step ms and peak MiB beside the
 unsharded step's (phase 16), the export's seconds, the ms per volume of the
 artifact and of ``predict_volume`` and the wrappers' ms per step (phase
-17). Needs a card.
+17), the guarded serving and steps' ms beside the unguarded ones (phase
+18). Needs a card.
 """
 
 from __future__ import annotations
@@ -40,8 +42,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--phases", nargs="+",
-                    choices=("data", "loop", "checkpoint", "multistage", "sharded", "surface"),
-                    default=["data", "loop", "checkpoint", "multistage", "sharded", "surface"])
+                    choices=("data", "loop", "checkpoint", "multistage", "sharded", "surface",
+                             "wguard"),
+                    default=["data", "loop", "checkpoint", "multistage", "sharded", "surface",
+                             "wguard"])
     ap.add_argument("--tree", default="perf_out/smoke_tree_phases")
     args = ap.parse_args()
     root = Path(args.root).resolve()
@@ -72,7 +76,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     checks = sm.Checks()
     sm.phase_build(torch, K, _build, native)
-    if not (tree / ".complete").exists():
+    if set(args.phases) - {"wguard"} and not (tree / ".complete").exists():
         print(f"tree {tree}: {sm.make_tree(make_synthetic_bids, tree):.1f} s", flush=True)
         (tree / ".complete").write_text("ok\n")
     summary = {"root": str(root), "card": torch.cuda.get_device_name(0)}
@@ -202,6 +206,32 @@ def main() -> int:
                 "phase_s": time.perf_counter() - t0}
         finally:
             shutil.rmtree(work, ignore_errors=True)
+    if "wguard" in args.phases:
+        import torch.nn.functional as F
+
+        from unet_bssfp_tpu_torch import weights
+        from unet_bssfp_tpu_torch.eval.inference import predict_volume
+        from unet_bssfp_tpu_torch.models.multi_input_unet import TrainingState
+        from unet_bssfp_tpu_torch.models.packed_layers import guard_cols
+        from unet_bssfp_tpu_torch.ops import losses
+        from unet_bssfp_tpu_torch.parallel.mesh import gather_batch, make_mesh, shard_batch
+        from unet_bssfp_tpu_torch.train import multistage
+        from unet_bssfp_tpu_torch.train.state import build_models
+        from unet_bssfp_tpu_torch.train.steps import make_predict_fn
+
+        t0 = time.perf_counter()
+        _, out = sm.phase_wguard(
+            torch, F, K, checks,
+            (Config, build_models, make_predict_fn, weights, predict_volume, create_gan_state,
+             make_train_step, multistage, TrainingState, (make_mesh, shard_batch, gather_batch),
+             losses, guard_cols))
+        summary["wguard"] = {
+            "serving_ms": {m: {k: v[k] for k in ("ms_per_volume_median",
+                                                 "unguarded_ms_per_volume_median")}
+                           for m, v in out["serving"].items()},
+            **{f"{k}_ms": {g: v[g]["ms_per_step_median"] for g in ("guarded", "unguarded")}
+               for k, v in out.items() if k in ("train_step", "finetune_step")},
+            "phase_s": time.perf_counter() - t0}
     summary["failures"] = [r.get("phase", r.get("kernel")) for r in checks.failures]
     print(json.dumps(summary), flush=True)
     return 1 if checks.failures else 0

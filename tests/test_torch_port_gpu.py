@@ -1014,6 +1014,84 @@ def test_gpu_wgrad_shapes_outside_the_plan_take_the_mma_loop_counted(
     _close(got, plain(xk, dy, w), 0.0, 16 * math.sqrt(chain) * 2 ** -24)
 
 
+# K2W: the weight gradient of a conv with wguard g, which the conv's backward
+# runs as K2 (or K5's wgrad) on the guard-stripped operands at W = wdim - g:
+# at wdim 66 the wgmma kernel at W 64, where the mma.sync loop at 66 took it
+# before.
+@pytest.mark.gpu
+@pytest.mark.parametrize("halo", [0, 1])
+@pytest.mark.parametrize("cin", [24, 32, 96])
+def test_gpu_k2w_matches_plain_and_the_loop(cuda, cin, halo):
+    """Through the conv's backward: one launch of the wgmma wgrad, none
+    routed; the plain weight gradient of the guarded conv on whole rows and
+    the loop's result at wdim 66 each within their chain's K2 bound; bit for
+    bit K2 on the stripped operands."""
+    b, d, h, w, g, cout = 2, 4, 8, 64, 2, 32
+    wd = w + g
+    gen = torch.Generator(device="cuda").manual_seed(cin + halo)
+    xk = K.guard_mask(torch.randn(b, d + 2 * halo, cin, h * wd, device=cuda, generator=gen),
+                      wd, g).bfloat16().contiguous()
+    wt = (torch.randn(3, 3, 3, cin, cout, device=cuda, generator=gen) / (27 * cin) ** 0.5
+          ).requires_grad_(True)
+    # a cotangent nonzero on the guard columns: the backward zeroes them
+    dy = torch.randn(b, d, cout, h * wd, device=cuda, generator=gen).bfloat16()
+    conv = K.conv3x3_packed_halo if halo else K.conv3x3_packed
+    wrapper = K.conv3x3_wgrad_halo if halo else K.conv3x3_wgrad
+    plain = K.conv3x3_wgrad_halo_plain if halo else K.conv3x3_wgrad_plain
+    K.reset_launches()
+    conv(xk, wt, torch.zeros(cout, device=cuda), wd, g).backward(dy)
+    counts = K.launches()
+    assert (counts[wrapper.__name__], counts["conv3x3_wgrad_mma_routed"],
+            counts["conv3x3_wgrad_mma"]) == (1, 0, 0)
+    dym = K.guard_mask(dy, wd, g).contiguous()
+    xs, dys = K.strip_guards(xk, wd, g), K.strip_guards(dym, wd, g)
+    assert K.wgrad_plan(xs, dys, w) is not None and K.wgrad_plan(xk, dym, wd) is None
+    ref = plain(xk, dym, wd)
+    _close(wt.grad, ref, 0.0, 16 * math.sqrt(K.conv3x3_wgrad_chain(xs, dys, w)) * 2 ** -24)
+    loop = K.conv3x3_wgrad_mma(xk, dym, wd, halo)
+    _close(loop, ref, 0.0, 16 * math.sqrt(K.conv3x3_wgrad_mma_chain(xk, dym, wd)) * 2 ** -24)
+    assert torch.equal(wt.grad, wrapper(xs, dys, w))
+
+
+@pytest.mark.gpu
+def test_gpu_guarded_packed_two_conv_launches_exactly(cuda, monkeypatch):
+    """A bf16 PackedTwoConv forward and backward under UNET_BSSFP_WGUARD=1
+    (row width 66): 1 pack, 2 convs, 2 dgrads, 2 wgrads and the pack's
+    backward, nothing routed to a loop; its output's data columns and every
+    gradient within bf16 noise (2e-2 relative L2) of the unguarded block's."""
+    from unet_bssfp_tpu_torch.models.packed_layers import PackedTwoConv, guard_cols
+
+    block = PackedTwoConv(24, 32, compute_dtype=torch.bfloat16).to(cuda)
+    x = torch.randn(2, 8, 64, 64, 24, device=cuda,
+                    generator=torch.Generator(device="cuda").manual_seed(5))
+    runs = {}
+    for on in (True, False):
+        monkeypatch.setenv("UNET_BSSFP_WGUARD", "1" if on else "0")
+        g = guard_cols(64, 64)
+        xi = x.clone().requires_grad_(True)
+        block.zero_grad(set_to_none=True)
+        K.reset_launches()
+        yk = block.forward_packed(xi)
+        y = yk.float().reshape(2, 8, 32, 64, 64 + g)
+        (y ** 2).sum().backward()
+        runs[on] = (K.launches(), y[..., :64], xi.grad,
+                    {n: q.grad.clone() for n, q in block.named_parameters()}, g, y[..., 64:])
+    counts, y, dx, grads, g, guards = runs[True]
+    assert g == 2 and bool((guards == 0).all())
+    want = dict.fromkeys(counts, 0)
+    want.update(conv3x3_packed=2, conv3x3_packed_dgrad=2, conv3x3_wgrad=2, pack_hw=1,
+                unpack_hw=1)
+    assert counts == want and runs[False][0] == want
+
+    def rel(a, b):
+        return float((a.double() - b.double()).norm() / b.double().norm())
+
+    assert rel(y, runs[False][1]) < 2e-2 and rel(dx, runs[False][2]) < 2e-2
+    for name, ref in runs[False][3].items():
+        if not name.endswith("conv.bias"):  # before a norm: true gradient 0
+            assert rel(grads[name], ref) < 2e-2, name
+
+
 @pytest.mark.gpu
 def test_gpu_wgmma_wgrad_refused_launch_raises(cuda):
     import dataclasses

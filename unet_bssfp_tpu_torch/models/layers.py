@@ -51,14 +51,34 @@ def to_ndhwc(x: torch.Tensor) -> torch.Tensor:
 
 
 def instance_norm_f32(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                      epsilon: float, dims, channel_dim: int) -> torch.Tensor:
+                      epsilon: float, dims, channel_dim: int, guard=None) -> torch.Tensor:
     """f32 per-(sample, channel) moments over ``dims`` (biased, as
     ``jnp.var``), then the affine; returns f32. Written as few full-size
     passes as eager PyTorch allows: the stats in one reduction, the affine
-    folded into one per-channel multiplier."""
+    folded into one per-channel multiplier. ``guard``: see
+    :func:`_var_mean`."""
     xf = _f32(x)
-    var, mean = torch.var_mean(xf, dim=dims, correction=0, keepdim=True)
+    var, mean = _var_mean(xf, dims, guard)
     return _norm_affine(xf, mean, var, scale, bias, epsilon, channel_dim)
+
+
+def _var_mean(xf: torch.Tensor, dims, guard=None):
+    """The biased variance and the mean of ``xf`` over ``dims``, kept as
+    size-1 dims. ``guard`` = ``(wdim, wguard)`` for a packed tensor whose
+    last dim (one of ``dims``) is H·wdim lanes, the last ``wguard`` of every
+    w-row zero guard columns: the moments are then those of the data
+    columns alone, taken over a view without the guards (the JAX package
+    counts the data columns and subtracts the guards' share; the two agree
+    up to rounding)."""
+    if not guard or not guard[1]:
+        return torch.var_mean(xf, dim=dims, correction=0, keepdim=True)
+    wdim, wguard = guard
+    if xf.ndim - 1 not in dims:
+        raise ValueError(f"guarded moments over dims {dims}: the lane dim is not one")
+    view = xf.unflatten(-1, (-1, wdim))[..., :wdim - wguard]
+    var, mean = torch.var_mean(view, dim=tuple(dims) + (xf.ndim,), correction=0,
+                               keepdim=True)
+    return var.squeeze(-1), mean.squeeze(-1)
 
 
 def _f32(x: torch.Tensor) -> torch.Tensor:
@@ -73,7 +93,7 @@ def _norm_affine(xf, mean, var, scale, bias, epsilon, channel_dim):
     return torch.addcmul(_f32(bias).reshape(shape), xf - mean, mul)
 
 
-def instance_norm(x, norm: "InstanceNorm", dims, channel_dim: int):
+def instance_norm(x, norm: "InstanceNorm", dims, channel_dim: int, guard=None):
     """:func:`instance_norm_f32` with ``norm``'s affine, of a tensor or of a
     sharded volume, whose moments are those of the *whole* volume. Under a
     ``space`` split each shard takes its own f32 mean and biased variance
@@ -82,29 +102,32 @@ def instance_norm(x, norm: "InstanceNorm", dims, channel_dim: int):
     combined exactly (Chan et al.): ``mean = Σ mean_i / n`` and ``var =
     Σ (var_i + (mean_i - mean)²) / n``, two ``all_sum`` s of (B, C)-sized
     tensors over ``space``. Against the unsharded result only the order of
-    summation differs. Returns f32."""
+    summation differs. ``guard`` (the packed layout's guard columns, see
+    :func:`_var_mean`): every moment, a shard's too, counts the data
+    columns alone; each shard holds as many as the next, so the combination
+    stays exact. Returns f32."""
     def affine(t, *moments):
         mod = local(norm, t.device)
         if not moments:
             return instance_norm_f32(t, mod.weight, mod.bias, norm.epsilon, dims,
-                                     channel_dim)
+                                     channel_dim, guard)
         return _norm_affine(t, *moments, mod.weight, mod.bias, norm.epsilon, channel_dim)
 
     if not isinstance(x, Sharded) or x.mesh.size("space") == 1:
         return apply_local(affine, x)
-    xf, mean, var = _chan_moments(x, dims, "space", x.mesh.size("space"))
+    xf, mean, var = _chan_moments(x, dims, "space", x.mesh.size("space"), guard)
     return xf.map(affine, mean, var)
 
 
-def _chan_moments(x: Sharded, dims, axes, n: int):
+def _chan_moments(x: Sharded, dims, axes, n: int, guard=None):
     """The f32 mean and biased variance over ``dims`` of the union of ``n``
-    equal-sized shards, each shard's own moments combined exactly (Chan et
+    equal-sized shards, each shard's own moments (over its data columns
+    alone with ``guard``: :func:`_var_mean`) combined exactly (Chan et
     al.) by two ``all_sum`` s over ``axes``: ``mean = Σ mean_i / n``,
     ``var = Σ (var_i + (mean_i - mean)²) / n``. Returns ``(x in f32, mean,
     var)``, the moments as sharded values of equal bits at every member."""
     xf = x.map(_f32)
-    stats = xf.map(lambda t: torch.stack(torch.var_mean(
-        t, dim=dims, correction=0, keepdim=True)))  # [var_i, mean_i]
+    stats = xf.map(lambda t: torch.stack(_var_mean(t, dims, guard)))  # [var_i, mean_i]
     mean = stats.map(lambda s: s[1]).all_sum(axes).map(lambda m: m / n)
     var = stats.map(lambda s, m: s[0] + (s[1] - m) ** 2, mean
                     ).all_sum(axes).map(lambda v: v / n)

@@ -20,7 +20,11 @@ activations in the backward instead of keeping them (``layers.remat``):
 the blocks the JAX package wraps in ``nn.remat``, TwoConv, Down and UpCat,
 and in the packed case the packed conv_0 and upcat_1 and the pooled
 down_1. The pools before them, the head and the final 1³ conv stay
-outside, as there. The JAX package's ``folded`` and
+outside, as there. Under ``UNET_BSSFP_WGUARD=1`` the packed stages run
+the ``wguard`` layout (``packed_layers.guard_cols``): its guard count is
+decided once per forward and handed to both stages, so a recompute under
+``remat`` uses the same layout; the output's guard columns are sliced off
+after the unpack. The JAX package's ``folded`` and
 ``wpack_mid`` branches are TPU reformulations of the same convs with the
 same parameters and are not ported.
 
@@ -42,10 +46,11 @@ from unet_bssfp_tpu_torch.models.packed_layers import (
     PackedTwoConv,
     PackedUpCat,
     PooledConvs,
+    guard_cols,
     packed_max_pool2,
 )
 from unet_bssfp_tpu_torch.ops.kernels import packed_supported, unpack_hw_auto
-from unet_bssfp_tpu_torch.parallel.mesh import Sharded
+from unet_bssfp_tpu_torch.parallel.mesh import Sharded, apply_local
 
 
 def _can_pack(x, f0: int) -> bool:
@@ -100,9 +105,10 @@ class BasicUNet3D(nn.Module):
         block = self._block
         if packed:
             wdim = x.shape[3]
-            xk0 = block(self.conv_0, self.conv_0.forward_packed, x)
+            g0 = guard_cols(x.shape[2], wdim)
+            xk0 = block(self.conv_0, self.conv_0.forward_packed, x, g0)
             x1 = block(self.down_1, self.down_1.forward_pooled,
-                       packed_max_pool2(xk0, wdim))
+                       packed_max_pool2(xk0, wdim + g0, g0))
         else:
             x0 = block(self.conv_0, self.conv_0, x)
             x1 = block(self.down_1, self.down_1, x0)
@@ -113,8 +119,9 @@ class BasicUNet3D(nn.Module):
         u3 = block(self.upcat_3, self.upcat_3, u4, x2)
         u2 = block(self.upcat_2, self.upcat_2, u3, x1)
         if packed:
-            u1k = block(self.upcat_1, self.upcat_1.forward_packed, u2, xk0, wdim)
-            return unpack_hw_auto(self.final_conv.forward_packed(u1k), wdim)
+            u1k = block(self.upcat_1, self.upcat_1.forward_packed, u2, xk0, wdim, g0)
+            out = unpack_hw_auto(self.final_conv.forward_packed(u1k), wdim + g0)
+            return apply_local(lambda t: t[:, :, :, :wdim].contiguous(), out) if g0 else out
         return self.final_conv(block(self.upcat_1, self.upcat_1, u2, x0))
 
     def _block(self, module: nn.Module, fn, *args):

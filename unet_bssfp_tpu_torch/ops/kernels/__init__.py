@@ -23,6 +23,7 @@ from unet_bssfp_tpu_torch.ops.kernels.conv3d import (
     conv3x3_wgrad_mma_routed,
     conv3x3_wgrad_plain,
     packed_supported,
+    strip_guards,
     wgrad_plan,
 )
 from unet_bssfp_tpu_torch.ops.kernels.layout import (

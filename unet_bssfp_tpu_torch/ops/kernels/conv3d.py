@@ -40,8 +40,8 @@ Which CUDA kernel runs a weight gradient (K2, K5's), the same way:
   shared memory, ``wgmma``; :mod:`.wgrad_wgmma` plans the launch), wherever
   :func:`wgrad_plan` takes the shape: W a multiple of 8 (Cout in tiles of
   32: the multi-stage Cout 48 takes two). Every shape of the training and
-  multi-stage steps and the mesh backward is taken. Any other bf16 shape
-  (the ``wguard`` width 66, W 35) runs the ``mma.sync``
+  multi-stage steps and the mesh backward is taken, guarded ones through
+  the strip below. Any other bf16 shape (W 35) runs the ``mma.sync``
   loop of ``csrc/conv3x3_wgrad.cu``, and each such launch adds one to
   ``conv3x3_wgrad_mma_routed.launches`` besides the wrapper's own count;
 - f32 → the FMA kernel of ``conv3x3_wgrad.cu``.
@@ -58,8 +58,15 @@ shape.
 ``wguard`` (the JAX package's ``wguard``): the last ``wguard`` columns of
 every w-row are zero guard columns. The forward and the dgrad write them as
 zero; the backward first zeroes ``dy``'s guard columns (the JAX package's
-``_project_guard_cotangent``), in plain torch; K2 runs unchanged at the full
-row width (through the routed loop where W + g is no multiple of 8).
+``_project_guard_cotangent``), in plain torch. The weight gradient (K2W)
+runs K2, or K5's wgrad, on the guard-stripped operands ``x[..., :W]`` and
+``dy[..., :W]`` at ``W = wdim - wguard`` (:func:`strip_guards`), in both
+dtypes. That is the same function: x's guard columns are zero (the layout's
+invariant, which the modules keep) and dy's were just zeroed, so no product
+with a guard position adds anything, and the zero guard a tap reads at
+w = -1 (the previous row's last guard) or at w = W stands where the SAME
+padding's zero stands. The stripped shape routes as any such W does (W 64:
+the wgmma kernel), so no model path sends a guarded wgrad to the loop.
 
 Each source's header says what bounds it on the card and how it is laid
 out. ``*_plain`` are the same functions in plain PyTorch: the CPU path, and
@@ -117,6 +124,14 @@ def guard_mask(t: torch.Tensor, wdim: int, wguard: int) -> torch.Tensor:
     rows = t.reshape(*t.shape[:-1], -1, wdim)
     return torch.where(keep, rows, torch.zeros((), dtype=t.dtype, device=t.device)
                        ).reshape(t.shape)
+
+
+def strip_guards(t: torch.Tensor, wdim: int, wguard: int) -> torch.Tensor:
+    """``t`` (…, H·wdim) without the last ``wguard`` columns of every w-row:
+    (…, H·(wdim - wguard)), contiguous (``t`` itself where ``wguard`` is 0)."""
+    if not wguard:
+        return t
+    return t.unflatten(-1, (-1, wdim))[..., :wdim - wguard].flatten(-2).contiguous()
 
 
 def conv3x3_packed_plain(xk: torch.Tensor, w: torch.Tensor,
@@ -498,6 +513,13 @@ def conv3x3_wgrad_mma_chain(xk: torch.Tensor, dy: torch.Tensor, wdim: int) -> in
         b, d, xk.shape[2], cout, hw // wdim, wdim, int(xk.dtype == torch.bfloat16))
 
 
+def _stripped(xk: torch.Tensor, dy: torch.Tensor, ctx):
+    """The weight gradient's operands and width: K2W's guard-stripped ones
+    where the conv has guard columns (the module's docstring)."""
+    return (strip_guards(xk, ctx.wdim, ctx.wguard), strip_guards(dy, ctx.wdim, ctx.wguard),
+            ctx.wdim - ctx.wguard)
+
+
 class _Conv3x3Packed(torch.autograd.Function):
     """``conv3x3_packed``'s custom VJP (``conv3d.py:573-591``)."""
 
@@ -519,7 +541,7 @@ class _Conv3x3Packed(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             dx = conv3x3_packed_dgrad(dy, w, ctx.wdim, ctx.wguard).to(xk.dtype)
         if ctx.needs_input_grad[1]:
-            dw = conv3x3_wgrad(xk, dy, ctx.wdim).to(w.dtype)
+            dw = conv3x3_wgrad(*_stripped(xk, dy, ctx)).to(w.dtype)
         if ctx.needs_input_grad[2]:
             db = dy.to(_acc(dy.dtype)).sum(dim=(0, 1, 3)).to(ctx.bias_dtype)
         return dx, dw, db, None, None
@@ -531,8 +553,11 @@ def conv3x3_packed(xk: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     Cout) and ``bias`` (Cout,) → (B, D, Cout, H·W) in ``xk``'s dtype,
     differentiable in all three. ``wguard``: the last ``wguard`` of the
     ``wdim`` columns of every w-row are zero guard columns (the module's
-    docstring). On a CPU tensor every part (forward, dx, dw) takes its plain
-    version; on a CUDA tensor each launches its kernel or raises."""
+    docstring). ``dw`` then assumes ``xk``'s guard columns are zero: the
+    forward reads them and K2W strips them, so with nonzero guards ``dw``
+    is not the forward's gradient. On a CPU tensor every part (forward, dx,
+    dw) takes its plain version; on a CUDA tensor each launches its kernel
+    or raises."""
     return _Conv3x3Packed.apply(xk, w, bias, wdim, wguard)
 
 
@@ -558,7 +583,7 @@ class _Conv3x3PackedHalo(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             dxp = conv3x3_packed_halo_dgrad(dy, w, ctx.wdim, ctx.wguard).to(xp.dtype)
         if ctx.needs_input_grad[1]:
-            dw = conv3x3_wgrad_halo(xp, dy, ctx.wdim).to(w.dtype)
+            dw = conv3x3_wgrad_halo(*_stripped(xp, dy, ctx)).to(w.dtype)
         if ctx.needs_input_grad[2]:
             db = dy.to(_acc(dy.dtype)).sum(dim=(0, 1, 3)).to(ctx.bias_dtype)
         return dxp, dw, db, None, None
@@ -569,9 +594,10 @@ def conv3x3_packed_halo(xp: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     """:func:`conv3x3_packed` on an input that already carries one d slice of
     halo per side: ``xp`` (B, D+2, Cin, H·W) → (B, D, Cout, H·W) in ``xp``'s
     dtype; no d padding is added and no d slice is skipped. Differentiable in
-    ``xp``, ``w`` and ``bias``; ``wguard`` as in :func:`conv3x3_packed`. On a
-    CPU tensor every part takes its plain version; on a CUDA tensor each
-    launches its kernel or raises."""
+    ``xp``, ``w`` and ``bias``; ``wguard`` as in :func:`conv3x3_packed`, and
+    ``dw`` likewise assumes ``xp``'s guard columns are zero. On a CPU tensor
+    every part takes its plain version; on a CUDA tensor each launches its
+    kernel or raises."""
     return _Conv3x3PackedHalo.apply(xp, w, bias, wdim, wguard)
 
 
@@ -586,9 +612,10 @@ def _on(t: Replicas, device: torch.device) -> torch.Tensor:
 
 
 def conv3x3_packed_auto(xk: Union[torch.Tensor, Sharded], w: Replicas,
-                        bias: Replicas, wdim: int,
-                        mesh: Optional[Mesh] = None) -> Union[torch.Tensor, Sharded]:
-    """:func:`conv3x3_packed` of a volume that may be split over a mesh.
+                        bias: Replicas, wdim: int, mesh: Optional[Mesh] = None,
+                        wguard: int = 0) -> Union[torch.Tensor, Sharded]:
+    """:func:`conv3x3_packed` of a volume that may be split over a mesh,
+    ``wguard`` passed on to whichever conv runs.
 
     ``xk`` is one tensor (with ``mesh``: split here by the rules below and
     gathered again) or a :class:`Sharded` value (shards in, shards out).
@@ -605,14 +632,14 @@ def conv3x3_packed_auto(xk: Union[torch.Tensor, Sharded], w: Replicas,
     if isinstance(xk, torch.Tensor):
         plan = mesh.plan(xk.shape[0], xk.shape[1]) if mesh is not None else None
         if plan is None or plan.positions == 1:
-            return conv3x3_packed(xk, _on(w, xk.device), _on(bias, xk.device), wdim)
-        ys = conv3x3_packed_auto(shard_batch(plan, xk), w, bias, wdim)
+            return conv3x3_packed(xk, _on(w, xk.device), _on(bias, xk.device), wdim, wguard)
+        ys = conv3x3_packed_auto(shard_batch(plan, xk), w, bias, wdim, wguard=wguard)
         return gather_batch(ys, xk.device)
     if xk.mesh.size("space") == 1:
         return xk.map(lambda t: conv3x3_packed(
-            t, _on(w, t.device), _on(bias, t.device), wdim))
+            t, _on(w, t.device), _on(bias, t.device), wdim, wguard))
     return xk.halo_d().map(lambda t: conv3x3_packed_halo(
-        t, _on(w, t.device), _on(bias, t.device), wdim))
+        t, _on(w, t.device), _on(bias, t.device), wdim, wguard))
 
 
 conv3x3_packed.launches = 0

@@ -114,7 +114,8 @@ def wgrad_plan(b: int, d: int, halo: int, cin: int, cout: int, h: int, wdim: int
     not take the shape (static, by shape alone):
 
     - ``wdim % 8 != 0`` (a TMA row stride must be a multiple of 16 bytes;
-      the ``wguard`` width 66 is one);
+      the ``wguard`` width 66 is one, which is why a guarded conv's backward
+      strips the guards first and takes the plan at W 64: K2W);
     - 2³¹ items or more (the kernel counts them in 32 bits);
     - with ``fold`` (W = ``wdim``), W/4 not a multiple of 16 (x's folded map
       runs over the flattened lanes h·W/4 + w4, so a tile's 16 w4 must end

@@ -264,6 +264,29 @@ Phases (any failure → nonzero exit, no ``ok`` line):
     (``wguard_sharded_step``: ``sharded_launches``; in f32 phase 16's
     bounds against the unguarded unsharded step). No path sends a conv or a
     weight gradient to an ``mma.sync`` loop.
+19. The quality path (``scripts/torch_port_{multistage_bench,
+    oracle_ceiling,quality_record}.py``' functions in process), at full
+    width on cohorts cut in size only, before phase 12's tree and phase
+    13's run are deleted; nothing is written to the repository's records.
+    The A/B of ``multistage_bench --two-cohort``: ``build`` with the
+    pretrain cohort phase 12's tree (3/1/0 subjects at the scripts' splits
+    of 0.2) and a target cohort of 3 linked subjects at (96, 128, 128),
+    seed 1, ``link_tag_offset`` 10 (2/1/0), written by a child process
+    while phases 15-17 run; 1 epoch a stage at 8 patches a volume (cut from
+    32), MultiInputUNet at features (32, …, 32) in bf16 (its full-resolution
+    convs the GAN generator's 24/32/96 → 32). With the counts reset before
+    each arm: the multistage arm (``quality_ab_multistage``: each stage's
+    train steps × ``MULTISTAGE_STAGE_LAUNCHES`` + val steps ×
+    ``EVAL_STEP_LAUNCHES``) and the direct arm (``quality_ab_direct``: 3
+    epochs of PRETRAIN-stage steps and val steps), both entries finite with
+    the JAX script's keys. The oracle (``measure``, 1 augmented pass and
+    the clean one) on phase 12's tree on the card: the map within 1e-5 of
+    the fixture's numpy ``_linked_map`` on a val batch, the clean pass's
+    PSNR, SSIM and L1 sums within 1e-4 relative of the same pass on the CPU.
+    The judged summary (``judged_artifact`` without the denormalised second
+    table) from phase 13's best step on phase 12's tree
+    (``quality_judged``: K1 4, K3a 2, K3b 1 and K8 2 per test volume), its
+    keys the JAX script's, its test metrics and diagonal median finite.
 
 Each phase's seconds go to a line of their own, ``{"phase": "seconds",
 "name": ..., "s": ...}``, as it ends, and their sum to one more before the
@@ -277,7 +300,8 @@ perceptual step's, the multi-stage run's and each of its stages' one step's
 counts, and phase 16's: the sharded steps', eval step's, fit's and
 supervised steps', phase 17's: ``predict --exported``'s, the GAN wrapper's 3
 steps' and the multi-stage wrapper's steps', and phase 18's: the guarded
-serving runs', GAN step's, FINE_TUNE step's and (1, 2) step's;
+serving runs', GAN step's, FINE_TUNE step's and (1, 2) step's, and phase
+19's: the A/B's two arms' and the judged summary's;
 ``launches``: their sum); details go to ``perf_out/chip_smoke.json``.
 """
 
@@ -3500,6 +3524,197 @@ def phase_wguard(torch, F, K, checks, pkg):
     return paths, out
 
 
+# Phase 19: the quality path, the three quality scripts' functions in
+# process at full width on cohorts cut in size only. The A/B's target
+# cohort: 3 subjects at (96, 128, 128), seed 1, link_tag_offset 10 (a 2/1/0
+# split at the scripts' val and test splits of 0.2), written by a child
+# process while phases 15-17 run; its pretrain cohort is phase 12's tree
+# (3/1/0). Each arm 1 epoch a stage (the direct arm 3) at 8 patches a volume
+# (cut from 32). The oracle's map within ORACLE_MAP_TOL of the fixture's
+# numpy map (outputs in [0, 1], 24-term f32 sums), its clean pass's sums
+# within ORACLE_CPU_RTOL of the CPU's on the same batches. The judged
+# summary from phase 13's best step on phase 12's tree without its
+# denormalised second table (it runs the chain once more: the full run
+# takes it), so K1 4, K3a 2, K3b 1 and K8 2 per test volume, as phase 14.
+QUALITY_TARGET_SUBJECTS = ("01", "02", "03")
+QUALITY_EPOCHS = {"pretrain": 1, "transfer": 1, "finetune": 1}
+QUALITY_SPV = 8
+ORACLE_MAP_TOL = 1e-5
+ORACLE_CPU_RTOL = 1e-4
+
+
+def start_quality_tree(root: Path) -> subprocess.Popen:
+    """Phase 19's target cohort, written by a child process (the native
+    codec and numpy in a process of their own, off this one's GIL)."""
+    shutil.rmtree(root, ignore_errors=True)
+    code = ("import time; t0 = time.perf_counter()\n"
+            "from unet_bssfp_tpu_torch.data.synthetic import make_synthetic_bids\n"
+            f"make_synthetic_bids({str(root)!r}, subjects={QUALITY_TARGET_SUBJECTS!r}, "
+            f"sessions=('1',), volume_shape={VOLUME!r}, seed=1, linked=True, "
+            "link_tag_offset=10)\n"
+            "print(time.perf_counter() - t0)\n")
+    return subprocess.Popen([sys.executable, "-c", code], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def stop_process(proc) -> None:
+    if proc is not None and proc.poll() is None:
+        proc.kill()
+        proc.communicate()
+
+
+def phase_quality(torch, K, checks, tree: str, target: str, tree_proc, best: str, work: Path):
+    """Phase 19: the A/B's two arms, the oracle and the judged summary (see
+    the docstring). Returns the launches of its three paths and the records."""
+    import argparse
+
+    import numpy as np
+
+    from scripts import torch_port_multistage_bench as msb
+    from scripts import torch_port_oracle_ceiling as oc
+    from scripts import torch_port_quality_record as qr
+    from unet_bssfp_tpu_torch.config import Config
+    from unet_bssfp_tpu_torch.data.datamodule import DoveDataModule
+    from unet_bssfp_tpu_torch.data.synthetic import _linked_map
+
+    out = {}
+    t0 = time.perf_counter()
+    stdout, stderr = tree_proc.communicate()
+    if tree_proc.returncode != 0:
+        raise RuntimeError(f"phase 19's target cohort was not written: {stderr[-2000:]}")
+    out["target_tree"] = {"subjects": len(QUALITY_TARGET_SUBJECTS), "write_s": float(stdout),
+                          "waited_s": time.perf_counter() - t0}
+    device = qr.device_label("cuda")
+
+    # 1. the A/B: the multistage arm, then the direct arm, the counts reset
+    # before each
+    args = argparse.Namespace(**QUALITY_EPOCHS, samples_per_vol=QUALITY_SPV, modality=MODALITY,
+                              two_cohort=True, smoke=False, no_record=True, device="cuda")
+    cfg, data, pre = msb.build(args, pretrain_bids=tree, target_bids=target,
+                               workdir=str(work / "ab"))
+    data.setup()
+    pre.setup()
+
+    def steps(dm, split):
+        n = len(getattr(dm, f"{split}_samples")) * cfg.data.samples_per_vol
+        return -(-n // cfg.data.batch_size)
+
+    torch.cuda.synchronize()
+    K.reset_launches()
+    states, ms_row, ms_wall = msb.run_multistage_arm(args, cfg, data, pre, "cuda")
+    ms_counts = K.launches()
+    ms_expected, ms_steps = dict.fromkeys(ms_counts, 0), {}
+    for stage, st in states.items():
+        dm = pre if stage.value == "pretrain" else data
+        epochs = QUALITY_EPOCHS[stage.value]
+        ms_steps[stage.value] = {"train": st.step, "expected_train": epochs * steps(dm, "train"),
+                                 "val": epochs * steps(dm, "val")}
+        for k, v in MULTISTAGE_STAGE_LAUNCHES[stage.value].items():
+            ms_expected[k] += st.step * v
+        for k, v in EVAL_STEP_LAUNCHES.items():
+            ms_expected[k] += epochs * steps(dm, "val") * v
+    del states
+    torch.cuda.empty_cache()
+    K.reset_launches()
+    t1 = time.perf_counter()
+    direct_row = msb.run_direct(args, cfg, data, MODALITY, "cuda")
+    torch.cuda.synchronize()
+    direct_wall = time.perf_counter() - t1
+    d_counts = K.launches()
+    n_epochs = sum(QUALITY_EPOCHS.values())
+    d_expected = {k: n_epochs * (steps(data, "train") * MULTISTAGE_STEP_LAUNCHES.get(k, 0)
+                                 + steps(data, "val") * EVAL_STEP_LAUNCHES.get(k, 0))
+                  for k in d_counts}
+    ms_entry, direct_entry = msb.ab_entries(args, device, ms_row, ms_wall, direct_row,
+                                            direct_wall)
+    shared = msb.COMMON_KEYS + msb.TWO_COHORT_KEYS
+    metric_keys = ("val_psnr_last", "val_ssim_last", "val_l1_last")
+    for name, entry, own, counts, want in (
+            ("quality_ab_multistage", ms_entry, msb.MULTISTAGE_KEYS, ms_counts, ms_expected),
+            ("quality_ab_direct", direct_entry, msb.DIRECT_KEYS, d_counts, d_expected)):
+        keys_ok = set(entry) == set(shared + own)
+        finite = all(math.isfinite(entry[k]) for k in metric_keys + (
+            ("multistage_minus_direct_psnr",) if own is msb.MULTISTAGE_KEYS else ()))
+        steps_ok = all(s["train"] == s["expected_train"] for s in ms_steps.values())
+        out[name] = {"launches": counts, "expected": want, "entry": entry, "keys_ok": keys_ok,
+                     "finite": finite}
+        checks.record(counts == want and keys_ok and finite and steps_ok,
+                      dict(phase=name, **out[name],
+                           **({"steps": ms_steps} if own is msb.MULTISTAGE_KEYS else {})))
+    print(f"quality A/B (full width, cohorts {len(pre.train_samples)}/{len(pre.val_samples)} and "
+          f"{len(data.train_samples)}/{len(data.val_samples)} subjects, 1/1/1 epochs, "
+          f"{QUALITY_SPV} patches a volume): multistage {ms_wall:.1f} s, direct "
+          f"{direct_wall:.1f} s, multistage - direct "
+          f"{ms_entry.get('multistage_minus_direct_psnr')} dB; launches exact "
+          f"{ms_counts == ms_expected} / {d_counts == d_expected}", flush=True)
+
+    # 2. the oracle on phase 12's tree: measure on the card (1 augmented pass
+    # and the clean one), the map against the fixture's numpy map, the clean
+    # pass's sums against the CPU's on the same batches
+    qcfg = qr.build_config(argparse.Namespace(smoke=False, samples_per_vol=QUALITY_SPV,
+                                              workdir=str(work / "oracle"), max_epochs=1), tree)
+    odm = DoveDataModule(tree, config=qcfg.data)
+    odm.setup()
+    t1 = time.perf_counter()
+    res = oc.measure(odm, MODALITY, 1, device="cuda")
+    torch.cuda.synchronize()
+    oracle_s = time.perf_counter() - t1
+    fn = oc.make_linked_map_fn(6, tag=1)
+    batch = next(iter(odm.val_batches(1000, keys=(MODALITY, "dwi-tensor"), augment=False,
+                                      device="cuda")))
+    x = batch[MODALITY]
+    map_err = float(np.abs(fn(x).cpu().numpy() - _linked_map(x.cpu().numpy(), 6, 1)).max())
+    del batch, x
+    card = oc.oracle_pass(odm, MODALITY, 1000, False, fn, "cuda")["oracle"]
+    host = oc.oracle_pass(odm, MODALITY, 1000, False, fn, "cpu")["oracle"]
+    rel = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(card[:3], host[:3]))
+    finite = all(math.isfinite(v) for r in res.values() for v in r.values())
+    out["oracle"] = {"measure": res, "seconds": oracle_s, "map_max_abs_err": map_err,
+                     "map_tol": ORACLE_MAP_TOL, "clean_sums_card": card, "clean_sums_cpu": host,
+                     "clean_max_rel_diff": rel, "clean_rtol": ORACLE_CPU_RTOL}
+    print(f"oracle on phase 12's tree ({res['oracle_clean']['n_patches']} clean patches): "
+          f"{json.dumps(res)}; {oracle_s:.2f} s; map vs numpy {map_err:.2e}; clean pass card vs "
+          f"CPU {rel:.2e}", flush=True)
+    checks.record(map_err <= ORACLE_MAP_TOL and rel <= ORACLE_CPU_RTOL and card[3] == host[3]
+                  and finite, dict(phase="quality_oracle", **out["oracle"]))
+
+    # 3. the judged summary from phase 13's best step, the counts reset
+    # before it
+    with open(os.path.join(os.path.dirname(best), "config.json")) as f:
+        jcfg = Config.from_json(f.read())
+    jcfg = dataclasses.replace(jcfg, data=dataclasses.replace(jcfg.data, data_dir=tree))
+    jdm = DoveDataModule(tree, config=jcfg.data)
+    jdm.prepare_data()
+    n_test = len(jdm.test_samples)
+    jargs = argparse.Namespace(workdir=str(work / "judged"), modality=MODALITY, smoke=False,
+                               skip_eval=False, device="cuda")
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t1 = time.perf_counter()
+    judged = qr.judged_artifact(jargs, jcfg, jdm, best, str(work / "quality"), denorm=False)
+    torch.cuda.synchronize()
+    judged_s = time.perf_counter() - t1
+    j_counts = K.launches()
+    j_expected = dict(dict.fromkeys(j_counts, 0), conv3x3_packed=4 * n_test, pack_hw=2 * n_test,
+                      unpack_hw=n_test, scalar_maps=2 * n_test)
+    with open(work / "quality" / "relative_errors.csv") as f:
+        table_rows = len(f.read().splitlines()) - 1
+    finite = (all(math.isfinite(v) for v in judged["test_metrics"].values())
+              and math.isfinite(judged["diag_median_rel_err"]))
+    keys_ok = tuple(judged) == qr.SUMMARY_KEYS
+    out["judged"] = {"launches": j_counts, "expected": j_expected, "test_volumes": n_test,
+                     "seconds": judged_s, "table_rows": table_rows, "keys_ok": keys_ok,
+                     "summary": judged}
+    print(f"judged summary ({n_test} test volume(s)): {judged_s:.1f} s; test metrics "
+          f"{json.dumps(judged['test_metrics'])}; diag median {judged['diag_median_rel_err']}; "
+          f"{table_rows} table rows; launches exact {j_counts == j_expected}", flush=True)
+    checks.record(j_counts == j_expected and keys_ok and finite and table_rows > 0,
+                  dict(phase="quality_judged", **out["judged"]))
+    torch.cuda.empty_cache()
+    return {"quality_ab_multistage": ms_counts, "quality_ab_direct": d_counts,
+            "quality_judged": j_counts}, out
+
+
 def summary(rows, by_path):
     """``by_path``: each main path's launch counts, read from its own run
     with the counters reset just before it (the serving run, one training
@@ -3616,6 +3831,9 @@ def main() -> int:
     ms_work = Path("perf_out") / "multistage_smoke"
     sharded_work = Path("perf_out") / "sharded_smoke"
     surface_work = Path("perf_out") / "surface_smoke"
+    quality_tree = Path("perf_out") / "quality_tree"
+    quality_work = Path("perf_out") / "quality_smoke"
+    quality_proc = None
     try:
         synth_s = make_tree(make_synthetic_bids, tree)
         print(f"synthetic tree ({len(DATA_SUBJECTS)} subjects at {VOLUME}, {nifti.codec()} "
@@ -3652,10 +3870,12 @@ def main() -> int:
         clock.lap("13_loop")
         ckpt_eval_counts, ckpt_predict_counts, perceptual_counts, ckpt_eval_out = \
             phase_eval_checkpoint(torch, K, checks, str(tree), loop_run, loop_work)
+        loop_best = loop_run["best"]
         del loop_run
         print(f"evaluation from a checkpoint done at {time.perf_counter() - t_start:.1f}s",
               flush=True)
         clock.lap("14_eval_checkpoint")
+        quality_proc = start_quality_tree(quality_tree)  # phase 19's, while 15-17 run
         shutil.rmtree(ms_work, ignore_errors=True)
         ms_work.mkdir(parents=True)
         ms_counts, ms_step_counts, ms_out = phase_multistage(
@@ -3685,13 +3905,23 @@ def main() -> int:
         print(f"serving artifact and public surface done at "
               f"{time.perf_counter() - t_start:.1f}s (phase {surface_out['phase_s']:.1f}s)",
               flush=True)
+        clock.lap("17_surface")
+        shutil.rmtree(quality_work, ignore_errors=True)
+        quality_work.mkdir(parents=True)
+        quality_counts, quality_out = phase_quality(
+            torch, K, checks, str(tree), str(quality_tree), quality_proc, loop_best,
+            quality_work)
+        print(f"quality path done at {time.perf_counter() - t_start:.1f}s", flush=True)
     finally:
+        stop_process(quality_proc)
         shutil.rmtree(tree, ignore_errors=True)
         shutil.rmtree(loop_work, ignore_errors=True)
         shutil.rmtree(ms_work, ignore_errors=True)
         shutil.rmtree(sharded_work, ignore_errors=True)
         shutil.rmtree(surface_work, ignore_errors=True)
-    clock.lap("17_surface")
+        shutil.rmtree(quality_tree, ignore_errors=True)
+        shutil.rmtree(quality_work, ignore_errors=True)
+    clock.lap("19_quality")
     wguard_counts, wguard_out = phase_wguard(
         torch, F, K, checks,
         (Config, build_models, make_predict_fn, weights, predict_volume, create_gan_state,
@@ -3714,7 +3944,8 @@ def main() -> int:
                                     "multistage_run": ms_counts,
                                     **{f"multistage_{s}_step": c
                                        for s, c in ms_step_counts.items()},
-                                    **sharded_counts, **surface_counts, **wguard_counts})
+                                    **sharded_counts, **surface_counts, **wguard_counts,
+                                    **quality_counts})
     unlaunched = [k["name"] for k in kernels if k["launches"] == 0]
     checks.record(not unlaunched, dict(phase="every_kernel_launched_on_a_path",
                                        unlaunched=unlaunched))
@@ -3742,6 +3973,7 @@ def main() -> int:
                    "sharded_launches": sharded_counts, "sharded": sharded_out,
                    "surface_launches": surface_counts, "surface": surface_out,
                    "wguard_launches": wguard_counts, "wguard": wguard_out,
+                   "quality_launches": quality_counts, "quality": quality_out,
                    "phase_seconds": clock.laps, "kernels": kernels, "elapsed_s": elapsed},
                   f, indent=1)
     if checks.failures:

@@ -2,14 +2,15 @@
 """Run some phases of a checkout's ``chip_smoke.py`` on the card: the
 build, then the training data path (phase 12), the training loop (phase
 13), the evaluation from its best checkpoint (phase 14, which needs
-phase 13), the multi-stage regime (phase 15) and the sharded training step
+phase 13), the quality path (phase 19, which needs phase 13 and writes its
+own target cohort first), the multi-stage regime (phase 15) and the sharded training step
 (phase 16) and the serving artifact with the public surface (phase 17,
 without its plots, which read phase 14's table), on the smoke's 4-subject
 tree at (96, 128, 128); and the wguard layout (phase 18), which needs no
 tree.
 
   python scripts/torch_port_smoke_phases.py [--root DIR]
-      [--phases data loop checkpoint multistage sharded surface wguard]
+      [--phases data loop checkpoint quality multistage sharded surface wguard]
       [--tree perf_out/smoke_tree_phases]
 
 ``--root`` is the checkout whose ``chip_smoke.py`` and package run
@@ -23,7 +24,8 @@ run's and steps' (phase 15), each mesh's step ms and peak MiB beside the
 unsharded step's (phase 16), the export's seconds, the ms per volume of the
 artifact and of ``predict_volume`` and the wrappers' ms per step (phase
 17), the guarded serving and steps' ms beside the unguarded ones (phase
-18). Needs a card.
+18), the A/B's entries, the oracle's and the judged summary's seconds
+(phase 19). Needs a card.
 """
 
 from __future__ import annotations
@@ -42,10 +44,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--phases", nargs="+",
-                    choices=("data", "loop", "checkpoint", "multistage", "sharded", "surface",
-                             "wguard"),
-                    default=["data", "loop", "checkpoint", "multistage", "sharded", "surface",
-                             "wguard"])
+                    choices=("data", "loop", "checkpoint", "quality", "multistage", "sharded",
+                             "surface", "wguard"),
+                    default=["data", "loop", "checkpoint", "quality", "multistage", "sharded",
+                             "surface", "wguard"])
     ap.add_argument("--tree", default="perf_out/smoke_tree_phases")
     args = ap.parse_args()
     root = Path(args.root).resolve()
@@ -89,8 +91,9 @@ def main() -> int:
         summary["data"] = {k: out["train"][k] for k in (
             "ms_per_step_median", "ms_per_loop_iteration_median", "device_busy_share")}
         summary["data"]["phase_s"] = time.perf_counter() - t0
-    if "checkpoint" in args.phases and "loop" not in args.phases:
-        ap.error("the checkpoint phase evaluates the loop phase's run: add loop")
+    for phase in ("checkpoint", "quality"):
+        if phase in args.phases and "loop" not in args.phases:
+            ap.error(f"the {phase} phase evaluates the loop phase's run: add loop")
     if "loop" in args.phases:
         from scripts import torch_port_convergence
         from unet_bssfp_tpu_torch.train import checkpoint
@@ -121,6 +124,26 @@ def main() -> int:
                     "phase_s": time.perf_counter() - t0}
                 for v in summary["checkpoint"]["perceptual_step"].values():
                     v.pop("launches")
+            if "quality" in args.phases:
+                t0 = time.perf_counter()
+                target = tree.parent / "quality_tree_phases"
+                proc = sm.start_quality_tree(target)
+                try:
+                    out = sm.phase_quality(torch, K, checks, str(tree), str(target), proc,
+                                           run["best"], work / "quality")[-1]
+                finally:
+                    sm.stop_process(proc)
+                    shutil.rmtree(target, ignore_errors=True)
+                summary["quality"] = {
+                    "target_tree": out["target_tree"],
+                    "ab_entries": [out[k]["entry"] for k in ("quality_ab_multistage",
+                                                             "quality_ab_direct")],
+                    "oracle": {k: out["oracle"][k] for k in ("measure", "seconds",
+                                                             "map_max_abs_err",
+                                                             "clean_max_rel_diff")},
+                    "judged_s": out["judged"]["seconds"],
+                    "judged_test_metrics": out["judged"]["summary"]["test_metrics"],
+                    "phase_s": time.perf_counter() - t0}
         finally:
             shutil.rmtree(work, ignore_errors=True)
     if "multistage" in args.phases:

@@ -287,6 +287,26 @@ Phases (any failure → nonzero exit, no ``ok`` line):
     table) from phase 13's best step on phase 12's tree
     (``quality_judged``: K1 4, K3a 2, K3b 1 and K8 2 per test volume), its
     keys the JAX script's, its test metrics and diagonal median finite.
+20. Training over distinct devices: meshes whose positions lie on cuda:0
+    and on the host, ``Mesh([[cuda:0], [cpu]], ('data',))`` (2, 1) and
+    ``Mesh([[cuda:0, cpu]], ('data', 'space'))`` (1, 2), one replica of the
+    models on each, the replicas' gradients summed onto the card's masters
+    and the new weights copied back. Full-width models, f32, TF32 off,
+    ``packed=True``, dropout 0, batch 2 × 64³. With the counts reset before
+    each: one GAN step on each mesh (``distinct_gan_step_2x1``, ``_1x2``)
+    against the same mesh on cuda:0 alone from the same weights and batch
+    (phase 16's f32 bounds, ``f32_step_failures``); the cuda:0 position
+    launches one shard's kernels (``sharded_launches`` of one position: K1
+    8, K1-dgrad 4, K2 4, K3a 5, K3b 4, in the K5 forms on (1, 2)), the host
+    position none, cuda:0 alone two shards'; every replica bit-equal to its
+    master after the step. One FINE_TUNE step at the thesis widths on (2, 1)
+    (``distinct_finetune_step_2x1``), held the same way. One GAN step with
+    the default dropout on (2, 1) (``distinct_dropout_step_2x1``), cuDNN
+    deterministic: finite losses, replicas bit-equal, a rerun from the seed
+    bit for bit (weights, buffers, both dropout generators); its checkpoint
+    loads into a state on cuda:0 alone, the generator bit-equal to the
+    master. The phase's seconds and the card's name and power limit on a
+    line of their own.
 
 Each phase's seconds go to a line of their own, ``{"phase": "seconds",
 "name": ..., "s": ...}``, as it ends, and their sum to one more before the
@@ -300,8 +320,9 @@ perceptual step's, the multi-stage run's and each of its stages' one step's
 counts, and phase 16's: the sharded steps', eval step's, fit's and
 supervised steps', phase 17's: ``predict --exported``'s, the GAN wrapper's 3
 steps' and the multi-stage wrapper's steps', and phase 18's: the guarded
-serving runs', GAN step's, FINE_TUNE step's and (1, 2) step's, and phase
-19's: the A/B's two arms' and the judged summary's;
+serving runs', GAN step's, FINE_TUNE step's and (1, 2) step's, phase
+19's: the A/B's two arms' and the judged summary's, and phase 20's: the
+steps on the meshes over cuda:0 and the host;
 ``launches``: their sum); details go to ``perf_out/chip_smoke.json``.
 """
 
@@ -398,11 +419,12 @@ HALO_FORMS = {"conv3x3_packed": "conv3x3_packed_halo",
               "conv3x3_wgrad": "conv3x3_wgrad_halo"}
 
 
-def sharded_launches(shape, per_step=None):
+def sharded_launches(shape, per_step=None, positions=None):
     """One step's launches on a mesh of ``shape``: ``per_step`` (default
-    ``TRAIN_STEP_LAUNCHES``) once per position, in the halo forms where the
+    ``TRAIN_STEP_LAUNCHES``) once per position (or per one of
+    ``positions`` of them: those on the card), in the halo forms where the
     mesh splits d."""
-    n = shape[0] * shape[1]
+    n = shape[0] * shape[1] if positions is None else positions
     out = dict.fromkeys(TRAIN_STEP_LAUNCHES, 0)
     for k, v in (per_step or TRAIN_STEP_LAUNCHES).items():
         out[HALO_FORMS.get(k, k) if shape[1] > 1 else k] += n * v
@@ -988,24 +1010,25 @@ def time_steps(torch, step, state, x, y, warmup=3, timed=10):
     return ts, torch.cuda.max_memory_allocated() / 2 ** 20, metrics
 
 
-def f32_step_failures(ref_m, ref_g, got_m, got_g):
+def f32_step_failures(ref_m, ref_g, got_m, got_g, zero_grad_biases=(".conv.bias",)):
     """One f32 training step against a reference step from the same weights
     and batch: each loss within 1e-4 relative (D's 1e-2), each generator
-    gradient leaf within 5e-2 relative L2, a conv bias (true gradient 0)
-    within 1e-4 of the largest reference gradient. Returns the losses'
-    relative errors, the worst non-bias leaf and the failures."""
+    gradient leaf within 5e-2 relative L2, a conv bias before a norm (true
+    gradient 0; named by ``zero_grad_biases``) within 1e-4 of the largest
+    reference gradient. Returns the losses' relative errors, the worst
+    non-bias leaf and the failures."""
     gmax = max(float(v.abs().max()) for v in ref_g.values())
     loss_rel = {k: abs(got_m[k] - r) / abs(r) for k, r in ref_m.items()}
     bad = [k for k, e in loss_rel.items() if not e <= (1e-2 if k == "train_discr_loss" else 1e-4)]
     for name, r in ref_g.items():
-        if name.endswith(".conv.bias"):
+        if name.endswith(zero_grad_biases):
             err, tol = float((got_g[name] - r).abs().max()) / gmax, 1e-4
         else:
             err, tol = rel_l2(got_g[name], r), 5e-2
         if not err <= tol:
             bad.append((name, err, tol))
     worst = max(((n, rel_l2(got_g[n], r)) for n, r in ref_g.items()
-                 if not n.endswith(".conv.bias")), key=lambda t: t[1])
+                 if not n.endswith(zero_grad_biases)), key=lambda t: t[1])
     return loss_rel, worst, bad
 
 
@@ -2930,6 +2953,146 @@ def phase_sharded(torch, K, checks, pkg, tree: str, work: Path):
     return paths, out
 
 
+# Phase 20: training over distinct devices, cuda:0 and the host: the mesh
+# shapes, the batch (2 × 64³) and the names of the multi-stage net's conv
+# biases that feed a norm.
+DISTINCT_SHAPES = ((2, 1), (1, 2))
+DISTINCT_BATCH = 2
+MS_NORM_BIASES = (".conv.bias", "conv_in.bias", "conv_mid.bias", "conv_out.bias")
+
+
+def phase_distinct(torch, K, checks, pkg, work: Path):
+    """Phase 20: training on meshes over cuda:0 and the host (see the
+    docstring). Returns each path's launch counts and the records."""
+    (Config, create_gan_state, make_train_step, mesh_pkg, ckpt, ms, TrainingState) = pkg
+    Mesh, make_mesh, replicas = mesh_pkg
+    base = Config()
+    card, host = torch.device("cuda", 0), torch.device("cpu")
+    mcfg = dataclasses.replace(base.model, compute_dtype="float32", dropout=0.0, packed=True)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    lead = (DISTINCT_BATCH,) + (TRAIN_PATCH,) * 3
+    x = torch.rand(lead + (24,), device="cuda", generator=g)
+    y = torch.rand(lead + (6,), device="cuda", generator=g)
+    mixed = {(2, 1): Mesh([[card], [host]], ("data",)),
+             (1, 2): Mesh([[card, host]], ("data", "space"))}
+    alone = {(2, 1): make_mesh(["cuda:0"], ("data",), (2,)),
+             (1, 2): make_mesh(["cuda:0"], ("data", "space"), (1, 2))}
+    label = lambda s: f"{s[0]}x{s[1]}"  # noqa: E731
+    paths, out = {}, {}
+
+    def bit_equal(*modules):
+        """Each replica's parameters and buffers bit-equal to its master's."""
+        pairs = [(replicas(m)[0].state_dict(), twin.state_dict())
+                 for m in modules for twin in replicas(m)[1:]]
+        return bool(pairs) and all(a.keys() == b.keys() and all(
+            torch.equal(v.cpu(), b[k].cpu()) for k, v in a.items()) for a, b in pairs)
+
+    def counted(step, state, xs, ys):
+        """One step with the counts reset just before it: (metrics, counts, s)."""
+        torch.cuda.synchronize()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        m = step(state, xs, ys)
+        torch.cuda.synchronize()
+        return {k: float(v) for k, v in m.items()}, K.launches(), time.perf_counter() - t0
+
+    def held(key, runs, want, biases=(".conv.bias",)):
+        """The mixed mesh's step against cuda:0 alone's: f32 bounds, exact
+        launches on both, replicas bit-equal."""
+        (ref_m, ref_g, ref_c, ref_s, _), (m, grads, c, sec, same) = runs["alone"], runs["mixed"]
+        loss_rel, worst, bad = f32_step_failures(ref_m, ref_g, m, grads, biases)
+        row = {"loss_rel_err": loss_rel, "worst_leaf": worst, "failures": bad,
+               "launches": c, "expected": want[1], "alone_launches": ref_c,
+               "alone_expected": want[0], "replicas_bit_equal": same, "s": sec,
+               "alone_s": ref_s}
+        print(f"distinct devices {key}: {sec:.1f} s (cuda:0 alone {ref_s:.2f} s); losses "
+              f"{json.dumps(loss_rel)}; worst leaf {worst}; failures {bad}; launches "
+              f"{json.dumps(c)}; replicas bit-equal {same}", flush=True)
+        checks.record(not bad and c == want[1] and ref_c == want[0] and same,
+                      dict(phase="distinct_devices_step", step=key, **row))
+        paths[f"distinct_{key}"] = c
+        out[key] = row
+
+    # 1. one f32 GAN step on each mixed mesh against cuda:0 alone
+    for shape in DISTINCT_SHAPES:
+        runs = {}
+        for key, mesh in (("alone", alone[shape]), ("mixed", mixed[shape])):
+            st = create_gan_state(SEED, MODALITY, mcfg, base.train, "cuda", mesh=mesh)
+            m, c, sec = counted(make_train_step(st.gen, st.disc, base.train, mesh=mesh),
+                                st, x, y)
+            runs[key] = (m, {n: p.grad.detach().clone() for n, p in st.gen.named_parameters()},
+                         c, sec, key == "alone" or (len(replicas(st.gen)) == 2
+                                                    and bit_equal(st.gen, st.disc)))
+            del st
+            torch.cuda.empty_cache()
+        held(f"gan_step_{label(shape)}", runs,
+             (sharded_launches(shape), sharded_launches(shape, positions=1)))
+
+    # 2. one f32 FINE_TUNE step at the thesis widths on (2, 1)
+    xs = torch.rand(lead + (24,), device="cuda", generator=g)
+    ys = 10.0 + torch.rand(lead + (6,), device="cuda", generator=g)  # L1's sign fixed
+    runs = {}
+    for key, mesh in (("alone", alone[(2, 1)]), ("mixed", mixed[(2, 1)])):
+        net = ms.build_multi_input_unet(MODALITY, mcfg, mesh=mesh)
+        st = ms.create_supervised_state(SEED, net, base.train, TrainingState.FINE_TUNE)
+        m, c, sec = counted(ms.make_supervised_train_step(net, base.train, mesh=mesh), st, xs, ys)
+        runs[key] = (m, {n: p.grad.detach().clone() for n, p in net.named_parameters()}, c, sec,
+                     key == "alone" or (len(replicas(net)) == 2 and bit_equal(net)))
+        del net, st
+        torch.cuda.empty_cache()
+    per_step = MULTISTAGE_STAGE_LAUNCHES["finetune"]
+    held("finetune_step_2x1", runs, (sharded_launches((2, 1), per_step),
+                                     sharded_launches((2, 1), per_step, positions=1)),
+         MS_NORM_BIASES)
+    del xs, ys, runs
+
+    # 3. the default dropout on (2, 1), cuDNN deterministic: two runs from
+    # the seed bit for bit; the second's checkpoint loads on cuda:0 alone
+    dcfg = dataclasses.replace(mcfg, dropout=base.model.dropout)
+    mesh = mixed[(2, 1)]
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = []
+        for _ in range(2):
+            st = create_gan_state(SEED, MODALITY, dcfg, base.train, "cuda", mesh=mesh)
+            m, c, sec = counted(make_train_step(st.gen, st.disc, base.train, mesh=mesh),
+                                st, x, y)
+            runs.append((m, c, sec, {f"{n}.{k}": v.cpu() for n in ("gen", "disc")
+                                     for k, v in getattr(st, n).state_dict().items()},
+                         [r.get_state() for r in (st.rng,) + st.replica_rngs],
+                         bit_equal(st.gen, st.disc)))
+    finally:
+        torch.backends.cudnn.deterministic = det
+    (m0, c0, s0, sd0, rng0, same0), (m1, _, _, sd1, rng1, same1) = runs
+    rerun = (m0 == m1 and sd0.keys() == sd1.keys() and all(torch.equal(sd0[k], sd1[k])
+                                                           for k in sd0)
+             and len(rng0) == len(rng1) == 2 and all(torch.equal(a, b)
+                                                      for a, b in zip(rng0, rng1)))
+    finite = all(math.isfinite(v) for v in m0.values())
+    mgr = ckpt.CheckpointManager(str(work / "ckpts"), top_k=1)
+    mgr.save(0, st, {"val_loss": m0["train_gen_loss"]})
+    plain = create_gan_state(SEED + 9, MODALITY, dcfg, base.train, "cuda")
+    ckpt.load_checkpoint(str(work / "ckpts" / "0"), plain)
+    loads = (all(torch.equal(a, b) for mod, twin in ((st.gen, plain.gen), (st.disc, plain.disc))
+                 for a, b in zip(mod.state_dict().values(), twin.state_dict().values()))
+             and torch.equal(plain.rng.get_state(), st.rng.get_state()))
+    want = sharded_launches((2, 1), positions=1)
+    row = {"losses": m0, "launches": c0, "expected": want, "s": s0, "rerun_bit_equal": rerun,
+           "replicas_bit_equal": same0 and same1, "finite": finite,
+           "checkpoint_loads_on_cuda0": loads}
+    print(f"distinct devices dropout step 2x1: {s0:.1f} s; rerun bit for bit {rerun}; "
+          f"replicas bit-equal {same0 and same1}; checkpoint loads on cuda:0 alone {loads}",
+          flush=True)
+    checks.record(rerun and same0 and same1 and finite and loads and c0 == want,
+                  dict(phase="distinct_devices_dropout_step", **row))
+    paths["distinct_dropout_step_2x1"] = c0
+    out["dropout_step_2x1"] = row
+    del st, plain, runs
+    torch.cuda.empty_cache()
+    return paths, out
+
+
 # Phase 17: the serving artifact and the public surface. The artifact is
 # frozen at the whole volume, batch 1; the wrapper GAN takes 3 steps; the
 # plots' files from the evaluation's table and test_metrics.csv.
@@ -3773,7 +3936,13 @@ def main() -> int:
         invert_dwi_tensor_norm,
         load_rescale_args,
     )
-    from unet_bssfp_tpu_torch.parallel.mesh import gather_batch, make_mesh, shard_batch
+    from unet_bssfp_tpu_torch.parallel.mesh import (
+        Mesh,
+        gather_batch,
+        make_mesh,
+        replicas,
+        shard_batch,
+    )
     from unet_bssfp_tpu_torch.predict import main as predict_main
     from unet_bssfp_tpu_torch.train import checkpoint
     from unet_bssfp_tpu_torch.train import multistage
@@ -3929,6 +4098,19 @@ def main() -> int:
          losses, guard_cols))
     print(f"wguard layout done at {time.perf_counter() - t_start:.1f}s", flush=True)
     clock.lap("18_wguard")
+    distinct_work = Path("perf_out") / "distinct_smoke"
+    shutil.rmtree(distinct_work, ignore_errors=True)
+    distinct_work.mkdir(parents=True)
+    try:
+        distinct_counts, distinct_out = phase_distinct(
+            torch, K, checks,
+            (Config, create_gan_state, make_train_step, (Mesh, make_mesh, replicas),
+             checkpoint, multistage, TrainingState), distinct_work)
+    finally:
+        shutil.rmtree(distinct_work, ignore_errors=True)
+    clock.lap("20_distinct")
+    print(f"distinct devices done at {time.perf_counter() - t_start:.1f}s (phase "
+          f"{clock.laps['20_distinct']:.1f}s on {card})", flush=True)
     elapsed = time.perf_counter() - t_start
 
     kernels = summary(checks.rows, {"serving": counts, "train_step": train_counts,
@@ -3945,7 +4127,7 @@ def main() -> int:
                                     **{f"multistage_{s}_step": c
                                        for s, c in ms_step_counts.items()},
                                     **sharded_counts, **surface_counts, **wguard_counts,
-                                    **quality_counts})
+                                    **quality_counts, **distinct_counts})
     unlaunched = [k["name"] for k in kernels if k["launches"] == 0]
     checks.record(not unlaunched, dict(phase="every_kernel_launched_on_a_path",
                                        unlaunched=unlaunched))
@@ -3974,6 +4156,7 @@ def main() -> int:
                    "surface_launches": surface_counts, "surface": surface_out,
                    "wguard_launches": wguard_counts, "wguard": wguard_out,
                    "quality_launches": quality_counts, "quality": quality_out,
+                   "distinct_launches": distinct_counts, "distinct": distinct_out,
                    "phase_seconds": clock.laps, "kernels": kernels, "elapsed_s": elapsed},
                   f, indent=1)
     if checks.failures:

@@ -6,11 +6,13 @@ phase 13), the quality path (phase 19, which needs phase 13 and writes its
 own target cohort first), the multi-stage regime (phase 15) and the sharded training step
 (phase 16) and the serving artifact with the public surface (phase 17,
 without its plots, which read phase 14's table), on the smoke's 4-subject
-tree at (96, 128, 128); and the wguard layout (phase 18), which needs no
+tree at (96, 128, 128); and the wguard layout (phase 18) and training over
+distinct devices (phase 20: meshes over cuda:0 and the host), which need no
 tree.
 
   python scripts/torch_port_smoke_phases.py [--root DIR]
-      [--phases data loop checkpoint quality multistage sharded surface wguard]
+      [--phases data loop checkpoint quality multistage sharded surface wguard
+                distinct]
       [--tree perf_out/smoke_tree_phases]
 
 ``--root`` is the checkout whose ``chip_smoke.py`` and package run
@@ -18,14 +20,16 @@ tree.
 (parent, change, change, parent), each in its own process. The tree is
 written once (from the smoke's seeds) and kept for the next run; delete it
 after. Prints each phase's check rows as the smoke does and one summary
-line: the data-fed step's and loop iteration's medians (phase 12), the
-loop's numbers (phase 13), the evaluation's (phase 14), the multi-stage
+line: the card's name and power limit, the data-fed step's and loop
+iteration's medians (phase 12), the loop's numbers (phase 13), the
+evaluation's (phase 14), the multi-stage
 run's and steps' (phase 15), each mesh's step ms and peak MiB beside the
 unsharded step's (phase 16), the export's seconds, the ms per volume of the
 artifact and of ``predict_volume`` and the wrappers' ms per step (phase
 17), the guarded serving and steps' ms beside the unguarded ones (phase
 18), the A/B's entries, the oracle's and the judged summary's seconds
-(phase 19). Needs a card.
+(phase 19), each mixed-mesh step's seconds beside cuda:0 alone's (phase
+20). Needs a card.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ import importlib.util
 import json
 import os
 import shutil
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -45,9 +50,9 @@ def main() -> int:
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--phases", nargs="+",
                     choices=("data", "loop", "checkpoint", "quality", "multistage", "sharded",
-                             "surface", "wguard"),
+                             "surface", "wguard", "distinct"),
                     default=["data", "loop", "checkpoint", "quality", "multistage", "sharded",
-                             "surface", "wguard"])
+                             "surface", "wguard", "distinct"])
     ap.add_argument("--tree", default="perf_out/smoke_tree_phases")
     args = ap.parse_args()
     root = Path(args.root).resolve()
@@ -78,10 +83,14 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     checks = sm.Checks()
     sm.phase_build(torch, K, _build, native)
-    if set(args.phases) - {"wguard"} and not (tree / ".complete").exists():
+    if set(args.phases) - {"wguard", "distinct"} and not (tree / ".complete").exists():
         print(f"tree {tree}: {sm.make_tree(make_synthetic_bids, tree):.1f} s", flush=True)
         (tree / ".complete").write_text("ok\n")
-    summary = {"root": str(root), "card": torch.cuda.get_device_name(0)}
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    summary = {"root": str(root), "card": card}
     if "data" in args.phases:
         t0 = time.perf_counter()
         _, out = sm.phase_data(torch, K, checks, (
@@ -255,6 +264,26 @@ def main() -> int:
             **{f"{k}_ms": {g: v[g]["ms_per_step_median"] for g in ("guarded", "unguarded")}
                for k, v in out.items() if k in ("train_step", "finetune_step")},
             "phase_s": time.perf_counter() - t0}
+    if "distinct" in args.phases:
+        from unet_bssfp_tpu_torch.models.multi_input_unet import TrainingState
+        from unet_bssfp_tpu_torch.parallel.mesh import Mesh, make_mesh, replicas
+        from unet_bssfp_tpu_torch.train import checkpoint, multistage
+
+        work = tree.parent / "distinct_smoke_phases"
+        shutil.rmtree(work, ignore_errors=True)
+        work.mkdir(parents=True)
+        try:
+            t0 = time.perf_counter()
+            _, out = sm.phase_distinct(
+                torch, K, checks,
+                (Config, create_gan_state, make_train_step, (Mesh, make_mesh, replicas),
+                 checkpoint, multistage, TrainingState), work)
+            summary["distinct"] = {
+                "step_s": {k: {"mixed": v["s"], "cuda0_alone": v.get("alone_s")}
+                           for k, v in out.items()},
+                "phase_s": time.perf_counter() - t0}
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
     summary["failures"] = [r.get("phase", r.get("kernel")) for r in checks.failures]
     print(json.dumps(summary), flush=True)
     return 1 if checks.failures else 0

@@ -1597,6 +1597,56 @@ def test_gpu_sharded_train_step_on_2x2_launches_exactly_and_matches_unsharded(cu
             assert float((got_g[name] - r).norm() / r.norm()) <= 5e-2, name
 
 
+@pytest.mark.gpu
+def test_gpu_gan_step_on_a_mesh_over_the_card_and_the_host(cuda):
+    """A (2, 1) mesh over cuda:0 and the host (one replica each, the card's
+    the masters), small widths, f32, ``packed``, dropout 0, batch 2 × 32³:
+    one GAN step against the same step on a (2, 1) mesh of cuda:0 alone
+    from the same weights and batch, under the 2 × 2 test's bounds; the
+    card's position launches half of cuda:0 alone's kernels, the host's
+    none; the host's replica bit-equal to the master after the step."""
+    import dataclasses
+
+    from unet_bssfp_tpu_torch.config import Config
+    from unet_bssfp_tpu_torch.parallel.mesh import Mesh, make_mesh, replicas
+    from unet_bssfp_tpu_torch.train.state import create_gan_state
+    from unet_bssfp_tpu_torch.train.steps import make_train_step
+
+    cfg = Config()
+    mcfg = dataclasses.replace(cfg.model, features=(8, 16, 16, 32, 32, 8),
+                               disc_features=(8, 8, 16), compute_dtype="float32",
+                               dropout=0.0, packed=True)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    x = torch.rand(2, 32, 32, 32, 24, device=cuda, generator=g)
+    y = torch.rand(2, 32, 32, 32, 6, device=cuda, generator=g)
+    runs = {}
+    for key, mesh in (("alone", make_mesh(["cuda:0"], ("data",), (2,))),
+                      ("mixed", Mesh([[torch.device("cuda", 0)], [torch.device("cpu")]],
+                                     ("data",)))):
+        st = create_gan_state(0, "pc-bssfp", mcfg, cfg.train, cuda, mesh=mesh)
+        K.reset_launches()
+        metrics = make_train_step(st.gen, st.disc, cfg.train, mesh=mesh)(st, x, y)
+        torch.cuda.synchronize()
+        grads = {n: p.grad.detach().float().clone() for n, p in st.gen.named_parameters()}
+        runs[key] = ({k: float(v) for k, v in metrics.items()}, grads, K.launches(), st)
+    (ref_m, ref_g, ref_c, _), (got_m, got_g, got_c, st) = runs["alone"], runs["mixed"]
+    assert got_c["conv3x3_packed"] > 0
+    assert {k: 2 * v for k, v in got_c.items()} == ref_c
+    for k, r in ref_m.items():
+        assert abs(got_m[k] - r) <= (1e-2 if k == "train_discr_loss" else 1e-4) * abs(r), k
+    scale = max(float(v.abs().max()) for v in ref_g.values())
+    for name, r in ref_g.items():
+        if name.endswith(".conv.bias"):
+            assert float((got_g[name] - r).abs().max()) <= 1e-4 * scale, name
+        else:
+            assert float((got_g[name] - r).norm() / r.norm()) <= 5e-2, name
+    for mod in (st.gen, st.disc):
+        master, twin = replicas(mod)
+        assert next(twin.parameters()).device.type == "cpu"
+        sd = twin.state_dict()
+        assert all(torch.equal(v.cpu(), sd[k]) for k, v in master.state_dict().items())
+
+
 # The serving artifact and the public surface (slice 16).
 
 @pytest.mark.gpu

@@ -111,17 +111,29 @@ def test_trainer_on_a_mesh_matches_the_jax_trainer_and_its_checkpoint_loads_unsh
         assert float(got[k]) == pytest.approx(float(want[k]), rel=1e-5, abs=1e-7), k
 
 
-def test_trainer_refuses_another_device_and_a_mesh_over_two(tmp_path, monkeypatch):
+def test_trainer_refuses_another_device_and_a_mesh_over_two(tmp_path):
+    """A device other than the mesh's first, on a mesh of one device and on
+    one over two (the host twice: ``cpu`` and ``cpu:0``); on the latter,
+    ``use_pallas`` (the fused norm has no sharded route) and a state whose
+    models have no replica on its second device."""
     cfg = _config(tmp_path)
     mesh = make_mesh(CPU8, ("data", "space"), (4, 2))
-    with pytest.raises(ValueError, match="is not the device of"):
-        Trainer(cfg, "pc-bssfp", device="meta", mesh=mesh)
-    monkeypatch.setattr(Mesh, "distinct", property(
-        lambda self: (torch.device("cpu"), torch.device("cuda", 0))))
-    with pytest.raises(NotImplementedError, match="must lie on one device"):
-        Trainer(cfg, "pc-bssfp", mesh=mesh)
-    with pytest.raises(NotImplementedError, match="must lie on one device"):
-        ms.run_multistage(None, "t1w", cfg, mesh=mesh)
+    two = Mesh([[torch.device("cpu")], [torch.device("cpu", 0)]], ("data",))
+    for m in (mesh, two):
+        with pytest.raises(ValueError, match="is not the first device of"):
+            Trainer(cfg, "pc-bssfp", device="meta", mesh=m)
+    with pytest.raises(ValueError, match="is not the first device of"):
+        ms.run_multistage(None, "t1w", cfg, device="meta", mesh=two)
+    pallas = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, use_pallas=True))
+    with pytest.raises(ValueError, match="use_pallas on Mesh"):
+        Trainer(pallas, "pc-bssfp", mesh=two).init_state()
+    with pytest.raises(ValueError, match="use_pallas on Mesh"):
+        ms.build_multi_input_unet("t1w", pallas.model, mesh=two)
+    trainer = Trainer(cfg, "pc-bssfp", mesh=two)
+    elsewhere = Trainer(cfg, "pc-bssfp", mesh=mesh).init_state()
+    x = torch.zeros((2, PATCH, PATCH, PATCH, 24))
+    with pytest.raises(ValueError, match="has no replica on cpu:0"):
+        trainer.train_step(elsewhere, x, x[..., :6])
 
 
 # ------------------------------------------------------- multi-stage steps

@@ -11,6 +11,7 @@ port draws a mask per shard in position order, JAX one global mask
 (``ROADMAP.md`` §3)."""
 
 import copy
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -37,6 +38,7 @@ from unet_bssfp_tpu_torch.parallel.mesh import (
     AXES,
     Mesh,
     Sharded,
+    broadcast,
     gather_batch,
     gather_rows,
     make_mesh,
@@ -311,6 +313,8 @@ def _port_state(jstate, mesh, packed):
     weights.state_from_flax(state.gen, state.disc, {
         k: jax.tree.map(np.asarray, getattr(jstate, k))
         for k in ("gen_params", "gen_batch_stats", "disc_params", "disc_batch_stats")})
+    broadcast(state.gen)  # into the replicas, on a mesh over several devices
+    broadcast(state.disc)
     return state
 
 
@@ -443,15 +447,26 @@ def test_remat_on_a_mesh_is_bit_equal_to_remat_off():
     assert torch.equal(ra, rb)
 
 
-def test_a_training_mesh_over_two_devices_raises(monkeypatch):
-    mesh = _mesh("4x2")
+def test_a_training_mesh_over_two_devices_raises():
+    """What the steps still refuse on a mesh over two devices (the host
+    twice, ``cpu`` and ``cpu:0``: two replicas): models without a replica on
+    the mesh's second device, models whose master lies on another device
+    than the mesh's first, and ``use_pallas`` on more than one position."""
+    cpu, cpu0 = torch.device("cpu"), torch.device("cpu", 0)
+    two = Mesh([[cpu, cpu0]] * 4, ("data", "space"))
     cfg = ModelConfig(features=FEATURES, disc_features=DISC_FEATURES, compute_dtype="float32")
-    state = create_gan_state(0, "pc-bssfp", cfg, TrainConfig(), "cpu", mesh=mesh)
-    monkeypatch.setattr(Mesh, "distinct", property(
-        lambda self: (torch.device("cpu"), torch.device("cuda", 0))))
+    state = create_gan_state(0, "pc-bssfp", cfg, TrainConfig(), "cpu", mesh=_mesh("4x2"))
     for build in (make_train_step, make_eval_step):
-        with pytest.raises(NotImplementedError, match="must lie on one device"):
-            build(state.gen, state.disc, TrainConfig(), mesh=mesh)
+        with pytest.raises(ValueError, match=r"Generator has no replica on cpu:0 of Mesh"):
+            build(state.gen, state.disc, TrainConfig(), mesh=two)
+    flipped = Mesh([[cpu0, cpu]] * 4, ("data", "space"))
+    state = create_gan_state(0, "pc-bssfp", cfg, TrainConfig(), "cpu", mesh=flipped)
+    for build in (make_train_step, make_eval_step):
+        with pytest.raises(ValueError, match="lies on cpu, not on the first device of"):
+            build(state.gen, state.disc, TrainConfig(), mesh=two)
+    pallas = dataclasses.replace(cfg, use_pallas=True)
+    with pytest.raises(ValueError, match="use_pallas on Mesh"):
+        create_gan_state(0, "pc-bssfp", pallas, TrainConfig(), "cpu", mesh=two)
 
 
 def test_steps_refuse_models_built_elsewhere():

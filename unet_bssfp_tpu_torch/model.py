@@ -31,7 +31,7 @@ from unet_bssfp_tpu_torch.models.medicalnet import (
 )
 from unet_bssfp_tpu_torch.models.multi_input_unet import TrainingState
 from unet_bssfp_tpu_torch.ops.losses import l1_loss
-from unet_bssfp_tpu_torch.parallel.mesh import Mesh, same_device, training_device
+from unet_bssfp_tpu_torch.parallel.mesh import Mesh, same_device
 from unet_bssfp_tpu_torch.train.checkpoint import load_checkpoint
 from unet_bssfp_tpu_torch.train.loop import resolve_with_perceptual
 from unet_bssfp_tpu_torch.train.multistage import (
@@ -98,9 +98,9 @@ class bSSFPToDWITensorModel:
         self.batch_size = batch_size
         self.mesh = mesh
         if mesh is not None:
-            first = training_device(mesh, "bSSFPToDWITensorModel")
+            first = mesh.devices[0][0]
             if device is not None and not same_device(device, first):
-                raise ValueError(f"device {device} is not the device of {mesh}")
+                raise ValueError(f"device {device} is not the first device of {mesh}")
             device = first
         self.device = resolve_device(device)
         self.recon_criterion = (

@@ -13,8 +13,8 @@ train mode only, from the ``torch.Generator`` bound to it
 
 Every module also takes a ``parallel.mesh.Sharded`` value (a volume split
 over a mesh's ``data`` and ``space`` axes) and returns one. Under a
-``space`` split of d, what is local runs on each shard with the shard's
-device's replica of the module (1³ and k2s2 convs, eval-mode BatchNorm,
+``space`` split of d, what is local runs on each shard with the replica of
+the module on the shard's mesh entry (``parallel.mesh.place``) (1³ and k2s2 convs, eval-mode BatchNorm,
 pools, concat, activations); a 3³ conv first takes one d slice from each
 ``space`` neighbour (``halo_d``) and then pads only (h, w); InstanceNorm
 sums its shards' moments over ``space`` (``all_sum``); the
@@ -31,7 +31,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -39,7 +39,15 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from unet_bssfp_tpu_torch.ops.kernels import fused_instance_norm_leaky_relu
-from unet_bssfp_tpu_torch.parallel.mesh import AXES, Sharded, apply_local, local, replicas
+from unet_bssfp_tpu_torch.parallel.mesh import (
+    AXES,
+    Sharded,
+    apply_local,
+    local,
+    place,
+    replica_seed,
+    replicas,
+)
 
 
 def to_ncdhw(x: torch.Tensor) -> torch.Tensor:
@@ -107,7 +115,7 @@ def instance_norm(x, norm: "InstanceNorm", dims, channel_dim: int, guard=None):
     columns alone; each shard holds as many as the next, so the combination
     stays exact. Returns f32."""
     def affine(t, *moments):
-        mod = local(norm, t.device)
+        mod = local(norm, place(t))
         if not moments:
             return instance_norm_f32(t, mod.weight, mod.bias, norm.epsilon, dims,
                                      channel_dim, guard)
@@ -136,7 +144,7 @@ def _chan_moments(x: Sharded, dims, axes, n: int, guard=None):
 
 def _on_shards(module: nn.Module, x: Sharded, method: str = "forward") -> Sharded:
     """A module's local op on every shard, by the shard's device's replica."""
-    return x.map(lambda t: getattr(local(module, t.device), method)(t))
+    return x.map(lambda t: getattr(local(module, place(t)), method)(t))
 
 
 class Conv(nn.Conv3d):
@@ -314,7 +322,7 @@ class BatchNorm(nn.Module):
         dev = mean.parts[0][0].device
         self._update(*(sum(m.parts[i][0].detach().to(dev) for i in rows).flatten() / len(rows)
                        for m in (mean, var)))
-        return xf.map(lambda t, m, v: local(self, t.device)._normalise(t, m, v, x.dtype),
+        return xf.map(lambda t, m, v: local(self, place(t))._normalise(t, m, v, x.dtype),
                       mean, var)
 
 
@@ -322,8 +330,9 @@ class Dropout(nn.Module):
     """Flax ``nn.Dropout``: in train mode keep each element with probability
     ``1 - rate`` and scale the kept ones by ``1 / (1 - rate)``. The mask is
     drawn from ``self.generator`` (a ``torch.Generator`` on the input's
-    device, bound by :func:`bind_dropout_generator`), never from the global
-    RNG; an unbound module in train mode with ``rate > 0`` raises."""
+    device, bound by :func:`bind_dropout_generator`; each replica on a
+    mesh has its own, :func:`bind_dropout_generators`), never from the
+    global RNG; an unbound module in train mode with ``rate > 0`` raises."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
@@ -351,6 +360,20 @@ def bind_dropout_generator(model: nn.Module,
             m.generator = generator
 
 
+def bind_dropout_generators(model: nn.Module, seed: int) -> Tuple[torch.Generator, ...]:
+    """One dropout generator per replica of ``model`` (``model`` alone if
+    it has none), each on its replica's device and bound to its
+    :class:`Dropout` s: the k-th replica's (in the mesh's device order, the
+    master first) seeded from ``parallel.mesh.replica_seed(seed, k)``, so
+    the master's from ``seed``. Returns them in that order."""
+    gens = []
+    for k, twin in enumerate(replicas(model)):
+        dev = next(twin.parameters()).device
+        gens.append(torch.Generator(device=dev).manual_seed(replica_seed(seed, k)))
+        bind_dropout_generator(twin, gens[-1])
+    return tuple(gens)
+
+
 def remat(module: nn.Module, fn, *args):
     """``fn(*args)`` (a block of ``module``) under
     ``torch.utils.checkpoint``: its activations are dropped after the
@@ -359,8 +382,9 @@ def remat(module: nn.Module, fn, *args):
     the one bound to ``module``'s :class:`Dropout` s: so the recompute sets
     that generator back to its state before the forward, draws the same
     masks, and leaves it where it was found, as if nothing had been
-    recomputed."""
-    gens = list({id(m.generator): m.generator for m in module.modules()
+    recomputed: the generators of ``module``'s replicas too."""
+    gens = list({id(m.generator): m.generator for twin in replicas(module)
+                 for m in twin.modules()
                  if isinstance(m, Dropout) and m.generator is not None}.values())
     before = [g.get_state() for g in gens]
 

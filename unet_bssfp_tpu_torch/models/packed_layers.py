@@ -43,7 +43,7 @@ from unet_bssfp_tpu_torch.models.layers import (
     instance_norm,
 )
 from unet_bssfp_tpu_torch.ops.kernels import conv3x3_packed_auto, guard_mask, pack_hw_auto
-from unet_bssfp_tpu_torch.parallel.mesh import Sharded, apply_local, local
+from unet_bssfp_tpu_torch.parallel.mesh import Sharded, apply_local, local, place
 
 
 def guard_cols(h: int, w: int) -> int:
@@ -77,7 +77,7 @@ class PackedConvNormAct(ConvNormAct):
     def forward_packed(self, xk, wdim: int, wguard: int = 0):
         dtype = self.compute_dtype or xk.dtype
         xk = apply_local(lambda t: t.to(dtype).contiguous(), xk)
-        devices = xk.mesh.distinct if isinstance(xk, Sharded) else (xk.device,)
+        devices = xk.mesh.distinct if isinstance(xk, Sharded) else (place(xk),)
         convs = {dev: local(self.conv, dev) for dev in devices}
         yk = conv3x3_packed_auto(
             xk, {dev: c.weight.permute(2, 3, 4, 1, 0)  # (kd, kh, kw, I, O)
@@ -85,7 +85,7 @@ class PackedConvNormAct(ConvNormAct):
             {dev: _f32(c.bias) for dev, c in convs.items()}, wdim, None, wguard)
         y = instance_norm(yk, self.norm, dims=(1, 3), channel_dim=2, guard=(wdim, wguard))
         return apply_local(
-            lambda t: local(self, t.device)._drop_act_packed(t, wdim, wguard), y)
+            lambda t: local(self, place(t))._drop_act_packed(t, wdim, wguard), y)
 
     def _drop_act_packed(self, y: torch.Tensor, wdim: int, wguard: int) -> torch.Tensor:
         # the JAX package's _guard_zero: the norm's bias and the activation

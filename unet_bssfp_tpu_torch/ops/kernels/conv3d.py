@@ -84,7 +84,7 @@ import torch
 import torch.nn.functional as F
 
 from unet_bssfp_tpu_torch.ops.kernels import _build, conv_wgmma, wgrad_wgmma
-from unet_bssfp_tpu_torch.parallel.mesh import Mesh, Sharded, gather_batch, shard_batch
+from unet_bssfp_tpu_torch.parallel.mesh import Mesh, Sharded, gather_batch, place, shard_batch
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -619,7 +619,8 @@ def conv3x3_packed_auto(xk: Union[torch.Tensor, Sharded], w: Replicas,
 
     ``xk`` is one tensor (with ``mesh``: split here by the rules below and
     gathered again) or a :class:`Sharded` value (shards in, shards out).
-    ``w`` and ``bias`` are one tensor each or one replica per device. The
+    ``w`` and ``bias`` are one tensor each or one replica per device (keyed
+    by the mesh's entries, :func:`~unet_bssfp_tpu_torch.parallel.mesh.place`). The
     route, per conv (the JAX package's ``_active_conv_mesh``):
 
     - no mesh, or a mesh of one position → K1 on the whole tensor;
@@ -632,14 +633,14 @@ def conv3x3_packed_auto(xk: Union[torch.Tensor, Sharded], w: Replicas,
     if isinstance(xk, torch.Tensor):
         plan = mesh.plan(xk.shape[0], xk.shape[1]) if mesh is not None else None
         if plan is None or plan.positions == 1:
-            return conv3x3_packed(xk, _on(w, xk.device), _on(bias, xk.device), wdim, wguard)
+            return conv3x3_packed(xk, _on(w, place(xk)), _on(bias, place(xk)), wdim, wguard)
         ys = conv3x3_packed_auto(shard_batch(plan, xk), w, bias, wdim, wguard=wguard)
         return gather_batch(ys, xk.device)
     if xk.mesh.size("space") == 1:
         return xk.map(lambda t: conv3x3_packed(
-            t, _on(w, t.device), _on(bias, t.device), wdim, wguard))
+            t, _on(w, place(t)), _on(bias, place(t)), wdim, wguard))
     return xk.halo_d().map(lambda t: conv3x3_packed_halo(
-        t, _on(w, t.device), _on(bias, t.device), wdim, wguard))
+        t, _on(w, place(t)), _on(bias, place(t)), wdim, wguard))
 
 
 conv3x3_packed.launches = 0

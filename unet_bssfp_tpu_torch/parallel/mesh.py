@@ -24,20 +24,36 @@ with the neighbours' edge gradients added.
 
 Parameters are replicated once per distinct device (:func:`replicate`),
 not once per position; :func:`local` picks a module's replica on a device.
-Training takes a mesh whose positions all lie on one device
-(:func:`training_device`): its shards share the modules' parameters, so
-autograd sums their gradients, and one optimizer step follows.
+Inside :meth:`Sharded.map` the lookup takes the position's mesh entry
+(:func:`place`), not its shard's ``t.device``: the two differ only where a
+mesh names the host twice, ``cpu`` and ``cpu:0``, which is how the CPU tests
+hold two real replicas in one process.
+
+Training on a mesh runs each position on its device's replica. Where the
+positions share one device, they share its parameters and autograd sums
+their gradients. Over several devices the first device's modules are the
+masters and alone have optimizers: after the backward
+:func:`reduce_gradients` sums every replica's gradients onto the master's,
+in the mesh's device order (a sum: the loss is already the global batch's),
+one optimizer step follows, and :func:`broadcast` copies the master's
+parameters and buffers into every replica in place. :func:`default_mesh` is
+the mesh the loops train on when the caller names no device: every visible
+card that the batch divides.
 """
 
 from __future__ import annotations
 
+import contextvars
 import copy
+import math
 from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 from torch import nn
 
 AXES = ("data", "space")
+_PLACE = contextvars.ContextVar("mesh_place", default=None)
 
 
 def as_device(d: Union[str, torch.device]) -> torch.device:
@@ -167,10 +183,17 @@ class Sharded:
         return self.parts[0][0].dtype
 
     def map(self, fn: Callable[..., torch.Tensor], *others: "Sharded") -> "Sharded":
-        """``fn(shard, *other_shards)`` at every position."""
-        return Sharded(self.mesh, [
-            [fn(t, *(o.parts[i][j] for o in others)) for j, t in enumerate(row)]
-            for i, row in enumerate(self.parts)])
+        """``fn(shard, *other_shards)`` at every position, :func:`place`
+        naming the position's mesh entry while ``fn`` runs."""
+        def at(i, j):
+            token = _PLACE.set(self.mesh.devices[i][j])
+            try:
+                return fn(self.parts[i][j], *(o.parts[i][j] for o in others))
+            finally:
+                _PLACE.reset(token)
+
+        return Sharded(self.mesh, [[at(i, j) for j in range(len(row))]
+                                   for i, row in enumerate(self.parts)])
 
     def halo_d(self, n: int = 1) -> "Sharded":
         """Every shard (B, D, ...) → (B, D + 2n, ...): below it the last
@@ -254,25 +277,13 @@ def gather_rows(x: Sharded, device: Union[str, torch.device, None] = None
     return tuple(torch.cat([t.to(dev) for t in row], dim=1) for row in x.parts)
 
 
-def training_device(mesh: Mesh, what: str = "training") -> torch.device:
-    """The one device every position of ``mesh`` lies on. A mesh over
-    several distinct devices raises ``NotImplementedError``: training there
-    needs the replicas' gradients reduced and their weights and BatchNorm
-    buffers re-broadcast after each step, which the port does not do
-    (serving on such a mesh works)."""
-    if len(mesh.distinct) > 1:
-        raise NotImplementedError(
-            f"{what} on {mesh}: a training mesh must lie on one device; across "
-            f"{len(mesh.distinct)} devices the replicas' gradients would need a reduce")
-    return mesh.distinct[0]
-
-
 def replicate(module: nn.Module, mesh: Mesh) -> Dict[torch.device, nn.Module]:
     """Move ``module`` to the mesh's first device and put one deep copy of
     it on every other distinct device; every submodule then finds its twin
     on a device through :func:`local`. Returns ``{device: replica}``,
     ``module`` itself first. Replicas are copies: after loading other
-    weights into ``module``, replicate again."""
+    weights into ``module``, :func:`broadcast` them (or replicate again, and
+    bind the copies' dropout generators anew)."""
     first, *rest = mesh.distinct
     module.to(first)
     for m in module.modules():
@@ -293,6 +304,14 @@ def replicas(module: nn.Module) -> Tuple[nn.Module, ...]:
     return tuple(module.__dict__.get("_replicas", {None: module}).values())
 
 
+def place(t: torch.Tensor) -> torch.device:
+    """Where ``t``'s replicas are looked up: inside :meth:`Sharded.map`, the
+    mesh entry of the position whose shard ``t`` is; elsewhere
+    ``t.device``."""
+    entry = _PLACE.get()
+    return t.device if entry is None else entry
+
+
 def local(module: nn.Module, device: torch.device) -> nn.Module:
     """``module``'s replica on ``device``: itself unless :func:`replicate`
     spread it over several devices."""
@@ -303,3 +322,82 @@ def local(module: nn.Module, device: torch.device) -> nn.Module:
         raise ValueError(f"no replica of {type(module).__name__} on {device}; "
                          f"it was replicated to {tuple(table)}")
     return table[device]
+
+
+def each_replica(module: nn.Module, method: str, *args) -> None:
+    """``method(*args)`` on ``module`` and on each of its replicas (train or
+    eval mode, ``requires_grad_``, ``zero_grad``)."""
+    for twin in replicas(module):
+        getattr(twin, method)(*args)
+
+
+def check_replicas(mesh: Mesh, module: nn.Module, what: str) -> None:
+    """``module`` must lie on ``mesh``'s first device, as the master of its
+    replicas, and have a replica on every other device of the mesh (built
+    with ``mesh=``); otherwise a ``ValueError``."""
+    first, table = mesh.devices[0][0], module.__dict__.get("_replicas")
+    have = next(module.parameters()).device
+    if not same_device(have, first) or (table is not None and next(iter(table)) != first):
+        raise ValueError(f"{what}: {type(module).__name__} lies on {have}, not on the "
+                         f"first device of {mesh}; build it with mesh=")
+    missing = [str(d) for d in mesh.distinct[1:] if table is None or d not in table]
+    if missing:
+        raise ValueError(f"{what}: {type(module).__name__} has no replica on "
+                         f"{', '.join(missing)} of {mesh}; build it with mesh=")
+
+
+def reduce_gradients(module: nn.Module) -> None:
+    """Each parameter's gradient summed over ``module``'s replicas onto the
+    master's (the first device's), in the mesh's device order; the
+    replicas' gradients are cleared. Without replicas, nothing."""
+    master, *rest = replicas(module)
+    if not rest:
+        return
+    with torch.no_grad():
+        for p, *twins in zip(master.parameters(), *(r.parameters() for r in rest)):
+            total = p.grad
+            for twin in twins:
+                if twin.grad is not None:
+                    g = twin.grad.to(p.device)
+                    total = g if total is None else total + g
+                    twin.grad = None
+            p.grad = total
+
+
+def broadcast(module: nn.Module) -> None:
+    """The master's parameters and buffers copied into each replica of
+    ``module`` in place (``copy_``), so the replica table stays valid."""
+    master, *rest = replicas(module)
+    with torch.no_grad():
+        for twin in rest:
+            for a, b in zip(twin.parameters(), master.parameters()):
+                a.copy_(b)
+            for a, b in zip(twin.buffers(), master.buffers()):
+                a.copy_(b)
+
+
+def replica_seed(seed: int, k: int) -> int:
+    """The dropout seed of the replica on a mesh's ``k``-th distinct device:
+    ``seed`` itself for the first (so one device draws as before), a seed
+    derived from ``(seed, k)`` for the others."""
+    if k == 0:
+        return seed
+    return int(np.random.SeedSequence([seed, k]).generate_state(1, np.uint32)[0])
+
+
+def default_mesh(batch_size: int) -> Optional[Mesh]:
+    """The mesh the training loops take when the caller names neither a
+    device nor a mesh, as the JAX package's loops build theirs: with more
+    than one CUDA device visible, a ``data`` axis over ``cuda:0`` …
+    ``cuda:k-1``, ``k = gcd(batch_size, device count)``, printing the JAX
+    package's line where ``k`` falls short of the count. ``None`` (train on
+    ``cuda``) with one card or none, or where ``k`` is 1."""
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n <= 1:
+        return None
+    usable = math.gcd(batch_size, n)
+    if usable != n:
+        print(f"batch_size {batch_size} not divisible by {n} devices; using a "
+              f"{usable}-device mesh (set batch_size to a multiple of the device count "
+              f"to use all devices)")
+    return make_mesh([f"cuda:{i}" for i in range(usable)]) if usable > 1 else None

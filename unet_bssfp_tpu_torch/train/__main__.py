@@ -1,13 +1,16 @@
 """Training CLI (the counterpart of ``src/train.py``): trains the given
-modalities in turn on one device, each run logged under ``train.log_dir``
-and checkpointed under ``train.checkpoint_dir``.
+modalities in turn, each run logged under ``train.log_dir`` and
+checkpointed under ``train.checkpoint_dir``.
 
   python -m unet_bssfp_tpu_torch.train BIDS_DIR [--modalities pc-bssfp ...]
       [--config cfg.json] [--ckpt PATH|auto] [--debug] [--max-epochs N]
-      [--multistage] [--whole-volume] [--device cuda]
+      [--multistage] [--whole-volume] [--device cuda:N|cpu]
 
-Runs on CUDA unless ``--device cpu``; asking for CUDA where there is none
-raises. ``--ckpt auto`` resumes each modality from the newest whole
+Without ``--device`` it trains on every visible card, data-parallel, as the
+JAX package trains on every device (``parallel.mesh.default_mesh``: the
+cards that ``data.batch_size`` divides; on one card, that card).
+``--device cuda:N`` or ``cpu`` trains on that one device; asking for CUDA
+where there is none raises. ``--ckpt auto`` resumes each modality from the newest whole
 checkpoint of its newest run. ``--multistage`` runs the pretrain →
 transfer → finetune regime (``train/multistage.py``) for each modality
 instead of the GAN, ``--max-epochs`` applying to every stage, each stage
@@ -47,10 +50,12 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                              "instead of the GAN")
     parser.add_argument("--whole-volume", action="store_true",
                         help="train on whole (96, 128, 128) volumes instead of 64³ patches")
-    parser.add_argument("--device", default="cuda", help="cuda (default), cuda:N or cpu")
+    parser.add_argument("--device", default=None,
+                        help="cuda:N or cpu: train on that one device (default: every "
+                             "visible card)")
     args = parser.parse_args(argv)
 
-    device = resolve_device(args.device)
+    device = resolve_device(args.device) if args.device is not None else None
     config = Config()
     if args.config:
         with open(args.config) as f:

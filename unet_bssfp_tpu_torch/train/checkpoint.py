@@ -8,7 +8,11 @@ both models' ``state_dict`` s (parameters and BatchNorm buffers), both AdamW
 ``state_dict`` s, ``step`` and the dropout generator's state; or, for a
 multi-stage run (``train/multistage.py``), the whole ``SupervisedState``:
 ``kind`` ``"supervised"``, the stage, the net's and its AdamW's
-``state_dict`` s, ``step`` and the generator's state. It is written
+``state_dict`` s, ``step`` and the generator's state. On a mesh over
+several devices the models are the masters (the first device's) and the
+file also holds each replica's dropout generator state
+(``replica_rngs``); a load copies the loaded weights into the replicas
+(``broadcast``), and the file loads on one device too. It is written
 to a temporary name, flushed to disk and renamed into place, so a step
 directory holds a ``state.pt`` only once the whole file is there: a crash
 mid-save never becomes ``find_latest_checkpoint``'s pick.
@@ -29,6 +33,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from unet_bssfp_tpu_torch.parallel.mesh import broadcast
 from unet_bssfp_tpu_torch.train.state import GANTrainState
 
 STATE_FILE = "state.pt"
@@ -118,14 +123,24 @@ def state_payload(state: GANTrainState) -> dict:
     return {"step": int(state.step),
             "gen": state.gen.state_dict(), "disc": state.disc.state_dict(),
             "gen_opt": state.gen_opt.state_dict(), "disc_opt": state.disc_opt.state_dict(),
-            "rng": {"device_type": state.rng.device.type, "state": state.rng.get_state()}}
+            **_rng_payload(state)}
 
 
 def supervised_payload(state) -> dict:
     """What a multi-stage step's file holds (``SupervisedState``)."""
     return {"kind": "supervised", "stage": state.stage.value, "step": int(state.step),
             "net": state.net.state_dict(), "opt": state.opt.state_dict(),
-            "rng": {"device_type": state.rng.device.type, "state": state.rng.get_state()}}
+            **_rng_payload(state)}
+
+
+def _rng_payload(state) -> dict:
+    """The master's dropout generator state and, where the state has
+    replicas on other devices, theirs in the mesh's order."""
+    entry = lambda g: {"device_type": g.device.type, "state": g.get_state()}  # noqa: E731
+    out = {"rng": entry(state.rng)}
+    if state.replica_rngs:
+        out["replica_rngs"] = [entry(g) for g in state.replica_rngs]
+    return out
 
 
 def atomic_save(obj, path: str) -> None:
@@ -197,7 +212,10 @@ def load_checkpoint(path: str, state: GANTrainState) -> GANTrainState:
     type, or is seeded where the file holds a seed (a converted checkpoint,
     ``scripts/torch_port_convert_checkpoint.py``); a state of another
     device type's generator raises (to evaluate or serve a step elsewhere,
-    load the generator alone: :func:`generator_state_dict`)."""
+    load the generator alone: :func:`generator_state_dict`). The replicas'
+    generators take the file's replica states where it has them, pairwise
+    in the mesh's order, and the loaded weights are broadcast to the
+    replicas."""
     path = _state_file(path)
     # read on the host; load_state_dict copies each tensor to the device of
     # the entry it fills (AdamW keeps its step counts on the host, as fresh)
@@ -206,7 +224,9 @@ def load_checkpoint(path: str, state: GANTrainState) -> GANTrainState:
     state.disc.load_state_dict(payload["disc"], strict=True)
     state.gen_opt.load_state_dict(payload["gen_opt"])
     state.disc_opt.load_state_dict(payload["disc_opt"])
-    _restore_rng(state.rng, payload["rng"], path)
+    _restore_rngs(state, payload, path)
+    broadcast(state.gen)
+    broadcast(state.disc)
     state.step = int(payload["step"])
     return state
 
@@ -222,9 +242,18 @@ def load_supervised_checkpoint(path: str, state):
         raise ValueError(f"{path}: not a {state.stage.value} stage's multi-stage checkpoint")
     state.net.load_state_dict(payload["net"], strict=True)
     state.opt.load_state_dict(payload["opt"])
-    _restore_rng(state.rng, payload["rng"], path)
+    _restore_rngs(state, payload, path)
+    broadcast(state.net)
     state.step = int(payload["step"])
     return state
+
+
+def _restore_rngs(state, payload: dict, path: str) -> None:
+    """The master's dropout generator, then each replica's that the file
+    holds."""
+    _restore_rng(state.rng, payload["rng"], path)
+    for gen, saved in zip(state.replica_rngs, payload.get("replica_rngs", ())):
+        _restore_rng(gen, saved, path)
 
 
 def _restore_rng(gen: torch.Generator, saved: dict, path: str) -> None:

@@ -5,10 +5,11 @@ The reference's Lightning orchestration (``src/train.py:15-77``): at most
 50 epochs, early stopping on ``val_gen_loss_recon`` (patience 10), top-10
 checkpoints by ``val_loss``, CSV/W&B metric logging, wall-time prints and
 resume from a checkpoint, driving the GAN step on one device (``cuda``
-unless the caller passes another) or on a mesh whose positions lie on one
-device (``mesh=``): every batch is trimmed to a multiple of the mesh's
-positions and split over it, as the JAX loop's ``batch_divisor`` and
-``shard_batch`` do.
+unless the caller passes another) or on a mesh (``mesh=``; with neither
+given, every visible card that the batch divides, as the JAX loop's default
+mesh: ``parallel.mesh.default_mesh``): every batch is trimmed to a multiple
+of the mesh's positions and split over it, as the JAX loop's
+``batch_divisor`` and ``shard_batch`` do.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from unet_bssfp_tpu_torch.models.medicalnet import (
     medicalnet_is_pretrained,
     perceptual_distance,
 )
-from unet_bssfp_tpu_torch.parallel.mesh import Mesh, same_device, training_device
+from unet_bssfp_tpu_torch.parallel.mesh import Mesh, default_mesh, same_device
 from unet_bssfp_tpu_torch.train.checkpoint import (
     CheckpointManager,
     find_latest_checkpoint,
@@ -109,6 +110,14 @@ def epoch_seeds(seed: int, epoch: int) -> Tuple[int, int]:
     return int(a), int(b)
 
 
+def synchronize(device: torch.device, mesh: Optional[Mesh] = None) -> None:
+    """Wait for the cards a run uses: ``device``, or each CUDA device of
+    ``mesh``."""
+    for dev in (mesh.distinct if mesh is not None else (device,)):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+
 def _run_name(config: Config, modality: str) -> str:
     """``{modality}-{stamp}``, with a suffix where a run of the same second
     already has a log or checkpoint directory (sorted after it, so it is
@@ -123,18 +132,22 @@ def _run_name(config: Config, modality: str) -> str:
 
 
 class Trainer:
-    """The loop of one modality's GAN. ``mesh``: train on its positions
-    (all on one device, the Trainer's; a ``device`` other than it raises, a
-    mesh over several devices raises ``NotImplementedError``)."""
+    """The loop of one modality's GAN. ``mesh``: train on its positions,
+    the models' masters on its first device, the Trainer's (a ``device``
+    other than it raises). With neither ``device`` nor ``mesh``, the mesh
+    is ``default_mesh(data.batch_size)``: every visible card that the batch
+    divides, or none (one card: ``cuda``)."""
 
     def __init__(self, config: Config, modality: str, device=None,
                  mesh: Optional[Mesh] = None, perceptual_fn=None, debug: bool = False):
         self.config = config
         self.modality = modality
+        if mesh is None and device is None:
+            mesh = default_mesh(config.data.batch_size)
         if mesh is not None:
-            first = training_device(mesh, "Trainer")
+            first = mesh.devices[0][0]
             if device is not None and not same_device(device, first):
-                raise ValueError(f"device {device} is not the device of {mesh}")
+                raise ValueError(f"device {device} is not the first device of {mesh}")
             device = first
         self.mesh = mesh
         self.batch_divisor = mesh.positions if mesh is not None else 1
@@ -215,8 +228,7 @@ class Trainer:
                     # reference's augmented-val convention; early stop and
                     # checkpoint selection still key on val_*
                     self._val_pass(data, state, val_seed, keys, False, "val_clean_")
-                if self.device.type == "cuda":
-                    torch.cuda.synchronize(self.device)
+                synchronize(self.device, self.mesh)
                 elapsed = time.perf_counter() - epoch_start
                 row = self.logger.end_epoch(epoch, extra={"epoch_seconds": elapsed})
                 self.ckpt.save(epoch, state, row)

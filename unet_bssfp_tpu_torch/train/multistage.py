@@ -14,9 +14,10 @@ three stages:
 - FINE_TUNE: every parameter trained at ``finetune_lr``.
 
 On one device (``cuda`` unless the caller passes another), or on a mesh
-whose positions lie on one device (``mesh=``): the batch split over it as
-the GAN step splits it, the loss terms (SSIM's window too) taken on the
-gathered output. The port draws its own numbers: weights and the dropout
+(``mesh=``; by default every visible card, ``parallel.mesh.default_mesh``):
+the batch split over it as the GAN step splits it, the loss terms (SSIM's
+window too) taken on the gathered output, the replicas' gradients reduced
+onto the master and its weights broadcast back as the GAN step does. The port draws its own numbers: weights and the dropout
 generator from per-stage seeds, the epochs' streams from ``epoch_seeds(seed
 + 17, epoch)`` where the JAX package splits ``PRNGKey(seed + 17)``.
 """
@@ -32,7 +33,7 @@ import torch
 
 from unet_bssfp_tpu_torch import weights
 from unet_bssfp_tpu_torch.config import Config, ModelConfig, TrainConfig
-from unet_bssfp_tpu_torch.models.layers import bind_dropout_generator
+from unet_bssfp_tpu_torch.models.layers import bind_dropout_generators
 from unet_bssfp_tpu_torch.models.multi_input_unet import (
     MultiInputUNet,
     TrainingState,
@@ -41,12 +42,30 @@ from unet_bssfp_tpu_torch.models.multi_input_unet import (
 )
 from unet_bssfp_tpu_torch.ops.losses import l1_loss, ssim_loss
 from unet_bssfp_tpu_torch.ops.metrics import mae, psnr, ssim3d
-from unet_bssfp_tpu_torch.parallel.mesh import Mesh, replicate, same_device, training_device
+from unet_bssfp_tpu_torch.parallel.mesh import (
+    Mesh,
+    broadcast,
+    default_mesh,
+    each_replica,
+    replicas,
+    replicate,
+    same_device,
+)
 from unet_bssfp_tpu_torch.train.checkpoint import CheckpointManager
 from unet_bssfp_tpu_torch.train.logging import EarlyStopping, MetricLogger
-from unet_bssfp_tpu_torch.train.loop import build_perceptual_fn, epoch_seeds, resolve_with_perceptual
+from unet_bssfp_tpu_torch.train.loop import (
+    build_perceptual_fn,
+    epoch_seeds,
+    resolve_with_perceptual,
+    synchronize,
+)
 from unet_bssfp_tpu_torch.train.state import _DTYPES, auto_packed, mesh_device, resolve_device
-from unet_bssfp_tpu_torch.train.steps import check_training_mesh, gather_whole, shard_inputs
+from unet_bssfp_tpu_torch.train.steps import (
+    check_training_mesh,
+    gather_whole,
+    shard_inputs,
+    update,
+)
 
 PerceptualFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 STAGES = (TrainingState.PRETRAIN, TrainingState.TRANSFER, TrainingState.FINE_TUNE)
@@ -55,9 +74,10 @@ STAGES = (TrainingState.PRETRAIN, TrainingState.TRANSFER, TrainingState.FINE_TUN
 @dataclasses.dataclass
 class SupervisedState:
     """A stage's mutable state: the net holds the parameters, ``rng`` draws
-    every dropout mask, ``opt`` updates the stage's trainable parameters.
-    ``epoch_seconds``: each epoch's wall time, the card synchronised at its
-    end (not saved with a checkpoint)."""
+    every dropout mask (``replica_rngs`` those of the net's replicas on a
+    mesh's other devices), ``opt`` updates the stage's trainable parameters
+    of the master. ``epoch_seconds``: each epoch's wall time, the cards
+    synchronised at its end (not saved with a checkpoint)."""
 
     step: int
     rng: torch.Generator
@@ -65,6 +85,7 @@ class SupervisedState:
     opt: torch.optim.AdamW
     stage: TrainingState
     epoch_seconds: List[float] = dataclasses.field(default_factory=list)
+    replica_rngs: Tuple[torch.Generator, ...] = ()
 
 
 def build_multi_input_unet(modality: str, mcfg: ModelConfig, device=None,
@@ -93,14 +114,14 @@ def build_multi_input_unet(modality: str, mcfg: ModelConfig, device=None,
 
 def make_stage_optimizer(net: MultiInputUNet, tcfg: TrainConfig,
                          stage: TrainingState) -> torch.optim.AdamW:
-    """AdamW at the stage's lr over its trainable parameters only; the
-    others are frozen (``requires_grad=False``)."""
+    """AdamW at the stage's lr over the master's trainable parameters
+    only; the others are frozen (``requires_grad=False``) on every
+    replica."""
     mask = trainable_mask(net, stage)
-    params = []
-    for name, p in net.named_parameters():
-        p.requires_grad_(mask[name])
-        if mask[name]:
-            params.append(p)
+    for twin in replicas(net):
+        for name, p in twin.named_parameters():
+            p.requires_grad_(mask[name])
+    params = [p for name, p in net.named_parameters() if mask[name]]
     return torch.optim.AdamW(params, lr=stage_lr(stage, tcfg.lr, tcfg.finetune_lr),
                              betas=(tcfg.b1, tcfg.b2), eps=1e-8,
                              weight_decay=tcfg.weight_decay)
@@ -111,17 +132,18 @@ def create_supervised_state(seed: int, net: MultiInputUNet, tcfg: TrainConfig,
                             state_dict: Optional[Mapping[str, torch.Tensor]] = None
                             ) -> SupervisedState:
     """The stage's state on ``net``'s device: ``state_dict`` loaded (default:
-    Flax's initialisation drawn from ``seed``), the stage's optimizer, and a
-    dropout generator seeded from ``seed + 2`` (as ``create_gan_state``
-    seeds the generator's)."""
+    Flax's initialisation drawn from ``seed``) and broadcast to the net's
+    replicas, the stage's optimizer, and a dropout generator per replica
+    seeded from ``seed + 2`` (as ``create_gan_state`` seeds the
+    generator's)."""
     if state_dict is None:
         state_dict = weights.init_state_dict(net, seed)
     net.load_state_dict(state_dict, strict=True)
-    dev = next(net.parameters()).device
-    rng = torch.Generator(device=dev).manual_seed(seed + 2)
-    bind_dropout_generator(net, rng)
+    broadcast(net)
+    rng, *replica_rngs = bind_dropout_generators(net, seed + 2)
     return SupervisedState(step=0, rng=rng, net=net,
-                           opt=make_stage_optimizer(net, tcfg, stage), stage=stage)
+                           opt=make_stage_optimizer(net, tcfg, stage), stage=stage,
+                           replica_rngs=tuple(replica_rngs))
 
 
 def _loss_terms(y_hat: torch.Tensor, y: torch.Tensor, tcfg: TrainConfig,
@@ -143,8 +165,9 @@ def make_supervised_train_step(net: MultiInputUNet, tcfg: TrainConfig,
     """``step(state, x, y) -> metrics``: one AdamW step of the state's
     stage on ``L1 + (1 − SSIM) [+ perceptual·factor]``; metrics
     ``train_loss`` and ``train_loss_{L1,SSIM[,Perceptual]}`` (0-d tensors).
-    With a ``mesh`` (one device's, ``training_device``) the net runs on the
-    shards and the terms on the gathered output."""
+    With a ``mesh`` (the net built with it) the net runs on the shards, the
+    terms on the gathered output, and the update as the GAN step's
+    (``steps.update``)."""
     check_training_mesh(mesh, net, what="make_supervised_train_step")
 
     def step(state: SupervisedState, x: torch.Tensor, y: torch.Tensor
@@ -152,12 +175,12 @@ def make_supervised_train_step(net: MultiInputUNet, tcfg: TrainConfig,
         if state.net is not net:
             raise ValueError("the state does not hold this step's net")
         x, = shard_inputs(mesh, x)
-        net.train()
+        each_replica(net, "train")
         terms = _loss_terms(*gather_whole(net(x), y), tcfg, perceptual_fn)
         loss = sum(terms.values())
-        state.opt.zero_grad(set_to_none=True)
+        each_replica(net, "zero_grad")
         loss.backward()
-        state.opt.step()
+        update(net, state.opt)
         state.step += 1
         metrics = {"train_loss": loss.detach()}
         for name, val in terms.items():
@@ -179,7 +202,7 @@ def make_supervised_eval_step(net: MultiInputUNet, tcfg: TrainConfig,
         if state.net is not net:
             raise ValueError("the state does not hold this step's net")
         x, = shard_inputs(mesh, x)
-        net.eval()
+        each_replica(net, "eval")
         with torch.no_grad():
             y_hat, y = gather_whole(net(x), y)
             terms = _loss_terms(y_hat, y, tcfg, perceptual_fn)
@@ -218,17 +241,21 @@ def run_multistage(data, target_modality: str, config: Optional[Config] = None,
     ``target_modality``, each for ``epochs_per_stage[stage]`` epochs
     (default ``train.max_epochs``) with its own ``MetricLogger``,
     ``CheckpointManager`` (``multistage-{modality}-{stage}``, monitor
-    ``val_loss``, top-k) and early stopping on ``val_loss``. ``mesh`` (its
-    positions on one device; a ``device`` other than it raises): every
-    stage's steps on it, batches trimmed to a multiple of its positions.
-    Returns the stages' final states and the last epoch's row."""
+    ``val_loss``, top-k) and early stopping on ``val_loss``. ``mesh`` (a
+    ``device`` other than its first raises; with neither given,
+    ``default_mesh``: every visible card that ``data.batch_size`` divides):
+    every stage's steps on it, batches trimmed to a multiple of its
+    positions. Returns the stages' final states and the last epoch's
+    row."""
     config = config or Config()
     tcfg = config.train
     divisor = 1
+    if mesh is None and device is None:
+        mesh = default_mesh(config.data.batch_size)
     if mesh is not None:
-        first = training_device(mesh, "run_multistage")
+        first = mesh.devices[0][0]
         if device is not None and not same_device(device, first):
-            raise ValueError(f"device {device} is not the device of {mesh}")
+            raise ValueError(f"device {device} is not the first device of {mesh}")
         device, divisor = first, mesh.positions
     dev = resolve_device(device)
     if perceptual_fn is None and resolve_with_perceptual(tcfg):
@@ -268,8 +295,7 @@ def run_multistage(data, target_modality: str, config: Optional[Config] = None,
                                                 batch_divisor=divisor, device=dev):
                 metrics, _ = eval_step(state, batch[modality], batch["dwi-tensor_orig"])
                 logger.log_step(dict(sorted(metrics.items())))
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
+            synchronize(dev, mesh)
             state.epoch_seconds.append(time.perf_counter() - start)
             row = logger.end_epoch(epoch)
             ckpt.save(epoch, state, row)

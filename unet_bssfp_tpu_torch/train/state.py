@@ -12,8 +12,8 @@ from unet_bssfp_tpu_torch import weights
 from unet_bssfp_tpu_torch.config import MODALITIES, ModelConfig, TrainConfig
 from unet_bssfp_tpu_torch.models.discriminator import Discriminator
 from unet_bssfp_tpu_torch.models.generator import Generator
-from unet_bssfp_tpu_torch.models.layers import bind_dropout_generator
-from unet_bssfp_tpu_torch.parallel.mesh import Mesh, replicate, same_device
+from unet_bssfp_tpu_torch.models.layers import bind_dropout_generators
+from unet_bssfp_tpu_torch.parallel.mesh import Mesh, broadcast, replicate, same_device
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -118,7 +118,10 @@ def make_optimizer(params: Iterable[torch.nn.Parameter],
 @dataclasses.dataclass
 class GANTrainState:
     """The GAN's mutable training state: the modules hold the parameters and
-    BatchNorm statistics; ``rng`` draws every dropout mask."""
+    BatchNorm statistics; ``rng`` draws every dropout mask of the master
+    generator, ``replica_rngs`` those of its replicas on a mesh's other
+    devices, in the mesh's order. The optimizers hold the masters'
+    parameters only."""
 
     step: int
     rng: torch.Generator
@@ -126,6 +129,7 @@ class GANTrainState:
     disc: Discriminator
     gen_opt: torch.optim.AdamW
     disc_opt: torch.optim.AdamW
+    replica_rngs: Tuple[torch.Generator, ...] = ()
 
 
 def create_gan_state(seed: int, modality: str, mcfg: ModelConfig,
@@ -134,18 +138,18 @@ def create_gan_state(seed: int, modality: str, mcfg: ModelConfig,
                      mesh: Optional[Mesh] = None) -> GANTrainState:
     """Both models with Flax's initialisation drawn from ``seed``, their
     AdamW optimizers, and a dropout generator on ``device`` seeded from
-    ``seed``; everything repeats for a repeated seed. With a ``mesh`` the
-    models are built as :func:`build_models` builds them there (on its
-    first device, replicated after the weights are drawn)."""
+    ``seed + 2``; everything repeats for a repeated seed. With a ``mesh``
+    the models are built as :func:`build_models` builds them there (on its
+    first device, the draw broadcast to the replicas), and each replica of
+    the generator gets its own dropout generator on its device
+    (``bind_dropout_generators``)."""
     gen, disc = build_models(modality, mcfg, device, mesh=mesh)
-    dev = next(gen.parameters()).device
     gen.load_state_dict(weights.init_state_dict(gen, seed))
     disc.load_state_dict(weights.init_state_dict(disc, seed + 1))
-    if mesh is not None and len(mesh.distinct) > 1:  # the replicas take the draw
-        replicate(gen, mesh)
-        replicate(disc, mesh)
-    rng = torch.Generator(device=dev).manual_seed(seed + 2)
-    bind_dropout_generator(gen, rng)
+    broadcast(gen)
+    broadcast(disc)
+    rng, *replica_rngs = bind_dropout_generators(gen, seed + 2)
     return GANTrainState(step=0, rng=rng, gen=gen, disc=disc,
                          gen_opt=make_optimizer(gen.parameters(), tcfg),
-                         disc_opt=make_optimizer(disc.parameters(), tcfg))
+                         disc_opt=make_optimizer(disc.parameters(), tcfg),
+                         replica_rngs=tuple(replica_rngs))

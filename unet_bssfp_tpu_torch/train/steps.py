@@ -18,13 +18,19 @@ times per step). The parameters live in the modules, so the step updates
 them is the caller's synchronisation). The losses are taken in f32 (f64
 for f64 operands).
 
-On a mesh (``mesh=``; its positions on one device, ``training_device``)
-the batch is split over ``data`` and the volume's d over ``space``, G and
-D run on the shards (d halos, norm moments over the mesh), and the losses
-and metrics are taken on the gathered outputs, as the JAX package's ``jit``
-takes them over its sharded batch; every shard uses the same
-``Parameter`` s, so autograd sums their gradients and one AdamW step
-follows. ``ddp_parity`` takes BatchNorm's moments per data row
+On a mesh (``mesh=``, the models built with it) the batch is split over
+``data`` and the volume's d over ``space``, G and D run on the shards (d
+halos, norm moments over the mesh), and the losses and metrics are taken on
+the gathered outputs, as the JAX package's ``jit`` takes them over its
+sharded batch. Each position runs its device's replica of the models;
+positions on one device share its ``Parameter`` s, so autograd sums their
+gradients there. Over several devices each phase's backward leaves every
+replica's gradients on its own device: they are summed onto the master's
+(``reduce_gradients``), the master takes the AdamW step, and its weights
+and BatchNorm buffers are copied into every replica (``broadcast``), the
+generator's before the discriminator phase recomputes the fake. Only the
+order of summation differs from the same step on one device.
+``ddp_parity`` takes BatchNorm's moments per data row
 (``layers.row_moments``) and the loss as the mean over data rows of each
 row's loss: the JAX package's ``shard_map`` with its ``pmean`` of the
 gradients, metrics and ``batch_stats``.
@@ -47,11 +53,13 @@ from unet_bssfp_tpu_torch.parallel.mesh import (
     Mesh,
     Sharded,
     apply_local,
+    broadcast,
+    check_replicas,
+    each_replica,
     gather_batch,
     gather_rows,
-    replicas,
+    reduce_gradients,
     shard_batch,
-    training_device,
 )
 from unet_bssfp_tpu_torch.train.state import GANTrainState
 
@@ -65,16 +73,21 @@ def _acc(t: torch.Tensor) -> torch.Tensor:
 
 
 def check_training_mesh(mesh: Optional[Mesh], *modules: nn.Module, what: str) -> None:
-    """``mesh`` must lie on one device (``training_device``), the one that
-    holds ``modules``."""
+    """Each of ``modules`` must lie on ``mesh``'s first device with a
+    replica on each other device of it (``check_replicas``)."""
     if mesh is None:
         return
-    dev = training_device(mesh, what)
     for m in modules:
-        have = next(m.parameters()).device
-        if have != dev:
-            raise ValueError(f"{what}: {type(m).__name__} lies on {have}, not on the "
-                             f"device of {mesh}; build it with mesh=")
+        check_replicas(mesh, m, what)
+
+
+def update(module: nn.Module, opt: torch.optim.Optimizer) -> None:
+    """After a backward: the replicas' gradients summed onto ``module``'s
+    (the master's), ``opt``'s step, the new weights and buffers copied
+    into the replicas."""
+    reduce_gradients(module)
+    opt.step()
+    broadcast(module)
 
 
 def shard_inputs(mesh: Optional[Mesh], *values: Batch) -> Tuple[Batch, ...]:
@@ -156,17 +169,17 @@ def make_train_step(gen: nn.Module, disc: nn.Module, tcfg: TrainConfig,
         if state.gen is not gen or state.disc is not disc:
             raise ValueError("the state does not hold this step's models")
         x, y = shard_inputs(mesh, x, y)
-        gen.train()
-        disc.train()
+        each_replica(gen, "train")
+        each_replica(disc, "train")
         with moments():
             # ---- generator phase (discriminator gradients off) --------
-            disc.requires_grad_(False)
+            each_replica(disc, "requires_grad_", False)
             y_hat = gen(x)
             g = over_batch(gen_losses, disc(x, y_hat), y_hat, y, per_row=ddp_parity)
-            state.gen_opt.zero_grad(set_to_none=True)
+            each_replica(gen, "zero_grad")
             g["loss"].backward()
-            state.gen_opt.step()
-            disc.requires_grad_(True)
+            update(gen, state.gen_opt)  # before the fake is recomputed
+            each_replica(disc, "requires_grad_", True)
 
             # ---- discriminator phase (detached fake) -------------------
             if reuse_fake:
@@ -177,9 +190,9 @@ def make_train_step(gen: nn.Module, disc: nn.Module, tcfg: TrainConfig,
             logits_hat = disc(x, y_hat2)
             logits_real = disc(x, y)
             d = over_batch(disc_losses, logits_real, logits_hat, per_row=ddp_parity)
-            state.disc_opt.zero_grad(set_to_none=True)
+            each_replica(disc, "zero_grad")
             d["loss"].backward()
-            state.disc_opt.step()
+            update(disc, state.disc_opt)
         state.step += 1
 
         metrics = {
@@ -215,8 +228,8 @@ def make_eval_step(gen: nn.Module, disc: nn.Module, tcfg: TrainConfig,
         if state.gen is not gen or state.disc is not disc:
             raise ValueError("the state does not hold this step's models")
         x, = shard_inputs(mesh, x)
-        gen.eval()
-        disc.eval()
+        each_replica(gen, "eval")
+        each_replica(disc, "eval")
         with torch.no_grad():
             y_hat = gen(x)
             logits = disc(x, y_hat)
@@ -271,8 +284,7 @@ def make_predict_fn(gen: nn.Module, mesh: Optional[Mesh] = None
     runs on the shards, exchanging d halos and norm moments over ``space``,
     and the result is gathered on the mesh's first device. A batch or a D
     the mesh does not divide raises."""
-    for twin in replicas(gen):  # gen and its copies on the mesh's other devices
-        twin.eval()
+    each_replica(gen, "eval")  # gen and its copies on the mesh's other devices
 
     def predict(x: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():

@@ -11,7 +11,8 @@ Phases (any failure → nonzero exit, no ``ok`` line):
    3.35 TB/s or operations over the peak of their type), the plain version's
    time and one PyTorch library call's time. In bf16 K1 is the wgmma kernel
    (``csrc/conv3x3_wgmma.cu``); beside it, its ``wguard`` form K1W at
-   8 × 64 × 32 × 64·66 (W 64 + 2 guard columns, the flattened-lanes map)
+   8 × 64 × 32 × 64·66 (W 64 + 2 guard columns, the flattened-lanes map;
+   launched into memory just filled with NaN, its guards then exactly zero)
    and the ``mma.sync`` loop's check-only entry point
    (``conv3x3_packed_mma``) at K1's heaviest shape. The relayouts at the
    generator's 24-, 64- and 6-channel sides (K3a and K3b at C 6 take the
@@ -247,11 +248,15 @@ Phases (any failure → nonzero exit, no ``ok`` line):
     the paths below: the GAN step's 24/32/96 → 32 and their dgrads, the
     multi-stage step's 24 → 48, 48 → 48, 144 → 24 (N 24), 24 → 24 and their
     dgrads (24 → 144 on two N-72 tiles) at width 66, whole-volume serving's
-    24/32/96 → 32 at width 130; then K2W, the guarded weight gradient as K2
-    on the guard-stripped operands, at 24/32/96 → 32, beside the
+    24/32/96 → 32 at width 130 (and the dgrad 32 → 96 there: the N-96
+    form's two data tiles a row); then K2W, the guarded weight gradient as
+    K2 on the guard-stripped operands, at 24/32/96 → 32, beside the
     ``mma.sync`` loop it replaces at 96 → 32. Each under K1's or K2's bound
     against its plain version, rerun bit for bit, timed beside its bound,
-    the library call and the unguarded kernel on the unguarded tensor. Then
+    the library call and the unguarded kernel on the unguarded tensor; each
+    K1W and K1W-dgrad launched first into memory just filled with NaN (a
+    freed tensor of the output's size, which ``torch.empty`` hands back),
+    its guard columns then exactly zero and no voxel NaN. Then
     with the counts reset before each: ``predict_volume`` of the (96, 128,
     128, 24) volume patch-stitched and whole (``wguard_serving_patch``,
     ``_whole``: K1 4, K3a 2, K3b 1), f32 within 1e-3·max|ref| of
@@ -552,7 +557,9 @@ def check_conv(torch, F, K, checks, b, d, h, w, cin, cout, dtype, halo=False, fo
     ``mma``: the check-only entry point ``conv3x3_packed_mma`` itself.
     ``rerun``: a second launch must be bit for bit the first. With
     ``wguard`` the library call and K1 beside it (``unguarded_ms``) take the
-    same volume without its guard columns."""
+    same volume without its guard columns, and the first launch writes into
+    memory filled with NaN just before (:func:`nan_filled`, held by
+    :func:`guards_zero`)."""
     dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(cin * 1000 + d)
     xk = torch.randn(b, d + 2 * halo, cin, h * w, device="cuda", generator=g).to(dt)
@@ -574,7 +581,10 @@ def check_conv(torch, F, K, checks, b, d, h, w, cin, cout, dtype, halo=False, fo
                   if route == "mma_loop" else kern(xk, wt, bias, w))
         kern, plain = ((K.conv3x3_pfold_halo, K.conv3x3_pfold_halo_plain) if halo
                        else (K.conv3x3_pfold, K.conv3x3_pfold_plain))
+    nan_at = nan_filled(torch, b * d * cout * h * w) if wguard else None
     got = kern(xin, wt, bias, dim, *args)
+    guards = {"guards_zero_after_nan_fill": guards_zero(torch, got, nan_at, w, wguard)
+              } if wguard else {}
     if fold:
         extra = {"route": route,
                  "bit_equal_to_packed_kernel": bool(torch.equal(got, _to_folded(packed, w))),
@@ -598,7 +608,8 @@ def check_conv(torch, F, K, checks, b, d, h, w, cin, cout, dtype, halo=False, fo
     # (2^-7 relative) apart.
     rtol = 1e-5 if dtype == "float32" else 2 ** -7
     atol = 1e-4 * scale
-    ok = bool((err <= atol + rtol * ref.abs()).all()) and all(extra.values())
+    ok = (bool((err <= atol + rtol * ref.abs()).all()) and all(extra.values())
+          and all(guards.values()))
     wd = w - wguard
     xu = K.strip_guards(xk, w, wguard)
     xn = xu.reshape(b, d + 2 * halo, cin, h, wd).permute(0, 2, 1, 3, 4)
@@ -622,7 +633,25 @@ def check_conv(torch, F, K, checks, b, d, h, w, cin, cout, dtype, halo=False, fo
         kernel=kern.__name__, shape=list(xin.shape), cout=cout,
         dtype=dtype, max_abs_err=float(err.max()), ref_max_abs=scale,
         rtol=rtol, atol=atol, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-        bound_by=by, library_ms=lib_ms, **extra, **info))
+        bound_by=by, library_ms=lib_ms, **extra, **guards, **info))
+
+
+def nan_filled(torch, numel):
+    """The address of a freed tensor of ``numel`` bf16 NaNs, after the
+    caching allocator's unused blocks went back to the card: the block the
+    next ``torch.empty`` of that size gets (:func:`guards_zero` holds that
+    it did)."""
+    torch.cuda.empty_cache()
+    return torch.full((numel,), float("nan"), dtype=torch.bfloat16, device="cuda").data_ptr()
+
+
+def guards_zero(torch, y, nan_at, w, wguard):
+    """``y`` (…, H·w) lies in the NaN-filled block at ``nan_at``, holds no
+    NaN, and its last ``wguard`` columns of every row are exactly zero:
+    every voxel, guards included, was written by the launch."""
+    rows = y.reshape(*y.shape[:-1], -1, w)
+    return bool(y.data_ptr() == nan_at and not y.isnan().any()
+                and (rows[..., w - wguard:] == 0).all())
 
 
 def pfold_route(K, xf, cout, w4, dt, what):
@@ -780,7 +809,8 @@ def check_dgrad(torch, K, checks, b, d, h, w, cin, cout, dtype, halo=False, fold
     FMA kernel). ``rerun``: a second launch must be bit for bit the first.
     ``wguard``: K1W's dgrad, ``w`` the row width with its guard columns
     (zero in dy, as the conv's backward leaves them), the library call and
-    K1's dgrad beside it (``unguarded_ms``) on dy without them."""
+    K1's dgrad beside it (``unguarded_ms``) on dy without them, its first
+    launch into memory just filled with NaN (:func:`guards_zero`)."""
     dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(cin * 11 + d)
     dy = torch.randn(b, d, cout, h * w, device="cuda", generator=g).to(dt)
@@ -804,7 +834,10 @@ def check_dgrad(torch, K, checks, b, d, h, w, cin, cout, dtype, halo=False, fold
         kern = K.conv3x3_pfold_halo_dgrad if halo else K.conv3x3_pfold_dgrad
         pfn = K.conv3x3_pfold_halo_dgrad_plain if halo else K.conv3x3_pfold_dgrad_plain
         plain = lambda: pfn(dyin, wt, dim)  # noqa: E731
+    nan_at = nan_filled(torch, b * (d + 2 * halo) * cin * h * w) if wguard else None
     got = kern(dyin, wt, dim, *args)
+    guards = {"guards_zero_after_nan_fill": guards_zero(torch, got, nan_at, w, wguard)
+              } if wguard else {}
     if fold:
         extra = {"route": route,
                  "bit_equal_to_packed_kernel": bool(torch.equal(got, _to_folded(packed, w))),
@@ -820,7 +853,8 @@ def check_dgrad(torch, K, checks, b, d, h, w, cin, cout, dtype, halo=False, fold
     # rounding on either side.
     rtol = 1e-5 if dtype == "float32" else 2 ** -7
     atol = 1e-4 * scale
-    ok = bool((err <= atol + rtol * ref.abs()).all()) and all(extra.values())
+    ok = (bool((err <= atol + rtol * ref.abs()).all()) and all(extra.values())
+          and all(guards.values()))
     f = 4 if fold else 1
     ok = ok and tuple(got.shape) == (b, d + 2 * halo, f * cin, h * w // f)
     wd = w - wguard
@@ -846,7 +880,7 @@ def check_dgrad(torch, K, checks, b, d, h, w, cin, cout, dtype, halo=False, fold
         dtype=dtype, max_abs_err=float(err.max()), ref_max_abs=scale, rtol=rtol,
         atol=atol, ms=time_ms(torch, lambda: kern(dyin, wt, dim, *args), iters),
         plain_ms=time_ms(torch, plain, iters), bound_ms=bms, bound_by=by,
-        library_ms=time_ms(torch, lib, iters), **extra, **info))
+        library_ms=time_ms(torch, lib, iters), **extra, **guards, **info))
 
 
 def phase_train_kernels(torch, K, checks):
@@ -3523,6 +3557,9 @@ def phase_wguard(torch, F, K, checks, pkg):
         check_conv(torch, F, K, checks, 1, VOLUME[0], VOLUME[1], VOLUME[2] + g128, cin, cout,
                    "bfloat16", wguard=g128, rerun=True)
         check_k2w(torch, K, checks, b, p, p, p, g64, cin, cout, loop=cin == 96)
+    # N 96 on two data tiles a row: a span a row in the guarded epilogue
+    check_dgrad(torch, K, checks, 1, VOLUME[0], VOLUME[1], VOLUME[2] + g128, 96, 32,
+                "bfloat16", wguard=g128, rerun=True)
     torch.cuda.empty_cache()
 
     # 2. serving one volume, patch-stitched and whole, guarded and not, with

@@ -17,7 +17,12 @@ where it has the ``mma.sync`` loop's check-only entry point
 that loop's forward and dgrad at the same shapes; where it has the weight
 gradient's ``mma.sync`` loop as a check-only entry point
 (``conv3x3_wgrad_mma``, beside the wgmma kernel that K2 and K5's wgrad
-take), also that loop's SAME and halo forms. To
+take), also that loop's SAME and halo forms; where its
+``conv3x3_packed`` takes ``wguard``, also the guarded forms (K1W and its
+dgrad) at row width 66 (2 zero guard columns, as ``guard_cols`` gives them)
+for the same three convs, with ``convolution_backward``'s dx on the
+unguarded tensors beside the dgrad, and K1W and K1 at 96 → 32 on the whole
+volume (1 × 96 × 128², row width 130). To
 compare a parent commit with a change, unpack the parent (``git archive``)
 into a directory and run: parent, change, change, parent, all inside one
 job on one card.
@@ -26,6 +31,7 @@ job on one card.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import statistics
 import sys
@@ -103,8 +109,43 @@ def main() -> int:
                     lambda: K.conv3x3_pfold_halo_dgrad(dyhf, wt, w // 4)),
                 "conv3x3_pfold_wgrad_halo": ms(
                     lambda: K.conv3x3_pfold_wgrad_halo(xpf, dyhf, w // 4))})
+    if "wguard" in inspect.signature(K.conv3x3_packed).parameters:
+        out["guarded"] = guarded_times(torch, K, ms, g)
     print(json.dumps(out))
     return 0
+
+
+def guarded_times(torch, K, ms, g):
+    """K1W and its dgrad (2 guard columns a row, zero in the inputs) at the
+    training step's convs, cuDNN's dx beside the dgrad; K1W and K1 at the
+    whole volume's 96 → 32."""
+    out = {}
+    gc = 2
+    for b, d, h, w, cin in ((8, 64, 64, 64, 24), (8, 64, 64, 64, 32), (8, 64, 64, 64, 96),
+                            (1, 96, 128, 128, 96)):
+        wd = w + gc
+        xk = K.guard_mask(torch.randn(b, d, cin, h * wd, device="cuda", generator=g).bfloat16(),
+                          wd, gc).contiguous()
+        dy = K.guard_mask(torch.randn(b, d, 32, h * wd, device="cuda", generator=g).bfloat16(),
+                          wd, gc).contiguous()
+        wt = torch.randn(3, 3, 3, cin, 32, device="cuda", generator=g) / (27 * cin) ** 0.5
+        bias = torch.zeros(32, device="cuda")
+        row = {"conv3x3_packed_wguard": ms(lambda: K.conv3x3_packed(xk, wt, bias, wd, gc))}
+        if b == 1:
+            xu = K.strip_guards(xk, wd, gc)
+            row["conv3x3_packed"] = ms(lambda: K.conv3x3_packed(xu, wt, bias, w))
+            out[f"whole {cin}->32"] = row
+            continue
+        dyn = K.strip_guards(dy, wd, gc).reshape(b, d, 32, h, w).permute(0, 2, 1, 3, 4).contiguous()
+        xn = torch.empty(b, cin, d, h, w, device="cuda", dtype=torch.bfloat16)
+        wn = wt.bfloat16().permute(4, 3, 0, 1, 2).contiguous()
+        row.update({
+            "conv3x3_packed_dgrad_wguard": ms(lambda: K.conv3x3_packed_dgrad(dy, wt, wd, gc)),
+            "convolution_backward_dx": ms(lambda: torch.ops.aten.convolution_backward(
+                dyn, xn, wn, None, [1, 1, 1], [1, 1, 1], [1, 1, 1], False, [0, 0, 0], 1,
+                [True, False, False]))})
+        out[f"{cin}->32"] = row
+    return out
 
 
 if __name__ == "__main__":

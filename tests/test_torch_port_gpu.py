@@ -911,6 +911,67 @@ def test_gpu_wgmma_routes_and_wguard_autograd(cuda, b, d, h, wd, g, cin, cout):
         assert (dx.float().reshape(*dx.shape[:3], h, wd)[..., wd - g:] == 0).all()
 
 
+# The guarded form (K1W and its dgrad: the GUARD instances, tiled over the
+# data columns, the last data tile writing the row's guards): every N the
+# model paths take it at (N 32 on 4 rows, 24, 64, 96, the N-72 tiles) at row
+# width 66 and 130, and ragged widths: 68 (a second tile of 2 data columns,
+# H 6 past the last 4-row tile), 70 with 8 guards (the most a plan takes), 72
+# and 136 with 8 (the rows map). (B, D, H, wdim, g, Cin, Cout)
+GUARDED_SHAPES = [(2, 4, 8, 66, 2, 96, 32), (2, 4, 8, 66, 2, 32, 96), (2, 4, 8, 66, 2, 24, 64),
+                  (2, 4, 8, 66, 2, 144, 24), (2, 4, 8, 66, 2, 24, 144), (1, 3, 8, 130, 2, 32, 32),
+                  (1, 3, 8, 130, 2, 32, 96), (2, 3, 6, 68, 2, 24, 32), (1, 2, 6, 68, 2, 5, 70),
+                  (1, 2, 4, 72, 8, 16, 32), (1, 2, 4, 70, 8, 16, 32), (1, 2, 4, 136, 8, 16, 32)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grow", [0, -2, 2])
+@pytest.mark.parametrize("b,d,h,wd,g,cin,cout", GUARDED_SHAPES)
+def test_gpu_guarded_wgmma_conv_matches_plain_with_zero_guards(cuda, monkeypatch, b, d, h, wd,
+                                                              g, cin, cout, grow):
+    """K1W's launch against the plain conv with its guards masked, under
+    K1's bound; the output allocated filled with NaN (torch.empty patched
+    for the launch), so a guard or data voxel no block writes shows; a
+    rerun bit for bit."""
+    from unet_bssfp_tpu_torch.ops.kernels import conv3d as C, conv_wgmma
+
+    xk, wt, bias = _wgmma_operands(b, d, h, wd, g, cin, cout, grow)
+    plan = K.conv_plan(xk, cout, wd, grow, g)
+    assert plan is not None and plan.tiles_w == -(-(wd - g) // 64)
+    empty = torch.empty
+    with monkeypatch.context() as m:
+        m.setattr(torch, "empty", lambda *a, **k: empty(*a, **k).fill_(float("nan")))
+        got = conv_wgmma.launch(plan, xk, wt, bias, "test")
+    assert not bool(got.isnan().any())
+    assert bool((got.reshape(*got.shape[:3], h, wd)[..., wd - g:] == 0).all())
+    ref = K.guard_mask(C._conv_plain(xk, wt, bias, wd, 1 + grow // 2), wd, g).float()
+    torch.testing.assert_close(got.float(), ref, rtol=2 ** -7, atol=1e-4 * float(ref.abs().max()))
+    assert torch.equal(got, conv_wgmma.launch(plan, xk, wt, bias, "test"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,d,h,wd,g,cin,cout", GUARDED_SHAPES[:7])
+def test_gpu_guarded_dgrad_launches_the_wgmma_kernel(cuda, b, d, h, wd, g, cin, cout):
+    """K1W's dgrad through its wrappers (SAME and halo): one launch each,
+    none routed to the loop, dx's guards zero, against the plain dgrad."""
+    gen = torch.Generator(device="cuda").manual_seed(cin + cout + wd)
+    dy = K.guard_mask(torch.randn(b, d, cout, h * wd, device=cuda, generator=gen), wd, g)
+    dy = dy.bfloat16().contiguous()
+    wt = torch.randn(3, 3, 3, cin, cout, device=cuda, generator=gen) / (27 * cout) ** 0.5
+    wflip = wt.flip(0, 1, 2).transpose(3, 4)
+    for kern, plain, grow in (
+            (K.conv3x3_packed_dgrad,
+             lambda: K.conv3x3_packed_plain(dy, wflip, torch.zeros(cin, device=cuda), wd, g), 0),
+            (K.conv3x3_packed_halo_dgrad,
+             lambda: K.conv3x3_packed_halo_dgrad_plain(dy, wt, wd, g), 2)):
+        K.reset_launches()
+        got = kern(dy, wt, wd, g)
+        counts = K.launches()
+        assert (counts[kern.__name__], counts["conv3x3_packed_mma_routed"]) == (1, 0)
+        assert got.shape == (b, d + grow, cin, h * wd)
+        assert bool((got.reshape(*got.shape[:3], h, wd)[..., wd - g:] == 0).all())
+        _close(got, plain(), 2 ** -7, 1e-4)
+
+
 @pytest.mark.gpu
 def test_gpu_shapes_outside_the_plan_take_the_mma_loop_counted(cuda):
     """W 12 and 36 without guard columns: static routes to the mma.sync

@@ -46,6 +46,17 @@ int launch_packed(int n, int rows, const Launch& L, cudaStream_t s) {
   return launch_n<false>(n, rows, L, s);
 }
 
+// Guard columns (K1W and its dgrad): the GUARD instances, packed only
+// (prepare() refuses guards folded).
+int launch_guarded(int n, int rows, const Launch& L, cudaStream_t s) {
+  if (n == 24) return launch<24, 1, false, MODE_FULL, false, true>(L, s);
+  if (n == 72) return launch<72, 1, false, MODE_FULL, true, true>(L, s);
+  if (n == 32 && rows == 4) return launch<32, 2, false, MODE_FULL, false, true>(L, s);
+  if (n == 32) return launch<32, 1, false, MODE_FULL, false, true>(L, s);
+  if (n == 64) return launch<64, 1, false, MODE_FULL, false, true>(L, s);
+  return launch<96, 1, false, MODE_FULL, false, true>(L, s);
+}
+
 }  // namespace
 
 extern "C" {
@@ -62,7 +73,8 @@ int conv3x3_wgmma_bf16(const void* x, const void* wimg, const void* bias, void* 
                          lanes_map, fold, n, cin_pad, rows, stages, seg_len, segments, n_tiles);
   if (rc != 0) return rc;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return fold ? launch_n<true>(n, rows, L, s) : launch_packed(n, rows, L, s);
+  if (fold) return launch_n<true>(n, rows, L, s);
+  return wguard ? launch_guarded(n, rows, L, s) : launch_packed(n, rows, L, s);
 }
 
 // The shared memory a launch of this plan takes (the plan's own number is

@@ -60,12 +60,32 @@
 //           each at its own skew (row_skew); taken where wdim % 8 != 0 and
 //           wguard >= 1 (K1W: wdim 66): a w neighbour past the row's end is
 //           then a zero guard column of the next or previous row, exactly the
-//           SAME pad.
+//           SAME pad. The box starts at most 7 lanes below pixel w0 - 1, so
+//           its 80 lanes reach pixel w0 + 64 (at the last data tile of a
+//           row, the row's first guard: w = W).
+// - Guard columns (1 <= wguard <= 8: K1W and its dgrad, template GUARD): the
+//   w tiles cover the data columns only, ceil((wdim - wguard) / 64) a row
+//   (one at 64 + 2, two at 128 + 2), and the block of a row's last data tile
+//   also writes that row's guard columns as zero: every guard voxel written
+//   once, no block computing products for guards alone, no pre-zeroed output.
 // - Epilogue: per 16 output channels, the f32 accumulators + bias, rounded to
-//   bf16 (guard columns set to zero) go through a 16 x 64 staging tile in
-//   shared memory; each thread then stores 16 bytes (8 pixels of one channel)
-//   along w (2-byte stores under the lanes map, whose rows are not 16-byte
-//   aligned).
+//   bf16 go through a 16 x 64 staging tile in shared memory; each thread then
+//   stores 16 bytes (8 pixels of one channel) along w. GUARD
+//   (store_slice_guarded): a row starts at hh * wdim lanes, only 4-byte
+//   aligned at wdim 66 and 130, so a channel's output goes through the
+//   staging in flat spans of the channel plane, data and zero guards
+//   together, each at its start's lane mod 8, and is stored by 16-byte units
+//   of the plane: a unit wholly inside the span in one 16-byte store, the
+//   partial units at its two ends in the widest stores their alignment
+//   allows (8, 4, 2 bytes). Where the block owns every column of its rows
+//   (one data tile a row) its ROWS rows are one span, staged and stored by
+//   both warpgroups: 4 * 66 lanes at N 32 (528 B from a 16-byte boundary,
+//   33 whole units, no partial one), 2 * 66 at RW 1 (264 B from a multiple
+//   of 8 bytes: 16 whole units and half of one). Else (two data tiles a row)
+//   each warpgroup stores a span a row. 16 channels a pass at RW 1, 8 at RW 2;
+//   a shape whose spans the staging does not hold has no plan
+//   (guard_staging_fits). The bias is the accumulators' start value, so the
+//   epilogue loads nothing. The unguarded instances' code is as before.
 // - Sizes (wgmma_plan): N 32: RW 2 (4 rows), stages of 15,360 B; N 24/64/
 //   72/96: RW 1 (2 rows), stages of 10,240 B; the deepest ring up to 4 that fits
 //   beside two transposed tiles and the weight (96 -> 32: 2 stages, 232,104
@@ -74,9 +94,11 @@
 //   (-Xptxas -v, nvcc 12.9 for sm_90a) 190 at N 32 RW 2, 126 at N 32 RW 1,
 //   175 at N 64, 228 at N 96, none spilled (FOLD, nvcc 12.8: 196 / 110 /
 //   171 / 238, none spilled; N 24 113 and the TILED N 72 194, nvcc 12.8,
-//   none spilled). The walk
-//   is unrolled by three so that each output's accumulator is fixed at
-//   compile time, and every tap runs even for an output outside the block's
+//   none spilled; GUARD, nvcc 12.8: 190 at N 32 RW 2, 162 at N 32 RW 1, 193
+//   at N 64, 238 at N 96, 150 at N 24, 244 at the TILED N 72, none
+//   spilled). The walk is unrolled by three so that each output's
+//   accumulator is fixed at compile time, and every tap runs even for an
+//   output outside the block's
 //   d segment (never stored): a register copy or a branch among the products
 //   makes ptxas serialise the wgmma pipeline.
 // - The phase-major w-folded layout (FOLD, K7a: the pfold conv of
@@ -166,6 +188,7 @@ constexpr int SLACK = 128;       // alignment of the dynamic shared memory base
 constexpr int SMEM_LIMIT = 232448;
 constexpr int WCHUNK = 32768;    // bytes per bulk copy of the weight image
 constexpr int MODE_FULL = 0, MODE_CENTRE = 1, MODE_FIXED = 2;  // MODE (above)
+constexpr int MAX_GUARD = 8;     // guard columns a row (guard_cols gives 2 to 8)
 
 // The folded stage (FOLD): per 16-channel chunk, the main box [4 phases]
 // [ROWS+2 rows][16 ch][16 w4], then the left and right boxes [ROWS+2 rows]
@@ -227,10 +250,13 @@ __device__ __forceinline__ int row_skew(const Params& p, int hh, int w0) {
   return p.lanes_map ? ((hh * p.wdim + w0 - 1) & 7) : 7;
 }
 
-// One complete output slice of this warpgroup's RW rows: + bias, bf16, guard
-// columns zero, through the staging tile, 16 channels at a time (N 24: the
-// second pass holds 8); TILED: the block's N tile is output channels co0 ..
-// co0 + cout_t - 1, at y's full channel stride p.cout.
+// One complete output slice of this warpgroup's RW rows: + bias, bf16,
+// through the staging tile, 16 channels at a time (N 24: the second pass
+// holds 8); TILED: the block's N tile is output channels co0 .. co0 +
+// cout_t - 1, at y's full channel stride p.cout. The unguarded instances'
+// epilogue: a guarded launch takes store_slice_guarded, so the lanes-map
+// branch below runs for none (kept so that these instances' code is as it
+// was).
 template <int N, int RW, bool FOLD, bool TILED>
 __device__ __forceinline__ void store_slice(const float (&acc)[RW][N / 2], const Params& p,
                                            uint16_t* stg, int wg, int b, int d, int h0,
@@ -293,6 +319,163 @@ __device__ __forceinline__ void store_slice(const float (&acc)[RW][N / 2], const
       named_sync(1 + wg, 128);
     }
   }
+}
+
+// Lanes [a, e) of one 16-byte unit (0 <= a < e <= 8, not the whole unit),
+// src and dst at the unit's start: the widest stores their alignment allows.
+__device__ __forceinline__ void store_part(const uint16_t* src, uint16_t* dst, int a, int e) {
+  while (a < e) {
+    if ((a & 3) == 0 && a + 4 <= e) {
+      *reinterpret_cast<uint2*>(dst + a) = *reinterpret_cast<const uint2*>(src + a);
+      a += 4;
+    } else if ((a & 1) == 0 && a + 2 <= e) {
+      *reinterpret_cast<uint32_t*>(dst + a) = *reinterpret_cast<const uint32_t*>(src + a);
+      a += 2;
+    } else {
+      dst[a] = src[a];
+      ++a;
+    }
+  }
+}
+
+// Whether the guarded epilogue's staging holds a shape's spans (GUARD):
+// 2 * RW = `rows` rows of even width wdim; 16 channels a pass at RW 1, 8 at
+// RW 2, the lanes of a span from its start's lane mod 8 (at most 6). The
+// block's rows are one span (both warpgroups' staging tiles) where it owns
+// every column of them (one data tile a row, at least 64 columns), else a
+// row's columns are one (a warpgroup's tile): all columns of a one-tile row,
+// the last tile's 64 + its guards of a longer one.
+__host__ __device__ constexpr int round8(int x) { return (x + 7) & ~7; }
+
+__host__ __device__ constexpr int guard_cpp(int rows) { return rows == 2 ? 16 : 8; }
+
+__host__ __device__ constexpr bool guard_merged(int rows, int wdim, int cols) {
+  return cols == wdim && cols >= TILE_W &&
+         guard_cpp(rows) * round8(rows * wdim + 6) <= CONSUMERS * (EPI_BYTES / 2);
+}
+
+bool guard_staging_fits(int rows, int wdim, int wguard) {
+  const int tiles = (wdim - wguard + TILE_W - 1) / TILE_W;
+  const int cols = wdim - TILE_W * (tiles - 1);  // the last data tile's columns
+  return wdim % 2 == 0 &&
+         (guard_merged(rows, wdim, cols) ||
+          guard_cpp(rows) * round8(6 + (cols > TILE_W ? cols : TILE_W)) <= EPI_BYTES / 2);
+}
+
+// store_slice on a guarded layout (GUARD; the header's epilogue). The block
+// writes, of each of its rows, columns [w0, w0 + cols): its tile's 64 (those
+// at or past wdata zero), and at a row's last data tile the row's guard
+// columns after them (zero). The bias is in the accumulators' start value
+// (init_acc_bias). Where guard_merged, the block's ROWS rows are one span of the
+// channel plane, staged and stored by all 256 threads (barrier 4); else each
+// warpgroup stores a span a row (barrier 1 + wg). A span is `len` lanes from
+// lane s_lane, staged at [channel][off + i], off = s_lane mod 8, `stride`
+// lanes a channel (at least off + 64: the fill writes all 64 pixels of a
+// row, those past `cols` into lanes no store reads), CPP channels a pass. A
+// channel plane starts 16-byte aligned ((H*wdim) % 8 == 0), so a lane's
+// alignment in y is its alignment in the span; the store gives a channel's
+// 16-byte units to 2^lg threads, at most two each.
+template <int N, int RW, bool TILED>
+__device__ __forceinline__ void store_slice_guarded(const float (&acc)[RW][N / 2],
+                                                   const Params& p, uint16_t* stg, int wg, int b,
+                                                   int d, int h0, int w0) {
+  constexpr int ROWS = CONSUMERS * RW;
+  constexpr int CAP = EPI_BYTES / 2;  // staging lanes of a warpgroup
+  constexpr int CPP = guard_cpp(ROWS);
+  const int co0 = TILED ? static_cast<int>(blockIdx.x % p.n_tiles) * N : 0;
+  const int cout_t = TILED ? min(N, p.cout - co0) : p.cout;
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32, gid = lane / 4, tig = lane % 4;
+  const int hw = p.h * p.wdim;
+  const int cols = (w0 + TILE_W >= p.wdata ? p.wdim : w0 + TILE_W) - w0;  // columns a row
+  const int extra = cols - TILE_W;  // guards past the 64 (at most 8)
+  const bool merged = w0 == 0 && guard_merged(ROWS, p.wdim, cols);
+  const int nth = merged ? 2 * 128 : 128;  // threads storing a span
+  const int t = merged ? static_cast<int>(threadIdx.x) : tid;
+  uint16_t* const base = merged ? stg - wg * CAP : stg;
+  const int bar = merged ? 4 : 1 + wg;
+  const int h_first = merged ? h0 : h0 + wg * RW;
+  const int lg = (merged ? 8 : 7) - (CPP == 16 ? 4 : 3);  // log2 of nth / CPP
+  const int sc = t >> lg, su = t & ((1 << lg) - 1);
+#pragma unroll 1
+  for (int r0 = 0; r0 < (merged ? 1 : RW); ++r0) {
+    const int rows = merged ? min(ROWS, p.h - h0) : (h_first + r0 < p.h ? 1 : 0);
+    if (rows <= 0) break;  // the tile's rows past H: nothing to store
+    const int s_lane = (h_first + r0) * p.wdim + w0;
+    const int len = rows * cols;
+    const int off = s_lane & 7;
+    const int stride = round8(off + max(len, TILE_W));
+    const int units = (off + len + 7) >> 3;
+    uint16_t* const row_out = reinterpret_cast<uint16_t*>(p.y) +
+                              ((static_cast<long long>(b) * p.dout + d) * p.cout + co0) * hw +
+                              (s_lane - off);
+#pragma unroll
+    for (int pass = 0; pass < (N + CPP - 1) / CPP; ++pass) {
+#pragma unroll
+      for (int j = 0; j < CPP / 8 && pass * CPP / 8 + j < N / 8; ++j) {
+        const int nb = pass * CPP / 8 + j;
+#pragma unroll
+        for (int r = 0; r < RW; ++r) {
+          const int rr = merged ? wg * RW + r : r - r0;
+          if ((!merged && r != r0) || rr >= rows) continue;
+          uint16_t* const row = base + j * 8 * stride + off + rr * cols;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int px = warp * 16 + gid + 8 * (i >> 1);
+            const int c = 2 * tig + (i & 1);
+            const float v = w0 + px < p.wdata ? acc[r][4 * nb + i] : 0.f;
+            row[c * stride + px] = __bfloat16_as_ushort(__float2bfloat16_rn(v));
+          }
+          if (warp == 3 && gid < extra) {  // the row's guard columns past the 64
+            row[2 * tig * stride + TILE_W + gid] = 0;
+            row[(2 * tig + 1) * stride + TILE_W + gid] = 0;
+          }
+        }
+      }
+      named_sync(bar, nth);
+      if (sc < cout_t - pass * CPP) {
+        const uint16_t* src = base + sc * stride;
+        uint16_t* dst = row_out + static_cast<long long>(pass * CPP + sc) * hw;
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          // the second round from the last thread down: the span's two
+          // partial units go to two threads
+          const int u = m ? (2 << lg) - 1 - su : su;
+          if (u < units) {
+            const int a = max(off - 8 * u, 0), e = min(off + len - 8 * u, 8);
+            if (a == 0 && e == 8) {
+              *reinterpret_cast<uint4*>(dst + 8 * u) = *reinterpret_cast<const uint4*>(src + 8 * u);
+            } else {
+              store_part(src + 8 * u, dst + 8 * u, a, e);
+            }
+          }
+        }
+      }
+      named_sync(bar, nth);
+    }
+  }
+}
+
+// GUARD: an output slice's accumulators before its first product hold the
+// bias of each channel (added first, not after the sums: the epilogue then
+// issues no load; the f32 sums round in another order than the unguarded
+// kernel's, within its bound).
+template <int N, int RW, bool TILED>
+__device__ __forceinline__ void init_acc_bias(float (&a)[RW][N / 2], const Params& p) {
+  const int co0 = TILED ? static_cast<int>(blockIdx.x % p.n_tiles) * N : 0;
+  const int cout_t = TILED ? min(N, p.cout - co0) : p.cout;
+  const int tig = threadIdx.x % 4;
+#pragma unroll
+  for (int nb = 0; nb < N / 8; ++nb)
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int co = nb * 8 + 2 * tig + q;
+      const float v = co < cout_t ? __ldg(&p.bias[co0 + co]) : 0.f;
+#pragma unroll
+      for (int r = 0; r < RW; ++r) a[r][4 * nb + q] = a[r][4 * nb + 2 + q] = v;
+    }
+#pragma unroll
+  for (int r = 0; r < RW; ++r) hold(a[r]);
 }
 
 // A block's constants, as the consumer warps use them.
@@ -395,7 +578,7 @@ __device__ __forceinline__ void xpose_stage(const Block& k, uint32_t rs, uint32_
 // into the three outputs it feeds, e = j + 1 - kd held in accumulator
 // (ROT - kd) mod 3, ROT = the step's index mod 3; then output j - 1, complete,
 // is stored and its accumulator zeroed for output j + 2.
-template <int N, int RW, bool FOLD, int MODE, int ROT, bool TILED>
+template <int N, int RW, bool FOLD, int MODE, int ROT, bool TILED, bool GUARD>
 __device__ __forceinline__ void step(float (&acc)[3][RW][N / 2], const Params& p,
                                      const Block& k, Pipe& pipe, Loader& ld, int j) {
   constexpr int ROWS = CONSUMERS * RW;
@@ -453,18 +636,26 @@ __device__ __forceinline__ void step(float (&acc)[3][RW][N / 2], const Params& p
   }
   constexpr int DONE = (ROT + 1) % 3;  // output j - 1's accumulator (kd = 2)
   const int e = j - 1;
-  if (e >= k.e_lo && e <= k.e_hi)
-    store_slice<N, RW, FOLD, TILED>(acc[DONE], p, k.stg, wg, k.b, e - p.shift, k.h0, k.w0);
+  if (e >= k.e_lo && e <= k.e_hi) {
+    if constexpr (GUARD)
+      store_slice_guarded<N, RW, TILED>(acc[DONE], p, k.stg, wg, k.b, e - p.shift, k.h0, k.w0);
+    else
+      store_slice<N, RW, FOLD, TILED>(acc[DONE], p, k.stg, wg, k.b, e - p.shift, k.h0, k.w0);
+  }
   __syncwarp();
+  if constexpr (GUARD) {
+    init_acc_bias<N, RW, TILED>(acc[DONE], p);  // here, not inside the next products
+  } else {
 #pragma unroll
-  for (int r = 0; r < RW; ++r) {
+    for (int r = 0; r < RW; ++r) {
 #pragma unroll
-    for (int i = 0; i < N / 2; ++i) acc[DONE][r][i] = 0.f;
-    hold(acc[DONE][r]);  // zeroed here, not inside the next products
+      for (int i = 0; i < N / 2; ++i) acc[DONE][r][i] = 0.f;
+      hold(acc[DONE][r]);  // zeroed here, not inside the next products
+    }
   }
 }
 
-template <int N, int RW, bool FOLD, int MODE, bool TILED>
+template <int N, int RW, bool FOLD, int MODE, bool TILED, bool GUARD>
 __global__ void __launch_bounds__(THREADS, 1)
 conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap tmap,
                      const __grid_constant__ CUtensorMap side, const Params p) {
@@ -536,17 +727,22 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap tmap,
   __syncthreads();
 
   float acc[3][RW][N / 2];
+  if constexpr (GUARD) {
 #pragma unroll
-  for (int k = 0; k < 3; ++k)
+    for (int k = 0; k < 3; ++k) init_acc_bias<N, RW, TILED>(acc[k], p);
+  } else {
 #pragma unroll
-    for (int r = 0; r < RW; ++r)
+    for (int k = 0; k < 3; ++k)
 #pragma unroll
-      for (int i = 0; i < N / 2; ++i) acc[k][r][i] = 0.f;
+      for (int r = 0; r < RW; ++r)
+#pragma unroll
+        for (int i = 0; i < N / 2; ++i) acc[k][r][i] = 0.f;
 
 #pragma unroll
-  for (int k = 0; k < 3; ++k)
+    for (int k = 0; k < 3; ++k)
 #pragma unroll
-    for (int r = 0; r < RW; ++r) hold(acc[k][r]);
+      for (int r = 0; r < RW; ++r) hold(acc[k][r]);
+  }
 
   mbar_wait(wbar, 0);
   if constexpr (MODE == MODE_FIXED) {  // the walk's one tile, transposed once
@@ -558,9 +754,11 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap tmap,
   // three steps per trip, so that which accumulator holds which output is
   // known at compile time (no register copies between steps)
   for (int j = e_lo - 1; j <= e_hi + 1; j += 3) {
-    step<N, RW, FOLD, MODE, 0, TILED>(acc, p, blk_ctx, pipe, ld, j);
-    if (j + 1 <= e_hi + 1) step<N, RW, FOLD, MODE, 1, TILED>(acc, p, blk_ctx, pipe, ld, j + 1);
-    if (j + 2 <= e_hi + 1) step<N, RW, FOLD, MODE, 2, TILED>(acc, p, blk_ctx, pipe, ld, j + 2);
+    step<N, RW, FOLD, MODE, 0, TILED, GUARD>(acc, p, blk_ctx, pipe, ld, j);
+    if (j + 1 <= e_hi + 1)
+      step<N, RW, FOLD, MODE, 1, TILED, GUARD>(acc, p, blk_ctx, pipe, ld, j + 1);
+    if (j + 2 <= e_hi + 1)
+      step<N, RW, FOLD, MODE, 2, TILED, GUARD>(acc, p, blk_ctx, pipe, ld, j + 2);
   }
 }
 
@@ -610,7 +808,8 @@ int prepare(Launch& L, const void* x, const void* wimg, const void* bias, void* 
                   (rows == 2 || (rows == 4 && n == 32)) && stages >= 2 &&
                   stages <= MAX_STAGES && smem <= SMEM_LIMIT && seg_len >= 1 &&
                   segments >= 1 && (segments - 1) * seg_len < dout && segments * seg_len >= dout &&
-                  wguard >= 0 && wguard < wdim && (h * wdim) % 8 == 0 &&
+                  wguard >= 0 && wguard < wdim && wguard <= MAX_GUARD && (h * wdim) % 8 == 0 &&
+                  (wguard == 0 || guard_staging_fits(rows, wdim, wguard)) &&
                   (lanes_map ? wguard >= 1 : wdim % 8 == 0) &&
                   (!fold || (wdim % 32 == 0 && wguard == 0 && !lanes_map)) &&
                   reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
@@ -683,7 +882,7 @@ int prepare(Launch& L, const void* x, const void* wimg, const void* bias, void* 
   p.seg_len = seg_len;
   p.segments = segments;
   p.tiles_h = (h + rows - 1) / rows;
-  p.tiles_w = (wdim + TILE_W - 1) / TILE_W;
+  p.tiles_w = (p.wdata + TILE_W - 1) / TILE_W;  // data columns only (GUARD: the header)
   p.wbytes = wbytes;
   p.n_tiles = n_tiles;
   const long long grid = static_cast<long long>(B) * segments * p.tiles_w * p.tiles_h * n_tiles;
@@ -693,9 +892,9 @@ int prepare(Launch& L, const void* x, const void* wimg, const void* bias, void* 
   return 0;
 }
 
-template <int N, int RW, bool FOLD, int MODE, bool TILED = false>
+template <int N, int RW, bool FOLD, int MODE, bool TILED = false, bool GUARD = false>
 int launch(const Launch& L, cudaStream_t stream) {
-  auto kernel = conv3x3_wgmma_kernel<N, RW, FOLD, MODE, TILED>;
+  auto kernel = conv3x3_wgmma_kernel<N, RW, FOLD, MODE, TILED, GUARD>;
   cudaError_t rc =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.smem);
   if (rc != cudaSuccess) return static_cast<int>(rc);

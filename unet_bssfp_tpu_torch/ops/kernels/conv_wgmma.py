@@ -8,7 +8,9 @@ here, in plain Python, so the CPU tests check it: which kernel a shape takes
 (:func:`wgmma_plan` returns ``None`` where the wgmma kernel does not take
 it), the tile, the ring depth, the shared memory, the d segments and the
 grid (:class:`WgmmaPlan`), the output voxels each block writes
-(:func:`block_outputs`), and the weight's pre-layout (:func:`weight_image`).
+(:func:`block_outputs`, the guard columns among them :func:`block_guards`),
+the guarded epilogue's stores (:func:`guarded_stores`), and the weight's
+pre-layout (:func:`weight_image`).
 The C launcher checks the plan's numbers again and refuses a plan that does
 not fit.
 """
@@ -34,6 +36,8 @@ TILE_N = 72          # N of each tile where Cout > 96 is cut into N tiles
 CONSUMERS = 2        # consumer warpgroups per block
 ROW_BYTES = CK * PX * 2  # one (h row, 16 channels) box
 EPI_BYTES = 16 * 72 * 2
+EPI_LANES = EPI_BYTES // 2  # a warpgroup's staging tile, in bf16 lanes
+MAX_GUARD = 8        # guard columns a row the kernel takes (guard_cols gives 2 to 8)
 MAX_STAGES = 4
 BAR_BYTES = 8 * (MAX_STAGES + 1)
 SLACK = 128          # alignment of the dynamic shared memory base
@@ -61,7 +65,9 @@ class WgmmaPlan:
     ``rows``: output h rows per block (2 consumer warpgroups × 1 or 2);
     ``stages``: ring depth; ``seg_len``/``segments``: each block walks
     ``seg_len`` output d slices (the last segment may be shorter); blocks
-    are numbered (b, segment, w tile, h tile) with the h tile fastest.
+    are numbered (b, segment, w tile, h tile) with the h tile fastest. The
+    w tiles cover the data columns (``wdim - wguard``) only: the block of a
+    row's last data tile also writes that row's guard columns (zero).
     ``fold``: the operands are phase-major w-folded, (B, D, 4·C, H·W/4);
     ``wdim`` is then the unfolded W, and every other number is the packed
     plan's at that shape. ``n_tiles``: Cout is cut into that many tiles of
@@ -94,8 +100,12 @@ class WgmmaPlan:
         return -(-self.h // self.rows)
 
     @property
+    def wdata(self) -> int:
+        return self.wdim - self.wguard
+
+    @property
     def tiles_w(self) -> int:
-        return -(-self.wdim // TILE_W)
+        return -(-self.wdata // TILE_W)
 
     @property
     def grid(self) -> int:
@@ -143,7 +153,10 @@ def wgmma_plan(b: int, din: int, dout: int, shift: int, cin: int, cout: int,
 
     - ``wdim % 8 != 0`` without guard columns (a TMA row stride must be a
       multiple of 16 bytes, and the flattened-lanes map needs zero guards to
-      stand for the w padding);
+      stand for the w padding); guard columns where the guarded epilogue's
+      staging does not hold the spans (:func:`guard_staging_fits`: more
+      than 8 guards, an odd row width, a last tile of more than 66 columns
+      at 2 rows);
     - a weight (one N tile's) too large to stay in shared memory beside a
       2-stage ring;
     - with ``fold`` (W = ``wdim``), W/4 not a multiple of 8 (the folded
@@ -160,6 +173,8 @@ def wgmma_plan(b: int, din: int, dout: int, shift: int, cin: int, cout: int,
     segments: the count that takes the fewest block-steps per SM (waves of
     blocks over ``sms`` SMs × steps per block)."""
     if min(b, din, dout, cin, cout, h, wdim) < 1 or not 0 <= wguard < wdim:
+        return None
+    if wguard > MAX_GUARD:
         return None
     if fold and (wdim % 32 or wguard):
         return None
@@ -180,7 +195,9 @@ def wgmma_plan(b: int, din: int, dout: int, shift: int, cin: int, cout: int,
     if choice is None:
         return None
     rows, stages = choice
-    columns = b * -(-h // rows) * -(-wdim // TILE_W) * n_tiles
+    if wguard and not guard_staging_fits(rows, wdim, wguard):
+        return None
+    columns = b * -(-h // rows) * -(-(wdim - wguard) // TILE_W) * n_tiles
     # one block per SM: a block's time is its steps (seg_len + 2 input
     # slices), the call's time its waves of blocks times that
     segments = min(range(1, dout + 1), key=lambda s: (
@@ -189,6 +206,34 @@ def wgmma_plan(b: int, din: int, dout: int, shift: int, cin: int, cout: int,
     segments = -(-dout // seg_len)
     return WgmmaPlan(b, din, dout, shift, cin, cout, h, wdim, wguard, lanes_map,
                      n, cin_pad, rows, stages, seg_len, segments, fold, n_tiles)
+
+
+def _round8(x: int) -> int:
+    return (x + 7) & ~7
+
+
+def guard_cpp(rows: int) -> int:
+    """Channels a pass of the guarded epilogue: 16 at 2 rows, 8 at 4."""
+    return 16 if rows == 2 else 8
+
+
+def guard_merged(rows: int, wdim: int, cols: int) -> bool:
+    """Whether a block's ``rows`` rows are one span of the guarded epilogue:
+    it owns every column of them (``cols == wdim``, at least 64), and a
+    pass's channels of the span fit both warpgroups' staging tiles (the
+    span from its start's lane mod 8, at most 6 at an even width)."""
+    return (cols == wdim and cols >= TILE_W
+            and guard_cpp(rows) * _round8(rows * wdim + 6) <= CONSUMERS * EPI_LANES)
+
+
+def guard_staging_fits(rows: int, wdim: int, wguard: int) -> bool:
+    """``conv3x3_wgmma.cuh:guard_staging_fits``: the guarded epilogue takes
+    the shape (an even width; the block's rows as one span, or a row's
+    columns in one warpgroup's staging tile)."""
+    tiles = -(-(wdim - wguard) // TILE_W)
+    cols = wdim - TILE_W * (tiles - 1)  # the last data tile's columns
+    return wdim % 2 == 0 and (guard_merged(rows, wdim, cols) or
+                              guard_cpp(rows) * _round8(6 + max(cols, TILE_W)) <= EPI_LANES)
 
 
 def fold_maps(plan: WgmmaPlan) -> Dict[str, TensorMap]:
@@ -239,22 +284,71 @@ def fold_store(seg: int, k: int) -> Tuple[int, int, int]:
     return 32 * g + 4 * k + ph, ph, 8 * g + k
 
 
-def block_outputs(plan: WgmmaPlan, block: int) -> Tuple[int, range, range, range]:
-    """The output voxels block ``block`` writes, as the kernel decodes its
-    index: (b, d range, h range, w range), for the channels of
-    :func:`block_channels`."""
+def _block_index(plan: WgmmaPlan, block: int) -> Tuple[int, int, int, int]:
+    """(b, segment, h0, w0) of block ``block``, as the kernel decodes it."""
     block //= plan.n_tiles
     ht = block % plan.tiles_h
     block //= plan.tiles_h
     wt = block % plan.tiles_w
     block //= plan.tiles_w
-    seg = block % plan.segments
-    b = block // plan.segments
+    return block // plan.segments, block % plan.segments, ht * plan.rows, wt * TILE_W
+
+
+def _w_end(plan: WgmmaPlan, w0: int) -> int:
+    """The end of the columns the block at ``w0`` writes in each row: its
+    tile's 64, and at a row's last data tile the guard columns after them."""
+    return plan.wdim if w0 + TILE_W >= plan.wdata else w0 + TILE_W
+
+
+def block_outputs(plan: WgmmaPlan, block: int) -> Tuple[int, range, range, range]:
+    """The output voxels block ``block`` writes, as the kernel decodes its
+    index: (b, d range, h range, w range), for the channels of
+    :func:`block_channels`; the w range holds the guard columns it zeroes
+    (:func:`block_guards`)."""
+    b, seg, h0, w0 = _block_index(plan, block)
     d0 = seg * plan.seg_len
-    h0, w0 = ht * plan.rows, wt * TILE_W
     return (b, range(d0, min(d0 + plan.seg_len, plan.dout)),
-            range(h0, min(h0 + plan.rows, plan.h)),
-            range(w0, min(w0 + TILE_W, plan.wdim)))
+            range(h0, min(h0 + plan.rows, plan.h)), range(w0, _w_end(plan, w0)))
+
+
+def block_guards(plan: WgmmaPlan, block: int) -> range:
+    """The guard columns block ``block`` writes as zero in each of its rows:
+    those of its w range at or past the data width (empty but at a row's
+    last data tile)."""
+    ws = block_outputs(plan, block)[3]
+    return range(max(ws.start, plan.wdata), ws.stop)
+
+
+def guarded_stores(plan: WgmmaPlan, block: int) -> List[Tuple[int, int]]:
+    """The stores the guarded epilogue (``store_slice_guarded``) of block
+    ``block`` issues for one (d, channel), in one channel plane of H·wdim
+    lanes: (first lane, lanes), 8 lanes a 16-byte store. Where
+    :func:`guard_merged`, the block's rows are one span of the plane; else
+    each row is a span. A span is cut at the plane's 16-byte units, a unit wholly inside
+    it one store, a partial unit at either end the widest stores its
+    alignment allows."""
+    _, _, h0, w0 = _block_index(plan, block)
+    w_end = _w_end(plan, w0)
+    cols = w_end - w0
+    merged = w0 == 0 and guard_merged(plan.rows, plan.wdim, cols)
+    if merged:
+        spans = [(h0 * plan.wdim, min(plan.rows, plan.h - h0) * cols)]
+    else:
+        spans = [(hh * plan.wdim + w0, cols) for hh in range(h0, min(h0 + plan.rows, plan.h))]
+    stores = []
+    for start, length in spans:
+        lane, end = start, start + length
+        while lane < end:
+            unit_end = min((lane // 8 + 1) * 8, end)
+            if lane % 8 == 0 and unit_end - lane == 8:
+                stores.append((lane, 8))
+                lane += 8
+                continue
+            while lane < unit_end:  # store_part: 4, 2 or 1 lanes
+                size = next(s for s in (4, 2, 1) if lane % s == 0 and lane + s <= unit_end)
+                stores.append((lane, size))
+                lane += size
+    return stores
 
 
 def block_channels(plan: WgmmaPlan, block: int) -> range:

@@ -312,6 +312,21 @@ Phases (any failure → nonzero exit, no ``ok`` line):
     loads into a state on cuda:0 alone, the generator bit-equal to the
     master. The phase's seconds and the card's name and power limit on a
     line of their own.
+21. Training across processes (``parallel/distributed.py``): two worker
+    processes (``scripts/torch_port_multiprocess_step.py``) on cuda:0
+    under gloo, device and backend named, each on 4 rows of one seeded
+    8 × 64³ batch, the full-width model packed; this process steps on the
+    whole batch as the one-process reference. (a) f32, dropout 0, lr 1e-6:
+    one step's global metrics on every process within rtol 2e-5 (D's loss
+    2e-2), atol 2e-6 of the reference's; (b) bf16, the default config, 3
+    steps: the weights and buffers bit-equal across the processes, every
+    step's launches on each process the one-process step's
+    (``TRAIN_STEP_LAUNCHES``), the step's ms beside the reference's with
+    the card's name and power limit, and a line saying the processes share
+    one card. With two cards or more, the same with NCCL and a card each;
+    else a line saying NCCL did not run. The capacity probe
+    (``scripts/torch_port_capacity_probe.py``) for 1 epoch on its smoke
+    fixture, its record written to a file of the phase.
 
 Each phase's seconds go to a line of their own, ``{"phase": "seconds",
 "name": ..., "s": ...}``, as it ends, and their sum to one more before the
@@ -326,8 +341,9 @@ counts, and phase 16's: the sharded steps', eval step's, fit's and
 supervised steps', phase 17's: ``predict --exported``'s, the GAN wrapper's 3
 steps' and the multi-stage wrapper's steps', and phase 18's: the guarded
 serving runs', GAN step's, FINE_TUNE step's and (1, 2) step's, phase
-19's: the A/B's two arms' and the judged summary's, and phase 20's: the
-steps on the meshes over cuda:0 and the host;
+19's: the A/B's two arms' and the judged summary's, phase 20's: the
+steps on the meshes over cuda:0 and the host, and phase 21's: process 0's
+f32 step and its 3 bf16 steps;
 ``launches``: their sum); details go to ``perf_out/chip_smoke.json``.
 """
 
@@ -3127,6 +3143,177 @@ def phase_distinct(torch, K, checks, pkg, work: Path):
     return paths, out
 
 
+# Phase 21: training across processes (parallel/distributed.py). The
+# processes run scripts/torch_port_multiprocess_step.py, each on its rows of
+# one global batch of 8 × 64³ drawn from MP_DATA_SEED (4 a process), with
+# the full-width model, packed; this process steps on the whole batch as
+# the one-process reference. (a) f32, dropout 0, lr 1e-6: one step's global
+# metrics at tests/test_multihost.py's tolerances; (b) bf16, the default
+# config: MP_BF16_STEPS steps, the weights bit-equal across the processes,
+# each step's launches those of one process's step.
+MP_DATA_SEED = SEED + 21
+MP_GLOBAL_BATCH, MP_BF16_STEPS, MP_LR = 8, 3, 1e-6
+MP_WORKER = Path(__file__).resolve().parent / "scripts" / "torch_port_multiprocess_step.py"
+
+
+def mp_group(work: Path, name: str, n: int, device, backend, timeout: float = 300.0):
+    """``n`` worker processes of phase 21 on ``device`` (None: each its own
+    card) with ``backend`` (None: the rule's); returns each process's
+    record, or raises with the failing process's output."""
+    args = ["--num-processes", str(n), "--coordinator-address", f"file://{work / name}.rdv",
+            "--data", f"random:{MP_DATA_SEED}", "--global-batch", str(MP_GLOBAL_BATCH),
+            "--patch", str(TRAIN_PATCH), "--width", "full", "--timeout", str(timeout),
+            "--run", f"float32:1:{MP_LR}:0", "--run", f"bfloat16:{MP_BF16_STEPS}",
+            "--out", str(work / name)]
+    args += ["--device", device] if device else []
+    args += ["--backend", backend] if backend else []
+    logs = [open(work / f"{name}{r}.log", "w") for r in range(n)]
+    procs = [subprocess.Popen([sys.executable, str(MP_WORKER), "--process-id", str(r)] + args,
+                              stdout=logs[r], stderr=subprocess.STDOUT) for r in range(n)]
+    try:
+        for p in procs:
+            p.wait(timeout=timeout + 60)
+    finally:
+        for p, f in zip(procs, logs):
+            stop_process(p)
+            f.close()
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            tail = (work / f"{name}{r}.log").read_text()[-4000:]
+            raise RuntimeError(f"phase 21 worker {name}/{r} exited {p.returncode}:\n{tail}")
+    return [json.loads((work / name / f"rank{r}.json").read_text()) for r in range(n)]
+
+
+def mp_held(ranks, ref_f32, ref_counts):
+    """The f32 step's metrics of every process against the one-process
+    reference (rtol 2e-5, D's loss 2e-2, atol 2e-6) and alike on every
+    process; the bf16 runs' weights bit-equal; every step's launches the
+    one-process step's. Returns the failures."""
+    bad = []
+    f32 = [r["runs"][0]["steps"][0]["metrics"] for r in ranks]
+    if any(m != f32[0] for m in f32):
+        bad.append("f32 metrics differ between processes")
+    for k, v in ref_f32.items():
+        tol = (2e-2 if k == "train_discr_loss" else 2e-5) * abs(v) + 2e-6
+        if not abs(f32[0][k] - v) <= tol:
+            bad.append((k, f32[0][k], v))
+    if len({r["runs"][1]["digest"] for r in ranks}) != 1:
+        bad.append("bf16 weights differ between processes")
+    for r in ranks:
+        for run in r["runs"]:
+            for i, st in enumerate(run["steps"]):
+                if st["launches"] != ref_counts:
+                    bad.append((r["rank"], run["spec"], i, st["launches"]))
+    return bad
+
+
+def phase_multiprocess(torch, K, checks, pkg, card: str, work: Path):
+    """Phase 21: training across processes on one card under gloo, with
+    NCCL where the machine has two cards, and the cut capacity probe (see
+    the docstring). Returns the processes' launch counts and the records."""
+    import numpy as np
+
+    Config, create_gan_state, make_train_step = pkg
+    base = Config()
+    rng = np.random.default_rng(MP_DATA_SEED)
+    lead = (MP_GLOBAL_BATCH,) + (TRAIN_PATCH,) * 3
+    x = torch.from_numpy(rng.random(lead + (24,), dtype=np.float32)).cuda()
+    y = torch.from_numpy(rng.random(lead + (6,), dtype=np.float32)).cuda()
+
+    def one_process(mcfg, tcfg, steps):
+        st = create_gan_state(SEED, MODALITY, mcfg, tcfg, "cuda")
+        step = make_train_step(st.gen, st.disc, tcfg)
+        rows = []
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            K.reset_launches()
+            t0 = time.perf_counter()
+            m = step(st, x, y)
+            torch.cuda.synchronize()
+            rows.append(({k: float(v) for k, v in m.items()}, K.launches(),
+                         time.perf_counter() - t0))
+        del st
+        torch.cuda.empty_cache()
+        return rows
+
+    f32_cfg = dataclasses.replace(base.model, compute_dtype="float32", dropout=0.0)
+    (ref_f32, ref_c32, _), = one_process(f32_cfg, dataclasses.replace(base.train, lr=MP_LR), 1)
+    ref_bf16 = one_process(base.model, base.train, MP_BF16_STEPS)
+    out, paths = {}, {}
+    ranks = mp_group(work, "gloo", 2, "cuda:0", "gloo")
+    bad = mp_held(ranks, ref_f32, ref_c32)
+    if any(c != TRAIN_STEP_LAUNCHES for _, c, _ in ref_bf16) or ref_c32 != TRAIN_STEP_LAUNCHES:
+        bad.append("the one-process step's launches")
+    two_ms = [statistics.median(st["s"] for st in r["runs"][1]["steps"][1:]) * 1e3 for r in ranks]
+    one_ms = statistics.median(s for _, _, s in ref_bf16[1:]) * 1e3
+    out["gloo_one_card"] = {
+        "backends": [r["backend"] for r in ranks], "f32": ranks[0]["runs"][0]["steps"][0],
+        "f32_one_process": ref_f32, "bf16_digest_equal": len({r["runs"][1]["digest"]
+                                                            for r in ranks}) == 1,
+        "bf16_ms_per_step": two_ms, "bf16_one_process_ms": one_ms,
+        "batch_per_process": MP_GLOBAL_BATCH // 2, "failures": bad, "card": card}
+    print(f"multiprocess gloo, 2 processes on cuda:0 (4 patches each): f32 step "
+          f"{json.dumps(ranks[0]['runs'][0]['steps'][0]['metrics'])} against one process's "
+          f"{json.dumps(ref_f32)}; bf16 weights bit-equal "
+          f"{out['gloo_one_card']['bf16_digest_equal']}; failures {bad}", flush=True)
+    print(f"multiprocess bf16 step: {two_ms[0]:.2f} / {two_ms[1]:.2f} ms a process (4 patches "
+          f"each, gloo) against one process's {one_ms:.2f} ms (8 patches), median of steps "
+          f"2-{MP_BF16_STEPS}; {card}", flush=True)
+    print("multiprocess: the two processes share one card and reduce through the host "
+          "(gloo); these times are no multi-card speed", flush=True)
+    checks.record(not bad and all(r["backend"] == "gloo" for r in ranks),
+                  dict(phase="multiprocess_gloo_one_card", **out["gloo_one_card"]))
+    paths["multiprocess_f32_step_rank0"] = ranks[0]["runs"][0]["steps"][0]["launches"]
+    paths["multiprocess_bf16_steps_rank0"] = {
+        k: sum(st["launches"][k] for st in ranks[0]["runs"][1]["steps"])
+        for k in TRAIN_STEP_LAUNCHES}
+
+    if torch.cuda.device_count() >= 2:
+        ranks = mp_group(work, "nccl", 2, None, None)
+        bad = mp_held(ranks, ref_f32, ref_c32)
+        nccl = [r["backend"] for r in ranks]
+        out["nccl_two_cards"] = {"ran": True, "backends": nccl, "failures": bad,
+                                 "f32": ranks[0]["runs"][0]["steps"][0],
+                                 "bf16_ms_per_step": [statistics.median(
+                                     st["s"] for st in r["runs"][1]["steps"][1:]) * 1e3
+                                     for r in ranks]}
+        print(f"multiprocess nccl, one card each: {json.dumps(out['nccl_two_cards'])}",
+              flush=True)
+        checks.record(not bad and nccl == ["nccl", "nccl"],
+                      dict(phase="multiprocess_nccl_two_cards", **out["nccl_two_cards"]))
+    else:
+        out["nccl_two_cards"] = {"ran": False,
+                                 "reason": f"{torch.cuda.device_count()} card visible"}
+        print(json.dumps({"phase": "multiprocess_nccl", "ran": False,
+                          "reason": "NCCL was not run: one card visible"}), flush=True)
+
+    # the capacity probe cut to 1 epoch on the smoke fixture, its record
+    # written to a file of this phase
+    from scripts import torch_port_capacity_probe as cp
+
+    before = os.environ.get("CONVBENCH_DATA")
+    os.environ["CONVBENCH_DATA"] = str(work / "probe_fixture")
+    try:
+        t0 = time.perf_counter()
+        entry = cp.run(cp.parser().parse_args([
+            "--smoke", "--epochs", "1", "--workdir", str(work / "probe"),
+            "--record", str(work / "probe.json")]))
+        probe_s = time.perf_counter() - t0
+    finally:
+        if before is None:
+            os.environ.pop("CONVBENCH_DATA")
+        else:
+            os.environ["CONVBENCH_DATA"] = before
+    saved = json.loads((work / "probe.json").read_text())
+    ok = (saved == [entry] and entry["kind"] == "capacity_probe" and entry["device"] == card
+          and math.isfinite(entry["val_psnr_last"]))
+    out["capacity_probe"] = {"entry": entry, "s": probe_s}
+    print(f"capacity probe (1 epoch, smoke fixture): val PSNR {entry['val_psnr_last']} dB "
+          f"in {probe_s:.1f} s", flush=True)
+    checks.record(ok, dict(phase="multiprocess_capacity_probe", **out["capacity_probe"]))
+    return paths, out
+
+
 # Phase 17: the serving artifact and the public surface. The artifact is
 # frozen at the whole volume, batch 1; the wrapper GAN takes 3 steps; the
 # plots' files from the evaluation's table and test_metrics.csv.
@@ -4148,6 +4335,18 @@ def main() -> int:
     clock.lap("20_distinct")
     print(f"distinct devices done at {time.perf_counter() - t_start:.1f}s (phase "
           f"{clock.laps['20_distinct']:.1f}s on {card})", flush=True)
+    mp_work = Path("perf_out") / "multiprocess_smoke"
+    shutil.rmtree(mp_work, ignore_errors=True)
+    mp_work.mkdir(parents=True)
+    try:
+        mp_counts, mp_out = phase_multiprocess(
+            torch, K, checks, (Config, create_gan_state, make_train_step), card,
+            mp_work.resolve())
+    finally:
+        shutil.rmtree(mp_work, ignore_errors=True)
+    clock.lap("21_multiprocess")
+    print(f"training across processes done at {time.perf_counter() - t_start:.1f}s (phase "
+          f"{clock.laps['21_multiprocess']:.1f}s on {card})", flush=True)
     elapsed = time.perf_counter() - t_start
 
     kernels = summary(checks.rows, {"serving": counts, "train_step": train_counts,
@@ -4164,7 +4363,7 @@ def main() -> int:
                                     **{f"multistage_{s}_step": c
                                        for s, c in ms_step_counts.items()},
                                     **sharded_counts, **surface_counts, **wguard_counts,
-                                    **quality_counts, **distinct_counts})
+                                    **quality_counts, **distinct_counts, **mp_counts})
     unlaunched = [k["name"] for k in kernels if k["launches"] == 0]
     checks.record(not unlaunched, dict(phase="every_kernel_launched_on_a_path",
                                        unlaunched=unlaunched))
@@ -4194,6 +4393,7 @@ def main() -> int:
                    "wguard_launches": wguard_counts, "wguard": wguard_out,
                    "quality_launches": quality_counts, "quality": quality_out,
                    "distinct_launches": distinct_counts, "distinct": distinct_out,
+                   "multiprocess_launches": mp_counts, "multiprocess": mp_out,
                    "phase_seconds": clock.laps, "kernels": kernels, "elapsed_s": elapsed},
                   f, indent=1)
     if checks.failures:

@@ -72,11 +72,21 @@ SUMMARY_KEYS = (
     "rd_median_rel_err_floored", "denorm_per_roi_median_rel_err", "artifacts")
 
 
+#: The environment variable that names the revision where the checkout has
+#: no ``.git`` (a ``git archive`` copy): ``UNET_BSSFP_GIT_REV=$(git rev-parse
+#: --short HEAD)``.
+GIT_REV_ENV = "UNET_BSSFP_GIT_REV"
+
+
 def git_rev() -> str:
+    """The revision a record names: ``$UNET_BSSFP_GIT_REV``, else ``git
+    rev-parse --short HEAD``, else ``"unknown"``."""
+    if os.environ.get(GIT_REV_ENV):
+        return os.environ[GIT_REV_ENV]
     try:
         return subprocess.run(["git", "rev-parse", "--short", "HEAD"], cwd=REPO,
                               capture_output=True, text=True, check=True).stdout.strip()
-    except Exception:
+    except (OSError, subprocess.CalledProcessError):
         return "unknown"
 
 

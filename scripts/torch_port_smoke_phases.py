@@ -6,13 +6,14 @@ phase 13), the quality path (phase 19, which needs phase 13 and writes its
 own target cohort first), the multi-stage regime (phase 15) and the sharded training step
 (phase 16) and the serving artifact with the public surface (phase 17,
 without its plots, which read phase 14's table), on the smoke's 4-subject
-tree at (96, 128, 128); and the wguard layout (phase 18) and training over
-distinct devices (phase 20: meshes over cuda:0 and the host), which need no
-tree.
+tree at (96, 128, 128); and the wguard layout (phase 18), training over
+distinct devices (phase 20: meshes over cuda:0 and the host) and training
+across processes (phase 21: two processes on cuda:0 under gloo, NCCL where
+there are two cards, the cut capacity probe), which need no tree.
 
   python scripts/torch_port_smoke_phases.py [--root DIR]
       [--phases data loop checkpoint quality multistage sharded surface wguard
-                distinct]
+                distinct multiprocess]
       [--tree perf_out/smoke_tree_phases]
 
 ``--root`` is the checkout whose ``chip_smoke.py`` and package run
@@ -29,7 +30,8 @@ artifact and of ``predict_volume`` and the wrappers' ms per step (phase
 17), the guarded serving and steps' ms beside the unguarded ones (phase
 18), the A/B's entries, the oracle's and the judged summary's seconds
 (phase 19), each mixed-mesh step's seconds beside cuda:0 alone's (phase
-20). Needs a card.
+20), the processes' bf16 ms per step beside one process's (phase 21).
+Needs a card.
 """
 
 from __future__ import annotations
@@ -50,9 +52,9 @@ def main() -> int:
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--phases", nargs="+",
                     choices=("data", "loop", "checkpoint", "quality", "multistage", "sharded",
-                             "surface", "wguard", "distinct"),
+                             "surface", "wguard", "distinct", "multiprocess"),
                     default=["data", "loop", "checkpoint", "quality", "multistage", "sharded",
-                             "surface", "wguard", "distinct"])
+                             "surface", "wguard", "distinct", "multiprocess"])
     ap.add_argument("--tree", default="perf_out/smoke_tree_phases")
     args = ap.parse_args()
     root = Path(args.root).resolve()
@@ -83,7 +85,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     checks = sm.Checks()
     sm.phase_build(torch, K, _build, native)
-    if set(args.phases) - {"wguard", "distinct"} and not (tree / ".complete").exists():
+    treeless = {"wguard", "distinct", "multiprocess"}
+    if set(args.phases) - treeless and not (tree / ".complete").exists():
         print(f"tree {tree}: {sm.make_tree(make_synthetic_bids, tree):.1f} s", flush=True)
         (tree / ".complete").write_text("ok\n")
     card = subprocess.run(
@@ -281,6 +284,21 @@ def main() -> int:
             summary["distinct"] = {
                 "step_s": {k: {"mixed": v["s"], "cuda0_alone": v.get("alone_s")}
                            for k, v in out.items()},
+                "phase_s": time.perf_counter() - t0}
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+    if "multiprocess" in args.phases:
+        work = (tree.parent / "multiprocess_smoke_phases").resolve()
+        shutil.rmtree(work, ignore_errors=True)
+        work.mkdir(parents=True)
+        try:
+            t0 = time.perf_counter()
+            _, out = sm.phase_multiprocess(
+                torch, K, checks, (Config, create_gan_state, make_train_step), card, work)
+            summary["multiprocess"] = {
+                "bf16_ms_per_step": out["gloo_one_card"]["bf16_ms_per_step"],
+                "bf16_one_process_ms": out["gloo_one_card"]["bf16_one_process_ms"],
+                "nccl_ran": out["nccl_two_cards"]["ran"],
                 "phase_s": time.perf_counter() - t0}
         finally:
             shutil.rmtree(work, ignore_errors=True)

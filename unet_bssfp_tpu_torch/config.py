@@ -57,7 +57,10 @@ class DataConfig:
     # inference mode of a model trained that way.
     whole_volume: bool = False
     cache_volumes: bool = False
-    process_split: bool = True  # TPU pods only; ignored
+    # In a process group (parallel.distributed) each process loads only its
+    # stride-slice of the sample lists and batch_size is per process. No
+    # effect with one process.
+    process_split: bool = True
 
 
 @dataclasses.dataclass(frozen=True)

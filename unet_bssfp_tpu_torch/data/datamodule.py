@@ -18,10 +18,19 @@ splits 80/10/10.
 - :meth:`test_volumes` gives preprocessed whole volumes for stitched
   inference (reference ``src/data_module.py:148-150``).
 
+In a process group (``parallel.distributed``) with ``process_split`` each
+process keeps only its stride-slice ``samples[rank::world]`` of the three
+identically ordered lists, as the JAX package's module does, and
+``batch_size`` is per process. Each stream first compares its batch plan
+(full batches and the last one's size) across the processes, so that a
+process that would take another number of steps raises on every process
+instead of leaving the others waiting on a collective.
+
 Streams take a seed (or a ``torch.Generator`` to draw one from) where the
 JAX package takes a key. The sample order comes from the seed; each
 sample's augmentation and patch corners from generators derived from
-(seed, sample index), never from the order in which threads reach them, so
+(seed, the sample's index in the whole list, whichever process holds it),
+never from the order in which threads reach them, so
 a stream repeats bit for bit, prefetched or not. With prefetch on a CUDA
 device, a background thread builds the batches on its own CUDA stream; the
 consumer's stream waits on an event recorded after each batch and the
@@ -46,6 +55,7 @@ from unet_bssfp_tpu_torch.data.nifti import load_volume
 from unet_bssfp_tpu_torch.data.queue import PrefetchIterator, parallel_map
 from unet_bssfp_tpu_torch.data.sampler import extract_patches, uniform_patch_starts
 from unet_bssfp_tpu_torch.data.transforms import crop_or_pad
+from unet_bssfp_tpu_torch.parallel import distributed
 from unet_bssfp_tpu_torch.train.state import resolve_device
 
 ALL_KEYS = ("dwi-tensor", "pc-bssfp", "bssfp", "t1w")
@@ -96,12 +106,14 @@ class DoveDataModule:
         self.val_samples: List[SampleSpec] = []
         self.test_samples: List[SampleSpec] = []
         self._volume_cache: Dict[str, np.ndarray] = {}
+        self._stride = (0, 1)  # (this process's slice, the slices' count)
 
     # -- discovery ---------------------------------------------------------
 
     def prepare_data(self) -> None:
-        """Index the tree, split the subjects and pair their files.
-        ``DataConfig.process_split`` is ignored: one process feeds the card."""
+        """Index the tree, split the subjects and pair their files; under
+        ``DataConfig.process_split`` in a process group, keep this
+        process's stride-slice of each list."""
         cfg = self.config
         if not os.path.isdir(cfg.data_dir):
             raise FileNotFoundError(f"BIDS dataset root does not exist: {cfg.data_dir!r}")
@@ -135,6 +147,12 @@ class DoveDataModule:
         self.train_samples = build(train_subs)
         self.val_samples = build(val_subs)
         self.test_samples = build(test_subs)
+        if cfg.process_split and distributed.process_count() > 1:
+            pid, pn = distributed.process_index(), distributed.process_count()
+            self._stride = (pid, pn)
+            self.train_samples = self.train_samples[pid::pn]
+            self.val_samples = self.val_samples[pid::pn]
+            self.test_samples = self.test_samples[pid::pn]
         if not (self.train_samples or self.val_samples or self.test_samples):
             raise ValueError(
                 f"no paired samples found under {cfg.data_dir!r} (derivatives scope "
@@ -199,9 +217,13 @@ class DoveDataModule:
                  device: torch.device) -> Iterator[Dict[str, torch.Tensor]]:
         cfg = self.config
         order = torch.randperm(len(samples), generator=torch.Generator().manual_seed(seed))
+        pid, pn = self._stride
         buffers: Dict[str, torch.Tensor] = {}
         for i in order.tolist():
-            patches = self._subject_patches(samples[i], seed, i, keys, augment, device)
+            # a sample's draws follow its index in the whole list, so every
+            # sample is augmented and cut as one process would do it
+            patches = self._subject_patches(samples[i], seed, i * pn + pid, keys, augment,
+                                            device)
             for k, v in patches.items():
                 buffers[k] = torch.cat([buffers[k], v]) if k in buffers else v
             while buffers[keys[0]].shape[0] >= cfg.batch_size:
@@ -225,9 +247,22 @@ class DoveDataModule:
         if n > 0:
             yield buffers
 
+    def batch_plan(self, n_samples: int, batch_divisor: int = 1) -> Tuple[int, int]:
+        """``(full batches, the last batch's size or 0)`` of a stream over
+        ``n_samples`` samples, as :meth:`_batches` cuts it."""
+        cfg = self.config
+        total = n_samples * (1 if cfg.whole_volume else cfg.samples_per_vol)
+        full, rest = divmod(total, cfg.batch_size)
+        if rest and batch_divisor > 1:
+            rest = max(rest // batch_divisor * batch_divisor, batch_divisor)
+        return full, rest
+
     def _patch_stream(self, samples: List[SampleSpec], seed: Seed, keys: Sequence[str],
                       augment: bool, batch_divisor: int = 1, device: Device = None,
-                      prefetch: bool = True) -> Iterator[Dict[str, torch.Tensor]]:
+                      prefetch: bool = True, what: str = "batches"
+                      ) -> Iterator[Dict[str, torch.Tensor]]:
+        distributed.check_same(f"{what} (full batches, last batch)",
+                               self.batch_plan(len(samples), batch_divisor))
         dev = resolve_device(device)
         batches = self._batches(samples, _as_seed(seed), tuple(keys), augment,
                                 batch_divisor, dev)
@@ -243,7 +278,7 @@ class DoveDataModule:
         """Augmented training batches ``{key: (B, p, p, p, C)}`` (plus
         ``dwi-tensor_orig``) on ``device`` (default ``cuda``)."""
         return self._patch_stream(self.train_samples, seed, keys, True, batch_divisor,
-                                  device, prefetch)
+                                  device, prefetch, "train batches")
 
     def val_batches(self, seed: Seed, keys: Sequence[str] = ALL_KEYS,
                     batch_divisor: int = 1, augment: bool = True, device: Device = None,
@@ -252,7 +287,7 @@ class DoveDataModule:
         (``src/data_module.py:146-147``), the default; ``augment=False``
         serves the clean-val measurement."""
         return self._patch_stream(self.val_samples, seed, keys, augment, batch_divisor,
-                                  device, prefetch)
+                                  device, prefetch, "val batches")
 
     def test_volumes(self, keys: Sequence[str] = ALL_KEYS, device: Device = None
                      ) -> Iterator[Tuple[SampleSpec, Dict[str, torch.Tensor]]]:

@@ -39,6 +39,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from unet_bssfp_tpu_torch.ops.kernels import fused_instance_norm_leaky_relu
+from unet_bssfp_tpu_torch.parallel import distributed
 from unet_bssfp_tpu_torch.parallel.mesh import (
     AXES,
     Sharded,
@@ -270,7 +271,12 @@ class BatchNorm(nn.Module):
     the moments of the global batch, every shard's combined exactly over
     both mesh axes (as the JAX package's ``jit`` takes them over its sharded
     batch), or per data row inside :func:`row_moments`, and updates the
-    running statistics once (on every replica), not once per shard."""
+    running statistics once (on every replica), not once per shard. In a
+    process group the global batch spans the processes: the moments
+    combine every process's (``distributed.moments``, or the mesh's
+    ``all_sum`` over ``data``), and inside :func:`row_moments` each
+    process's rows keep their own while the update is the mean over every
+    process's rows."""
 
     momentum = 0.9
 
@@ -291,9 +297,13 @@ class BatchNorm(nn.Module):
             return self._forward_sharded(x)
         xf = _f32(x)
         if self.training:
-            var, mean = torch.var_mean(xf, dim=tuple(range(x.ndim - 1)),
-                                       correction=0)
-            self._update(mean, var)
+            dims = tuple(range(x.ndim - 1))
+            if _ROW_MOMENTS.get():  # the process's batch is one data row
+                var, mean = torch.var_mean(xf, dim=dims, correction=0)
+                self._update(*(_process_mean(m.detach()) for m in (mean, var)))
+            else:
+                mean, var = (m.flatten() for m in distributed.moments(xf, dims))
+                self._update(mean, var)
         else:
             mean, var = _f32(self.running_mean), _f32(self.running_var)
         return self._normalise(xf, mean, var, x.dtype)
@@ -314,16 +324,25 @@ class BatchNorm(nn.Module):
 
     def _forward_sharded(self, x: Sharded) -> Sharded:
         mesh, per_row = x.mesh, _ROW_MOMENTS.get()
-        axes, n = ("space", mesh.size("space")) if per_row else (AXES, mesh.positions)
+        axes, n = (("space", mesh.size("space")) if per_row
+                   else (AXES, mesh.positions * distributed.process_count()))
         xf, mean, var = _chan_moments(x, tuple(range(len(x.shape) - 1)), axes, n)
         # one update: with the global moments, or with the mean over data
-        # rows of each row's (the mean of the rows' updates)
+        # rows of each row's (the mean of the rows' updates), every
+        # process's rows in a group
         rows = range(mesh.size("data")) if per_row else (0,)
         dev = mean.parts[0][0].device
-        self._update(*(sum(m.parts[i][0].detach().to(dev) for i in rows).flatten() / len(rows)
-                       for m in (mean, var)))
+        moments = (sum(m.parts[i][0].detach().to(dev) for i in rows).flatten() / len(rows)
+                   for m in (mean, var))
+        self._update(*(_process_mean(m) if per_row else m for m in moments))
         return xf.map(lambda t, m, v: local(self, place(t))._normalise(t, m, v, x.dtype),
                       mean, var)
+
+
+def _process_mean(t: torch.Tensor) -> torch.Tensor:
+    """The mean of ``t`` over the processes (``t`` without a group)."""
+    n = distributed.process_count()
+    return t if n == 1 else distributed.sum_in_place(t.clone()) / n
 
 
 class Dropout(nn.Module):
@@ -364,12 +383,15 @@ def bind_dropout_generators(model: nn.Module, seed: int) -> Tuple[torch.Generato
     """One dropout generator per replica of ``model`` (``model`` alone if
     it has none), each on its replica's device and bound to its
     :class:`Dropout` s: the k-th replica's (in the mesh's device order, the
-    master first) seeded from ``parallel.mesh.replica_seed(seed, k)``, so
-    the master's from ``seed``. Returns them in that order."""
-    gens = []
-    for k, twin in enumerate(replicas(model)):
+    master first) seeded from ``parallel.mesh.replica_seed(seed, rank ·
+    replicas + k)``, so process 0's master's from ``seed`` and every
+    process's replicas from seeds of their own. Returns them in that
+    order."""
+    gens, twins = [], replicas(model)
+    for k, twin in enumerate(twins):
         dev = next(twin.parameters()).device
-        gens.append(torch.Generator(device=dev).manual_seed(replica_seed(seed, k)))
+        index = distributed.process_index() * len(twins) + k
+        gens.append(torch.Generator(device=dev).manual_seed(replica_seed(seed, index)))
         bind_dropout_generator(twin, gens[-1])
     return tuple(gens)
 

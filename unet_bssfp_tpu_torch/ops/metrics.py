@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from unet_bssfp_tpu_torch.parallel import distributed
+
 
 def _flatten_per_item(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(x.shape[0], -1)
@@ -30,7 +32,13 @@ def mae(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
 
 def znorm(volume: torch.Tensor) -> torch.Tensor:
     """Whole-tensor z-normalisation (reference ``src/model.py:222-226``):
-    the population standard deviation, as ``jnp.std`` takes it."""
+    the population standard deviation, as ``jnp.std`` takes it. Inside a
+    training step's loss in a process group (``distributed.split_batch``)
+    the whole tensor is the global batch: the moments are every process's
+    share's, combined (``distributed.moments``)."""
+    if distributed.batch_is_split():
+        mean, var = distributed.moments(volume, tuple(range(volume.ndim)))
+        return (volume - mean) / torch.sqrt(var)
     return (volume - torch.mean(volume)) / torch.std(volume, correction=0)
 
 

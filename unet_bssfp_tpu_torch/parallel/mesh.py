@@ -39,6 +39,15 @@ one optimizer step follows, and :func:`broadcast` copies the master's
 parameters and buffers into every replica in place. :func:`default_mesh` is
 the mesh the loops train on when the caller names no device: every visible
 card that the batch divides.
+
+Across processes (``parallel.distributed``) each process holds its own
+mesh, or none, over its own devices, and the group spans the processes:
+:meth:`Sharded.all_sum` over ``data`` (or both axes) adds the other
+processes' sums, :func:`reduce_gradients` sums the masters' gradients over
+the processes after the local sum, :func:`broadcast` stays local, the
+dropout seeds take the replica's index over every process
+(:func:`replica_seed`), and :func:`default_mesh` is none: each process
+trains on its own card.
 """
 
 from __future__ import annotations
@@ -51,6 +60,8 @@ from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 from torch import nn
+
+from unet_bssfp_tpu_torch.parallel import distributed
 
 AXES = ("data", "space")
 _PLACE = contextvars.ContextVar("mesh_place", default=None)
@@ -216,23 +227,33 @@ class Sharded:
         (for ``space``: the positions of its data row; for ``AXES``, both
         axes: every position of the mesh, row by row), added in position
         order on every member, so all hold the same bits. Meant for small
-        tensors (moments): every shard is copied to every member."""
+        tensors (moments): every shard is copied to every member. In a
+        process group the ``data`` axis spans the processes: a sum over it
+        adds the other processes' group sums (``distributed.all_sum``,
+        through autograd), taken once per group and copied to its
+        members."""
         nd, ns = self.mesh.size("data"), self.mesh.size("space")
         axes = (axis,) if isinstance(axis, str) else tuple(axis)
         if not axes or any(a not in AXES for a in axes):
             raise ValueError(f"unknown mesh axis {axis!r}; expected one of {AXES} or both")
 
-        def one(i, j):
+        def one(i, j, dev):
             rows = range(nd) if "data" in axes else (i,)
             cols = range(ns) if "space" in axes else (j,)
             group = [self.parts[k][m] for k in rows for m in cols]
-            dev = self.parts[i][j].device
             total = group[0].to(dev)
             for t in group[1:]:
                 total = total + t.to(dev)
             return total
 
-        return Sharded(self.mesh, [[one(i, j) for j in range(ns)] for i in range(nd)])
+        if "data" not in axes or distributed.process_count() == 1:
+            return Sharded(self.mesh, [[one(i, j, self.parts[i][j].device) for j in range(ns)]
+                                       for i in range(nd)])
+        # a data column's sum, or the whole mesh's, over every process
+        totals = {j: distributed.all_sum(one(0, j, self.parts[0][j].device))
+                  for j in (range(ns) if "space" not in axes else (0,))}
+        return Sharded(self.mesh, [[totals[j if "space" not in axes else 0].to(
+            self.parts[i][j].device) for j in range(ns)] for i in range(nd)])
 
 
 def apply_local(fn: Callable[..., torch.Tensor], x, *others):
@@ -349,12 +370,14 @@ def check_replicas(mesh: Mesh, module: nn.Module, what: str) -> None:
 def reduce_gradients(module: nn.Module) -> None:
     """Each parameter's gradient summed over ``module``'s replicas onto the
     master's (the first device's), in the mesh's device order; the
-    replicas' gradients are cleared. Without replicas, nothing."""
+    replicas' gradients are cleared. In a process group the masters'
+    gradients are then summed over the processes, in one ``all_reduce`` of
+    a flat bucket, so every process holds the same sums. Without replicas
+    or a group, nothing."""
     master, *rest = replicas(module)
-    if not rest:
-        return
     with torch.no_grad():
-        for p, *twins in zip(master.parameters(), *(r.parameters() for r in rest)):
+        for p, *twins in (zip(master.parameters(), *(r.parameters() for r in rest))
+                          if rest else ()):
             total = p.grad
             for twin in twins:
                 if twin.grad is not None:
@@ -362,6 +385,11 @@ def reduce_gradients(module: nn.Module) -> None:
                     total = g if total is None else total + g
                     twin.grad = None
             p.grad = total
+        grads = [p.grad for p in master.parameters() if p.grad is not None]
+        if distributed.process_count() > 1 and grads:
+            flat = distributed.sum_in_place(torch.cat([g.reshape(-1) for g in grads]))
+            for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+                g.copy_(part.view_as(g))
 
 
 def broadcast(module: nn.Module) -> None:
@@ -377,9 +405,10 @@ def broadcast(module: nn.Module) -> None:
 
 
 def replica_seed(seed: int, k: int) -> int:
-    """The dropout seed of the replica on a mesh's ``k``-th distinct device:
-    ``seed`` itself for the first (so one device draws as before), a seed
-    derived from ``(seed, k)`` for the others."""
+    """The dropout seed of replica ``k``, counted over every process's
+    replicas, rank-major (a process's ``j``-th distinct device is ``rank ·
+    replicas + j``): ``seed`` itself for the first (so one device draws as
+    before), a seed derived from ``(seed, k)`` for the others."""
     if k == 0:
         return seed
     return int(np.random.SeedSequence([seed, k]).generate_state(1, np.uint32)[0])
@@ -391,9 +420,11 @@ def default_mesh(batch_size: int) -> Optional[Mesh]:
     than one CUDA device visible, a ``data`` axis over ``cuda:0`` …
     ``cuda:k-1``, ``k = gcd(batch_size, device count)``, printing the JAX
     package's line where ``k`` falls short of the count. ``None`` (train on
-    ``cuda``) with one card or none, or where ``k`` is 1."""
+    ``cuda``) with one card or none, or where ``k`` is 1; ``None`` in a
+    process group too: each process trains on its own card
+    (``distributed.device``)."""
     n = torch.cuda.device_count() if torch.cuda.is_available() else 0
-    if n <= 1:
+    if n <= 1 or distributed.process_count() > 1:
         return None
     usable = math.gcd(batch_size, n)
     if usable != n:

@@ -22,6 +22,11 @@ best_fn=monitor, best_mode=mode)`` as the JAX package sets it: after each
 save, the ``top_k`` best rows by the monitored metric stay, a row without
 the metric ranking worst (``inf`` in min mode); of rows that tie, the later
 ones stay.
+
+In a process group every process holds the same state, so process 0 alone
+writes the directory, ``config.json`` and each step (and retires steps);
+the others keep the same bookkeeping and wait at a barrier after each save.
+Every process loads the same step.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from unet_bssfp_tpu_torch.parallel import distributed
 from unet_bssfp_tpu_torch.parallel.mesh import broadcast
 from unet_bssfp_tpu_torch.train.state import GANTrainState
 
@@ -45,8 +51,10 @@ class CheckpointManager:
         if mode not in ("min", "max"):
             raise ValueError(f"mode must be 'min' or 'max', got {mode!r}")
         self.directory = os.path.abspath(directory)
-        os.makedirs(self.directory, exist_ok=True)
-        if config_json is not None:
+        self._writes = distributed.process_index() == 0
+        if self._writes:
+            os.makedirs(self.directory, exist_ok=True)
+        if config_json is not None and self._writes:
             # the config rides with the checkpoints (the reference's
             # save_hyperparameters): a run is rebuilt from its directory
             with open(os.path.join(self.directory, "config.json"), "w") as f:
@@ -60,16 +68,18 @@ class CheckpointManager:
         """Write ``state`` (a ``GANTrainState`` or a ``SupervisedState``) as
         step ``step``, then retire what falls out of the top k."""
         value = float(metrics.get(self.monitor, math.inf if self.mode == "min" else -math.inf))
-        step_dir = os.path.join(self.directory, str(step))
-        os.makedirs(step_dir, exist_ok=True)
-        payload = (state_payload(state) if isinstance(state, GANTrainState)
-                   else supervised_payload(state))
-        atomic_save(payload, os.path.join(step_dir, STATE_FILE))
+        if self._writes:
+            step_dir = os.path.join(self.directory, str(step))
+            os.makedirs(step_dir, exist_ok=True)
+            payload = (state_payload(state) if isinstance(state, GANTrainState)
+                       else supervised_payload(state))
+            atomic_save(payload, os.path.join(step_dir, STATE_FILE))
         self._kept.append((step, value))
         retired = self._retired()
-        for gone in retired:
+        for gone in retired if self._writes else ():
             shutil.rmtree(os.path.join(self.directory, str(gone)), ignore_errors=True)
         self._kept = [(s, v) for s, v in self._kept if s not in retired]
+        distributed.barrier()
 
     def _rank(self, value: float) -> float:
         """The value sorted on: a NaN row ranks worst."""

@@ -6,6 +6,8 @@ Metric names follow the reference scheme
 ``{step}_metric_{PSNR|SSIM|L1}``); an epoch's row is the mean of its step
 values (Lightning's ``on_epoch=True``), written with the same columns, in
 the same order and the same number formatting as the JAX package's logger.
+In a process group only process 0 writes (the CSV, the heartbeat, W&B);
+the others keep the same rows, which hold the same global metrics.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ from typing import Dict, Optional
 
 import torch
 
+from unet_bssfp_tpu_torch.parallel import distributed
+
 #: Minimum seconds between heartbeat-file touches in ``log_step``.
 HEARTBEAT_INTERVAL_S = 15.0
 
@@ -26,7 +30,9 @@ class MetricLogger:
     def __init__(self, log_dir: str, wandb_project: Optional[str] = None,
                  run_name: Optional[str] = None):
         self.log_dir = log_dir
-        os.makedirs(log_dir, exist_ok=True)
+        self._writes = distributed.process_index() == 0
+        if self._writes:
+            os.makedirs(log_dir, exist_ok=True)
         self._epoch_acc: Dict[str, list] = defaultdict(list)
         self._rows = []
         self._fieldnames = ["epoch"]
@@ -34,7 +40,7 @@ class MetricLogger:
         self._heartbeat_path = os.path.join(log_dir, "heartbeat")
         self._heartbeat_last = float("-inf")
         self._wandb = None
-        if wandb_project:
+        if wandb_project and self._writes:
             try:
                 import wandb
 
@@ -51,7 +57,7 @@ class MetricLogger:
         # Step-granular liveness for the stall watchdog (utils/watchdog.py):
         # metrics.csv is rewritten only at epoch end.
         now = time.monotonic()
-        if now - self._heartbeat_last >= HEARTBEAT_INTERVAL_S:
+        if self._writes and now - self._heartbeat_last >= HEARTBEAT_INTERVAL_S:
             self._heartbeat_last = now
             try:
                 with open(self._heartbeat_path, "w") as f:
@@ -71,6 +77,8 @@ class MetricLogger:
         for k in row_out:
             if k not in self._fieldnames:
                 self._fieldnames.append(k)
+        if not self._writes:
+            return row
         with open(self._csv_path, "w", newline="") as f:
             writer = csv.DictWriter(f, fieldnames=self._fieldnames)
             writer.writeheader()
@@ -80,8 +88,11 @@ class MetricLogger:
         return row
 
     def write_table(self, name: str, row: Dict[str, float]) -> str:
-        """Write a single-row CSV (e.g. ``test_metrics.csv``)."""
+        """Write a single-row CSV (e.g. ``test_metrics.csv``; process 0
+        alone in a group)."""
         path = os.path.join(self.log_dir, name)
+        if not self._writes:
+            return path
         with open(path, "w", newline="") as f:
             writer = csv.DictWriter(f, fieldnames=list(row.keys()))
             writer.writeheader()

@@ -10,6 +10,12 @@ given, every visible card that the batch divides, as the JAX loop's default
 mesh: ``parallel.mesh.default_mesh``): every batch is trimmed to a multiple
 of the mesh's positions and split over it, as the JAX loop's
 ``batch_divisor`` and ``shard_batch`` do.
+
+In a process group (``parallel.distributed``) every process runs the loop
+on its own device (or mesh) and its share of the data; the decisions the
+processes must share are process 0's, broadcast: the run's name (picked
+by looking at the disk), the checkpoint ``--ckpt auto`` resumes, and early
+stopping. Process 0 alone writes the logs and checkpoints.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from unet_bssfp_tpu_torch.models.medicalnet import (
     medicalnet_is_pretrained,
     perceptual_distance,
 )
+from unet_bssfp_tpu_torch.parallel import distributed
 from unet_bssfp_tpu_torch.parallel.mesh import Mesh, default_mesh, same_device
 from unet_bssfp_tpu_torch.train.checkpoint import (
     CheckpointManager,
@@ -156,7 +163,7 @@ class Trainer:
             perceptual_fn = build_perceptual_fn(config, self.device)
         self.perceptual_fn = perceptual_fn
         self.debug = debug
-        run_name = _run_name(config, modality)
+        run_name = distributed.on_first(lambda: _run_name(config, modality))
         self.logger = MetricLogger(os.path.join(config.train.log_dir, run_name),
                                    wandb_project=config.train.wandb_project,
                                    run_name=run_name)
@@ -239,7 +246,7 @@ class Trainer:
                     if os.path.isdir(step_dir):
                         self.logger.log_artifact(step_dir, name=f"{self.modality}-ckpt-{epoch}")
                         uploaded.add(epoch)
-                if self.early_stop.update(row):
+                if distributed.on_first(lambda: self.early_stop.update(row)):
                     break
         for step in self.ckpt.steps:
             if step not in uploaded:
@@ -267,7 +274,8 @@ def train_model(data, modality: str, ckpt_path: Optional[str] = None, debug: boo
     trainer = Trainer(config, modality, device=device, debug=debug)
     state = trainer.init_state()
     if ckpt_path == "auto":
-        ckpt_path = find_latest_checkpoint(config.train.checkpoint_dir, modality)
+        ckpt_path = distributed.on_first(
+            lambda: find_latest_checkpoint(config.train.checkpoint_dir, modality))
         if ckpt_path:
             print(f"Auto-resuming from {ckpt_path}")
     if ckpt_path:

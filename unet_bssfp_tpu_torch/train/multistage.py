@@ -17,7 +17,10 @@ On one device (``cuda`` unless the caller passes another), or on a mesh
 (``mesh=``; by default every visible card, ``parallel.mesh.default_mesh``):
 the batch split over it as the GAN step splits it, the loss terms (SSIM's
 window too) taken on the gathered output, the replicas' gradients reduced
-onto the master and its weights broadcast back as the GAN step does. The port draws its own numbers: weights and the dropout
+onto the master and its weights broadcast back as the GAN step does. In a
+process group each process backpropagates its share of the global batch's
+loss and the gradients are summed over the processes, as in the GAN step
+(``train/steps.py``). The port draws its own numbers: weights and the dropout
 generator from per-stage seeds, the epochs' streams from ``epoch_seeds(seed
 + 17, epoch)`` where the JAX package splits ``PRNGKey(seed + 17)``.
 """
@@ -42,6 +45,7 @@ from unet_bssfp_tpu_torch.models.multi_input_unet import (
 )
 from unet_bssfp_tpu_torch.ops.losses import l1_loss, ssim_loss
 from unet_bssfp_tpu_torch.ops.metrics import mae, psnr, ssim3d
+from unet_bssfp_tpu_torch.parallel import distributed
 from unet_bssfp_tpu_torch.parallel.mesh import (
     Mesh,
     broadcast,
@@ -62,7 +66,9 @@ from unet_bssfp_tpu_torch.train.loop import (
 from unet_bssfp_tpu_torch.train.state import _DTYPES, auto_packed, mesh_device, resolve_device
 from unet_bssfp_tpu_torch.train.steps import (
     check_training_mesh,
-    gather_whole,
+    gather_global,
+    local_rows,
+    over_batch,
     shard_inputs,
     update,
 )
@@ -167,8 +173,14 @@ def make_supervised_train_step(net: MultiInputUNet, tcfg: TrainConfig,
     ``train_loss`` and ``train_loss_{L1,SSIM[,Perceptual]}`` (0-d tensors).
     With a ``mesh`` (the net built with it) the net runs on the shards, the
     terms on the gathered output, and the update as the GAN step's
-    (``steps.update``)."""
+    (``steps.update``); in a process group the terms are this process's
+    shares (``steps.over_batch``) and the metrics their sums."""
     check_training_mesh(mesh, net, what="make_supervised_train_step")
+
+    def losses(y_hat, y):
+        terms = _loss_terms(y_hat, y, tcfg, perceptual_fn)
+        return {"train_loss": sum(terms.values()),
+                **{f"train_loss_{name}": val for name, val in terms.items()}}
 
     def step(state: SupervisedState, x: torch.Tensor, y: torch.Tensor
              ) -> Dict[str, torch.Tensor]:
@@ -176,16 +188,13 @@ def make_supervised_train_step(net: MultiInputUNet, tcfg: TrainConfig,
             raise ValueError("the state does not hold this step's net")
         x, = shard_inputs(mesh, x)
         each_replica(net, "train")
-        terms = _loss_terms(*gather_whole(net(x), y), tcfg, perceptual_fn)
-        loss = sum(terms.values())
+        out = over_batch(losses, net(x), y)
         each_replica(net, "zero_grad")
-        loss.backward()
+        out["train_loss"].backward()
         update(net, state.opt)
         state.step += 1
-        metrics = {"train_loss": loss.detach()}
-        for name, val in terms.items():
-            metrics[f"train_loss_{name}"] = val.detach()
-        return metrics
+        return distributed.global_metrics({k: v.detach() for k, v in out.items()},
+                                          local_rows(y))
 
     return step
 
@@ -195,7 +204,9 @@ def make_supervised_eval_step(net: MultiInputUNet, tcfg: TrainConfig,
                               mesh: Optional[Mesh] = None):
     """``step(state, x, y) -> (metrics, y_hat)`` in eval mode without
     gradients: ``val_loss``, ``val_loss_{L1,SSIM[,Perceptual]}`` and
-    ``val_metric_{PSNR,SSIM,L1}``; with a ``mesh`` as the train step."""
+    ``val_metric_{PSNR,SSIM,L1}``; with a ``mesh`` as the train step, in
+    a process group on the global batch (every process's ``y_hat`` and
+    ``y`` gathered)."""
     check_training_mesh(mesh, net, what="make_supervised_eval_step")
 
     def step(state: SupervisedState, x: torch.Tensor, y: torch.Tensor):
@@ -204,7 +215,7 @@ def make_supervised_eval_step(net: MultiInputUNet, tcfg: TrainConfig,
         x, = shard_inputs(mesh, x)
         each_replica(net, "eval")
         with torch.no_grad():
-            y_hat, y = gather_whole(net(x), y)
+            y_hat, y = gather_global(net(x), y)
             terms = _loss_terms(y_hat, y, tcfg, perceptual_fn)
             acc = torch.promote_types(y_hat.dtype, torch.float32)
             y_hat32, y32 = y_hat.to(acc), y.to(acc)
@@ -299,7 +310,7 @@ def run_multistage(data, target_modality: str, config: Optional[Config] = None,
             state.epoch_seconds.append(time.perf_counter() - start)
             row = logger.end_epoch(epoch)
             ckpt.save(epoch, state, row)
-            if stopper.update(row):
+            if distributed.on_first(lambda: stopper.update(row)):
                 break
         logger.finish()
         params = {k: v.detach().clone() for k, v in net.state_dict().items()}

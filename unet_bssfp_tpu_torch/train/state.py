@@ -13,14 +13,18 @@ from unet_bssfp_tpu_torch.config import MODALITIES, ModelConfig, TrainConfig
 from unet_bssfp_tpu_torch.models.discriminator import Discriminator
 from unet_bssfp_tpu_torch.models.generator import Generator
 from unet_bssfp_tpu_torch.models.layers import bind_dropout_generators
+from unet_bssfp_tpu_torch.parallel import distributed
 from unet_bssfp_tpu_torch.parallel.mesh import Mesh, broadcast, replicate, same_device
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def resolve_device(device: Union[str, torch.device, None] = None) -> torch.device:
-    """``cuda`` unless the caller asks for another device; asking for CUDA
-    where there is none raises (no silent fallback to the CPU)."""
+    """``cuda`` unless the caller asks for another device (in a process
+    group: the process's own device, ``distributed.device``); asking for
+    CUDA where there is none raises (no silent fallback to the CPU)."""
+    if device is None and distributed.process_count() > 1:
+        return distributed.device()
     dev = torch.device(device if device is not None else "cuda")
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA was asked for but torch.cuda.is_available() "

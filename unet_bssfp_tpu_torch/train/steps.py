@@ -34,6 +34,19 @@ order of summation differs from the same step on one device.
 (``layers.row_moments``) and the loss as the mean over data rows of each
 row's loss: the JAX package's ``shard_map`` with its ``pmean`` of the
 gradients, metrics and ``batch_stats``.
+
+In a process group (``parallel.distributed``) each process steps on its
+share of the global batch, every share of one size: BatchNorm's moments
+are the global batch's, each process backpropagates its share of each
+batch-mean loss (its batch's mean over the process count), the gradients
+are summed over the processes before the one AdamW step every process
+takes, and the metrics are the shares' sums. Gathering the outputs with
+autograd instead would give every process the whole loss, and the
+gradients' sum would count it once per process. ``ddp_parity`` there is
+per data row over every process's rows (without a local mesh a process's
+batch is one row). The eval step gathers ``y_hat``, the logits and ``y``
+from every process exactly and takes its metrics, the FID among them, on
+the global batch.
 """
 
 from __future__ import annotations
@@ -49,6 +62,7 @@ from unet_bssfp_tpu_torch.models.layers import row_moments
 from unet_bssfp_tpu_torch.models.medicalnet import medicalnet_features
 from unet_bssfp_tpu_torch.ops.losses import bce_with_logits, l1_loss
 from unet_bssfp_tpu_torch.ops.metrics import fid, mae, psnr, spatial_average, ssim3d, znorm
+from unet_bssfp_tpu_torch.parallel import distributed
 from unet_bssfp_tpu_torch.parallel.mesh import (
     Mesh,
     Sharded,
@@ -113,17 +127,35 @@ def gather_whole(*values: Batch) -> Tuple[torch.Tensor, ...]:
     return tuple(gather_batch(v) if isinstance(v, Sharded) else v for v in values)
 
 
+def gather_global(*values: Batch) -> Tuple[torch.Tensor, ...]:
+    """Each value whole over the mesh and over the processes (every
+    process's in rank order, exactly, without autograd): the global
+    batch, as the eval steps take it."""
+    return tuple(distributed.gather(v) for v in gather_whole(*values))
+
+
+def local_rows(v: Batch) -> int:
+    """The batch size this process holds of ``v``."""
+    return v.shape[0] * v.mesh.size("data") if isinstance(v, Sharded) else v.shape[0]
+
+
 def over_batch(fn: Callable[..., Dict[str, torch.Tensor]], *values: Batch,
                per_row: bool = False) -> Dict[str, torch.Tensor]:
-    """``fn`` (a dict of 0-d losses) of the whole batch: of tensors as
-    given, of sharded values gathered (autograd runs through the gather);
-    with ``per_row``, the mean over data rows of ``fn`` of each row."""
-    if not isinstance(values[0], Sharded):
-        return fn(*values)
-    if not per_row:
-        return fn(*gather_whole(*values))
-    outs = [fn(*row) for row in zip(*(gather_rows(v) for v in values))]
-    return {k: sum(o[k] for o in outs) / len(outs) for k in outs[0]}
+    """``fn`` (a dict of 0-d losses, each a batch mean) of the whole batch:
+    of tensors as given, of sharded values gathered (autograd runs through
+    the gather); with ``per_row``, the mean over data rows of ``fn`` of
+    each row. In a process group, this process's share of each
+    (``distributed.shares``), ``fn`` running under
+    ``distributed.split_batch``."""
+    with distributed.split_batch():
+        if not isinstance(values[0], Sharded):
+            out = fn(*values)
+        elif not per_row:
+            out = fn(*gather_whole(*values))
+        else:
+            outs = [fn(*row) for row in zip(*(gather_rows(v) for v in values))]
+            out = {k: sum(o[k] for o in outs) / len(outs) for k in outs[0]}
+    return distributed.shares(out)
 
 
 def _recon_loss(y_hat: torch.Tensor, y: torch.Tensor, tcfg: TrainConfig,
@@ -148,8 +180,8 @@ def make_train_step(gen: nn.Module, disc: nn.Module, tcfg: TrainConfig,
     (B, p, p, p, 6); with a ``mesh`` either may also come split over it.
     ``ddp_parity`` (needs a mesh): BatchNorm moments and the loss per data
     row (the module's docstring)."""
-    if ddp_parity and mesh is None:
-        raise ValueError("ddp_parity requires a mesh")
+    if ddp_parity and mesh is None and distributed.process_count() == 1:
+        raise ValueError("ddp_parity requires a mesh or a process group")
     check_training_mesh(mesh, gen, disc, what="make_train_step")
     moments = row_moments if ddp_parity else contextlib.nullcontext
 
@@ -204,7 +236,7 @@ def make_train_step(gen: nn.Module, disc: nn.Module, tcfg: TrainConfig,
         for name, val in g.items():
             if name.startswith("term_"):
                 metrics[f"train_gen_loss_recon_{name[5:]}"] = val.detach()
-        return metrics
+        return distributed.global_metrics(metrics, local_rows(x))
 
     return step
 
@@ -221,7 +253,9 @@ def make_eval_step(gen: nn.Module, disc: nn.Module, tcfg: TrainConfig,
     reference's MedicalNet FID, ``src/model.py:158-163``; build one with
     :func:`make_medicalnet_fid_fn`) → ``(metrics, y_hat)``. With a ``mesh``
     G and D run on the shards and everything after them on the gathered
-    outputs (``y_hat`` whole, on the mesh's device)."""
+    outputs (``y_hat`` whole, on the mesh's device); in a process group on
+    the global batch, every process's outputs gathered (``y_hat`` the
+    global batch's)."""
     check_training_mesh(mesh, gen, disc, what="make_eval_step")
 
     def step(state: GANTrainState, x: Batch, y: Batch):
@@ -233,7 +267,7 @@ def make_eval_step(gen: nn.Module, disc: nn.Module, tcfg: TrainConfig,
         with torch.no_grad():
             y_hat = gen(x)
             logits = disc(x, y_hat)
-            y_hat, logits, y = gather_whole(y_hat, logits, y)
+            y_hat, logits, y = gather_global(y_hat, logits, y)
             logits = _acc(logits)
             adv = bce_with_logits(logits, torch.ones_like(logits))
             y_hat32, y32 = _acc(y_hat), _acc(y)

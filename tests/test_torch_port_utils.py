@@ -200,16 +200,6 @@ def test_trace_writes_a_chrome_trace(tmp_path):
     assert len(files) == 1 and files[0].endswith(".json")
 
 
-def test_step_timer_discards_the_warmup():
-    timer = profiling.StepTimer(warmup=2)
-    for _ in range(5):
-        out = timer.time_step(lambda: {"loss": torch.ones(())})
-    assert float(out["loss"]) == 1.0
-    s = timer.summary()
-    assert s["steps"] == 3 and s["min_s"] <= s["median_s"] <= s["max_s"]
-    assert profiling.StepTimer().summary() == {}
-
-
 def test_check_finite_fn_names_the_bad_leaves():
     fn = debug.check_finite_fn(lambda x: {"a": x, "b": (x * 0, torch.log(x)),
                                           "n": torch.tensor([1, 2])})

@@ -10,6 +10,8 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from unet_bssfp_tpu_torch.utils.profiling import span
+
 
 def uniform_patch_starts(generator: torch.Generator, volume_shape: Sequence[int],
                          patch_size: int, num_patches: int) -> np.ndarray:
@@ -46,8 +48,9 @@ def extract_patches(volume: torch.Tensor, starts: np.ndarray,
                     patch_size: int) -> torch.Tensor:
     """``(P, p, p, p, C)`` patches of a ``(D, H, W, C)`` volume at ``starts``."""
     p = patch_size
-    return torch.stack([volume[z:z + p, y:y + p, x:x + p]
-                        for z, y, x in np.asarray(starts).tolist()])
+    with span("bssfp.extract"):
+        return torch.stack([volume[z:z + p, y:y + p, x:x + p]
+                            for z, y, x in np.asarray(starts).tolist()])
 
 
 class GridAggregator:
@@ -73,14 +76,15 @@ class GridAggregator:
         if patches.shape[0] != len(self.starts):
             raise ValueError(f"{patches.shape[0]} patches for {len(self.starts)} starts")
         p = self.patch_size
-        acc = patches.new_zeros(self.volume_shape + (self.channels,))
-        cnt = patches.new_zeros(self.volume_shape + (1,))
-        for (z, y, x), patch in zip(self.starts.tolist(), patches):
+        with span("bssfp.stitch"):
+            acc = patches.new_zeros(self.volume_shape + (self.channels,))
+            cnt = patches.new_zeros(self.volume_shape + (1,))
+            for (z, y, x), patch in zip(self.starts.tolist(), patches):
+                if self.mode == "average":
+                    acc[z:z + p, y:y + p, x:x + p] += patch
+                    cnt[z:z + p, y:y + p, x:x + p] += 1.0
+                else:
+                    acc[z:z + p, y:y + p, x:x + p] = patch
             if self.mode == "average":
-                acc[z:z + p, y:y + p, x:x + p] += patch
-                cnt[z:z + p, y:y + p, x:x + p] += 1.0
-            else:
-                acc[z:z + p, y:y + p, x:x + p] = patch
-        if self.mode == "average":
-            acc = acc / cnt.clamp_min(1.0)
-        return acc
+                acc = acc / cnt.clamp_min(1.0)
+            return acc

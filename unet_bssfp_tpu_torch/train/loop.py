@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import contextlib
 import datetime
+import itertools
 import logging
 import os
 import time
@@ -47,7 +48,7 @@ from unet_bssfp_tpu_torch.train.logging import EarlyStopping, MetricLogger
 from unet_bssfp_tpu_torch.train.state import GANTrainState, create_gan_state, resolve_device
 from unet_bssfp_tpu_torch.train.steps import make_eval_step, make_train_step
 from unet_bssfp_tpu_torch.utils.debug import enable_nan_checks
-from unet_bssfp_tpu_torch.utils.profiling import trace
+from unet_bssfp_tpu_torch.utils.profiling import span, trace
 
 #: Highest ``perceptual_factor`` at which ``with_perceptual=None`` (auto)
 #: may turn the perceptual term on: the JAX package's bound, 0.0. The
@@ -222,9 +223,14 @@ class Trainer:
                 if self.debug and epoch == 0:
                     tracing.enter_context(trace(os.path.join(cfg.train.log_dir, "trace")))
                 with tracing:
-                    for i, batch in enumerate(data.train_batches(
-                            train_seed, keys=keys, batch_divisor=self.batch_divisor,
-                            device=self.device)):
+                    batches = iter(data.train_batches(
+                        train_seed, keys=keys, batch_divisor=self.batch_divisor,
+                        device=self.device))
+                    for i in itertools.count():
+                        with span("bssfp.data_wait"):
+                            batch = next(batches, None)
+                        if batch is None:
+                            break
                         self.logger.log_step(self.train_step(
                             state, batch[self.modality], batch["dwi-tensor_orig"]))
                         if i + 1 == DEBUG_TRACE_STEPS:

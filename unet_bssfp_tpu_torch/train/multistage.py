@@ -72,6 +72,7 @@ from unet_bssfp_tpu_torch.train.steps import (
     shard_inputs,
     update,
 )
+from unet_bssfp_tpu_torch.utils.profiling import span
 
 PerceptualFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 STAGES = (TrainingState.PRETRAIN, TrainingState.TRANSFER, TrainingState.FINE_TUNE)
@@ -186,15 +187,21 @@ def make_supervised_train_step(net: MultiInputUNet, tcfg: TrainConfig,
              ) -> Dict[str, torch.Tensor]:
         if state.net is not net:
             raise ValueError("the state does not hold this step's net")
-        x, = shard_inputs(mesh, x)
-        each_replica(net, "train")
-        out = over_batch(losses, net(x), y)
-        each_replica(net, "zero_grad")
-        out["train_loss"].backward()
-        update(net, state.opt)
-        state.step += 1
-        return distributed.global_metrics({k: v.detach() for k, v in out.items()},
-                                          local_rows(y))
+        with span("bssfp.step"):
+            x, = shard_inputs(mesh, x)
+            each_replica(net, "train")
+            with span("bssfp.net.forward"):
+                y_hat = net(x)
+            with span("bssfp.net.loss"):
+                out = over_batch(losses, y_hat, y)
+            with span("bssfp.net.backward"):
+                each_replica(net, "zero_grad")
+                out["train_loss"].backward()
+            with span("bssfp.net.optimizer"):
+                update(net, state.opt)
+            state.step += 1
+            return distributed.global_metrics({k: v.detach() for k, v in out.items()},
+                                              local_rows(y))
 
     return step
 

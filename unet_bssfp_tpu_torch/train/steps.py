@@ -76,6 +76,7 @@ from unet_bssfp_tpu_torch.parallel.mesh import (
     shard_batch,
 )
 from unet_bssfp_tpu_torch.train.state import GANTrainState
+from unet_bssfp_tpu_torch.utils.profiling import span
 
 PerceptualFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 Batch = Union[torch.Tensor, Sharded]
@@ -200,43 +201,53 @@ def make_train_step(gen: nn.Module, disc: nn.Module, tcfg: TrainConfig,
     def step(state: GANTrainState, x: Batch, y: Batch) -> Dict[str, torch.Tensor]:
         if state.gen is not gen or state.disc is not disc:
             raise ValueError("the state does not hold this step's models")
-        x, y = shard_inputs(mesh, x, y)
-        each_replica(gen, "train")
-        each_replica(disc, "train")
-        with moments():
-            # ---- generator phase (discriminator gradients off) --------
-            each_replica(disc, "requires_grad_", False)
-            y_hat = gen(x)
-            g = over_batch(gen_losses, disc(x, y_hat), y_hat, y, per_row=ddp_parity)
-            each_replica(gen, "zero_grad")
-            g["loss"].backward()
-            update(gen, state.gen_opt)  # before the fake is recomputed
-            each_replica(disc, "requires_grad_", True)
+        with span("bssfp.step"):
+            x, y = shard_inputs(mesh, x, y)
+            each_replica(gen, "train")
+            each_replica(disc, "train")
+            with moments():
+                # ---- generator phase (discriminator gradients off) --------
+                each_replica(disc, "requires_grad_", False)
+                with span("bssfp.gen.forward"):
+                    y_hat = gen(x)
+                    logits = disc(x, y_hat)
+                with span("bssfp.gen.loss"):
+                    g = over_batch(gen_losses, logits, y_hat, y, per_row=ddp_parity)
+                with span("bssfp.gen.backward"):
+                    each_replica(gen, "zero_grad")
+                    g["loss"].backward()
+                with span("bssfp.gen.optimizer"):
+                    update(gen, state.gen_opt)  # before the fake is recomputed
+                each_replica(disc, "requires_grad_", True)
 
-            # ---- discriminator phase (detached fake) -------------------
-            if reuse_fake:
-                y_hat2 = apply_local(torch.Tensor.detach, y_hat)
-            else:
-                with torch.no_grad():
-                    y_hat2 = gen(x)  # the updated generator, train mode
-            logits_hat = disc(x, y_hat2)
-            logits_real = disc(x, y)
-            d = over_batch(disc_losses, logits_real, logits_hat, per_row=ddp_parity)
-            each_replica(disc, "zero_grad")
-            d["loss"].backward()
-            update(disc, state.disc_opt)
-        state.step += 1
+                # ---- discriminator phase (detached fake) -------------------
+                with span("bssfp.disc.forward"):
+                    if reuse_fake:
+                        y_hat2 = apply_local(torch.Tensor.detach, y_hat)
+                    else:
+                        with torch.no_grad():
+                            y_hat2 = gen(x)  # the updated generator, train mode
+                    logits_hat = disc(x, y_hat2)
+                    logits_real = disc(x, y)
+                with span("bssfp.disc.loss"):
+                    d = over_batch(disc_losses, logits_real, logits_hat, per_row=ddp_parity)
+                with span("bssfp.disc.backward"):
+                    each_replica(disc, "zero_grad")
+                    d["loss"].backward()
+                with span("bssfp.disc.optimizer"):
+                    update(disc, state.disc_opt)
+            state.step += 1
 
-        metrics = {
-            "train_gen_loss": g["loss"].detach(),
-            "train_gen_loss_adversarial": g["adv"].detach(),
-            "train_gen_loss_recon": g["recon"].detach(),
-            "train_discr_loss": d["loss"].detach(),
-        }
-        for name, val in g.items():
-            if name.startswith("term_"):
-                metrics[f"train_gen_loss_recon_{name[5:]}"] = val.detach()
-        return distributed.global_metrics(metrics, local_rows(x))
+            metrics = {
+                "train_gen_loss": g["loss"].detach(),
+                "train_gen_loss_adversarial": g["adv"].detach(),
+                "train_gen_loss_recon": g["recon"].detach(),
+                "train_discr_loss": d["loss"].detach(),
+            }
+            for name, val in g.items():
+                if name.startswith("term_"):
+                    metrics[f"train_gen_loss_recon_{name[5:]}"] = val.detach()
+            return distributed.global_metrics(metrics, local_rows(x))
 
     return step
 
@@ -321,7 +332,7 @@ def make_predict_fn(gen: nn.Module, mesh: Optional[Mesh] = None
     each_replica(gen, "eval")  # gen and its copies on the mesh's other devices
 
     def predict(x: torch.Tensor) -> torch.Tensor:
-        with torch.inference_mode():
+        with span("bssfp.predict"), torch.inference_mode():
             if mesh is None:
                 return gen(x)
             return gather_batch(gen(shard_batch(mesh, x)))

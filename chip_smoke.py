@@ -33,7 +33,14 @@ Phases (any failure → nonzero exit, no ``ok`` line):
    (``aten.convolution_backward``) times. In bf16 K2 is the wgmma kernel
    (``csrc/conv3x3_wgrad_wgmma.cu``); beside it, at 96 → 32, the
    ``mma.sync`` loop it replaced, through its check-only entry point
-   ``conv3x3_wgrad_mma``.
+   ``conv3x3_wgrad_mma``. Then K10 (``csrc/packed_norm_act.cu``), the
+   packed stages' norm → dropout → activation → cast chain, forward and
+   backward, at the cases of ``scripts/torch_port_norm_act_times.py`` (the
+   cells' shapes: GAN train 16 rows, serving 32 rows eval, the multi-stage
+   PReLU widths 48 and 24, a whole volume, guards, f32 and odd rows), held
+   to the plain chain's error against f64 on the card, reruns bit-equal,
+   with time, device time, bound, plain and library (``F.instance_norm``
+   + ``F.dropout`` + ``F.leaky_relu``) times.
 5. Training path: full-width GAN training steps (``create_gan_state`` +
    ``make_train_step``, default config: bf16, packed, batch 8 × 64³);
    launch counts of one step against the expected ones; ms/step, patches/s
@@ -370,10 +377,11 @@ MODALITY = "pc-bssfp"
 SEED = 0
 TRAIN_BATCH, TRAIN_PATCH = 8, 64
 SERVING_KERNELS = ("conv3x3_packed", "pack_hw", "unpack_hw",
-                   "fused_instance_norm_leaky_relu")
+                   "fused_instance_norm_leaky_relu", "packed_norm_act")
 # Launches of one training step with the default config (use_pallas off,
-# reuse_fake off): the generator runs twice (4 packed convs, 2 packs and 1
-# unpack each) and back once (4 dgrad, 4 wgrad, 1 pack, 2 unpacks).
+# reuse_fake off): the generator runs twice (4 packed convs, 4 K10 chains
+# after them, 2 packs and 1 unpack each) and back once (4 dgrad, 4 wgrad,
+# 4 K10 backwards, 1 pack, 2 unpacks).
 # The pfold and probe kernels run on the probe paths of phase 11 only.
 PFOLD_KERNELS = ("conv3x3_pfold", "conv3x3_pfold_dgrad", "conv3x3_pfold_wgrad",
                  "conv3x3_pfold_halo", "conv3x3_pfold_halo_dgrad", "conv3x3_pfold_wgrad_halo")
@@ -386,15 +394,18 @@ TRAIN_STEP_LAUNCHES = {"conv3x3_packed": 8, "conv3x3_packed_dgrad": 4,
                        "conv3x3_packed_halo_dgrad": 0, "conv3x3_wgrad_halo": 0,
                        "pack_hw": 5, "unpack_hw": 4,
                        "fused_instance_norm_leaky_relu": 0, "scalar_maps": 0,
+                       "packed_norm_act": 8, "packed_norm_act_backward": 4,
                        **dict.fromkeys(PFOLD_KERNELS + PROBE_KERNELS, 0)}
 # Launches of one eval step (the generator's packed forward, no gradient):
-# 4 packed convs, 2 packs, 1 unpack.
+# 4 packed convs, 4 K10 chains, 2 packs, 1 unpack.
 EVAL_STEP_LAUNCHES = dict(dict.fromkeys(TRAIN_STEP_LAUNCHES, 0), conv3x3_packed=4,
-                          pack_hw=2, unpack_hw=1)
+                          pack_hw=2, unpack_hw=1, packed_norm_act=4)
 # A step with ModelConfig.remat: the generator phase's backward recomputes
 # the blocks it wraps (models/layers.py:remat); of those only the packed
-# conv_0 and upcat_1 launch kernels, their 4 convs and 2 packs once more.
-REMAT_STEP_LAUNCHES = dict(TRAIN_STEP_LAUNCHES, conv3x3_packed=8 + 4, pack_hw=5 + 2)
+# conv_0 and upcat_1 launch kernels, their 4 convs, 4 K10 chains and 2 packs
+# once more.
+REMAT_STEP_LAUNCHES = dict(TRAIN_STEP_LAUNCHES, conv3x3_packed=8 + 4, pack_hw=5 + 2,
+                           packed_norm_act=8 + 4)
 # Phase 13: the fit's epochs and the checkpoints it keeps. 3 epochs made
 # the phase take 64-68 s (cold loads ≈ 7 s an epoch); cut to 2.
 LOOP_EPOCHS, LOOP_TOP_K = 2, 2
@@ -410,7 +421,7 @@ LOOP_EPOCHS, LOOP_TOP_K = 2, 2
 MULTISTAGE_CONVS = ((24, 48), (48, 48), (144, 24), (24, 24))
 MULTISTAGE_STEP_LAUNCHES = dict(dict.fromkeys(TRAIN_STEP_LAUNCHES, 0), conv3x3_packed=4,
                                 conv3x3_packed_dgrad=4, conv3x3_wgrad=4, pack_hw=3,
-                                unpack_hw=3)
+                                unpack_hw=3, packed_norm_act=4, packed_norm_act_backward=4)
 MULTISTAGE_STAGE_LAUNCHES = {"pretrain": MULTISTAGE_STEP_LAUNCHES,
                              "transfer": dict(MULTISTAGE_STEP_LAUNCHES, conv3x3_wgrad=0),
                              "finetune": MULTISTAGE_STEP_LAUNCHES}
@@ -427,6 +438,7 @@ def mesh_launches(shape):
     out = dict.fromkeys(TRAIN_STEP_LAUNCHES, 0)
     out["conv3x3_packed_halo" if shape[1] > 1 else "conv3x3_packed"] = 4 * n
     out["pack_hw"], out["unpack_hw"] = 2 * n, n
+    out["packed_norm_act"] = 0 if shape[1] > 1 else 4 * n  # a space split: the sharded norm
     return out
 
 
@@ -435,6 +447,7 @@ def mesh_launches(shape):
 # K5, its dgrad and its wgrad take the places of K1, K1's dgrad and K2.
 SHARDED_MESHES = ((2, 1), (2, 2), (1, 2))
 SHARDED_DDP, SHARDED_EVAL, SHARDED_FIT = (2, 1), (2, 2), (2, 2)
+SPACE_PLAIN = ("packed_norm_act", "packed_norm_act_backward")
 HALO_FORMS = {"conv3x3_packed": "conv3x3_packed_halo",
               "conv3x3_packed_dgrad": "conv3x3_packed_halo_dgrad",
               "conv3x3_wgrad": "conv3x3_wgrad_halo"}
@@ -444,10 +457,13 @@ def sharded_launches(shape, per_step=None, positions=None):
     """One step's launches on a mesh of ``shape``: ``per_step`` (default
     ``TRAIN_STEP_LAUNCHES``) once per position (or per one of
     ``positions`` of them: those on the card), in the halo forms where the
-    mesh splits d."""
+    mesh splits d, where the norm chain takes its moments over the shards
+    in plain PyTorch instead of K10."""
     n = shape[0] * shape[1] if positions is None else positions
     out = dict.fromkeys(TRAIN_STEP_LAUNCHES, 0)
     for k, v in (per_step or TRAIN_STEP_LAUNCHES).items():
+        if shape[1] > 1 and k in SPACE_PLAIN:
+            continue
         out[HALO_FORMS.get(k, k) if shape[1] > 1 else k] += n * v
     return out
 
@@ -907,6 +923,36 @@ def phase_train_kernels(torch, K, checks):
             check_dgrad(torch, K, checks, b, d, h, w, cin, 32, dtype)
     # the mma.sync loop the wgmma kernel replaced, at K2's heaviest shape
     check_wgrad(torch, K, checks, b, d, h, w, 96, 32, "bfloat16", mma=True)
+    from scripts import torch_port_norm_act_times as nat
+
+    for case in nat.CASES:
+        check_packed_norm_act(torch, K, checks, nat, case)
+
+
+def check_packed_norm_act(torch, K, checks, nat, case):
+    """K10 forward and backward at one case of
+    ``scripts/torch_port_norm_act_times.py`` (its bounds and times): a row
+    each, the backward's plain and library ms the forward and backward's
+    less the forward's."""
+    import torch.nn.functional as F
+
+    r = nat.run_case(torch, F, K, case)
+    common = dict(shape=r["shape"], dtype=r["dtype"], case=case, wguard=r["wguard"],
+                  prelu=r["prelu"], bit_identical_rerun=r["bit_identical_rerun"],
+                  errors=r["errors"], bound_by="bytes")
+    checks.record(r["ok"], dict(
+        kernel="packed_norm_act", **common, launches=r["launches"],
+        max_abs_err=r["errors"]["y"]["kernel"], ms=r["fwd_ms"], device_ms=r["fwd_device_ms"],
+        bound_ms=r["bound_fwd_ms"], plain_ms=r["plain_fwd_ms"],
+        library_ms=r["library_fwd_ms"], draw_ms=r.get("draw_ms")))
+    if r["train"]:
+        checks.record(r["ok"], dict(
+            kernel="packed_norm_act_backward", **common,
+            max_abs_err=r["errors"]["dx"]["kernel"], ms=r["bwd_ms"],
+            device_ms=r["bwd_device_ms"], bound_ms=r["bound_bwd_ms"],
+            plain_ms=r["plain_ms"] - r["plain_fwd_ms"],
+            library_ms=r["library_ms"] - r["library_fwd_ms"]))
+    torch.cuda.empty_cache()
 
 
 def phase_halo_kernels(torch, F, K, checks):
@@ -2467,7 +2513,8 @@ def phase_eval_checkpoint(torch, K, checks, tree: str, run: dict, work: Path):
         dm.prepare_data()
         n_test = len(dm.test_samples)
         expected = dict(dict.fromkeys(eval_counts, 0), conv3x3_packed=4 * n_test,
-                        pack_hw=2 * n_test, unpack_hw=n_test, scalar_maps=2 * n_test)
+                        pack_hw=2 * n_test, unpack_hw=n_test, scalar_maps=2 * n_test,
+                        packed_norm_act=4 * n_test)
         pred_dir = pred_root / MODALITY
         with open(pred_dir / "test_metrics.csv") as f:
             (metrics_row,) = list(csv.DictReader(f))
@@ -2518,7 +2565,7 @@ def phase_eval_checkpoint(torch, K, checks, tree: str, run: dict, work: Path):
         same_served = bool(np.array_equal(served, written))
         n_maps = sum(fn.endswith(".nii.gz") for fn in os.listdir(work / "predict_checkpoint")) - 1
         p_expected = dict(dict.fromkeys(predict_counts, 0), conv3x3_packed=4, pack_hw=2,
-                          unpack_hw=1, scalar_maps=1)
+                          unpack_hw=1, scalar_maps=1, packed_norm_act=4)
         out["predict"] = {"launches": predict_counts, "expected": p_expected, "s": predict_s,
                           "maps": n_maps, "bit_equal_to_eval": same_served,
                           "eval_bit_equal_to_predict_volume": same_direct}
@@ -3568,6 +3615,10 @@ KERNEL_META = {
                           "unet_bssfp_tpu/ops/pallas/conv3d.py:507"),
     "scalar_maps": ("cuda", "unet_bssfp_tpu_torch/csrc/scalar_maps.cu",
                     "unet_bssfp_tpu/ops/pallas/scalar_maps_kernel.py:112"),
+    # K10: no TPU kernel; XLA fused the packed stages' norm chain
+    **{name: ("cuda", "unet_bssfp_tpu_torch/csrc/packed_norm_act.cu",
+              "none (XLA's fusion: unet_bssfp_tpu/models/packed_layers.py:76-135)")
+       for name in ("packed_norm_act", "packed_norm_act_backward")},
     # K5: the TPU kernel of K1 with pad_d=False (conv3x3_packed_halo, :595),
     # again on the padded dy in its VJP (:619), and the dw kernel with
     # pad_d=False (:624)
@@ -3616,6 +3667,8 @@ SUMMARY_SHAPE = {
     "conv3x3_wgrad": ([8, 64, 96, 4096], 32, "bfloat16"),
     "conv3x3_wgrad_mma": ([8, 64, 96, 4096], 32, "bfloat16"),
     "scalar_maps": (list(VOLUME) + [6], None, "float32"),
+    "packed_norm_act": ([16, 64, 32, 4096], None, "bfloat16"),
+    "packed_norm_act_backward": ([16, 64, 32, 4096], None, "bfloat16"),
     # the 96 → 32 probe case, folded; the halo forms at its D_local-32 shard
     "conv3x3_pfold": ([8, 64, 384, 1024], 32, "bfloat16"),
     "conv3x3_pfold_dgrad": ([8, 64, 128, 1024], 96, "bfloat16"),
@@ -4083,7 +4136,7 @@ def phase_quality(torch, K, checks, tree: str, target: str, tree_proc, best: str
     judged_s = time.perf_counter() - t1
     j_counts = K.launches()
     j_expected = dict(dict.fromkeys(j_counts, 0), conv3x3_packed=4 * n_test, pack_hw=2 * n_test,
-                      unpack_hw=n_test, scalar_maps=2 * n_test)
+                      unpack_hw=n_test, scalar_maps=2 * n_test, packed_norm_act=4 * n_test)
     with open(work / "quality" / "relative_errors.csv") as f:
         table_rows = len(f.read().splitlines()) - 1
     finite = (all(math.isfinite(v) for v in judged["test_metrics"].values())

@@ -228,6 +228,187 @@ def test_gpu_fused_norm_act_reruns_bit_for_bit_and_raises(cuda, dtype):
     assert K.fused_instance_norm_leaky_relu.launches == 5
 
 
+# K10, the packed stages' norm → dropout → activation → guards → cast
+# (ops/kernels/packed_norm_act.py), at the cells' shapes: (B, D, C, H·wdim),
+# wdim, wguard, PReLU, train (dropout 0.05, forward and backward) or eval.
+PNA_CASES = {
+    "gan-train-b16": ((16, 64, 32, 4096), 64, 0, False, True),
+    "serve-cohort-b32": ((32, 64, 32, 4096), 64, 0, False, False),
+    "multistage-48": ((8, 64, 48, 4096), 64, 0, True, True),
+    "multistage-24": ((8, 64, 24, 4096), 64, 0, True, True),
+    "whole-volume": ((1, 96, 32, 16384), 128, 0, False, False),
+    "wguard": ((4, 64, 32, 64 * 66), 66, 2, False, True),
+}
+
+
+def _pna_operands(cuda, shape, prelu, train, dtype=torch.bfloat16, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    c = shape[2]
+    off = 2 * torch.randn(1, 1, c, 1, device=cuda, generator=g)
+    x = (torch.randn(shape, device=cuda, generator=g) + off).to(dtype)
+    scale = 1 + 0.2 * torch.randn(c, device=cuda, generator=g)
+    bias = 0.2 * torch.randn(c, device=cuda, generator=g)
+    slope = 0.1 + 0.05 * torch.randn(c, device=cuda, generator=g) if prelu else 0.1
+    draw = torch.empty(shape, device=cuda).bernoulli_(0.95, generator=g) if train else None
+    dy = torch.randn(shape, device=cuda, generator=g).to(dtype) if train else None
+    return x, scale, bias, slope, draw, dy
+
+
+def _pna_run(fn, x, scale, bias, slope, draw, dy, wdim, wguard, out_dtype):
+    """(y, dx, dscale, dbias[, dslope]) of ``fn`` (the outputs alone in eval)."""
+    prelu = isinstance(slope, torch.Tensor)
+    leaves = [t.detach().requires_grad_(dy is not None)
+              for t in [x, scale, bias] + ([slope] if prelu else [])]
+    # keep 0.95 in eval too, as the blocks pass it: it scales only with a draw
+    y = fn(leaves[0], leaves[1], leaves[2], leaves[3] if prelu else slope, wdim, wguard, draw,
+           0.95, 1e-5, out_dtype)
+    if dy is None:
+        return [y.detach()]
+    y.backward(dy.to(y.dtype))
+    return [y.detach()] + [t.grad for t in leaves]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(PNA_CASES))
+def test_gpu_packed_norm_act_matches_plain_and_reruns_bit_for_bit(cuda, case):
+    """K10 against the plain chain on the card, both measured against the
+    plain chain in f64 on the card: y and dx in bf16 (each side rounds its
+    result once, so the kernel may not stray more than twice the plain
+    chain's error, or one bf16 rounding, 2^-8 of max|ref|); dscale, dbias
+    and dslope in f32 (sums of up to 4.2 M terms in other fixed orders: twice
+    the plain chain's error, or 2^-20 of max|ref|). A rerun gives equal
+    bits; a call is one forward (and one backward) launch."""
+    shape, wdim, wguard, prelu, train = PNA_CASES[case]
+    ops = _pna_operands(cuda, shape, prelu, train)
+    x = ops[0]
+    K.reset_launches()
+    got = _pna_run(K.packed_norm_act, *ops, wdim, wguard, torch.bfloat16)
+    assert (K.packed_norm_act.launches, K.packed_norm_act_backward.launches) == (1, int(train))
+    again = _pna_run(K.packed_norm_act, *ops, wdim, wguard, torch.bfloat16)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    del again
+    plain = _pna_run(K.packed_norm_act_plain, *ops, wdim, wguard, torch.bfloat16)
+    ref = _pna_run(K.packed_norm_act_plain, x.double(), *ops[1:], wdim, wguard, torch.float64)
+    assert len(got) == (4 + prelu if train else 1)
+    for a, p, r in zip(got, plain, ref):
+        floor = (2 ** -8 if a.dtype == torch.bfloat16 else 2 ** -20) * float(r.abs().max())
+        err = float((a.double() - r).abs().max())
+        assert err <= max(2 * float((p.double() - r).abs().max()), floor)
+    if wguard:
+        for t in got[:2]:
+            assert not t.unflatten(-1, (-1, wdim))[..., wdim - wguard:].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,out_dtype,shape,wdim,wguard", [
+    (torch.float32, torch.float32, (2, 16, 24, 1024), 32, 0),
+    (torch.bfloat16, torch.float32, (2, 3, 5, 42), 7, 1),      # rows of 42: no 16-byte loads
+    (torch.float32, torch.float32, (1, 5, 3, 6 * 10), 10, 2),
+])
+def test_gpu_packed_norm_act_other_dtypes_and_odd_rows(cuda, dtype, out_dtype, shape, wdim,
+                                                       wguard):
+    """f32 in and out, and bf16 in with f32 out (``compute_dtype`` unset),
+    at shapes whose rows take 1-element loads: PReLU, train, against the
+    same bounds (f32: 2^-20 of max|ref|)."""
+    ops = _pna_operands(cuda, shape, True, True, dtype)
+    got = _pna_run(K.packed_norm_act, *ops, wdim, wguard, out_dtype)
+    plain = _pna_run(K.packed_norm_act_plain, *ops, wdim, wguard, out_dtype)
+    ref = _pna_run(K.packed_norm_act_plain, ops[0].double(), *ops[1:], wdim, wguard,
+                   torch.float64)
+    assert got[0].dtype == out_dtype and got[1].dtype == dtype
+    for a, p, r in zip(got, plain, ref):
+        floor = (2 ** -8 if a.dtype == torch.bfloat16 else 2 ** -20) * float(r.abs().max())
+        err = float((a.double() - r).abs().max())
+        assert err <= max(2 * float((p.double() - r).abs().max()), floor)
+
+
+@pytest.mark.gpu
+def test_gpu_packed_norm_act_refuses_what_the_kernels_do_not_take(cuda):
+    """No fallback for a CUDA tensor: f16 or f64, a scale off the card or not
+    f32, a draw of another shape raise before any launch."""
+    x, scale, bias, _, draw, _ = _pna_operands(cuda, (2, 4, 8, 256), False, True)
+    K.reset_launches()
+    for bad in (x.half(), x.double()):
+        with pytest.raises(TypeError):
+            K.packed_norm_act(bad, scale, bias, 0.1, 16)
+    with pytest.raises(ValueError):
+        K.packed_norm_act(x, scale.cpu(), bias, 0.1, 16)
+    with pytest.raises(ValueError):
+        K.packed_norm_act(x, scale.double(), bias, 0.1, 16)
+    with pytest.raises(ValueError):
+        K.packed_norm_act(x, scale, bias, 0.1, 16, 0, draw[:1], 0.95)
+    assert K.packed_norm_act.launches == 0
+
+
+@pytest.mark.gpu
+def test_gpu_packed_norm_act_masks_are_the_reference_draws(cuda):
+    """The 1-byte mask K10 keeps for the backward is the benchmark
+    reference's dropout mask (``portbench/reference/models.py::Masks``)
+    drawn from the same generator state, element for element; it drops what
+    the plain chain drops."""
+    import importlib
+
+    from portbench.reference.models import Masks
+
+    pna = importlib.import_module("unet_bssfp_tpu_torch.ops.kernels.packed_norm_act")
+    from unet_bssfp_tpu_torch.models.packed_layers import PackedConvNormAct
+
+    b, d, c, h, w = 2, 16, 32, 16, 16
+    block = PackedConvNormAct(24, c, dropout=0.05, compute_dtype=torch.bfloat16).to(cuda).train()
+    x = torch.randn(b, d, c, h * w, device=cuda).bfloat16()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    block.drop.generator = gen
+    state = gen.get_state()
+    draw = block.drop.draw(x)
+    spec = pna._spec(x, 0.1, w, 0, draw, block.drop.keep, 1e-5, torch.bfloat16)
+    _, _, _, mask = pna._cuda_forward(x, block.norm.weight, block.norm.bias, None, draw,
+                                      spec, True)
+    gen.set_state(state)
+    ref = Masks(gen, 0.05).draw((b, c, d, h, w), packed=True)  # NCDHW view
+    assert torch.equal(mask.bool(), ref.permute(0, 2, 1, 3, 4).reshape(b, d, c, h * w))
+    assert 0 < int((~mask.bool()).sum()) < mask.numel()
+
+
+@pytest.mark.gpu
+def test_gpu_cuda_tensors_never_reach_the_plain_chain(cuda, monkeypatch):
+    """With the plain chain made to raise, a packed bf16 GAN step (dropout
+    on), a FINE_TUNE step and a serving forward still run on the card: every
+    packed block of every generator pass and its backward takes K10 (8 + 4
+    a GAN step, 4 + 4 a supervised step, 4 a forward)."""
+    import importlib
+
+    from unet_bssfp_tpu_torch.config import ModelConfig, TrainConfig
+    from unet_bssfp_tpu_torch.models import TrainingState
+    from unet_bssfp_tpu_torch.train import multistage as ms
+    from unet_bssfp_tpu_torch.train.state import create_gan_state
+    from unet_bssfp_tpu_torch.train.steps import make_predict_fn, make_train_step
+
+    pna = importlib.import_module("unet_bssfp_tpu_torch.ops.kernels.packed_norm_act")
+
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA tensor reached the plain chain")
+
+    monkeypatch.setattr(pna, "packed_norm_act_plain", refuse)
+    cfg = _loop_config(Path("."))
+    g = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.rand(2, 32, 32, 32, 24, device=cuda, generator=g)
+    y = torch.rand(2, 32, 32, 32, 6, device=cuda, generator=g)
+    st = create_gan_state(0, "pc-bssfp", cfg.model, cfg.train, cuda)
+    K.reset_launches()
+    make_train_step(st.gen, st.disc, cfg.train)(st, x, y)
+    torch.cuda.synchronize()
+    assert (K.packed_norm_act.launches, K.packed_norm_act_backward.launches) == (8, 4)
+    K.reset_launches()
+    make_predict_fn(st.gen)(x)
+    assert (K.packed_norm_act.launches, K.packed_norm_act_backward.launches) == (4, 0)
+    net = ms.build_multi_input_unet("pc-bssfp", ModelConfig(), cuda)
+    state = ms.create_supervised_state(0, net, TrainConfig(), TrainingState.FINE_TUNE)
+    K.reset_launches()
+    ms.make_supervised_train_step(net, TrainConfig())(state, x[:1], y[:1])
+    torch.cuda.synchronize()
+    assert (K.packed_norm_act.launches, K.packed_norm_act_backward.launches) == (4, 4)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("use_pallas", [False, True])
 def test_gpu_generator_packed_matches_plain(cuda, use_pallas):
@@ -1117,8 +1298,8 @@ def test_gpu_k2w_matches_plain_and_the_loop(cuda, cin, halo):
 @pytest.mark.gpu
 def test_gpu_guarded_packed_two_conv_launches_exactly(cuda, monkeypatch):
     """A bf16 PackedTwoConv forward and backward under UNET_BSSFP_WGUARD=1
-    (row width 66): 1 pack, 2 convs, 2 dgrads, 2 wgrads and the pack's
-    backward, nothing routed to a loop; its output's data columns and every
+    (row width 66): 1 pack, 2 convs, 2 dgrads, 2 wgrads, the pack's
+    backward and K10 2 forward and 2 backward, nothing routed to a loop; its output's data columns and every
     gradient within bf16 noise (2e-2 relative L2) of the unguarded block's."""
     from unet_bssfp_tpu_torch.models.packed_layers import PackedTwoConv, guard_cols
 
@@ -1141,7 +1322,7 @@ def test_gpu_guarded_packed_two_conv_launches_exactly(cuda, monkeypatch):
     assert g == 2 and bool((guards == 0).all())
     want = dict.fromkeys(counts, 0)
     want.update(conv3x3_packed=2, conv3x3_packed_dgrad=2, conv3x3_wgrad=2, pack_hw=1,
-                unpack_hw=1)
+                unpack_hw=1, packed_norm_act=2, packed_norm_act_backward=2)
     assert counts == want and runs[False][0] == want
 
     def rel(a, b):
@@ -1225,8 +1406,9 @@ def test_gpu_multistage_convs_autograd_on_wgmma_kernels(cuda, cin, cout):
 @pytest.mark.gpu
 def test_gpu_multistage_steps_launch_exactly_and_transfer_freezes_the_backbone(cuda):
     """A supervised step of each stage at the thesis widths (bf16, packed,
-    B 1 × 32³): K1 4, K1's dgrad 4, K2 4 — none in TRANSFER, whose backbone
-    stays bit for bit —, K3a 3, K3b 3, no loop; finite losses."""
+    B 1 × 32³): K1 4, K1's dgrad 4, K10 4 and its backward 4, K2 4 — none in
+    TRANSFER, whose backbone stays bit for bit —, K3a 3, K3b 3, no loop;
+    finite losses."""
     from unet_bssfp_tpu_torch.config import ModelConfig, TrainConfig
     from unet_bssfp_tpu_torch.models import TrainingState
     from unet_bssfp_tpu_torch.train import multistage as ms
@@ -1245,7 +1427,7 @@ def test_gpu_multistage_steps_launch_exactly_and_transfer_freezes_the_backbone(c
         metrics = step(state, x, y)
         counts = {k: v for k, v in K.launches().items() if v}
         assert counts == {"conv3x3_packed": 4, "conv3x3_packed_dgrad": 4, "pack_hw": 3,
-                          "unpack_hw": 3,
+                          "unpack_hw": 3, "packed_norm_act": 4, "packed_norm_act_backward": 4,
                           **({} if stage == TrainingState.TRANSFER else {"conv3x3_wgrad": 4})}
         unchanged = all(torch.equal(v, before[k]) for k, v in net.state_dict().items()
                         if k.startswith("unet."))
@@ -1338,7 +1520,7 @@ def test_gpu_packed_step_fed_from_data_launches_exactly(cuda, tmp_path):
     step = make_train_step(state.gen, state.disc, cfg.train)
     want = dict.fromkeys(K.launches(), 0)
     want.update(conv3x3_packed=8, conv3x3_packed_dgrad=4, conv3x3_wgrad=4, pack_hw=5,
-                unpack_hw=4)
+                unpack_hw=4, packed_norm_act=8, packed_norm_act_backward=4)
     batches = list(dm.train_batches(0, keys=("pc-bssfp", "dwi-tensor"), device=cuda))
     assert len(batches) == 2
     for i, b in enumerate(batches):
@@ -1392,7 +1574,9 @@ def test_gpu_trainer_fit_and_checkpoint_round_trip(cuda, tmp_path):
     want = dict.fromkeys(K.launches(), 0)
     want.update(conv3x3_packed=8 * train_steps + 4 * eval_steps,
                 conv3x3_packed_dgrad=4 * train_steps, conv3x3_wgrad=4 * train_steps,
-                pack_hw=5 * train_steps + 2 * eval_steps, unpack_hw=4 * train_steps + eval_steps)
+                pack_hw=5 * train_steps + 2 * eval_steps, unpack_hw=4 * train_steps + eval_steps,
+                packed_norm_act=8 * train_steps + 4 * eval_steps,
+                packed_norm_act_backward=4 * train_steps)
     assert K.launches() == want
     assert state.step == train_steps and best.endswith("0")
 
@@ -1423,7 +1607,7 @@ def test_gpu_remat_step_is_bit_equal_with_exact_launches(cuda):
     """``ModelConfig.remat`` on the card: a packed bf16 step with dropout on
     equals the step without remat bit for bit (every gradient, parameter,
     BatchNorm buffer and the dropout generator), and recomputes the packed
-    conv_0 and upcat_1 blocks: 4 convs and 2 packs more."""
+    conv_0 and upcat_1 blocks: 4 convs, 2 packs and 4 K10 forwards more."""
     import dataclasses
 
     from unet_bssfp_tpu_torch.train.state import create_gan_state
@@ -1453,9 +1637,10 @@ def test_gpu_remat_step_is_bit_equal_with_exact_launches(cuda):
         torch.backends.cudnn.deterministic = det
     (c0, m0, g0, s0, r0), (c1, m1, g1, s1, r1) = out[False], out[True]
     want = dict.fromkeys(c0, 0)
-    want.update(conv3x3_packed=8, conv3x3_packed_dgrad=4, conv3x3_wgrad=4, pack_hw=5, unpack_hw=4)
+    want.update(conv3x3_packed=8, conv3x3_packed_dgrad=4, conv3x3_wgrad=4, pack_hw=5, unpack_hw=4,
+                packed_norm_act=8, packed_norm_act_backward=4)
     assert c0 == want
-    assert c1 == dict(want, conv3x3_packed=12, pack_hw=7)
+    assert c1 == dict(want, conv3x3_packed=12, pack_hw=7, packed_norm_act=12)
     assert m0 == m1
     assert g0.keys() == g1.keys() and all(torch.equal(g0[k], g1[k]) for k in g0)
     assert s0.keys() == s1.keys() and all(torch.equal(s0[k], s1[k]) for k in s0)
@@ -1774,7 +1959,7 @@ def test_gpu_an_artifact_exported_on_the_cpu_does_not_run_on_the_card(cuda, tmp_
 def test_gpu_gan_wrapper_step_launches_and_losses_as_make_train_step(cuda):
     """``bSSFPToDWITensorModel`` on the card (its default device): a step
     launches what ``make_train_step`` launches (K1 8, K1-dgrad 4, K2 4, K3a
-    5, K3b 4) and its losses are bit for bit those of ``make_train_step`` on
+    5, K3b 4, K10 8 and its backward 4) and its losses are bit for bit those of ``make_train_step`` on
     a state drawn from the same seed (cuDNN deterministic)."""
     from unet_bssfp_tpu_torch.model import bSSFPToDWITensorModel
     from unet_bssfp_tpu_torch.train.state import create_gan_state
@@ -1803,5 +1988,5 @@ def test_gpu_gan_wrapper_step_launches_and_losses_as_make_train_step(cuda):
     assert counts == K.launches()
     assert {k: v for k, v in counts.items() if v} == {
         "conv3x3_packed": 8, "conv3x3_packed_dgrad": 4, "conv3x3_wgrad": 4, "pack_hw": 5,
-        "unpack_hw": 4}
+        "unpack_hw": 4, "packed_norm_act": 8, "packed_norm_act_backward": 4}
     assert {k: float(v) for k, v in got.items()} == {k: float(v) for k, v in ref.items()}

@@ -39,6 +39,14 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from unet_bssfp_tpu_torch.ops.kernels import fused_instance_norm_leaky_relu
+from unet_bssfp_tpu_torch.ops.kernels.packed_norm_act import (
+    _f32,
+    _norm_affine,
+    _var_mean,
+    activation,
+    drop,
+    instance_norm_f32,
+)
 from unet_bssfp_tpu_torch.parallel import distributed
 from unet_bssfp_tpu_torch.parallel.mesh import (
     AXES,
@@ -57,49 +65,6 @@ def to_ncdhw(x: torch.Tensor) -> torch.Tensor:
 
 def to_ndhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 4, 1).contiguous()
-
-
-def instance_norm_f32(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                      epsilon: float, dims, channel_dim: int, guard=None) -> torch.Tensor:
-    """f32 per-(sample, channel) moments over ``dims`` (biased, as
-    ``jnp.var``), then the affine; returns f32. Written as few full-size
-    passes as eager PyTorch allows: the stats in one reduction, the affine
-    folded into one per-channel multiplier. ``guard``: see
-    :func:`_var_mean`."""
-    xf = _f32(x)
-    var, mean = _var_mean(xf, dims, guard)
-    return _norm_affine(xf, mean, var, scale, bias, epsilon, channel_dim)
-
-
-def _var_mean(xf: torch.Tensor, dims, guard=None):
-    """The biased variance and the mean of ``xf`` over ``dims``, kept as
-    size-1 dims. ``guard`` = ``(wdim, wguard)`` for a packed tensor whose
-    last dim (one of ``dims``) is H·wdim lanes, the last ``wguard`` of every
-    w-row zero guard columns: the moments are then those of the data
-    columns alone, taken over a view without the guards (the JAX package
-    counts the data columns and subtracts the guards' share; the two agree
-    up to rounding)."""
-    if not guard or not guard[1]:
-        return torch.var_mean(xf, dim=dims, correction=0, keepdim=True)
-    wdim, wguard = guard
-    if xf.ndim - 1 not in dims:
-        raise ValueError(f"guarded moments over dims {dims}: the lane dim is not one")
-    view = xf.unflatten(-1, (-1, wdim))[..., :wdim - wguard]
-    var, mean = torch.var_mean(view, dim=tuple(dims) + (xf.ndim,), correction=0,
-                               keepdim=True)
-    return var.squeeze(-1), mean.squeeze(-1)
-
-
-def _f32(x: torch.Tensor) -> torch.Tensor:
-    """``x`` in f32 (an f64 tensor, which only tests pass, stays f64)."""
-    return x.to(torch.promote_types(x.dtype, torch.float32))
-
-
-def _norm_affine(xf, mean, var, scale, bias, epsilon, channel_dim):
-    shape = [1] * xf.ndim
-    shape[channel_dim] = -1
-    mul = torch.rsqrt(var + epsilon) * _f32(scale).reshape(shape)
-    return torch.addcmul(_f32(bias).reshape(shape), xf - mean, mul)
 
 
 def instance_norm(x, norm: "InstanceNorm", dims, channel_dim: int, guard=None):
@@ -358,17 +323,24 @@ class Dropout(nn.Module):
         self.rate = rate
         self.generator: Optional[torch.Generator] = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    @property
+    def keep(self) -> float:
+        return 1.0 - self.rate
+
+    def draw(self, x: torch.Tensor) -> Optional[torch.Tensor]:
+        """The next f32 ``bernoulli_(keep)`` draw of ``x``'s shape from the
+        bound generator (1 keeps the element), or None where nothing drops
+        (eval mode, rate 0)."""
         if not self.training or self.rate == 0.0:
-            return x
+            return None
         if self.generator is None:
             raise RuntimeError("Dropout in train mode needs a torch.Generator: "
                                "call bind_dropout_generator(model, generator)")
-        keep = 1.0 - self.rate
-        mask = torch.empty(x.shape, device=x.device).bernoulli_(
-            keep, generator=self.generator).bool()
-        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
-                                                       device=x.device))
+        return torch.empty(x.shape, device=x.device).bernoulli_(
+            self.keep, generator=self.generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return drop(x, self.draw(x), self.keep)
 
 
 def bind_dropout_generator(model: nn.Module,
@@ -488,14 +460,14 @@ class ConvNormAct(nn.Module):
             return x
         return self._act(x, channel_dim=-1)
 
+    def _slope(self):
+        """LeakyReLU's float, or with ``prelu`` the learnable slope vector."""
+        return self.prelu_slope if self.prelu else self.negative_slope
+
     def _act(self, x: torch.Tensor, channel_dim: int) -> torch.Tensor:
         """LeakyReLU, or with ``prelu`` the learnable slope of the channels
         on ``channel_dim``, in ``x``'s dtype."""
-        if not self.prelu:
-            return F.leaky_relu(x, self.negative_slope)
-        shape = [1] * x.ndim
-        shape[channel_dim] = -1
-        return torch.where(x >= 0, x, self.prelu_slope.to(x.dtype).reshape(shape) * x)
+        return activation(x, self._slope(), channel_dim)
 
 
 class TwoConv(nn.Module):

@@ -42,7 +42,12 @@ from unet_bssfp_tpu_torch.models.layers import (
     _on_shards,
     instance_norm,
 )
-from unet_bssfp_tpu_torch.ops.kernels import conv3x3_packed_auto, guard_mask, pack_hw_auto
+from unet_bssfp_tpu_torch.ops.kernels import (
+    conv3x3_packed_auto,
+    guard_mask,
+    pack_hw_auto,
+    packed_norm_act,
+)
 from unet_bssfp_tpu_torch.parallel.mesh import Sharded, apply_local, local, place
 
 
@@ -68,11 +73,14 @@ def _pad_guards(x, g: int):
 
 class PackedConvNormAct(ConvNormAct):
     """ConvNormAct on a packed (B, D, C, H·wdim) tensor; ``wdim`` = W plus
-    ``wguard`` guard columns. The norm takes f32 moments over (d, lanes),
-    the data columns' alone, as the plain path does; the dropout and the
-    activation (LeakyReLU, or with ``prelu`` the learnable slope on channel
-    dim 2) run on its f32 result, then the guards are zeroed, then the
-    cast."""
+    ``wguard`` guard columns. After the conv, the chain (the norm's f32
+    moments over (d, lanes), the data columns' alone; the affine; the
+    dropout; LeakyReLU, or with ``prelu`` the learnable slope on channel
+    dim 2; the guards zeroed; the cast) is one call of
+    ``ops.kernels.packed_norm_act``: the hand-written kernels on the card,
+    the plain chain on the CPU. A volume split over ``space`` takes its
+    moments over the shards (``instance_norm``), then the dropout and the
+    activation in plain PyTorch."""
 
     def forward_packed(self, xk, wdim: int, wguard: int = 0):
         dtype = self.compute_dtype or xk.dtype
@@ -83,9 +91,18 @@ class PackedConvNormAct(ConvNormAct):
             xk, {dev: c.weight.permute(2, 3, 4, 1, 0)  # (kd, kh, kw, I, O)
                  for dev, c in convs.items()},
             {dev: _f32(c.bias) for dev, c in convs.items()}, wdim, None, wguard)
-        y = instance_norm(yk, self.norm, dims=(1, 3), channel_dim=2, guard=(wdim, wguard))
+        if isinstance(yk, Sharded) and yk.mesh.size("space") > 1:
+            y = instance_norm(yk, self.norm, dims=(1, 3), channel_dim=2,
+                              guard=(wdim, wguard))
+            return apply_local(
+                lambda t: local(self, place(t))._drop_act_packed(t, wdim, wguard), y)
         return apply_local(
-            lambda t: local(self, place(t))._drop_act_packed(t, wdim, wguard), y)
+            lambda t: local(self, place(t))._norm_drop_act_packed(t, wdim, wguard), yk)
+
+    def _norm_drop_act_packed(self, yk: torch.Tensor, wdim: int, wguard: int) -> torch.Tensor:
+        return packed_norm_act(yk, self.norm.weight, self.norm.bias, self._slope(), wdim,
+                               wguard, self.drop.draw(yk), self.drop.keep, self.norm.epsilon,
+                               self.compute_dtype)
 
     def _drop_act_packed(self, y: torch.Tensor, wdim: int, wguard: int) -> torch.Tensor:
         # the JAX package's _guard_zero: the norm's bias and the activation

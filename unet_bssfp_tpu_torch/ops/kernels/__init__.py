@@ -38,6 +38,12 @@ from unet_bssfp_tpu_torch.ops.kernels.norm_act import (
     fused_instance_norm_leaky_relu,
     instance_norm_leaky_relu_plain,
 )
+from unet_bssfp_tpu_torch.ops.kernels.packed_norm_act import (
+    packed_norm_act,
+    packed_norm_act_backward,
+    packed_norm_act_model,
+    packed_norm_act_plain,
+)
 from unet_bssfp_tpu_torch.ops.kernels.pfold import (
     conv3x3_pfold,
     conv3x3_pfold_dgrad,
@@ -74,7 +80,8 @@ WRAPPERS = (conv3x3_packed, conv3x3_packed_dgrad, conv3x3_wgrad,
             pack_hw, unpack_hw, fused_instance_norm_leaky_relu, scalar_maps,
             conv3x3_pfold, conv3x3_pfold_dgrad, conv3x3_pfold_wgrad,
             conv3x3_pfold_halo, conv3x3_pfold_halo_dgrad, conv3x3_pfold_wgrad_halo,
-            lane_roll, conv3x3_probe_full, conv3x3_probe_centre, conv3x3_probe_fixed)
+            lane_roll, conv3x3_probe_full, conv3x3_probe_centre, conv3x3_probe_fixed,
+            packed_norm_act, packed_norm_act_backward)
 
 
 def reset_launches() -> None:

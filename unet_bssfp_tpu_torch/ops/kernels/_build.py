@@ -29,7 +29,7 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("conv3x3_packed", "conv3x3_wgmma", "conv3x3_wgrad", "conv3x3_wgrad_wgmma", "layout",
-           "norm_act", "probe", "scalar_maps")
+           "norm_act", "packed_norm_act", "probe", "scalar_maps")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 

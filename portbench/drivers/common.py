@@ -13,6 +13,7 @@ from typing import Dict, List
 import torch
 
 from portbench import check
+from portbench import flops as pf
 from portbench.reference.train import Record
 
 
@@ -50,6 +51,20 @@ def packed_layout(cfg: dict, patch: int, device) -> bool:
     packed = cfg["packed"] if cfg["packed"] is not None else torch.device(device).type == "cuda"
     widest = max(cfg["features"][0], cfg.get("unet_in_channels", cfg.get("head_features", 0)))
     return bool(packed and (patch * patch) % 128 == 0 and patch % 2 == 0 and widest <= 128)
+
+
+def norm_act_work(cfg: dict, rows: int, patch: int, passes) -> Dict[str, dict]:
+    """A driver's ``kernel_work`` entry for K10 (``norm_act_kernel_packed_*``),
+    where the full-resolution stages run packed on a CUDA device: its least
+    bytes an item (:func:`portbench.flops.norm_act_bytes`) and no FLOPs (a
+    few f32 operations an element, far inside the CUDA cores' rate, which
+    the bf16 peak does not measure)."""
+    if not packed_layout(cfg, patch, "cuda"):
+        return {}
+    elem = torch.finfo(getattr(torch, cfg["compute_dtype"])).bits // 8
+    return {"norm_act": {"keys": ["norm_act_kernel_packed"], "flops": 0.0,
+                         "bytes": pf.norm_act_bytes(passes, rows, patch, cfg["features"], elem,
+                                                    cfg["dropout"] > 0)}}
 
 
 class Phases:

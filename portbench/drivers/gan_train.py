@@ -108,3 +108,11 @@ def flops(cfg: dict, traffic: dict):
     args = (traffic["batch"], traffic["patch"], cfg["in_channels"], cfg["out_channels"],
             cfg["unet_in_channels"], cfg["features"], cfg["disc_features"])
     return pf.gan_step(*args), pf.gan_step(*args, only_kernels=(3, 4))
+
+
+def kernel_work(cfg: dict, traffic: dict):
+    """K10 a step: G's forward with its gradient, its backward, and (unless
+    ``reuse_fake``) its second forward in D's phase, in train mode without a
+    gradient."""
+    passes = ("grad", "backward") + (() if cfg["train"].get("reuse_fake") else ("no_grad",))
+    return common.norm_act_work(cfg, traffic["batch"], traffic["patch"], passes)

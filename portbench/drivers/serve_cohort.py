@@ -54,28 +54,27 @@ class ServeCohort:
     def volumes_of(self, i: int) -> List[int]:
         return request_volumes(self.order, self.units_per_item, i)
 
-    def _serve(self, i: int, annotate: bool = False) -> List[torch.Tensor]:
+    def _serve(self, i: int) -> List[torch.Tensor]:
         from unet_bssfp_tpu_torch.data.sampler import extract_patches
 
-        span = record_function if annotate else (lambda name: contextlib.nullcontext())
         p, n = self.traffic["patch"], len(self.starts)
-        with span("portbench.extract"):
-            x = torch.cat([extract_patches(self.pool[v], self.starts, p) for v in self.volumes_of(i)])
-        with span("portbench.predict"):
-            if self.fault == "half":
-                half = self.predict(x[:len(x) // 2])
-                y = torch.cat([half, torch.zeros_like(half)])
-            else:
-                y = self.predict(x)
-            if self.fault == "altered":  # the first patch's answer replaced by the second's
-                y = torch.cat([y[1:2], y[1:]])
-        with span("portbench.stitch"):
-            return [self.agg.stitch(y[j * n:(j + 1) * n]) for j in range(self.units_per_item)]
+        x = torch.cat([extract_patches(self.pool[v], self.starts, p) for v in self.volumes_of(i)])
+        if self.fault == "half":
+            half = self.predict(x[:len(x) // 2])
+            y = torch.cat([half, torch.zeros_like(half)])
+        else:
+            y = self.predict(x)
+        if self.fault == "altered":  # the first patch's answer replaced by the second's
+            y = torch.cat([y[1:2], y[1:]])
+        return [self.agg.stitch(y[j * n:(j + 1) * n]) for j in range(self.units_per_item)]
 
     def item(self, i: int, annotate: bool = False) -> None:
-        """The window's ``i``-th request; its answers kept where it is one
-        of the checked ones."""
-        outs = self._serve(i, annotate)
+        """The window's ``i``-th request (in the span ``portbench.request``
+        where ``annotate``: the program's own spans name its extract,
+        predict and stitch); its answers kept where it is one of the
+        checked ones."""
+        with record_function("portbench.request") if annotate else contextlib.nullcontext():
+            outs = self._serve(i)
         if i in self.checked:
             self.kept += list(zip(self.volumes_of(i), outs))
 
@@ -122,10 +121,19 @@ def control(cfg: dict, traffic: dict, seed: int, device) -> Dict[str, float]:
              ref_train.serve_volume(w, pool[v], cfg, p)) for v in vols)
 
 
+def _patches(traffic: dict) -> int:
+    """Patches a request: its volumes' grid patches."""
+    return traffic["volumes_per_request"] * len(ref_train.grid_starts(traffic["volume"],
+                                                                      traffic["patch"]))
+
+
 def flops(cfg: dict, traffic: dict):
     """Model FLOPs of a request, and of its 3³ convs alone."""
-    n = traffic["volumes_per_request"] * len(ref_train.grid_starts(traffic["volume"],
-                                                                    traffic["patch"]))
-    args = (n, traffic["patch"], cfg["in_channels"], cfg["out_channels"],
+    args = (_patches(traffic), traffic["patch"], cfg["in_channels"], cfg["out_channels"],
             cfg["unet_in_channels"], cfg["features"])
     return pf.serve_chunk(*args), pf.serve_chunk(*args, only_kernels=(3, 4))
+
+
+def kernel_work(cfg: dict, traffic: dict):
+    """K10 a request: the generator's eval forward over its patches."""
+    return common.norm_act_work(cfg, _patches(traffic), traffic["patch"], ("eval",))

@@ -107,3 +107,9 @@ def flops(cfg: dict, traffic: dict):
     args = (traffic["stage"], traffic["batch"], traffic["patch"], cfg["in_channels"],
             cfg["out_channels"], cfg["head_features"], cfg["features"])
     return pf.supervised_step(*args), pf.supervised_step(*args, only_kernels=(3, 4))
+
+
+def kernel_work(cfg: dict, traffic: dict):
+    """K10 a step: the U-Net's forward with its gradient and its backward
+    (in ``transfer`` too: the head below it trains, so dx is taken)."""
+    return common.norm_act_work(cfg, traffic["batch"], traffic["patch"], ("grad", "backward"))

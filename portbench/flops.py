@@ -13,6 +13,10 @@ Every count comes from :func:`generator_convs`, :func:`discriminator_convs`
 and :func:`multi_input_convs`, lists of ``(kernel, flops)`` per sample, so
 the whole step's count and the count of its 3³ and 4³ convs alone (the
 conv roofline's numerator) read the same shapes.
+
+:func:`norm_act_bytes` counts the least bytes that K10 (the packed stages'
+norm → dropout → activation chain, ``csrc/packed_norm_act.cu``) moves in a
+step or chunk: its roofline's numerator.
 """
 
 from __future__ import annotations
@@ -103,3 +107,41 @@ def serve_chunk(patches: int, patch: int, in_ch: int, out_ch: int, unet_in: int,
     """One generator forward over a chunk's ``patches``."""
     return patches * total(generator_convs(patch, in_ch, out_ch, unet_in, features),
                            only_kernels)
+
+
+def norm_act_pass_bytes(kind: str, elem: int, dropout: bool) -> int:
+    """The least bytes an element that one K10 call moves, each input read
+    once and each output written once, ``elem`` bytes an element of x, y, dy
+    and dx (the compute dtype's):
+
+    - ``grad``, a train forward whose gradient is taken: x, the f32 dropout
+      draw, y, the 1-byte mask kept for the backward;
+    - ``no_grad``, a train forward without one: x, the draw, y;
+    - ``backward``: x, dy and the mask; dx;
+    - ``eval``: x, y.
+
+    The draw and the mask only with dropout on. The draw's write
+    (``bernoulli_``) is ATen's, not K10's; the moments and partial sums of an
+    instance (a few floats a chunk of 8192 elements) are left out. K10 reads
+    x twice in each direction (``csrc/packed_norm_act.cu``: 11, 10, 12 and 6
+    bytes an element in bf16); a kernel that reads it once would still be
+    held to this bound."""
+    draw, mask = (4, 1) if dropout else (0, 0)
+    return {"grad": 2 * elem + draw + mask, "no_grad": 2 * elem + draw,
+            "backward": 3 * elem + mask, "eval": 2 * elem}[kind]
+
+
+def packed_stage_channels(features: Sequence[int]) -> List[int]:
+    """Output channels of the convs of a U-Net's packed full-resolution
+    stages, each followed by one K10 call: conv_0's two (the first
+    features) and upcat_1's two (the last)."""
+    return [features[0], features[0], features[-1], features[-1]]
+
+
+def norm_act_bytes(passes: Sequence[str], rows: int, patch: int, features: Sequence[int],
+                   elem: int, dropout: bool) -> float:
+    """K10's least bytes an item: each of ``passes`` (kinds of
+    :func:`norm_act_pass_bytes`) takes the packed stages' four blocks over
+    ``rows`` patches of ``patch``³ voxels."""
+    elements = rows * patch ** 3 * sum(packed_stage_channels(features))
+    return float(sum(elements * norm_act_pass_bytes(p, elem, dropout) for p in passes))

@@ -1,0 +1,5 @@
+"""K10's calls per request, forward and backward, by the program's own launch counters."""
+
+from portbench import readers
+
+read = readers.launches("serve", "packed_norm_act", "packed_norm_act_backward")

@@ -1,0 +1,5 @@
+"""Device ms per step of K10, the packed stages' norm-dropout-activation kernels (norm_act_kernel_packed_*)."""
+
+from portbench import readers
+
+read = readers.kernel_ms("train", ["norm_act_kernel_packed"])

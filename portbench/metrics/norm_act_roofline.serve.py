@@ -1,0 +1,5 @@
+"""K10's least time per request (its least bytes, portbench/flops.py, at the HBM's peak) over its device time, %."""
+
+from portbench import readers
+
+read = readers.kernel_roofline("serve", "norm_act")

@@ -9,10 +9,23 @@ the run's context, a dict:
   (``max_memory_allocated`` over the window; None off CUDA);
 - ``host_s``: in a traced run, each of a few items' calls until they
   returned, each synchronised before the next (empty otherwise);
-- ``trace``: :func:`portbench.trace.summarise` of the traced window, or
-  None where the run was not traced or the trace held no device work;
+- ``trace``: :func:`portbench.trace.summarise` of the traced window
+  (``name_s``: device seconds by each kernel's full name; ``group_s``: by
+  ``groups.json``'s groups), or None where the run was not traced or the
+  trace held no device work;
+- ``spans``: :func:`portbench.spans.attribute` of the traced window, the
+  program's ``bssfp.*`` spans an item; None untraced;
+- ``launches``: launches an item of each of the program's kernel wrappers
+  in the traced window (``ops/kernels.launches()``, by wrapper name);
+  None untraced;
+- ``cfg``, ``traffic``: the cell's configuration and traffic mix;
 - ``model_flops``, ``conv_flops``: per item (``portbench/flops.py``);
-  ``peak_flops``: the device's bf16 peak (``peaks.json``), or None.
+- ``work``: the cell driver's ``kernel_work(cfg, traffic)``, ``{}`` where
+  it has none: a name to ``{"keys": [...], "flops": f, "bytes": b}``, the
+  least operations and bytes an item of the kernels whose names hold one
+  of ``keys``;
+- ``peak_flops``: the device's bf16 peak, ``peak_bandwidth``: its memory's
+  bytes a second (``peaks.json``), or None.
 
 A reader returns its number, or None where it finds nothing to read: the
 metric is then left out of the line.
@@ -21,9 +34,9 @@ metric is then left out of the line.
 from __future__ import annotations
 
 import statistics
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence, Union
 
-from portbench import trace
+from portbench import spans, trace
 
 Reader = Callable[[dict], Optional[float]]
 
@@ -110,3 +123,84 @@ def idle_share(kind: str) -> Reader:
     overhead, which stretches host-bound stretches of a step.)"""
     return _traced(kind, lambda ctx, t: 100.0 * (
         1.0 - (t["busy_s"] / t["items"]) / (ctx["elapsed_s"] / ctx["items"])))
+
+
+def kernel_ms(kind: str, keys: Sequence[str]) -> Reader:
+    """Device ms an item of the kernels whose full names hold one of
+    ``keys``; None where the traced window has none."""
+    def fn(ctx, t):
+        s = _kernel_s(t, keys)
+        return 1e3 * s / t["items"] if s > 0 else None
+    return _traced(kind, fn)
+
+
+def kernel_roofline(kind: str, work: Union[str, Callable[[dict, dict], Optional[dict]]]
+                    ) -> Reader:
+    """A kernel's share of its roofline, in %: its least time on the device,
+    max(flops / ``peak_flops``, bytes / ``peak_bandwidth``), over the device
+    time of the kernels it names. ``work`` is a name in ``ctx["work"]`` (the
+    cell driver's ``kernel_work``), or a function of the cell's
+    configuration and traffic that returns such an entry (a metric file of
+    its own, for a cell whose driver declares none). None where the cell
+    declares no such work, the window holds none of its kernels, or a peak
+    that it needs is unknown."""
+    def fn(ctx, t):
+        w = ctx["work"].get(work) if isinstance(work, str) else work(ctx["cfg"], ctx["traffic"])
+        if not w:
+            return None
+        s = _kernel_s(t, w["keys"]) / t["items"]
+        need = [(n, rate) for n, rate in ((w["flops"], ctx["peak_flops"]),
+                                          (w["bytes"], ctx["peak_bandwidth"])) if n > 0]
+        if s <= 0 or not need or not all(rate for _, rate in need):
+            return None
+        return 100.0 * max(n / rate for n, rate in need) / s
+    return _traced(kind, fn)
+
+
+def _kernel_s(t: dict, keys: Sequence[str]) -> float:
+    return sum(v for name, v in t["name_s"].items() if any(k in name for k in keys))
+
+
+def _spanned(kind: str, fn) -> Reader:
+    def read(ctx):
+        table = ctx["spans"]
+        return fn(table) if ctx["kind"] == kind and table and table["spans"] else None
+    return read
+
+
+def phase_ms(kind: str, suffix: str) -> Reader:
+    """Device ms an item that the program's ``bssfp.*.<suffix>`` spans
+    launched (:func:`portbench.spans.phase_ms`)."""
+    return _spanned(kind, lambda table: spans.phase_ms(table, suffix) if any(
+        n.endswith("." + suffix) for n in table["spans"]) else None)
+
+
+def span_ms(kind: str, name: str) -> Reader:
+    """Device ms an item that the program's span ``name`` launched."""
+    return _spanned(kind, lambda table: spans.span_ms(table, name)
+                    if name in table["spans"] else None)
+
+
+def syncs(kind: str) -> Reader:
+    """Calls an item that wait for the device inside the program's spans."""
+    return _spanned(kind, spans.syncs)
+
+
+def coverage(kind: str) -> Reader:
+    """The share of the traced window's device time that the item's phases
+    (:func:`portbench.spans.phase_names`) launched, in %."""
+    def fn(table):
+        share = spans.coverage(table, spans.phase_names(table, kind))
+        return None if share is None else 100.0 * share
+    return _spanned(kind, fn)
+
+
+def launches(kind: str, *counters: str) -> Reader:
+    """Launches an item of the program's kernel wrappers ``counters``
+    together, from its own counters in the traced window."""
+    def read(ctx):
+        got = ctx["launches"]
+        if ctx["kind"] != kind or got is None or any(c not in got for c in counters):
+            return None
+        return sum(got[c] for c in counters)
+    return read

@@ -33,7 +33,7 @@ import statistics  # noqa: E402
 import sys  # noqa: E402
 import tempfile  # noqa: E402
 from pathlib import Path  # noqa: E402
-from typing import Dict, Optional  # noqa: E402
+from typing import Dict, Optional, Tuple  # noqa: E402
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "unet_bssfp_tpu")
 PEAKS = json.loads((Path(__file__).with_name("peaks.json")).read_text())
@@ -56,9 +56,11 @@ def forbidden_modules() -> list:
     return sorted({m.split(".")[0] for m in sys.modules} & set(FORBIDDEN))
 
 
-def peak_flops(device_name: str) -> Optional[float]:
+def peak(device_name: str, key: str) -> Optional[float]:
+    """``peaks.json``'s ``key`` (``bf16_flops_per_s``, ``hbm_bytes_per_s``,
+    ...) for the device, or None for a device it does not list."""
     entry = PEAKS["devices"].get(device_name)
-    return entry["bf16_flops_per_s"] if entry else None
+    return entry[key] if entry else None
 
 
 def _num(x):
@@ -108,20 +110,25 @@ def run_cell(bench: dict, cell: dict, seed: int, seconds: float, traced: bool, d
           f"set-up {setup_s:.2f} s: before the cell driver {setup_s - setup_driver_s:.2f} s, "
           f"the cell driver's {json.dumps(c.phases.seconds)}", file=sys.stderr)
 
-    host_s, summary = [], None
+    host_s, summary, span_table, launches = [], None, None, None
     if traced:
         for k in range(traffic["trace_items"]):
             a = time.perf_counter()
             c.item(items + k)
             host_s.append(time.perf_counter() - a)
             common.sync(device)
-        summary = _traced(c, items + len(host_s), traffic["trace_items"], device, cuda)
+        summary, span_table, launches = _traced(c, items + len(host_s),
+                                                traffic["trace_items"], device, cuda)
     model_flops, conv_flops = drv.flops(cfg, traffic)
+    work = drv.kernel_work(cfg, traffic) if hasattr(drv, "kernel_work") else {}
     name = torch.cuda.get_device_name(device) if cuda else "cpu"
     ctx = {"kind": c.kind, "units_per_item": c.units_per_item, "items": items,
            "elapsed_s": elapsed, "item_s": item_s, "host_s": host_s, "setup_s": setup_s,
-           "peak_bytes": window_peak, "trace": summary, "model_flops": model_flops,
-           "conv_flops": conv_flops, "peak_flops": peak_flops(name)}
+           "peak_bytes": window_peak, "trace": summary, "spans": span_table,
+           "launches": launches, "cfg": cfg, "traffic": traffic, "model_flops": model_flops,
+           "conv_flops": conv_flops, "work": work,
+           "peak_flops": peak(name, "bf16_flops_per_s"),
+           "peak_bandwidth": peak(name, "hbm_bytes_per_s")}
 
     readings = c.check()
     ok, checks = check.judge(readings, spec.limits(cell["name"]))
@@ -142,14 +149,17 @@ def run_cell(bench: dict, cell: dict, seed: int, seconds: float, traced: bool, d
     return out
 
 
-def _traced(c, first: int, n: int, device, cuda: bool) -> Optional[dict]:
+def _traced(c, first: int, n: int, device, cuda: bool) -> Tuple[Optional[dict],
+                                                                 Optional[dict], dict]:
     """``n`` more steps or requests under ``torch.profiler`` (one before
-    them warms the profiler up, outside the traced window), reduced by
-    :func:`portbench.trace.summarise`; the program's launch counts per
-    item go to standard error."""
+    them warms the profiler up, outside the traced window): the window
+    reduced by :func:`portbench.trace.summarise`, the program's spans by
+    :func:`portbench.spans.attribute`, and the launches an item of each of
+    the program's own kernel wrappers (``ops/kernels.launches()``; those
+    launched also go to standard error)."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    from portbench import trace
+    from portbench import spans, trace
     from portbench.drivers import common
     from unet_bssfp_tpu_torch.ops import kernels
 
@@ -163,8 +173,9 @@ def _traced(c, first: int, n: int, device, cuda: bool) -> Optional[dict]:
                 c.item(first + 1 + k, annotate=True)
                 with record_function("portbench.sync"):
                     common.sync(device)
-    counts = {k: v / n for k, v in kernels.launches().items() if v}
-    print(f"launches per item (the program's own kernels): {json.dumps(counts)}", file=sys.stderr)
+    counts = {k: v / n for k, v in kernels.launches().items()}
+    print("launches per item (the program's own kernels): "
+          f"{json.dumps({k: v for k, v in counts.items() if v})}", file=sys.stderr)
     fd, path = tempfile.mkstemp(suffix=".json")
     os.close(fd)
     try:
@@ -172,7 +183,7 @@ def _traced(c, first: int, n: int, device, cuda: bool) -> Optional[dict]:
         events = trace.load(path)
     finally:
         os.remove(path)
-    return trace.summarise(events, n)
+    return trace.summarise(events, n), spans.attribute(events, n), counts
 
 
 def main(argv=None) -> int:

@@ -9,18 +9,18 @@ operation of the traced window to the innermost program span, on any host
 thread, that holds the start of the runtime or driver call that launched
 it (the two share a ``correlation`` id): the backward's kernels are
 launched from autograd's thread while the main thread is in
-``bssfp.*.backward``, so the match is by time, not by thread.
-:func:`idle_gaps` names the window's idle gaps by the innermost span of
-either kind, the benchmark's (``portbench.*``, without the prefix) or the
-program's (its full name).
+``bssfp.*.backward``, so the match is by time, not by thread. A traced run
+of ``portbench.run`` hands the table to the metric readers
+(``ctx["spans"]``).
 
     python -m portbench.spans --workload <name> --seed <n> --seconds <s>
 
 runs the cell as ``python -m portbench.run ... --trace 1`` does, then
-prints the per-span table and the named idle gaps to standard error and
-one JSON line to standard output: the table, the phases' sums
-(``phases``), the share of device time credited (``coverage``) and the
-run's own result line (``result``).
+prints the per-span table and the window's idle gaps (named by
+:func:`portbench.trace.summarise`) to standard error and one JSON line to
+standard output: the table, the phases' sums (``phases``), the share of
+device time they hold (``coverage``) and the run's own result line
+(``result``).
 """
 
 from __future__ import annotations
@@ -57,10 +57,10 @@ def _window(events: List[dict]) -> Optional[Tuple[float, float]]:
     return None
 
 
-def _spans(events: List[dict], prefixes: Tuple[str, ...]) -> List[Span]:
+def _spans(events: List[dict]) -> List[Span]:
+    """The program's spans."""
     return [(float(e["ts"]), float(e["ts"]) + float(e["dur"]), str(e["name"]))
-            for e in _x(events, {"user_annotation"})
-            if str(e.get("name", "")).startswith(prefixes) and e["name"] != trace.WINDOW]
+            for e in _x(events, {"user_annotation"}) if str(e.get("name", "")).startswith(PREFIX)]
 
 
 def _device(events: List[dict], w0: float, w1: float) -> List[Tuple[float, float, dict]]:
@@ -93,7 +93,7 @@ def attribute(events: List[dict], items: int) -> Optional[Dict]:
     if window is None:
         return None
     w0, w1 = window
-    spans = [s for s in _spans(events, (PREFIX,)) if s[1] > w0 and s[0] < w1]
+    spans = [s for s in _spans(events) if s[1] > w0 and s[0] < w1]
     table: Dict[str, Dict[str, float]] = {}
 
     def row(name: str) -> Dict[str, float]:
@@ -154,24 +154,13 @@ def coverage(table: Dict, names: List[str]) -> Optional[float]:
     return sum(table["spans"].get(n, {}).get("device_s", 0.0) for n in names) / table["device_s"]
 
 
-def idle_gaps(events: List[dict], top: int = 10) -> List[Tuple[str, float]]:
-    """The window's longest idle gaps of the device, in s, each named by the
-    innermost span of either kind on the host at its start (``host`` where
-    none holds it)."""
-    window = _window(events)
-    if window is None:
-        return []
-    w0, w1 = window
-    busy = trace._union((a, b) for a, b, _ in _device(events, w0, w1))
-    spans = _spans(events, ("portbench.", PREFIX))
-    edges = [w0] + [x for ab in busy for x in ab] + [w1]
-    gaps = []
-    for a, b in zip(edges[::2], edges[1::2]):
-        if b > a:
-            name = _innermost(spans, a, a) or "host"
-            gaps.append((name[len("portbench."):] if name.startswith("portbench.") else name,
-                         (b - a) / 1e6))
-    return sorted(gaps, key=lambda g: -g[1])[:top]
+def phase_names(table: Dict, kind: str) -> List[str]:
+    """The spans that make up an item's phases: in ``train`` those named
+    ``bssfp.*.<phase>`` for the phases of :data:`TRAIN_PHASES`, in
+    ``serve`` :data:`SERVE_SPANS`."""
+    if kind == "train":
+        return [n for n in table["spans"] if n.rsplit(".", 1)[-1] in TRAIN_PHASES]
+    return list(SERVE_SPANS)
 
 
 def report(table: Dict, kind: str) -> Dict:
@@ -179,11 +168,9 @@ def report(table: Dict, kind: str) -> Dict:
     or serving's three spans; the share of device time they hold."""
     if kind == "train":
         out = {f"{p}_ms": phase_ms(table, p) for p in TRAIN_PHASES}
-        names = [n for n in table["spans"] if n.rsplit(".", 1)[-1] in TRAIN_PHASES]
     else:
         out = {f"{n[len(PREFIX):]}_ms": span_ms(table, n) for n in SERVE_SPANS}
-        names = list(SERVE_SPANS)
-    out.update(syncs=syncs(table), coverage=coverage(table, names),
+    out.update(syncs=syncs(table), coverage=coverage(table, phase_names(table, kind)),
                uncredited_ms=1e3 * table["uncredited_s"], device_ms=1e3 * table["device_s"])
     return out
 
@@ -237,7 +224,7 @@ def main(argv=None) -> int:
     if table is None:
         print("portbench.spans: the trace holds no window", file=sys.stderr)
         return 1
-    gaps = idle_gaps(kept[-1])
+    gaps = [tuple(g) for g in result.get("breakdown", {}).get("idle_gaps", [])]
     _print_table(table, gaps)
     kind = "serve" if traffic["kind"] == "serve_cohort" else "train"
     print(json.dumps({"workload": args.workload, "seed": args.seed, "table": table,

@@ -10,7 +10,7 @@ import time
 
 import pytest
 
-from portbench import spans, trace
+from portbench import spans, spec, trace
 from portbench.run import run_cell
 
 
@@ -97,15 +97,13 @@ def test_host_time_of_each_span_an_item():
 
 
 def test_idle_gaps_take_the_innermost_span_of_either_kind():
-    gaps = spans.idle_gaps(_events())
+    gaps = trace.summarise(_events(), 2)["idle_gaps"]
     # busy [1.5, 3.5], [4, 5], [5.5, 6.5], [8, 9], [11, 12]
     want = {("step", 0.0015), ("bssfp.gen.loss", 0.0005), ("bssfp.gen.backward", 0.0005),
             ("bssfp.gen.backward", 0.0015), ("bssfp.step", 0.002), ("sync", 0.008)}
     got = {(k, round(v, 7)) for k, v in gaps}
     assert got == {(k, round(v, 7)) for k, v in want}
-    assert gaps[0] == ("sync", pytest.approx(0.008))
-    # the benchmark's own labels, in the same trace, know only its spans
-    assert {k for k, _ in trace.summarise(_events(), 2)["idle_gaps"]} == {"step", "sync"}
+    assert gaps[0] == ["sync", pytest.approx(0.008)]
 
 
 def test_phase_sums_and_coverage():
@@ -119,12 +117,15 @@ def test_phase_sums_and_coverage():
     assert r["syncs"] == pytest.approx(0.5) and r["uncredited_ms"] == pytest.approx(0.5)
     serve = spans.report(t, "serve")
     assert serve["predict_ms"] == 0.0 and serve["coverage"] == 0.0
+    assert spans.phase_names(t, "serve") == list(spans.SERVE_SPANS)
+    assert set(spans.phase_names(t, "train")) == {
+        "bssfp.gen.forward", "bssfp.gen.loss", "bssfp.gen.backward", "bssfp.gen.optimizer"}
 
 
 def test_a_trace_without_a_window_reads_nothing():
     events = [e for e in _events() if e["name"] != trace.WINDOW]
     assert spans.attribute(events, 2) is None
-    assert spans.idle_gaps(events) == []
+    assert trace.summarise(events, 2) is None
 
 
 @pytest.mark.parametrize("workload,names", [
@@ -145,3 +146,37 @@ def test_a_tiny_traced_run_holds_the_program_spans(bench, tiny, monkeypatch, wor
     assert names <= set(t["spans"])
     assert all(r["device_s"] == 0.0 and r["host_s"] > 0 for r in t["spans"].values())
     assert t["device_s"] == 0.0 and spans.coverage(t, list(names)) is None
+
+
+@pytest.mark.parametrize("workload,names", [
+    ("gan-train-b16", {"bssfp.step", "bssfp.gen.forward", "bssfp.disc.optimizer"}),
+    ("gan-serve-cohort-b32", set(spans.SERVE_SPANS)),
+])
+def test_a_tiny_traced_run_gives_the_readers_spans_and_launches(bench, tiny, monkeypatch,
+                                                               workload, names):
+    """A traced run hands the readers the program's span table and its
+    launch counters an item (all 0 on the CPU, where the plain paths run);
+    an untraced one None for both."""
+    cell, cfg, traffic = tiny(workload)
+    seen = []
+
+    class Capture:
+        @staticmethod
+        def read(ctx):
+            seen.append(ctx)
+
+    monkeypatch.setattr(spec, "reader", lambda name: Capture)
+    for traced in (True, False):
+        seen.clear()
+        run_cell(bench, cell, 20260102, 0.2, traced, "cpu", time.perf_counter(), cfg=cfg,
+                 traffic=traffic)
+        ctx = seen[0]
+        if traced:
+            assert names <= set(ctx["spans"]["spans"])
+            assert ctx["spans"]["items"] == traffic["trace_items"]
+            assert {"packed_norm_act", "packed_norm_act_backward"} <= set(ctx["launches"])
+            assert not any(ctx["launches"].values())
+        else:
+            assert ctx["spans"] is None and ctx["launches"] is None
+        assert ctx["cfg"] is cfg and ctx["traffic"] is traffic
+        assert set(ctx["work"]) == {"norm_act"} and ctx["peak_bandwidth"] is None

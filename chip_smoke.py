@@ -334,6 +334,17 @@ Phases (any failure → nonzero exit, no ``ok`` line):
     else a line saying NCCL did not run. The capacity probe
     (``scripts/torch_port_capacity_probe.py``) for 1 epoch on its smoke
     fixture, its record written to a file of the phase.
+22. The SwinUNETR generator (``models/swin_unetr.py``) at MONAI's BTCV
+    widths behind the GAN's head: K1, K1's dgrad and K2 at its 96³
+    instances (4 × 96 × C × 96·96, 24 → 48 and 48 → 48, bf16) and K10 as its
+    residual blocks call it (no affine, no dropout, slope 0.01 and 1.0,
+    forward and backward) against their plain versions; the generator on
+    1 × 64³ against ``portbench/reference/swin_unetr.py`` in f32 and bf16;
+    one GAN step on 4 × 96³ crops with its exact launches (``SWIN_STEP_LAUNCHES``: K1, K2 and K10 at the 96³
+    48-channel instances, 16 window attention calls), ms a step and the
+    peak, finite losses, the attention kernels SDPA picks, by name, with
+    their device ms, and the device ops a step the Swin encoder adds (the
+    step against one whose encoder answers from a cache).
 
 Each phase's seconds go to a line of their own, ``{"phase": "seconds",
 "name": ..., "s": ...}``, as it ends, and their sum to one more before the
@@ -349,8 +360,8 @@ supervised steps', phase 17's: ``predict --exported``'s, the GAN wrapper's 3
 steps' and the multi-stage wrapper's steps', and phase 18's: the guarded
 serving runs', GAN step's, FINE_TUNE step's and (1, 2) step's, phase
 19's: the A/B's two arms' and the judged summary's, phase 20's: the
-steps on the meshes over cuda:0 and the host, and phase 21's: process 0's
-f32 step and its 3 bf16 steps;
+steps on the meshes over cuda:0 and the host, phase 21's: process 0's
+f32 step and its 3 bf16 steps, and phase 22's Swin step;
 ``launches``: their sum); details go to ``perf_out/chip_smoke.json``.
 """
 
@@ -395,6 +406,7 @@ TRAIN_STEP_LAUNCHES = {"conv3x3_packed": 8, "conv3x3_packed_dgrad": 4,
                        "pack_hw": 5, "unpack_hw": 4,
                        "fused_instance_norm_leaky_relu": 0, "scalar_maps": 0,
                        "packed_norm_act": 8, "packed_norm_act_backward": 4,
+                       "window_attention": 0,
                        **dict.fromkeys(PFOLD_KERNELS + PROBE_KERNELS, 0)}
 # Launches of one eval step (the generator's packed forward, no gradient):
 # 4 packed convs, 4 K10 chains, 2 packs, 1 unpack.
@@ -406,6 +418,18 @@ EVAL_STEP_LAUNCHES = dict(dict.fromkeys(TRAIN_STEP_LAUNCHES, 0), conv3x3_packed=
 # once more.
 REMAT_STEP_LAUNCHES = dict(TRAIN_STEP_LAUNCHES, conv3x3_packed=8 + 4, pack_hw=5 + 2,
                            packed_norm_act=8 + 4)
+# Phase 22: a GAN step with the SwinUNETR generator (models/swin_unetr.py)
+# at MONAI's BTCV widths on 4 × 96³ crops. A generator forward: 5 K1
+# (encoder1's two convs; decoder1's conv1 as two 48 → 48 calls on the up
+# and skip halves, and its conv2), 6 K10 (three norms a residual block), 2
+# packs (the head's output, the upsample), 1 unpack and 8 window attention
+# calls; a step runs it twice and back once (5 dgrad, 5 wgrad, 6 K10
+# backwards, 1 pack, 2 unpacks; SDPA's backward is autograd's).
+SWIN_BATCH, SWIN_PATCH = 4, 96
+SWIN_STEP_LAUNCHES = dict(dict.fromkeys(TRAIN_STEP_LAUNCHES, 0), conv3x3_packed=10,
+                          conv3x3_packed_dgrad=5, conv3x3_wgrad=5, pack_hw=5, unpack_hw=4,
+                          packed_norm_act=12, packed_norm_act_backward=6,
+                          window_attention=16)
 # Phase 13: the fit's epochs and the checkpoints it keeps. 3 epochs made
 # the phase take 64-68 s (cold loads ≈ 7 s an epoch); cut to 2.
 LOOP_EPOCHS, LOOP_TOP_K = 2, 2
@@ -1104,6 +1128,171 @@ def time_steps(torch, step, state, x, y, warmup=3, timed=10):
         ts.append((time.perf_counter() - t0) * 1e3)
         metrics.append({k: float(v) for k, v in m.items()})
     return ts, torch.cuda.max_memory_allocated() / 2 ** 20, metrics
+
+
+def check_swin_norm_act(torch, K, checks, slope):
+    """K10 as the Swin generator's residual blocks call it, at 4 × 96³ and
+    48 channels: no affine (scale 1, shift 0), no dropout, LeakyReLU 0.01,
+    or the identity slope 1.0 that comes before the residual add. Forward
+    and backward in bf16, against the plain chain in bf16 and both against
+    it in f64: y and dx each within twice the plain chain's error or
+    2^-8·max|ref| (phase 4's bound; a wrong mean, rstd or slope misses it
+    by whole units). One launch each way; a rerun bit for bit."""
+    shape = (SWIN_BATCH, SWIN_PATCH, 48, SWIN_PATCH * SWIN_PATCH)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    off = 2 * torch.randn(1, 1, shape[2], 1, device="cuda", generator=g)
+    x = (torch.randn(shape, device="cuda", generator=g) + off).bfloat16()
+    dy = torch.randn(shape, device="cuda", generator=g).bfloat16()
+    scale, shift = torch.ones(shape[2], device="cuda"), torch.zeros(shape[2], device="cuda")
+
+    def run(fn, xin, out_dtype):
+        xl = xin.detach().requires_grad_(True)
+        y = fn(xl, scale, shift, slope, SWIN_PATCH, 0, None, 1.0, 1e-5, out_dtype)
+        y.backward(dy.to(y.dtype))
+        return [y.detach(), xl.grad]
+
+    K.reset_launches()
+    got = run(K.packed_norm_act, x, torch.bfloat16)
+    launches = (K.packed_norm_act.launches, K.packed_norm_act_backward.launches)
+    repeats = all(torch.equal(a, b) for a, b in zip(got, run(K.packed_norm_act, x,
+                                                             torch.bfloat16)))
+    plain = run(K.packed_norm_act_plain, x, torch.bfloat16)
+    ref = run(K.packed_norm_act_plain, x.double(), torch.float64)
+    errs, ok = {}, repeats and launches == (1, 1)
+    for name, a, p, r in zip(("y", "dx"), got, plain, ref):
+        floor = 2 ** -8 * float(r.abs().max())
+        ek, ep = (float((t.double() - r).abs().max()) for t in (a, p))
+        errs[name] = {"kernel": ek, "plain": ep, "floor": floor}
+        ok = ok and ek <= max(2 * ep, floor)
+    del got, plain, ref
+    ms = time_ms(torch, lambda: run(K.packed_norm_act, x, torch.bfloat16), 5)
+    plain_ms = time_ms(torch, lambda: run(K.packed_norm_act_plain, x, torch.bfloat16), 5)
+    checks.record(ok, dict(
+        kernel="packed_norm_act", case=f"swin slope {slope}", shape=list(shape),
+        dtype="bfloat16", launches=launches, bit_identical_rerun=repeats, errors=errs,
+        max_abs_err=errs["y"]["kernel"], fwd_bwd_ms=ms, plain_fwd_bwd_ms=plain_ms))
+    torch.cuda.empty_cache()
+
+
+def check_swin_generator(torch, K, checks, dtype):
+    """The CUDA generator at MONAI's BTCV widths on 1 × 64³ (train-mode
+    BatchNorm in the head, packed encoder1/decoder1, 8 window attention
+    launches) against the plain f32 reference with TF32 off, by
+    ‖out − ref‖₂ / ‖ref‖₂: f32 1e-4 (the kernels and SDPA differ from the
+    reference in summation order only), bf16 0.05 (every layer rounds to 8
+    bits over some 60 layers on the longest path; the GAN cell's serving
+    readings of such a network reach 0.0178). The bounds of
+    ``tests/test_torch_port_gpu.py::test_gpu_swin_generator_matches_reference``."""
+    from portbench.drivers import swin_gan_train as drv
+    from portbench.reference import swin_unetr as R
+    from unet_bssfp_tpu_torch.train.state import build_models
+
+    cfg = json.loads((Path(__file__).resolve().parent / "portbench" / "configs"
+                      / "swin-unetr-gan-btcv.json").read_text())
+    gen, _ = build_models(MODALITY, drv.model_config(dict(cfg, compute_dtype=dtype,
+                                                          packed=True)), "cuda")
+    w, _ = drv.weights(cfg, 11, "cuda")
+    gen.load_state_dict(w)
+    x = torch.randn(1, 64, 64, 64, 24, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(3))
+    K.reset_launches()
+    with torch.no_grad():
+        got = gen(x).float()
+    counts = {k: v for k, v in K.launches().items() if v}
+    with torch.no_grad():
+        ref = R.generator(w, x, cfg, True)
+    rel = float((got - ref).norm() / ref.norm())
+    bound = 1e-4 if dtype == "float32" else 0.05
+    want = {"window_attention": 8, "conv3x3_packed": 5, "packed_norm_act": 6}
+    checks.record(rel <= bound and all(counts.get(k) == v for k, v in want.items()), dict(
+        phase="swin_generator_vs_reference", dtype=dtype, shape=list(x.shape), rel_l2=rel,
+        bound=bound, launches=counts))
+    del gen, w, got, ref
+    torch.cuda.empty_cache()
+
+
+def phase_swin(torch, K, checks, pkg):
+    """Phase 22: the SwinUNETR generator behind the GAN's head. K1, its
+    dgrad and K2 at the 96³ instances, K10 at the residual blocks' (each
+    against its plain version), the generator against the plain reference,
+    then one step on 4 × 96³ crops: its exact launches, ms a step (5
+    synchronised, after a warm-up), the peak, finite losses, the attention
+    kernels SDPA picks (by name, one profiled step) with their device ms,
+    and the device ops a step that the Swin encoder adds."""
+    Config, create_gan_state, make_train_step = pkg
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from portbench.drivers.swin_gan_train import ATTENTION_KEYS
+
+    b, d = SWIN_BATCH, SWIN_PATCH
+    for cin in (24, 48):  # encoder1's conv1; its conv2 and decoder1's calls
+        check_conv(torch, F, K, checks, b, d, d, d, cin, 48, "bfloat16", rerun=True)
+        check_dgrad(torch, K, checks, b, d, d, d, cin, 48, "bfloat16", rerun=True)
+        check_wgrad(torch, K, checks, b, d, d, d, cin, 48, "bfloat16")
+        torch.cuda.empty_cache()
+    for slope in (0.01, 1.0):
+        check_swin_norm_act(torch, K, checks, slope)
+    for dtype in ("float32", "bfloat16"):
+        check_swin_generator(torch, K, checks, dtype)
+    cfg = Config()
+    mcfg = dataclasses.replace(cfg.model, backbone="swin_unetr", dropout=0.0)
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.rand((SWIN_BATCH,) + (SWIN_PATCH,) * 3 + (24,), device="cuda", generator=g)
+    y = torch.rand((SWIN_BATCH,) + (SWIN_PATCH,) * 3 + (6,), device="cuda", generator=g)
+    state = create_gan_state(SEED, MODALITY, mcfg, cfg.train, "cuda")
+    step = make_train_step(state.gen, state.disc, cfg.train)
+    step(state, x, y)
+    torch.cuda.synchronize()
+    K.reset_launches()
+    step(state, x, y)
+    torch.cuda.synchronize()
+    counts = K.launches()
+    print("swin training-step launches: " + json.dumps({k: v for k, v in counts.items() if v}),
+          flush=True)
+    checks.record(counts == SWIN_STEP_LAUNCHES,
+                  dict(phase="swin_step_launches", launches=counts, expected=SWIN_STEP_LAUNCHES))
+    ts, peak, metrics = time_steps(torch, step, state, x, y, warmup=1, timed=5)
+    med = statistics.median(ts)
+    checks.record(all(math.isfinite(v) for m in metrics for v in m.values()),
+                  dict(phase="swin_step_losses_finite", last_metrics=metrics[-1]))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(state, x, y)
+        torch.cuda.synchronize()
+    attn = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        us = e.self_cuda_time_total if us is None else us
+        if us > 0 and any(k in e.key.lower() for k in ATTENTION_KEYS):
+            attn[e.key[:160]] = us / 1e3
+    checks.record(bool(attn), dict(phase="swin_attention_kernels", device_ms=attn))
+    # the Swin encoder's device ops a step: the step's against the same step
+    # with the encoder's forward answering its hidden states from a cache
+    # (no forward, no backward of it)
+    enc = state.gen.swin_unetr.swin
+    with torch.no_grad():
+        cached = [h.detach() for h in enc(getattr(state.gen, state.gen.head_name)(x))]
+    ops = {}
+    for stub in (False, True):
+        if stub:
+            enc.forward = lambda _x: list(cached)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            step(state, x, y)
+            torch.cuda.synchronize()
+        ops["stub" if stub else "step"] = sum(
+            1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    del enc.forward
+    encoder_ops = ops["step"] - ops["stub"]
+    checks.record(encoder_ops > 0, dict(phase="swin_encoder_device_ops", step=ops["step"],
+                                        without_encoder=ops["stub"], encoder=encoder_ops))
+    out = {"ms_per_step_median": med, "ms_all": ts, "crops_per_s": SWIN_BATCH * 1e3 / med,
+           "peak_mib": peak, "last_metrics": metrics[-1], "attention_device_ms": attn,
+           "device_ops": ops, "encoder_device_ops": encoder_ops}
+    print(f"swin train step (bf16, 4 × 96³): {med:.3f} ms/step median; peak {peak:.0f} MiB; "
+          f"attention kernels {json.dumps(attn)}; device ops {json.dumps(ops)}", flush=True)
+    del state, step
+    torch.cuda.empty_cache()
+    return counts, out
 
 
 def f32_step_failures(ref_m, ref_g, got_m, got_g, zero_grad_biases=(".conv.bias",)):
@@ -4400,6 +4589,10 @@ def main() -> int:
     clock.lap("21_multiprocess")
     print(f"training across processes done at {time.perf_counter() - t_start:.1f}s (phase "
           f"{clock.laps['21_multiprocess']:.1f}s on {card})", flush=True)
+    swin_counts, swin_out = phase_swin(torch, K, checks,
+                                       (Config, create_gan_state, make_train_step))
+    clock.lap("22_swin")
+    print(f"swin step done at {time.perf_counter() - t_start:.1f}s", flush=True)
     elapsed = time.perf_counter() - t_start
 
     kernels = summary(checks.rows, {"serving": counts, "train_step": train_counts,
@@ -4416,7 +4609,8 @@ def main() -> int:
                                     **{f"multistage_{s}_step": c
                                        for s, c in ms_step_counts.items()},
                                     **sharded_counts, **surface_counts, **wguard_counts,
-                                    **quality_counts, **distinct_counts, **mp_counts})
+                                    **quality_counts, **distinct_counts, **mp_counts,
+                                    "swin_train_step": swin_counts})
     unlaunched = [k["name"] for k in kernels if k["launches"] == 0]
     checks.record(not unlaunched, dict(phase="every_kernel_launched_on_a_path",
                                        unlaunched=unlaunched))
@@ -4447,6 +4641,7 @@ def main() -> int:
                    "quality_launches": quality_counts, "quality": quality_out,
                    "distinct_launches": distinct_counts, "distinct": distinct_out,
                    "multiprocess_launches": mp_counts, "multiprocess": mp_out,
+                   "swin_launches": swin_counts, "swin": swin_out,
                    "phase_seconds": clock.laps, "kernels": kernels, "elapsed_s": elapsed},
                   f, indent=1)
     if checks.failures:

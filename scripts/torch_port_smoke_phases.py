@@ -9,7 +9,8 @@ without its plots, which read phase 14's table), on the smoke's 4-subject
 tree at (96, 128, 128); and the wguard layout (phase 18), training over
 distinct devices (phase 20: meshes over cuda:0 and the host) and training
 across processes (phase 21: two processes on cuda:0 under gloo, NCCL where
-there are two cards, the cut capacity probe), which need no tree.
+there are two cards, the cut capacity probe) and the SwinUNETR generator's
+GAN step on 4 × 96³ crops (phase 22), which need no tree.
 
   python scripts/torch_port_smoke_phases.py [--root DIR]
       [--phases data loop checkpoint quality multistage sharded surface wguard
@@ -30,7 +31,8 @@ artifact and of ``predict_volume`` and the wrappers' ms per step (phase
 17), the guarded serving and steps' ms beside the unguarded ones (phase
 18), the A/B's entries, the oracle's and the judged summary's seconds
 (phase 19), each mixed-mesh step's seconds beside cuda:0 alone's (phase
-20), the processes' bf16 ms per step beside one process's (phase 21).
+20), the processes' bf16 ms per step beside one process's (phase 21), the
+Swin step's ms, peak MiB and attention kernels (phase 22).
 Needs a card.
 """
 
@@ -52,9 +54,9 @@ def main() -> int:
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--phases", nargs="+",
                     choices=("data", "loop", "checkpoint", "quality", "multistage", "sharded",
-                             "surface", "wguard", "distinct", "multiprocess"),
+                             "surface", "wguard", "distinct", "multiprocess", "swin"),
                     default=["data", "loop", "checkpoint", "quality", "multistage", "sharded",
-                             "surface", "wguard", "distinct", "multiprocess"])
+                             "surface", "wguard", "distinct", "multiprocess", "swin"])
     ap.add_argument("--tree", default="perf_out/smoke_tree_phases")
     args = ap.parse_args()
     root = Path(args.root).resolve()
@@ -85,7 +87,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     checks = sm.Checks()
     sm.phase_build(torch, K, _build, native)
-    treeless = {"wguard", "distinct", "multiprocess"}
+    treeless = {"wguard", "distinct", "multiprocess", "swin"}
     if set(args.phases) - treeless and not (tree / ".complete").exists():
         print(f"tree {tree}: {sm.make_tree(make_synthetic_bids, tree):.1f} s", flush=True)
         (tree / ".complete").write_text("ok\n")
@@ -302,6 +304,13 @@ def main() -> int:
                 "phase_s": time.perf_counter() - t0}
         finally:
             shutil.rmtree(work, ignore_errors=True)
+    if "swin" in args.phases:
+        t0 = time.perf_counter()
+        _, out = sm.phase_swin(torch, K, checks, (Config, create_gan_state, make_train_step))
+        summary["swin"] = {k: out[k] for k in ("ms_per_step_median", "peak_mib",
+                                               "attention_device_ms", "device_ops",
+                                               "encoder_device_ops")}
+        summary["swin"]["phase_s"] = time.perf_counter() - t0
     summary["failures"] = [r.get("phase", r.get("kernel")) for r in checks.failures]
     print(json.dumps(summary), flush=True)
     return 1 if checks.failures else 0

@@ -54,6 +54,11 @@ def test_config_is_the_jax_regimes(tmp_path, monkeypatch):
         cfg["data"].pop("data_dir")
         cfg["train"].pop("log_dir")
         cfg["train"].pop("checkpoint_dir")
+    # the port's own keys (its generator's backbone choice, which the JAX
+    # package reads and ignores) hold BasicUNet, the JAX package's backbone
+    own = {k: got["model"].pop(k) for k in list(got["model"]) if k not in ref["model"]}
+    assert set(own) == {"backbone", "swin_feature_size"}
+    assert own["backbone"] == "basic_unet"
     assert got == ref and seen["modality"] == "pc-bssfp"
     assert c["smoke"] and c["linked"] and not c["full_objective"]
 

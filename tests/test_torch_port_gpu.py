@@ -1990,3 +1990,117 @@ def test_gpu_gan_wrapper_step_launches_and_losses_as_make_train_step(cuda):
         "conv3x3_packed": 8, "conv3x3_packed_dgrad": 4, "conv3x3_wgrad": 4, "pack_hw": 5,
         "unpack_hw": 4, "packed_norm_act": 8, "packed_norm_act_backward": 4}
     assert {k: float(v) for k, v in got.items()} == {k: float(v) for k, v in ref.items()}
+
+
+# SwinUNETR (models/swin_unetr.py) on the card: its K1/K2 and K10 instances
+# at the 96³ crops (4 × 96 × C × 96·96), and the generator (packed
+# full-resolution blocks, SDPA's window attention) against the plain f32
+# reference (portbench/reference/swin_unetr.py) at MONAI's BTCV widths.
+SWIN_CFG = {"in_channels": 24, "out_channels": 6, "unet_in_channels": 24,
+            "disc_negative_slope": 0.2, "disc_features": [32, 64, 128, 256, 512],
+            "swin": {"feature_size": 48, "depths": [2, 2, 2, 2], "num_heads": [3, 6, 12, 24],
+                     "window_size": 7, "patch_size": 2, "mlp_ratio": 4.0}}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cin,cout", [(24, 48), (48, 48)])
+def test_gpu_swin_96_convs_autograd_on_wgmma_kernels(cuda, cin, cout):
+    """encoder1's and decoder1's 3³ convs at 96³ (decoder1's 96 → 48 runs as
+    two 48 → 48 calls): forward, dx and dw through the wrappers against
+    plain autograd in bf16, one launch each, none routed to a loop."""
+    g = torch.Generator(device="cuda").manual_seed(cin + cout)
+    xk = torch.randn(1, 96, cin, 96 * 96, device=cuda, generator=g).bfloat16()
+    wt = torch.randn(3, 3, 3, cin, cout, device=cuda, generator=g) / (27 * cin) ** 0.5
+    bias = torch.zeros(cout, device=cuda)
+    dy = torch.randn(1, 96, cout, 96 * 96, device=cuda, generator=g).bfloat16()
+
+    def grads(fn):
+        x, w_ = (t.clone().requires_grad_(True) for t in (xk, wt))
+        y = fn(x, w_, bias, 96)
+        y.backward(dy)
+        return y.detach(), x.grad, w_.grad
+
+    K.reset_launches()
+    y, dx, dw = grads(K.conv3x3_packed)
+    counts = K.launches()
+    assert (counts["conv3x3_packed"], counts["conv3x3_packed_dgrad"],
+            counts["conv3x3_wgrad"]) == (1, 1, 1)
+    assert counts["conv3x3_packed_mma_routed"] == counts["conv3x3_wgrad_mma_routed"] == 0
+    ry, rdx, rdw = grads(K.conv3x3_packed_plain)
+    # as the multi-stage instances: one bf16 rounding of y and dx a side; dw
+    # in f32 over 884,736 positions, the plain one through w's bf16 cast
+    _close(y, ry, 2 ** -7, 1e-4)
+    _close(dx, rdx, 2 ** -7, 1e-4)
+    _close(dw, rdw, 2 ** -7, 1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("slope", [0.01, 1.0])
+def test_gpu_packed_norm_act_swin_instances(cuda, slope):
+    """K10 as the residual blocks call it at 96³ and 48 channels: no affine
+    (scale 1, shift 0), no dropout, LeakyReLU 0.01 or the identity slope
+    1.0, forward and backward in bf16, against the plain chain and both
+    against it in f64 (the bounds of the cells' instances above)."""
+    shape = (4, 96, 48, 96 * 96)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    off = 2 * torch.randn(1, 1, 48, 1, device=cuda, generator=g)
+    x = (torch.randn(shape, device=cuda, generator=g) + off).bfloat16()
+    dy = torch.randn(shape, device=cuda, generator=g).bfloat16()
+    scale, bias = torch.ones(48, device=cuda), torch.zeros(48, device=cuda)
+
+    def run(fn, xin, out_dtype):
+        xl = xin.detach().requires_grad_(True)
+        y = fn(xl, scale, bias, slope, 96, 0, None, 1.0, 1e-5, out_dtype)
+        y.backward(dy.to(y.dtype))
+        return [y.detach(), xl.grad]
+
+    K.reset_launches()
+    got = run(K.packed_norm_act, x, torch.bfloat16)
+    assert (K.packed_norm_act.launches, K.packed_norm_act_backward.launches) == (1, 1)
+    plain = run(K.packed_norm_act_plain, x, torch.bfloat16)
+    ref = run(K.packed_norm_act_plain, x.double(), torch.float64)
+    for a, p, r in zip(got, plain, ref):
+        floor = 2 ** -8 * float(r.abs().max())
+        err = float((a.double() - r).abs().max())
+        assert err <= max(2 * float((p.double() - r).abs().max()), floor)
+
+
+def _swin_generator(cuda, dtype: str):
+    from portbench.drivers.swin_gan_train import weights
+    from unet_bssfp_tpu_torch.config import ModelConfig
+    from unet_bssfp_tpu_torch.train.state import build_models
+
+    s = SWIN_CFG["swin"]
+    mcfg = ModelConfig(backbone="swin_unetr", dropout=0.0, compute_dtype=dtype, packed=True,
+                       swin_feature_size=s["feature_size"])
+    gen, _ = build_models("pc-bssfp", mcfg, cuda)
+    w, _ = weights(SWIN_CFG, 11, cuda)
+    gen.load_state_dict(w)
+    return gen, w
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gpu_swin_generator_matches_reference(cuda, dtype):
+    """The CUDA generator at full widths on 1 × 64³ (train-mode BatchNorm in
+    the head, packed encoder1/decoder1, 8 window attention launches)
+    against the plain f32 reference with TF32 off, by the output's
+    ‖out − ref‖₂ / ‖ref‖₂. f32: the kernels and SDPA differ from the
+    reference in summation order only, 1e-4. bf16: every layer's result
+    rounds to 8 bits (2^-9 relative), over some 60 layers on the longest
+    path; the GAN cell's serving readings of such a network reach 0.0178
+    (PERF.md), held to 0.05."""
+    from portbench.reference import swin_unetr as R
+
+    gen, w = _swin_generator(cuda, dtype)
+    x = torch.randn(1, 64, 64, 64, 24, device=cuda, generator=torch.Generator(
+        device="cuda").manual_seed(3))
+    K.reset_launches()
+    with torch.no_grad():
+        got = gen(x).float()
+    assert K.launches()["window_attention"] == 8
+    assert K.launches()["conv3x3_packed"] == 5 and K.launches()["packed_norm_act"] == 6
+    with torch.no_grad():
+        ref = R.generator(w, x, SWIN_CFG, True)
+    rel = float((got - ref).norm() / ref.norm())
+    assert rel <= (1e-4 if dtype == "float32" else 0.05), rel

@@ -84,6 +84,12 @@ class ModelConfig:
     packed: Optional[bool] = None
     wpack_mid: bool = False  # TPU layout; ignored
     disc_folded: Optional[bool] = None  # TPU layout; ignored
+    # The generator's backbone: "basic_unet" (``features``) or "swin_unetr"
+    # (SwinUNETR, MONAI v1, at ``swin_feature_size`` and MONAI's BTCV depths,
+    # heads, window, patch and MLP ratio; the port's alone: the JAX package
+    # reads and ignores these keys).
+    backbone: str = "basic_unet"
+    swin_feature_size: int = 48
 
 
 @dataclasses.dataclass(frozen=True)

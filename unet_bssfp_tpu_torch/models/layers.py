@@ -113,13 +113,18 @@ def _on_shards(module: nn.Module, x: Sharded, method: str = "forward") -> Sharde
     return x.map(lambda t: getattr(local(module, place(t)), method)(t))
 
 
+def _cast(t: Optional[torch.Tensor], dtype: torch.dtype) -> Optional[torch.Tensor]:
+    return None if t is None else t.to(dtype)
+
+
 class Conv(nn.Conv3d):
     """Flax ``nn.Conv`` on NDHWC: input, kernel and bias cast to
-    ``compute_dtype`` (default: the input's dtype)."""
+    ``compute_dtype`` (default: the input's dtype); ``bias=False``: none."""
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
-                 padding: int = 0, compute_dtype: Optional[torch.dtype] = None):
-        super().__init__(cin, cout, kernel, stride, padding)
+                 padding: int = 0, compute_dtype: Optional[torch.dtype] = None,
+                 bias: bool = True):
+        super().__init__(cin, cout, kernel, stride, padding, bias=bias)
         self.compute_dtype = compute_dtype
 
     def forward(self, x):
@@ -149,7 +154,7 @@ class Conv(nn.Conv3d):
     def _conv(self, x: torch.Tensor, padding) -> torch.Tensor:
         dtype = self.compute_dtype or x.dtype
         y = F.conv3d(to_ncdhw(x).to(dtype), self.weight.to(dtype),
-                     self.bias.to(dtype), self.stride, padding)
+                     _cast(self.bias, dtype), self.stride, padding)
         return to_ndhwc(y)
 
     def _conv_halo(self, xp: torch.Tensor) -> torch.Tensor:
@@ -160,11 +165,12 @@ class Conv(nn.Conv3d):
 
 class ConvTranspose(nn.ConvTranspose3d):
     """Flax ``nn.ConvTranspose`` (k2/s2) on NDHWC. The Flax kernel maps onto
-    torch's ``weight`` with a spatial flip (``weights.from_flax``)."""
+    torch's ``weight`` with a spatial flip (``weights.from_flax``).
+    ``bias=False``: none."""
 
     def __init__(self, cin: int, cout: int,
-                 compute_dtype: Optional[torch.dtype] = None):
-        super().__init__(cin, cout, 2, 2)
+                 compute_dtype: Optional[torch.dtype] = None, bias: bool = True):
+        super().__init__(cin, cout, 2, 2, bias=bias)
         self.compute_dtype = compute_dtype
 
     def forward(self, x):
@@ -172,7 +178,7 @@ class ConvTranspose(nn.ConvTranspose3d):
             return _on_shards(self, x)  # k2s2: local
         dtype = self.compute_dtype or x.dtype
         y = F.conv_transpose3d(to_ncdhw(x).to(dtype), self.weight.to(dtype),
-                               self.bias.to(dtype), self.stride)
+                               _cast(self.bias, dtype), self.stride)
         return to_ndhwc(y)
 
 

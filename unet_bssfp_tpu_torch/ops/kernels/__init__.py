@@ -72,6 +72,7 @@ from unet_bssfp_tpu_torch.ops.kernels.probe import (
     lane_roll_plain,
 )
 from unet_bssfp_tpu_torch.ops.kernels.scalar_maps import scalar_maps, scalar_maps_plain, scalar_maps_plan
+from unet_bssfp_tpu_torch.ops.window_attention import window_attention
 
 WRAPPERS = (conv3x3_packed, conv3x3_packed_dgrad, conv3x3_wgrad,
             conv3x3_packed_halo, conv3x3_packed_halo_dgrad, conv3x3_wgrad_halo,
@@ -81,7 +82,7 @@ WRAPPERS = (conv3x3_packed, conv3x3_packed_dgrad, conv3x3_wgrad,
             conv3x3_pfold, conv3x3_pfold_dgrad, conv3x3_pfold_wgrad,
             conv3x3_pfold_halo, conv3x3_pfold_halo_dgrad, conv3x3_pfold_wgrad_halo,
             lane_roll, conv3x3_probe_full, conv3x3_probe_centre, conv3x3_probe_fixed,
-            packed_norm_act, packed_norm_act_backward)
+            packed_norm_act, packed_norm_act_backward, window_attention)
 
 
 def reset_launches() -> None:

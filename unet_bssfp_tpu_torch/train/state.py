@@ -93,6 +93,8 @@ def build_models(modality: str, mcfg: ModelConfig,
         use_fused=mcfg.use_pallas,
         packed=auto_packed(mcfg, dev, mesh),
         remat=mcfg.remat,
+        backbone=mcfg.backbone,
+        swin=dict(feature_size=mcfg.swin_feature_size),
     )
     if state_dict is not None:
         gen.load_state_dict(state_dict, strict=True)

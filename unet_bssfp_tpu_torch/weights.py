@@ -134,8 +134,10 @@ def init_state_dict(model: nn.Module, seed: int) -> Dict[str, torch.Tensor]:
     """Flax's initialisation of ``model``: conv kernels ``lecun_normal``
     (normal of variance 1/fan_in, truncated at two standard deviations),
     biases and norm shifts 0, norm scales 1, BatchNorm running mean 0 and
-    variance 1, PReLU slopes at their block's ``negative_slope``; from a CPU
-    ``torch.Generator`` seeded with ``seed``."""
+    variance 1, PReLU slopes at their block's ``negative_slope``; the Swin
+    encoder's linear weights and relative-position bias tables N(0, 0.02²)
+    truncated at ±2 (timm's and MONAI's ``trunc_normal_(std=0.02)``); from a
+    CPU ``torch.Generator`` seeded with ``seed``."""
     g = torch.Generator().manual_seed(seed)
     out = {}
     for key, t in model.state_dict().items():
@@ -143,6 +145,9 @@ def init_state_dict(model: nn.Module, seed: int) -> Dict[str, torch.Tensor]:
         if leaf == "prelu_slope":
             slope = model.get_submodule(key.rpartition(".")[0]).negative_slope
             out[key] = torch.full(t.shape, float(slope))
+        elif (t.ndim == 2 and leaf == "weight") or leaf == "relative_position_bias_table":
+            w = torch.empty(t.shape, dtype=torch.float32)
+            out[key] = nn.init.trunc_normal_(w, 0.0, 0.02, -2.0, 2.0, generator=g)
         elif t.ndim == 5:
             std = (1.0 / _fan_in(key, t)) ** 0.5 / .87962566103423978
             w = torch.empty(t.shape, dtype=torch.float32)
